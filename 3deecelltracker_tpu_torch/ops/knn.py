@@ -1,0 +1,65 @@
+"""Brute-force kNN and FFN feature vectors (counterpart of
+``3deecelltracker_tpu/ops/knn.py``).  Point sets are padded to a static
+size with a validity mask; padded points are parked at 1e6."""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+import torch.nn.functional as F
+
+from . import numerics
+
+_BIG = 1e10
+
+
+def pairwise_sq_dists(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(n, m) squared euclidean distances, summed over the coordinates in
+    order as a fused multiply-add chain, acc = fma(d_i, d_i, acc).
+
+    That is how XLA evaluates the JAX twin's broadcast sum of squares, and
+    the order decides kNN ties: points on the voxel lattice have many
+    exactly equidistant neighbours, and a plain sum ranks them by rounding
+    noise of its own.  The fma is taken in float64 and rounded once to
+    float32 (the f32 product is exact in f64)."""
+    d = a[:, None, :] - b[None, :, :]
+    acc = d[..., 0] * d[..., 0]
+    for i in range(1, d.shape[-1]):
+        di = d[..., i].double()
+        acc = (di * di + acc.double()).float()
+    return acc
+
+
+def knn(points: torch.Tensor, mask: torch.Tensor, k: int
+        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """k nearest valid neighbours of each point (itself first), ascending;
+    ties toward the lower index like ``lax.top_k``."""
+    d2 = pairwise_sq_dists(points, points)
+    d2 = torch.where(mask[None, :], d2, _BIG)
+    kk = min(k, points.shape[0])
+    srt, idx = torch.sort(d2, dim=1, stable=True)
+    return numerics.sqrt(torch.clamp_min(srt[:, :kk], 0.0)), idx[:, :kk]
+
+
+def knn_feature_vectors(points: torch.Tensor, mask: torch.Tensor,
+                        k: int = 20) -> torch.Tensor:
+    """(n, 3k+1) FFN features: the k nearest valid neighbours' offsets over
+    the mean (k+1)-NN distance, plus that mean distance; rows of invalid
+    points are zero."""
+    n = points.shape[0]
+    kk = min(k + 1, n)
+    dists, idx = knn(points, mask, kk)
+    nb_valid = mask[idx]
+    dists = torch.where(nb_valid, dists, 0.0)
+    n_nb = torch.clamp_min(torch.sum(nb_valid, dim=1), 1)
+    mean_dist = torch.sum(dists, dim=1) / n_nb
+    self_pt = points[idx[:, 0]]
+    neighbors = points[idx[:, 1:]]
+    rel = (neighbors - self_pt[:, None, :]) * nb_valid[:, 1:, None] \
+        / torch.clamp_min(mean_dist, 1e-12)[:, None, None]
+    rel_flat = rel.reshape(n, 3 * (kk - 1))
+    if kk - 1 < k:
+        rel_flat = F.pad(rel_flat, (0, 3 * (k - kk + 1)))
+    feats = torch.cat([rel_flat, mean_dist[:, None]], dim=1)
+    return torch.where(mask[:, None], feats, 0.0)
