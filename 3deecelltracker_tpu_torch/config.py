@@ -1,11 +1,26 @@
-"""Typed configuration for the PyTorch port: the two stage configs the
-segment-and-track main path reads, with the same fields and defaults as
-``3deecelltracker_tpu/config.py`` so one config describes both packages."""
+"""Typed configuration for the PyTorch port: the stage configs the
+segment-and-track main path and the legacy U-Net path read, with the same
+fields and defaults as ``3deecelltracker_tpu/config.py`` so one config
+describes both packages."""
 
 from __future__ import annotations
 
 import dataclasses
 from typing import Tuple
+
+
+@dataclasses.dataclass(frozen=True)
+class SegmentationConfig:
+    """U-Net + watershed segmentation (reference ``tracker.py:854-887``)."""
+    noise_level: float = 5.0
+    min_size: int = 100
+    cell_num: int = 0                      # 0 => use min_size criterion
+    z_xy_ratio: float = 1.0                # anisotropy of the raw grid
+    z_scaling: int = 10                    # interpolation factor along z
+    shrink: Tuple[int, int, int] = (24, 24, 2)   # tiled-inference border
+    min_distance_2d: int = 7
+    min_distance_3d: int = 3
+    probability_threshold: float = 0.5
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,9 +1,13 @@
-// SAME 3x3x3 convolution + bias (+ReLU) on one channels-last f32 volume.
+// SAME 3x3x3 convolution + bias (+ReLU) on a batch of channels-last f32
+// volumes.
 //
 // Replaces: 3deecelltracker_tpu/ops/pallas_conv.py::conv3x3x3_fused, which
 // computes relu(conv_same(x, w) + b) for x (z, y, x, c_in), w DHWIO
 // (3, 3, 3, c_in, c_out), b (c_out,), with f32 accumulation.  It is the math
-// of every 3x3x3 layer of the StarDist backbone.
+// of every 3x3x3 layer of the StarDist backbone (batch 1) and, without the
+// ReLU, of every 3x3x3 layer of the legacy U-Net, whose tile batch (e.g. 16
+// tiles of (160, 160, 16)) is one launch per layer: the batch index is folded
+// into grid.z.
 //
 // What bounds it on an H100: arithmetic.  At the bench geometry the
 // backbone's 3x3x3 layers are ~300 GFLOP per volume against ~0.1 GB of
@@ -36,6 +40,11 @@ __global__ void __launch_bounds__(NT)
 conv3x3x3_kernel(const float* __restrict__ x, const float* __restrict__ w,
                  const float* __restrict__ b, float* __restrict__ y,
                  int Z, int Y, int X, int Cin, int Cout, int relu) {
+  // grid.z enumerates (batch, z, c_out chunk); step to this block's volume
+  const int n_co = (Cout + COT - 1) / COT;
+  const int bz = blockIdx.z / (Z * n_co);
+  x += static_cast<int64_t>(bz) * Z * Y * X * Cin;
+  y += static_cast<int64_t>(bz) * Z * Y * X * Cout;
   __shared__ float in_s[CK * HY * HX];
   __shared__ __align__(16) float w_s[9 * CK * COT];
 
@@ -44,9 +53,9 @@ conv3x3x3_kernel(const float* __restrict__ x, const float* __restrict__ w,
   const int tid = ty * BX + tx;
   const int x0 = blockIdx.x * BX;
   const int y0 = blockIdx.y * BY;
-  const int n_co = (Cout + COT - 1) / COT;
-  const int z = blockIdx.z / n_co;
-  const int co0 = (blockIdx.z % n_co) * COT;
+  const int zc = blockIdx.z % (Z * n_co);
+  const int z = zc / n_co;
+  const int co0 = (zc % n_co) * COT;
 
   float acc[COT];
 #pragma unroll
@@ -122,13 +131,15 @@ conv3x3x3_kernel(const float* __restrict__ x, const float* __restrict__ w,
 
 }  // namespace
 
+// B volumes of (Z, Y, X, Cin), contiguous; B * Z * ceil(Cout / 32) must fit
+// grid.z (65535): the wrapper splits larger batches.
 extern "C" int conv3x3x3_bias_relu_f32(const void* x, const void* w,
-                                       const void* b, void* y, int Z, int Y,
-                                       int X, int Cin, int Cout, int relu,
-                                       void* stream) {
+                                       const void* b, void* y, int B, int Z,
+                                       int Y, int X, int Cin, int Cout,
+                                       int relu, void* stream) {
   const int n_co = (Cout + COT - 1) / COT;
   dim3 block(BX, BY);
-  dim3 grid((X + BX - 1) / BX, (Y + BY - 1) / BY, Z * n_co);
+  dim3 grid((X + BX - 1) / BX, (Y + BY - 1) / BY, B * Z * n_co);
   conv3x3x3_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(x), static_cast<const float*>(w),
       static_cast<const float*>(b), static_cast<float*>(y), Z, Y, X, Cin,

@@ -23,7 +23,7 @@ from ..config import TrackingConfig
 from ..coordinates import Coordinates
 from ..ops.subregions import SubregionAtlas
 from ..ops.watershed import recalculate_cell_boundaries
-from ..utils.device import select_device
+from ..utils.device import select_device, to_device, upload_raw
 from .correction import accurate_correction_loop, get_cells_on_boundary
 from .stardist import StarDist3D
 from .tracker import track_step
@@ -116,16 +116,6 @@ class SliceResult:
     auto_vol1: Optional[np.ndarray] = None
 
 
-def _upload_raw(vol: np.ndarray, device: torch.device) -> torch.Tensor:
-    """Raw volume to the device in its own width; uint16 travels as int16
-    bits and widens there (uint16 tensors have few kernels)."""
-    if vol.dtype == np.uint16:
-        bits = torch.from_numpy(np.ascontiguousarray(vol).view(np.int16)
-                                ).to(device)
-        return bits.to(torch.int32) & 0xFFFF
-    return torch.from_numpy(np.ascontiguousarray(vol)).to(device)
-
-
 def segment_and_track_arrays(volumes: Sequence[np.ndarray],
                              model: StarDist3D,
                              manual_vol1_xyz: np.ndarray,
@@ -155,7 +145,7 @@ def segment_and_track_arrays(volumes: Sequence[np.ndarray],
     image_shape = transformer.proofed_segmentation.shape
     grid_t = tuple(int(g) for g in model.config.grid)
     pad_n = int(np.ceil(coord_vol1.cell_num * 1.5 / 64) * 64)
-    params, state = (_to_device(w, dev) for w in ffn_weights)
+    params, state = (to_device(w, dev) for w in ffn_weights)
 
     coords_t1 = coord_vol1
     coords: Dict[int, np.ndarray] = {}
@@ -169,7 +159,7 @@ def segment_and_track_arrays(volumes: Sequence[np.ndarray],
         with stage("seg"):
             kept, _, _, points, prob_map, seg_labels = \
                 model.predict_instances_device(
-                    _upload_raw(vol, dev),
+                    upload_raw(vol, dev),
                     norm_minmax=(np.float32(mi), np.float32(ma)),
                     return_labels=(t == 1))
         stats[t] = {"kept": int(kept.sum())}
@@ -197,10 +187,4 @@ def segment_and_track_arrays(volumes: Sequence[np.ndarray],
     coords[1] = coord_vol1.real.cpu().numpy()
     return SliceResult(dict(sorted(coords.items())), labels, stats,
                        auto_vol1)
-
-
-def _to_device(tree, dev):
-    if isinstance(tree, dict):
-        return {k: _to_device(v, dev) for k, v in tree.items()}
-    return torch.as_tensor(tree, dtype=torch.float32).to(dev)
 

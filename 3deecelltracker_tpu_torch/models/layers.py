@@ -2,10 +2,12 @@
 
 Counterpart of ``3deecelltracker_tpu/models/layers.py``: 'same' convs,
 eval-mode BatchNorm (eps 1e-3), LeakyReLU alpha 0.3, nearest upsampling.
-Layouts are the JAX package's: (b, z, y, x, c) activations, DHWIO conv
-weights, (d_in, d_out) dense weights.  Every 3x3x3 conv goes through the
-hand-written CUDA kernel (``ops.hopper_conv``) with bias and ReLU fused;
-1x1x1 convs are a plain matmul.
+Layouts are the JAX package's: (b, z, y, x, c) activations (the U-Net's
+(b, x, y, z, c) tiles go through unchanged: every op here treats the three
+spatial axes alike), DHWIO conv weights, (d_in, d_out) dense weights.
+Every 3x3x3 conv goes through the hand-written CUDA kernel
+(``ops.hopper_conv``) with the bias and an optional ReLU fused; 1x1x1 convs
+are a plain matmul.
 """
 
 from __future__ import annotations
@@ -45,8 +47,8 @@ def init_conv3d(kernel: Sequence[int], c_in: int, c_out: int,
 def conv3d(params: Params, x: torch.Tensor, relu: bool = False
            ) -> torch.Tensor:
     """SAME conv of (b, z, y, x, c_in) with DHWIO weights, + bias, with an
-    optional fused ReLU.  3x3x3 kernels run the CUDA kernel per batch item;
-    1x1x1 kernels are a matmul over channels."""
+    optional fused ReLU.  3x3x3 kernels run the CUDA kernel, one launch for
+    the whole batch; 1x1x1 kernels are a matmul over channels."""
     w = params["w"]
     b = params.get("b")
     if b is None:
@@ -57,8 +59,7 @@ def conv3d(params: Params, x: torch.Tensor, relu: bool = False
         return torch.relu(y) if relu else y
     if k != (3, 3, 3):
         raise NotImplementedError(f"conv kernel {k}")
-    return torch.stack([conv3x3x3_bias_relu(xi.contiguous(), w, b, relu)
-                        for xi in x])
+    return conv3x3x3_bias_relu(x.contiguous(), w, b, relu)
 
 
 def batchnorm(params: Params, state: Params, x: torch.Tensor,

@@ -1,13 +1,23 @@
-"""Value-equal connected components (counterpart of
-``3deecelltracker_tpu/ops/connected.py:86-167``).
+"""Connected components (counterpart of
+``3deecelltracker_tpu/ops/connected.py``).
 
-Two voxels join only when both are nonzero and equal-valued (skimage
-``label`` on a label image).  Every foreground voxel starts with its own
-1-based flat index; each round takes the minimum over equal-valued
-neighbours (hook) and follows the stored index twice (pointer jumping),
-until nothing changes or 256 rounds.  The converged labels are each
-component's smallest index, so ``relabel_sequential`` gives skimage's
-numbering.  This runs once per recording and stays plain PyTorch.
+Mask components (``label_components_raw``, :30-83): every foreground voxel
+gets the 1-based flat index of its component's smallest voxel.  With full
+connectivity that is the hand-written CUDA kernel ``ops.hopper_cc.cc_label``
+on a CUDA tensor and the JAX loop on a CPU tensor; a connectivity below the
+number of axes runs the plain loop on every device (no path uses it, and the
+kernel is full-box only).  Every mode runs to the fixed point: the JAX twin
+stops after ``max_iters`` = 256 hook rounds, so the two differ only on a
+component the JAX loop leaves unfinished, which no mask of the path is.
+
+Value-equal components (``label_components_values``, :115-167): two voxels
+join only when both are nonzero and equal-valued (skimage ``label`` on a
+label image).  Every foreground voxel starts with its own 1-based flat
+index; each round takes the minimum over equal-valued neighbours (hook) and
+follows the stored index twice (pointer jumping), until nothing changes or
+256 rounds.  The converged labels are each component's smallest index, so
+``relabel_sequential`` gives skimage's numbering.  This runs once per
+recording and stays plain PyTorch.
 """
 
 from __future__ import annotations
@@ -16,10 +26,31 @@ from typing import Optional
 
 import torch
 
+from .hopper_cc import cc_label, label_components_raw_plain
 from .neighborhood import neighbor_offsets, shift
 
 _BIG = torch.iinfo(torch.int32).max
 CHECK_EVERY = 4   # rounds between host convergence checks (fixed point)
+
+
+def label_components_raw(mask: torch.Tensor,
+                         connectivity: Optional[int] = None,
+                         per_slice: bool = False) -> torch.Tensor:
+    """Root-index component labels (>= 1, 0 background) of a mask;
+    ``connectivity`` follows skimage, 1..ndim, default full.
+    ``per_slice``: label every z-slice of an (x, y, z) volume alone, with
+    slice-local indices (``watershed_2d``'s ``vmap``)."""
+    spatial = mask.dim() - (1 if per_slice else 0)
+    conn = spatial if connectivity is None else int(connectivity)
+    if conn == spatial:
+        return cc_label(mask != 0, per_slice)
+    return label_components_raw_plain(mask, conn, per_slice)
+
+
+def label_components(mask: torch.Tensor,
+                     connectivity: Optional[int] = None) -> torch.Tensor:
+    """skimage-style ``label()``: sequential labels 1..K, 0 background."""
+    return relabel_sequential(label_components_raw(mask, connectivity))
 
 
 def label_components_values_raw(values: torch.Tensor,

@@ -1,9 +1,11 @@
-"""Separable gaussian blur (counterpart of
-``3deecelltracker_tpu/ops/filters.py::gaussian_filter``), as the subregion
-atlas uses it: zero padding only."""
+"""Box means and separable gaussian blur (counterpart of
+``3deecelltracker_tpu/ops/filters.py``: ``box_sum``, ``box_mean``,
+``gaussian_filter``), with zero padding only: the mode the LCN, the
+subregion atlas and the legacy watersheds use."""
 
 from __future__ import annotations
 
+import math
 from typing import Sequence, Union
 
 import numpy as np
@@ -12,6 +14,38 @@ import torch.nn.functional as F
 
 
 TRUNCATE = 4.0   # kernel radius in sigmas, scipy's default
+
+
+def box_sum(x: torch.Tensor, size: Sequence[int]) -> torch.Tensor:
+    """Sliding-window sum with a centred ``size`` window per axis, zero
+    padding (scipy ``convolve`` with an all-ones kernel; even sizes take the
+    extra element on the right): a cumulative sum per axis and the
+    difference of two of its entries, as in the JAX package.  The sums run
+    in float64 and round once to float32 at the end: the JAX twin's float32
+    running sum is sequential on the CPU, a CUDA scan sums in another order,
+    and float64 keeps both within JAX's own float32 error of the exact
+    window sum."""
+    out = x.to(torch.float64)
+    for axis, k in enumerate(size):
+        k = int(k)
+        if k <= 1:
+            continue
+        lo, hi = (k - 1) // 2, k // 2
+        n = out.shape[axis]
+        pad = [0, 0] * out.dim()
+        pad[2 * (out.dim() - 1 - axis):2 * (out.dim() - axis)] = [lo + 1, hi]
+        # one extra leading zero: csum[i + k] - csum[i] is the window at i
+        csum = torch.cumsum(F.pad(out, pad), dim=axis)
+        out = csum.narrow(axis, k, n) - csum.narrow(axis, 0, n)
+    return out.to(torch.float32)
+
+
+def box_mean(x: torch.Tensor, size: Sequence[int]) -> torch.Tensor:
+    """``box_sum`` over the window volume (a true float32 division: a
+    python-scalar divisor may become a reciprocal multiply on the card)."""
+    vol = torch.tensor(float(math.prod(int(k) for k in size)),
+                       dtype=torch.float32, device=x.device)
+    return box_sum(x, size) / vol
 
 
 def gaussian_kernel_1d(sigma: float) -> np.ndarray:

@@ -1,10 +1,11 @@
 """3x3x3 conv + bias (+ReLU): the CUDA kernel wrapper and its plain version.
 
 ``conv3x3x3_bias_relu`` replaces ``3deecelltracker_tpu/ops/pallas_conv.py::
-conv3x3x3_fused`` (same contract: one channels-last ``(z, y, x, c_in)`` f32
-volume, DHWIO weights, f32 accumulation).  On a CUDA tensor it launches the
-hand-written ``csrc/conv3x3x3.cu`` kernel (design and bound: see the note at
-the top of that file); on a CPU tensor it runs
+conv3x3x3_fused`` (same contract: a channels-last ``(z, y, x, c_in)`` f32
+volume, DHWIO weights, f32 accumulation), and also takes a batch
+``(b, z, y, x, c_in)`` of volumes in one launch.  On a CUDA tensor it
+launches the hand-written ``csrc/conv3x3x3.cu`` kernel (design and bound:
+see the note at the top of that file); on a CPU tensor it runs
 :func:`conv3x3x3_bias_relu_plain`.  There is no fallback between the two.
 """
 
@@ -17,23 +18,30 @@ import torch.nn.functional as F
 
 from ..utils import cuda_build
 
+COT = 32              # output channels per block (csrc/conv3x3x3.cu)
+GRID_Z_MAX = 65535    # CUDA's limit on gridDim.z
+
 
 def conv3x3x3_bias_relu_plain(x: torch.Tensor, w: torch.Tensor,
                               b: torch.Tensor,
                               relu: bool = True) -> torch.Tensor:
-    """``relu(conv_same(x, w) + b)`` with ``F.conv3d``: x (z, y, x, c_in),
-    w (3, 3, 3, c_in, c_out), b (c_out,) -> (z, y, x, c_out).  The bias is
-    added after the convolution, as ``layers.conv3d`` does in JAX."""
-    xin = x.permute(3, 0, 1, 2).unsqueeze(0)
+    """``relu(conv_same(x, w) + b)`` with ``F.conv3d``: x (z, y, x, c_in)
+    or (b, z, y, x, c_in), w (3, 3, 3, c_in, c_out), b (c_out,) -> the same
+    leading shape with c_out channels.  The bias is added after the
+    convolution, as ``layers.conv3d`` does in JAX."""
+    xin = x if x.dim() == 5 else x[None]
     wt = w.permute(4, 3, 0, 1, 2)
-    out = F.conv3d(xin, wt, padding=1)[0].permute(1, 2, 3, 0) + b
+    out = F.conv3d(xin.permute(0, 4, 1, 2, 3), wt, padding=1
+                   ).permute(0, 2, 3, 4, 1) + b
+    out = out if x.dim() == 5 else out[0]
     return torch.relu(out) if relu else out
 
 
 def _check(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> None:
-    if x.dim() != 4:
-        raise ValueError(f"x must be (z, y, x, c_in), got {tuple(x.shape)}")
-    c_in = x.shape[3]
+    if x.dim() not in (4, 5):
+        raise ValueError(f"x must be ([b,] z, y, x, c_in), got "
+                         f"{tuple(x.shape)}")
+    c_in = x.shape[-1]
     if tuple(w.shape[:4]) != (3, 3, 3, c_in) or w.dim() != 5:
         raise ValueError(f"w must be (3, 3, 3, {c_in}, c_out), got "
                          f"{tuple(w.shape)}")
@@ -52,26 +60,33 @@ def _launch(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
             relu: bool) -> torch.Tensor:
     lib = cuda_build.load("conv3x3x3")
     fn = lib.conv3x3x3_bias_relu_f32
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + \
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + \
         [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    z, y, xl, c_in = x.shape
+    xb = x if x.dim() == 5 else x[None]
+    nb, z, y, xl, c_in = xb.shape
     c_out = w.shape[4]
-    out = torch.empty((z, y, xl, c_out), dtype=torch.float32,
+    out = torch.empty((nb, z, y, xl, c_out), dtype=torch.float32,
                       device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = fn(x.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(),
-             z, y, xl, c_in, c_out, int(relu), stream)
-    cuda_build.check(err, "conv3x3x3_bias_relu")
-    conv3x3x3_bias_relu.launches += 1
-    return out
+    # grid.z holds batch x z x c_out chunks: split batches that overflow it
+    per_launch = max(1, GRID_Z_MAX // (z * -(-c_out // COT)))
+    for b0 in range(0, nb, per_launch):
+        nb_i = min(per_launch, nb - b0)
+        err = fn(xb[b0].data_ptr(), w.data_ptr(), b.data_ptr(),
+                 out[b0].data_ptr(), nb_i, z, y, xl, c_in, c_out, int(relu),
+                 stream)
+        cuda_build.check(err, "conv3x3x3_bias_relu")
+        conv3x3x3_bias_relu.launches += 1
+    return out if x.dim() == 5 else out[0]
 
 
 def conv3x3x3_bias_relu(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                         relu: bool = True) -> torch.Tensor:
-    """SAME 3x3x3 conv + bias (+ReLU) on one (z, y, x, c_in) f32 volume.
+    """SAME 3x3x3 conv + bias (+ReLU) on one (z, y, x, c_in) f32 volume or
+    a (b, z, y, x, c_in) batch of them.
 
-    CUDA tensors launch the hand-written kernel (counted in
+    CUDA tensors launch the hand-written kernel, once per batch (counted in
     ``conv3x3x3_bias_relu.launches``); CPU tensors take the plain version.
     """
     _check(x, w, b)

@@ -1,5 +1,6 @@
 """Greedy match peeling (counterpart of
-``3deecelltracker_tpu/ops/matching.py``: ``_peel_loop``, ``simple_match``).
+``3deecelltracker_tpu/ops/matching.py``: ``_peel_loop``, ``simple_match``,
+``legacy_init_match``).
 """
 
 from __future__ import annotations
@@ -66,3 +67,29 @@ def simple_match(initial_match_matrix: torch.Tensor, threshold: float = 0.1,
                      n_valid - 1.0)
     prob = torch.where(valid, base, 0.0)
     return torch.where(pairs, 0.9, prob).to(torch.float32), pairs
+
+
+def legacy_init_match(corr: torch.Tensor, threshold: float = 0.5,
+                      ref_mask: Optional[torch.Tensor] = None,
+                      tgt_mask: Optional[torch.Tensor] = None
+                      ) -> torch.Tensor:
+    """The prior of the legacy ``pr_gls_quick`` (track.py:58-70): peel at
+    ``threshold``; unmatched rows stay uniform 1/n, matched rows become
+    0.1/(n-1) except 0.9 at the matched column.  n is the valid ref count;
+    padded pairs get zero and can never be matched."""
+    m, n_static = corr.shape
+    dev = corr.device
+    if ref_mask is None:
+        ref_mask = torch.ones((n_static,), dtype=torch.bool, device=dev)
+    if tgt_mask is None:
+        tgt_mask = torch.ones((m,), dtype=torch.bool, device=dev)
+    valid = tgt_mask[:, None] & ref_mask[None, :]
+    pairs, _ = _peel_loop(torch.where(valid, corr, 0.0), threshold)
+    n = torch.sum(ref_mask.to(torch.float32))
+    one = torch.tensor(1.0, dtype=torch.float32, device=dev)
+    # true f32 divisions, as XLA does them (see simple_match)
+    matched_row = torch.any(pairs, dim=1, keepdim=True)
+    base = torch.where(matched_row, torch.div(one * 0.1, n - 1.0),
+                       torch.div(one, n))
+    out = torch.where(pairs, 0.9, base.expand(corr.shape))
+    return torch.where(valid, out, 0.0).to(torch.float32)

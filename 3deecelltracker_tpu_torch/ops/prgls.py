@@ -1,6 +1,6 @@
 """PR-GLS non-rigid registration by EM (counterpart of
-``3deecelltracker_tpu/ops/prgls.py::prgls_with_two_ref``, ``m_step_refine=0``
-only).
+``3deecelltracker_tpu/ops/prgls.py``: ``prgls_with_two_ref`` with
+``m_step_refine=0`` only, and the legacy v0.4 ``pr_gls_quick``).
 
 Motion T(X) = X + C G with the gaussian Gram matrix G; the M-step solves
 (G diag(P1) + max(lambda sigma^2, floor) I) C^T = (Y^T P - X^T diag(P1))^T.
@@ -20,6 +20,7 @@ import torch
 
 from . import numerics
 from .knn import pairwise_sq_dists
+from .matching import legacy_init_match
 
 CHECK_EVERY = 16
 VOL = 1.0                   # outlier volume of the E-step
@@ -138,3 +139,98 @@ def prgls_with_two_ref(init_match: torch.Tensor, ptrs_tgt: torch.Tensor,
 
     c_final = m_step(post, pred_ref, sigma_sq)
     return PrglsResult(pred_tracked, pred_ref, post, it, c_final)
+
+
+class LegacyPrglsResult(NamedTuple):
+    posterior: torch.Tensor        # final P (m, n)
+    moved_ref: torch.Tensor        # T(X) (n, 3)
+    coefficients: torch.Tensor     # C (3, n)
+    solve_failed: torch.Tensor     # 0-d bool: an M-step solve failed
+
+
+def legacy_posterior(init_match: torch.Tensor, dist_sq: torch.Tensor,
+                     valid: torch.Tensor, sigma_sq: torch.Tensor,
+                     gamma: torch.Tensor, vol: torch.Tensor) -> torch.Tensor:
+    """The v0.4 E-step (``prgls.py:298-304`` of the JAX twin): the prior
+    times the gaussian likelihood, over the row sum plus the outlier term
+    gamma (2 pi sigma^2)^1.5 / ((1 - gamma) vol).  A row whose denominator
+    is exactly 0 -- every likelihood underflowed while gamma rounded to 0,
+    which float32 reaches on a full-size recording -- gets 0, the limit
+    for gamma -> 0+; the JAX twin's 0/0 = NaN there poisons the M-step."""
+    two_pi = torch.tensor(2.0 * math.pi, dtype=torch.float32,
+                          device=dist_sq.device)
+    p1 = init_match * torch.exp(-torch.where(valid, dist_sq, 0.0)
+                                / (2.0 * sigma_sq))
+    p1 = torch.where(valid, p1, 0.0)
+    denom = torch.sum(p1, dim=1) + gamma * (two_pi * sigma_sq) ** 1.5 \
+        / ((1.0 - gamma) * vol)
+    return torch.where(valid & (denom != 0)[:, None], p1 / denom[:, None],
+                       0.0)
+
+
+def pr_gls_quick(x_ref: torch.Tensor, y_tgt: torch.Tensor,
+                 corr: torch.Tensor, beta=300.0, max_iteration: int = 20,
+                 lambda_=0.1, vol: float = 1e8,
+                 ref_mask: Optional[torch.Tensor] = None,
+                 tgt_mask: Optional[torch.Tensor] = None
+                 ) -> LegacyPrglsResult:
+    """Legacy v0.4 PR-GLS (``track.py:11-114``) with its own numerics:
+    gamma starts at 0.1, the E-step outlier term is
+    gamma (2 pi sigma^2)^1.5 / ((1 - gamma) vol), the motion applies from
+    the first iteration, sigma^2 clamps at >= 1, and exactly
+    ``max_iteration - 1`` rounds run, with no convergence break (so no host
+    sync).  One repair: a posterior row whose denominator is exactly 0 is 0
+    where the JAX twin gives 0/0 = NaN (``legacy_posterior``).  The solves
+    check nothing on the way: ``solve_failed`` is True when any of them met
+    a zero pivot or gave a non-finite coefficient, for the caller to raise
+    on (``engine.legacy.legacy_fit_and_predict`` does).  The prior
+    is ``legacy_init_match`` of ``corr``.  ``beta`` and ``lambda_`` may be
+    float32 0-d tensors (the fused fit passes them so).
+    Padded points (parked far, masks False) take no part: the counts n, m
+    are the valid ones, padded refs get zero coefficients."""
+    f32 = torch.float32
+    dev = x_ref.device
+    n_static, m_static = x_ref.shape[0], y_tgt.shape[0]
+    if ref_mask is None:
+        ref_mask = torch.ones((n_static,), dtype=torch.bool, device=dev)
+    if tgt_mask is None:
+        tgt_mask = torch.ones((m_static,), dtype=torch.bool, device=dev)
+    beta = torch.as_tensor(beta, dtype=f32, device=dev)
+    lambda_ = torch.as_tensor(lambda_, dtype=f32, device=dev)
+    valid = tgt_mask[:, None] & ref_mask[None, :]
+    n = torch.sum(ref_mask.to(f32))
+    m = torch.sum(tgt_mask.to(f32))
+    init_match = legacy_init_match(corr, threshold=0.5, ref_mask=ref_mask,
+                                   tgt_mask=tgt_mask)
+    gram = gaussian_gram(x_ref, x_ref, beta * beta)
+    gram = torch.where(ref_mask[:, None] & ref_mask[None, :], gram, 0.0)
+    sigma_sq = torch.sum(torch.where(valid.T, pairwise_sq_dists(x_ref, y_tgt),
+                                     0.0)) / (3.0 * n * m)
+    eye = torch.eye(n_static, dtype=f32, device=dev)
+    vol_t = torch.tensor(vol, dtype=f32, device=dev)
+    x_ref_t = x_ref.to(f32).T
+    t_x = x_ref.to(f32)
+    gamma = torch.tensor(0.1, dtype=f32, device=dev)
+    post = torch.zeros((m_static, n_static), dtype=f32, device=dev)
+    c = torch.zeros((3, n_static), dtype=f32, device=dev)
+    failed = torch.zeros((), dtype=torch.bool, device=dev)
+    # the reference iterates range(1, max_iteration)
+    for _ in range(1, max_iteration):
+        post = legacy_posterior(init_match, pairwise_sq_dists(y_tgt, t_x),
+                                valid, sigma_sq, gamma, vol_t)
+        diag_p = torch.sum(post, dim=0)                          # (n,)
+        a = gram * diag_p[None, :] + lambda_ * sigma_sq * eye
+        b = y_tgt.T @ post - x_ref_t * diag_p[None, :]
+        # solve_ex: no host sync per iteration; its info is collected
+        c, info = torch.linalg.solve_ex(a.T, b.T)
+        c = c.T                                                  # (3, n)
+        failed = failed | (info != 0) | ~torch.isfinite(c).all()
+        c = torch.where(ref_mask[None, :], c, 0.0)
+        t_x = (x_ref_t + c @ gram).T
+        m_p = torch.sum(post)
+        gamma = 1.0 - m_p / m
+        dist_sq2 = pairwise_sq_dists(y_tgt, t_x)
+        sigma_sq = torch.clamp_min(
+            torch.sum(post * torch.where(valid, dist_sq2, 0.0))
+            / (3.0 * m_p), 1.0)
+    return LegacyPrglsResult(post, t_x, c, failed)

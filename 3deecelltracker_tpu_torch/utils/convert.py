@@ -45,6 +45,15 @@ def stardist_params_from_numpy(tree: Dict[str, Any], device=None
             for name, layer in tree.items()}
 
 
+def unet_from_numpy(params: Dict[str, Any], state: Dict[str, Any],
+                    device=None) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+    """U-Net ``(params, state)`` pytrees (``models/unet3d.py:50-77``: per
+    block ``conv`` {"w", "b"} and ``bn`` {"scale", "bias"}, ``out`` conv;
+    state ``mean``/``var`` per block), numpy or JAX arrays -> float32
+    tensors on ``device``, the same nesting."""
+    return _to_tensors(params, device), _to_tensors(state, device)
+
+
 def ffn_from_numpy(params: Dict[str, Any], state: Dict[str, Any],
                    device=None) -> Tuple[Dict[str, Any], Dict[str, Any]]:
     """FFN ``(params, state)``: dense ``feat``/``comb``/``pred`` weights and

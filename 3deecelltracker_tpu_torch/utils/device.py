@@ -11,6 +11,7 @@ from __future__ import annotations
 
 from typing import Union
 
+import numpy as np
 import torch
 
 
@@ -24,3 +25,23 @@ def select_device(device: Union[str, torch.device, None]) -> torch.device:
     """Resolve ``device`` (default: CPU) and pin full float32 precision."""
     pin_float32()
     return torch.device("cpu" if device is None else device)
+
+
+def to_device(tree, device: torch.device):
+    """A nested dict of arrays or tensors -> float32 tensors on ``device``
+    (weights handed to the engines)."""
+    if isinstance(tree, dict):
+        return {k: to_device(v, device) for k, v in tree.items()}
+    return torch.as_tensor(tree, dtype=torch.float32).to(device)
+
+
+def upload_raw(vol, device: torch.device) -> torch.Tensor:
+    """A raw volume on the device in its own width; uint16 travels as int16
+    bits and widens there (uint16 tensors have few kernels)."""
+    if isinstance(vol, torch.Tensor):
+        return vol.to(device)
+    vol = np.ascontiguousarray(vol)
+    if vol.dtype == np.uint16:
+        bits = torch.from_numpy(vol.view(np.int16)).to(device)
+        return bits.to(torch.int32) & 0xFFFF
+    return torch.from_numpy(vol).to(device)

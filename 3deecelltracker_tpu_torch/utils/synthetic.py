@@ -74,3 +74,16 @@ def make_recording(n_vols: int, n_cells: int = BENCH_CELLS,
                     d2 < 1.2 ** 2, i + 1, lab1[z0:z1, y0:y1, x0:x1])
         vols.append((img / img.max() * 50000).astype(np.uint16))
     return vols, centers_by_t, lab1
+
+
+def serpentine(shape: Tuple[int, int, int]) -> np.ndarray:
+    """Bool mask with one serpentine component per slice of the last axis:
+    full rows of axis 1 at even x, joined at alternating ends.  Hook-only
+    min-propagation (the Pallas ``cc_propagate``'s design) crosses it one
+    voxel per round."""
+    m = np.zeros(shape, bool)
+    for x in range(0, shape[0], 2):
+        m[x] = True
+        if x + 1 < shape[0]:
+            m[x + 1, -1 if (x // 2) % 2 == 0 else 0] = True
+    return m

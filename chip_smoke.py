@@ -6,19 +6,34 @@ Phases (any failure raises and the script exits non-zero):
 
 1. device: a CUDA device must be present; prints the card's name and power
    limit as ``nvidia-smi`` reports them, and the torch/CUDA versions;
-2. build: compiles both hand-written kernels from ``3deecelltracker_tpu_torch/
-   csrc/`` with ``nvcc`` (into the package's ``_build/``);
+2. build: compiles the three hand-written kernels from
+   ``3deecelltracker_tpu_torch/csrc/`` with ``nvcc``, all at once (into the
+   package's ``_build/``);
 3. conv check: the 3x3x3 conv kernel against its plain version (cuDNN with
-   TF32 off) at every 3x3x3 layer shape of the bench backbone;
+   TF32 off) at every 3x3x3 layer shape of the bench backbone, and of the
+   legacy U-Net a (a batch of 16 tiles of (160, 160, 16) and its pooled
+   levels, without the ReLU);
 4. flood check: the per-slice flood kernel against its plain version on 24
    slices of 401x168 made from a synthetic label volume with overlaps;
-5. the slice: ``segment_and_track_arrays`` on the bench scene, (24, 401, 168)
-   uint16 volumes with 150 drifting cells (seed 0), at full bench width with
-   seeded random weights: 1 reference volume, 1 warm volume, 5 timed ones.
-   The launch counters are reset just before this run and must both be > 0
-   after it;
-6. small-scene parity: the slice on a small scene, once on the card and once
-   on the CPU (plain versions); see ``phase_small_parity`` for the bound.
+5. cc check: the connected-components kernel against its plain version,
+   exactly, on the (401, 168, 24) pipeline frame: the 26-conn 3-D peak mask
+   of the bench scene's smoothed EDT, the 8-conn per-slice 2-D peak masks,
+   and one serpentine component (3-D and per slice);
+6. the v1.0 slice: ``segment_and_track_arrays`` on the bench scene,
+   (24, 401, 168) uint16 volumes with 150 drifting cells (seed 0), at full
+   bench width with seeded random weights: 1 reference volume, 1 warm
+   volume, 5 timed ones.  The launch counters are reset just before this
+   run and the conv and flood counts must be > 0 after it;
+7. small-scene parity: that slice on a small scene, once on the card and
+   once on the CPU (plain versions); see ``phase_small_parity`` for the
+   bound;
+8. the legacy slice: ``legacy_segment_and_track_arrays`` with U-Net a (the
+   reference's ``unet3_a``) on the same scene in the (x, y, z) frame
+   (401, 168, 24), 16 tiles per volume, the ``examples/use_unet_legacy.py``
+   settings, 1 + 1 + 5 volumes; counters reset before, conv, flood and cc
+   must each be > 0 after;
+9. legacy small-scene parity: the legacy slice on a small scene, card vs
+   CPU; see ``phase_legacy_small_parity``.
 
 The second-to-last line is ``{"kernels": [...]}``, the last line
 ``{"ok": true, "device": {...}}``.  Weights are random: the tracking
@@ -49,8 +64,39 @@ CONV_LAYERS = [(24, 204, 84, 1, 32, 1), (24, 204, 84, 32, 32, 3),
                (12, 102, 42, 32, 64, 1), (12, 102, 42, 64, 64, 2),
                (12, 102, 42, 192, 64, 1), (6, 51, 21, 64, 128, 1),
                (6, 51, 21, 128, 128, 1)]
+# tiles per U-Net batch: shrink (24, 24, 2) cuts the scene into 16 tiles
+TILE_BATCH = 16
 # f32 with a different summation order than cuDNN
 CONV_RTOL, CONV_ATOL = 1e-5, 1e-6
+# the legacy workflow's settings (examples/use_unet_legacy.py defaults)
+LEG_SEG = dict(noise_level=200.0, min_size=100, z_xy_ratio=9.2, z_scaling=10,
+               shrink=(24, 24, 2))
+LEG_TRACK = dict(beta=300.0, lambda_=0.1, max_iteration=20)
+LEG_MAX_CELLS = 512
+# stand-in U-Net: a voxel is a cell where its LCN value exceeds 2; at 1.0
+# (the default) the bench scene's cells merge into ~40 blobs
+LEG_THRESHOLD = 2.0
+
+
+def unet_conv_layers(spec):
+    """{(x, y, z, c_in, c_out): count} of every 3x3x3 layer of ``spec`` on
+    one tile, from its block plan: down level l runs on the tile pooled l
+    times, up level i on the tile pooled depth - i times, the head on the
+    whole tile."""
+    depth = len(spec.down_filters)
+    plan, _ = spec.block_plan()
+    layers = {}
+    for name, ci, co in plan:
+        if name.startswith("down"):
+            level = int(name[4:].split("_")[0])
+        elif name.startswith("up"):
+            level = depth - int(name[2:].split("_")[0])
+        else:
+            level = 0
+        key = tuple(t // p ** level for t, p in zip(spec.tile_shape,
+                                                    spec.pool)) + (ci, co)
+        layers[key] = layers.get(key, 0) + 1
+    return layers
 
 
 def cuda_ms(fn, reps=10, warmup=2):
@@ -81,17 +127,29 @@ def phase_device():
 
 
 def phase_build():
+    from concurrent.futures import ThreadPoolExecutor
     from t3dct_torch.utils import cuda_build
-    for name in ("conv3x3x3", "flood"):
+
+    def one(name):
         t0 = time.perf_counter()
+        cuda_build.build(name)
+        return time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    names = ("conv3x3x3", "flood", "cc")
+    with ThreadPoolExecutor(len(names)) as pool:    # one nvcc per source
+        secs = list(pool.map(one, names))
+    for name, sec in zip(names, secs):
         cuda_build.load(name)
-        print(f"[build] {name}: {time.perf_counter() - t0:.2f} s")
+        print(f"[build] {name}: {sec:.2f} s")
+    print(f"[build] all: {time.perf_counter() - t0:.2f} s")
 
 
 def phase_conv(dev):
     import torch
     from t3dct_torch.ops import hopper_conv
     from t3dct_torch.models.layers import glorot_uniform
+    from t3dct_torch.models.unet3d import unet3_a
     gen = torch.Generator().manual_seed(0)
     worst, ms, plain_ms = 0.0, 0.0, 0.0
     for z, y, x, ci, co, count in CONV_LAYERS:
@@ -118,7 +176,36 @@ def phase_conv(dev):
         plain_ms += count * t_p
     print(f"[conv] backbone 3x3x3 layers per volume: kernel {ms:.3f} ms, "
           f"plain {plain_ms:.3f} ms")
-    return dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms)
+    leg_ms, leg_plain_ms = 0.0, 0.0
+    for (x, y, z, ci, co), count in unet_conv_layers(unet3_a()).items():
+        xin = torch.randn((TILE_BATCH, x, y, z, ci), generator=gen).to(dev)
+        w = glorot_uniform((3, 3, 3, ci, co), 27 * ci, 27 * co, gen, dev)
+        b = (torch.randn((co,), generator=gen) * 0.1).to(dev)
+        got = hopper_conv.conv3x3x3_bias_relu(xin, w, b, relu=False)
+        ref = hopper_conv.conv3x3x3_bias_relu_plain(xin, w, b, relu=False)
+        torch.cuda.synchronize()
+        err = float((got - ref).abs().max())
+        bound = CONV_RTOL * float(ref.abs().max()) + CONV_ATOL
+        del got, ref
+        t_k = cuda_ms(lambda: hopper_conv.conv3x3x3_bias_relu(
+            xin, w, b, relu=False), reps=5, warmup=1)
+        t_p = cuda_ms(lambda: hopper_conv.conv3x3x3_bias_relu_plain(
+            xin, w, b, relu=False), reps=5, warmup=1)
+        flop = 2 * 27 * ci * co * TILE_BATCH * x * y * z
+        print(f"[conv] U-Net a {TILE_BATCH}x({x},{y},{z}) {ci}->{co} "
+              f"x{count}: max_abs_err {err:.3e} (bound {bound:.3e})  kernel "
+              f"{t_k:.3f} ms  plain {t_p:.3f} ms  kernel "
+              f"{flop / t_k / 1e9:.1f} TFLOP/s")
+        if not err <= bound:
+            raise AssertionError(f"conv U-Net ({x},{y},{z}) {ci}->{co}: "
+                                 f"error {err} > {bound}")
+        worst = max(worst, err)
+        leg_ms += count * t_k
+        leg_plain_ms += count * t_p
+    print(f"[conv] U-Net a 3x3x3 layers per volume (16 tiles): kernel "
+          f"{leg_ms:.3f} ms, plain {leg_plain_ms:.3f} ms")
+    return dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms,
+                unet_ms=leg_ms, unet_plain_ms=leg_plain_ms)
 
 
 def synthetic_overlaps(dev, n=N_CELLS, shape=(Y, X, Z), seed=1):
@@ -168,6 +255,53 @@ def phase_flood(dev):
     return dict(max_abs_err=0.0, ms=t_k, plain_ms=t_p)
 
 
+def phase_cc(dev):
+    import torch
+    from t3dct_torch.ops import hopper_cc
+    from t3dct_torch.ops.edt import distance_transform_edt
+    from t3dct_torch.ops.filters import gaussian_filter
+    from t3dct_torch.ops.peaks import peak_local_max_mask
+    from t3dct_torch.utils.synthetic import make_recording, serpentine
+    _, _, lab1 = make_recording(1, N_CELLS, (Z, Y, X))
+    cells = torch.from_numpy(lab1.transpose(1, 2, 0) > 0).to(dev)
+    # watershed_3d's and watershed_2d's peak masks of the scene's cells
+    d3 = gaussian_filter(distance_transform_edt(
+        cells, (1.0, 1.0, LEG_SEG["z_xy_ratio"])), (2.0, 2.0, 0.3))
+    peaks3 = peak_local_max_mask(d3, 3, exclude_border=0)
+    d2 = gaussian_filter(distance_transform_edt(
+        cells.permute(2, 0, 1), (1.0, 1.0), batch_ndim=1), 2.0, batch_ndim=1)
+    peaks2 = peak_local_max_mask(d2, 7, batch_ndim=1).permute(
+        1, 2, 0).contiguous()
+    snake = torch.from_numpy(serpentine(tuple(cells.shape))).to(dev)
+    out = {}
+    for name, m, per_slice in (("3-D peaks", peaks3, False),
+                               ("per-slice peaks", peaks2, True),
+                               ("snake 3-D", snake, False),
+                               ("snake per slice", snake, True)):
+        got = hopper_cc.cc_label(m, per_slice=per_slice)
+        ref = hopper_cc.label_components_raw_plain(m, per_slice=per_slice)
+        torch.cuda.synchronize()
+        if not torch.equal(got, ref):
+            raise AssertionError(f"cc {name}: {(got != ref).sum().item()} "
+                                 "voxels differ from the plain version")
+        t_k = cuda_ms(lambda: hopper_cc.cc_label(m, per_slice=per_slice))
+        t_p = cuda_ms(lambda: hopper_cc.label_components_raw_plain(
+            m, per_slice=per_slice), reps=2, warmup=1)
+        # a component's root is the voxel labeled with its own index
+        nx, ny, nz = m.shape
+        own = torch.arange(1, m.numel() + 1, device=dev).reshape(m.shape)
+        if per_slice:
+            own = torch.arange(1, nx * ny + 1, device=dev).reshape(
+                nx, ny, 1)
+        n_comp = int((m & (ref == own)).sum())
+        print(f"[cc] {name} {tuple(m.shape)}: exact, {int(m.sum())} fg "
+              f"voxels, {n_comp} components  kernel {t_k:.3f} ms  plain "
+              f"{t_p:.3f} ms")
+        out[name] = (t_k, t_p)
+    t_k, t_p = out["3-D peaks"]
+    return dict(max_abs_err=0.0, ms=t_k, plain_ms=t_p)
+
+
 def bench_model(dev, n_rays=96, base=32, feat=128, max_candidates=256,
                 render_box=(9, 33, 33), anisotropy=(9.2, 1.0, 1.0)):
     import torch
@@ -209,7 +343,7 @@ def phase_slice(dev):
     from t3dct_torch.config import TrackingConfig
     from t3dct_torch.engine.pipeline import segment_and_track_arrays
     from t3dct_torch.models.ffn import feature_distance_ffn
-    from t3dct_torch.ops import hopper_conv, hopper_flood
+    from t3dct_torch.ops import hopper_cc, hopper_conv, hopper_flood
     n_vols = 2 + N_TIMED
     t0 = time.perf_counter()
     from t3dct_torch.utils.synthetic import make_recording
@@ -219,19 +353,22 @@ def phase_slice(dev):
     model = bench_model(dev)
     ffn = feature_distance_ffn(torch.Generator().manual_seed(1), dev)
     timer = CudaStageTimer()
-    hopper_conv.conv3x3x3_bias_relu.launches = 0
-    hopper_flood.flood_slices.launches = 0
+    counters = {"conv3x3x3_bias_relu": hopper_conv.conv3x3x3_bias_relu,
+                "flood_slices": hopper_flood.flood_slices,
+                "cc_label": hopper_cc.cc_label}
+    for c in counters.values():
+        c.launches = 0
     t0 = time.perf_counter()
     res = segment_and_track_arrays(
         vols, model, lab1.transpose(1, 2, 0), ffn, VOXEL_SIZE, 10,
         TrackingConfig(beta=3.0, lambda_=3.0), device=dev, timer=timer)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"conv3x3x3_bias_relu": hopper_conv.conv3x3x3_bias_relu
-                .launches, "flood_slices": hopper_flood.flood_slices.launches}
+    launches = {k: c.launches for k, c in counters.items()}
     print(f"[slice] wall {wall:.2f} s for {n_vols} volumes (incl. vol-1 "
           f"interpolate); launches {launches}")
-    if min(launches.values()) <= 0:
+    # the v1.0 path runs no mask connected components
+    if min(launches["conv3x3x3_bias_relu"], launches["flood_slices"]) <= 0:
         raise AssertionError(f"a kernel was not launched on the main path: "
                              f"{launches}")
     seg_ms = timer.times["seg"]
@@ -307,6 +444,132 @@ def phase_small_parity(dev):
             raise AssertionError(f"small scene t={t}: card and CPU disagree")
 
 
+def legacy_models(dev, spec, threshold, seed=0):
+    import torch
+    from t3dct_torch.models.ffn import feature_distance_ffn
+    from t3dct_torch.models.unet3d import with_intensity_path
+    params, state = spec.init(torch.Generator().manual_seed(seed),
+                              device=dev)
+    params = with_intensity_path(params, spec, threshold=threshold)
+    ffn = feature_distance_ffn(torch.Generator().manual_seed(1), dev)
+    return (spec, params, state), ffn
+
+
+def phase_legacy(dev):
+    import torch
+    from t3dct_torch.config import SegmentationConfig, TrackingConfig
+    from t3dct_torch.engine.legacy import legacy_segment_and_track_arrays
+    from t3dct_torch.models.unet3d import unet3_a
+    from t3dct_torch.ops import hopper_cc, hopper_conv, hopper_flood
+    from t3dct_torch.utils.synthetic import make_recording
+    n_vols = 2 + N_TIMED
+    vols, centers, lab1 = make_recording(n_vols, N_CELLS, (Z, Y, X))
+    # the legacy (x, y, z) frame of the raw (z, y, x) volumes
+    vols_xyz = [v.transpose(1, 2, 0) for v in vols]
+    unet, ffn = legacy_models(dev, unet3_a(), LEG_THRESHOLD)
+    timer = CudaStageTimer()
+    counters = {"conv3x3x3_bias_relu": hopper_conv.conv3x3x3_bias_relu,
+                "flood_slices": hopper_flood.flood_slices,
+                "cc_label": hopper_cc.cc_label}
+    for c in counters.values():
+        c.launches = 0
+    t0 = time.perf_counter()
+    res = legacy_segment_and_track_arrays(
+        vols_xyz, unet, ffn, lab1.transpose(1, 2, 0),
+        SegmentationConfig(**LEG_SEG), TrackingConfig(**LEG_TRACK),
+        max_cells=LEG_MAX_CELLS, device=dev, timer=timer)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: c.launches for k, c in counters.items()}
+    print(f"[legacy] U-Net a, {len(vols_xyz)} x {vols_xyz[0].shape} "
+          f"(x, y, z), {res.cells[1]} cells at t=1: wall {wall:.2f} s "
+          f"(incl. vol-1 interpolate); launches {launches}")
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"a kernel was not launched on the legacy "
+                             f"path: {launches}")
+    seg_t = timer.times["seg"][-N_TIMED:]
+    track_t = timer.times["track"][-N_TIMED:]
+    print(f"[legacy] per timed volume: seg {np.mean(seg_t):.2f} ms "
+          f"{[round(v, 2) for v in seg_t]}, track {np.mean(track_t):.2f} ms "
+          f"{[round(v, 2) for v in track_t]}")
+    print(f"[legacy] cells found per volume: {res.cells}")
+    if not N_CELLS // 2 <= res.cells[1] <= 2 * N_CELLS:
+        raise AssertionError(f"t=1: {res.cells[1]} cells found for the "
+                             f"scene's {N_CELLS}")
+    n1 = res.coords[1].shape[0]
+    sc = np.array([1.0, 1.0, LEG_SEG["z_xy_ratio"]])
+    errs = []
+    for t in range(1, n_vols + 1):
+        c, lab = res.coords[t], res.labels[t]
+        if c.shape != (n1, 3) or not np.isfinite(c).all():
+            raise AssertionError(f"legacy t={t}: coords {c.shape} not "
+                                 f"finite (n1={n1})")
+        if lab.shape != (Y, X, Z) or lab.dtype != np.uint16:
+            raise AssertionError(f"legacy t={t}: labels {lab.shape} "
+                                 f"{lab.dtype}")
+        gt = centers[t][:, [1, 2, 0]] * sc
+        d = np.linalg.norm(c[:, None] - gt[None], axis=2)
+        errs.append(float(np.median(d.min(axis=1))))
+    print(f"[legacy] vol-1 cells {n1}; median distance to the nearest true "
+          f"centre per t (random weights, not a measure of accuracy): "
+          f"{[round(e, 3) for e in errs]}")
+    return launches
+
+
+def phase_legacy_small_parity(dev):
+    """The legacy slice on a small scene (tests/test_torch_legacy.py's, 4
+    cells, 3 volumes) on the card and on the CPU.  As in
+    ``phase_small_parity``, the f32 EM's rounding noise may move one cell
+    whose integer displacement sits on a rounding boundary by one whole
+    step: at most one cell per volume off by more than 1e-3 (by < 1.5),
+    labels >= 99.5% equal; the segmentation counts equal."""
+    import torch
+    from t3dct_torch.config import SegmentationConfig, TrackingConfig
+    from t3dct_torch.engine.legacy import legacy_segment_and_track_arrays
+    from t3dct_torch.models.unet3d import UNet3D
+    shape, zr = (48, 48, 8), 2.0
+    c0 = np.array([[12, 12, 4], [12, 36, 4], [36, 12, 4], [36, 36, 4]],
+                  np.float32)
+    drift = np.array([[1.5, 0.5, 0], [-1.0, 1.0, 0], [0.5, -1.5, 0],
+                      [-0.5, -0.5, 0]], np.float32)
+    xx, yy, zz = np.mgrid[:shape[0], :shape[1], :shape[2]]
+    vols, lab1 = [], None
+    for t in (1, 2, 3):
+        img = np.random.RandomState(t).rand(*shape) * 100
+        lab = np.zeros(shape, np.int32)
+        for i, (cx, cy, cz) in enumerate(c0 + (t - 1) * drift):
+            d2 = (xx - cx) ** 2 + (yy - cy) ** 2 + ((zz - cz) * zr) ** 2
+            img += 8000 * np.exp(-d2 / 18.0)
+            lab[d2 < 16] = i + 1
+        vols.append(img.astype(np.float32))
+        lab1 = lab if lab1 is None else lab1
+    spec = UNet3D(variant="a", tile_shape=(24, 24, 8), pool=(2, 2, 1),
+                  down_filters=((4, 4), (4, 8)), up_filters=((8, 8), (4, 4)),
+                  head_filters=(4,))
+    out = {}
+    for d in (dev, torch.device("cpu")):
+        unet, ffn = legacy_models(d, spec, threshold=1.0)
+        out[d.type] = legacy_segment_and_track_arrays(
+            vols, unet, ffn, lab1,
+            SegmentationConfig(noise_level=20, min_size=20, z_xy_ratio=zr,
+                               z_scaling=2, shrink=(4, 4, 2)),
+            TrackingConfig(beta=50.0, lambda_=0.1, max_iteration=10),
+            max_cells=64, device=d)
+    a, b = out["cuda"], out["cpu"]
+    if a.cells != b.cells or not np.array_equal(a.auto_vol1, b.auto_vol1):
+        raise AssertionError(f"legacy small scene: segmentations differ "
+                             f"({a.cells} vs {b.cells})")
+    for t in sorted(b.coords):
+        off = np.abs(a.coords[t] - b.coords[t]).max(axis=1)
+        same = float((a.labels[t] == b.labels[t]).mean())
+        print(f"[legacy parity] small scene t={t}: cells off > 1e-3: "
+              f"{int((off > 1e-3).sum())}, max off {off.max():.3e}, labels "
+              f"equal {same:.4f}, cells {a.cells.get(t)}")
+        if (off > 1e-3).sum() > 1 or off.max() >= 1.5 or same < 0.995:
+            raise AssertionError(f"legacy small scene t={t}: card and CPU "
+                                 "disagree")
+
+
 def main() -> int:
     if not (ROOT / "3deecelltracker_tpu_torch").is_dir():
         print("chip_smoke.py must run from a checkout of the repository",
@@ -326,19 +589,32 @@ def main() -> int:
     phase_build()
     conv = phase_conv(dev)
     flood = phase_flood(dev)
+    cc = phase_cc(dev)
     launches = phase_slice(dev)
     phase_small_parity(dev)
+    leg = phase_legacy(dev)
+    phase_legacy_small_parity(dev)
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
+
+    def counts(name):
+        by_path = {"v1.0": launches[name], "legacy": leg[name]}
+        return dict(launches=sum(by_path.values()),
+                    launches_by_path=by_path)
+
     kernels = [
         dict(name="conv3x3x3_bias_relu", route="cuda",
              source="3deecelltracker_tpu_torch/csrc/conv3x3x3.cu",
              replaces="3deecelltracker_tpu/ops/pallas_conv.py:89",
-             launches=launches["conv3x3x3_bias_relu"], **conv),
+             **counts("conv3x3x3_bias_relu"), **conv),
         dict(name="flood_slices", route="cuda",
              source="3deecelltracker_tpu_torch/csrc/flood.cu",
              replaces="3deecelltracker_tpu/ops/pallas_kernels.py:162",
-             launches=launches["flood_slices"], **flood),
+             **counts("flood_slices"), **flood),
+        dict(name="cc_label", route="cuda",
+             source="3deecelltracker_tpu_torch/csrc/cc.cu",
+             replaces="3deecelltracker_tpu/ops/pallas_kernels.py:92",
+             **counts("cc_label"), **cc),
     ]
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -18,8 +18,9 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 import t3dct_torch  # noqa: E402,F401
-from t3dct_torch.ops import hopper_conv, hopper_flood  # noqa: E402
+from t3dct_torch.ops import hopper_cc, hopper_conv, hopper_flood  # noqa: E402
 from t3dct_torch.utils.device import pin_float32  # noqa: E402
+from t3dct_torch.utils.synthetic import serpentine  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -53,6 +54,45 @@ def test_conv_kernel_matches_plain(dev, shape, relu):
     assert float((got - want).abs().max()) <= bound
 
 
+def test_conv_kernel_batch_is_one_launch(dev):
+    """A tile batch (the legacy U-Net's layers) is one launch and equals
+    the plain batched conv, without the ReLU as the U-Net calls it."""
+    g = torch.Generator().manual_seed(5)
+    xin = torch.randn((5, 24, 20, 16, 8), generator=g).to(dev)
+    w = (torch.randn((3, 3, 3, 8, 16), generator=g) / (27 * 8) ** 0.5).to(dev)
+    b = torch.randn((16,), generator=g).to(dev)
+    n0 = hopper_conv.conv3x3x3_bias_relu.launches
+    got = hopper_conv.conv3x3x3_bias_relu(xin, w, b, relu=False)
+    want = hopper_conv.conv3x3x3_bias_relu_plain(xin, w, b, relu=False)
+    torch.cuda.synchronize()
+    assert hopper_conv.conv3x3x3_bias_relu.launches == n0 + 1
+    bound = 1e-5 * float(want.abs().max()) + 1e-6
+    assert float((got - want).abs().max()) <= bound
+
+
+@pytest.mark.parametrize("per_slice", [False, True])
+@pytest.mark.parametrize("case", ["sparse", "dense", "snake", "empty"])
+def test_cc_kernel_matches_plain(dev, per_slice, case):
+    """Exact: the kernel and the plain loop give every voxel its
+    component's smallest flat index."""
+    shape = (61, 47, 9)
+    rng = np.random.RandomState(len(case))
+    mask = {"sparse": rng.rand(*shape) < 0.2,
+            "dense": rng.rand(*shape) < 0.55,
+            "snake": serpentine(shape),
+            "empty": np.zeros(shape, bool)}[case]
+    m = torch.from_numpy(mask).to(dev)
+    n0 = hopper_cc.cc_label.launches
+    got = hopper_cc.cc_label(m, per_slice=per_slice)
+    want = hopper_cc.label_components_raw_plain(m, per_slice=per_slice)
+    torch.cuda.synchronize()
+    assert hopper_cc.cc_label.launches == n0 + 1
+    assert got.dtype == torch.int32 and got.shape == m.shape
+    assert torch.equal(got, want)
+    if case == "snake":
+        assert int(got.max()) == 1 if per_slice else len(got.unique()) == 2
+
+
 @pytest.mark.parametrize("levels", [None, 2])
 def test_flood_kernel_matches_plain(dev, levels):
     rng = np.random.RandomState(3)
@@ -73,6 +113,8 @@ def test_flood_kernel_matches_plain(dev, levels):
 
 
 def test_wrappers_refuse_mixed_devices(dev):
+    with pytest.raises(TypeError):
+        hopper_cc.cc_label(torch.zeros((4, 4, 2), device=dev))
     x = torch.zeros((2, 4, 4, 3), device=dev)
     w = torch.zeros((3, 3, 3, 3, 4))
     b = torch.zeros((4,), device=dev)
