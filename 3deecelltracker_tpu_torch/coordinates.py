@@ -6,6 +6,10 @@
 - ``real``: ``raw * voxel_size``, the frame of all matching math;
 - ``interp``: z multiplied by ``interpolation_factor``, the frame of the
   interpolated label images.
+
+``from_raw``/``from_real`` keep a tensor's own device when ``device`` is
+None; other inputs go to ``utils.device.select_device(device)``, the card by
+default.
 """
 
 from __future__ import annotations
@@ -14,6 +18,8 @@ import dataclasses
 from typing import Tuple
 
 import torch
+
+from .utils.device import select_device
 
 
 @dataclasses.dataclass(frozen=True)
@@ -26,14 +32,16 @@ class Coordinates:
     def from_raw(coords, interpolation_factor: int, voxel_size,
                  device=None) -> "Coordinates":
         return Coordinates(
-            torch.as_tensor(coords, dtype=torch.float32, device=device),
+            torch.as_tensor(coords, dtype=torch.float32,
+                            device=_device(coords, device)),
             int(interpolation_factor), _as_tuple3(voxel_size))
 
     @staticmethod
     def from_real(coords, interpolation_factor: int, voxel_size,
                   device=None) -> "Coordinates":
         vs = _as_tuple3(voxel_size)
-        real = torch.as_tensor(coords, dtype=torch.float32, device=device)
+        real = torch.as_tensor(coords, dtype=torch.float32,
+                               device=_device(coords, device))
         return Coordinates(real / torch.tensor(vs, dtype=torch.float32,
                                                device=real.device),
                            int(interpolation_factor), vs)
@@ -59,6 +67,12 @@ class Coordinates:
     @property
     def cell_num(self) -> int:
         return int(self.raw_f32.shape[0])
+
+
+def _device(coords, device) -> torch.device:
+    if device is None and isinstance(coords, torch.Tensor):
+        return coords.device
+    return select_device(device)
 
 
 def _as_tuple3(v) -> Tuple[float, float, float]:

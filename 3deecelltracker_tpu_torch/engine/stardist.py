@@ -61,10 +61,10 @@ class StarDist3D:
                     "train_patch_size"):
             if raw.get(key) is not None:
                 raw[key] = tuple(raw[key])
+        dev = select_device(device)
         params = stardist_params_from_numpy(
-            load_npz(model_dir / "weights.npz"))
-        model = StarDist3D(StarDistConfig(**raw), params=params,
-                           device=device)
+            load_npz(model_dir / "weights.npz"), dev)
+        model = StarDist3D(StarDistConfig(**raw), params=params, device=dev)
         if (model_dir / "thresholds.json").exists():
             with open(model_dir / "thresholds.json") as fh:
                 model.thresholds = json.load(fh)

@@ -13,6 +13,7 @@ from typing import Any, Dict, Tuple
 
 import torch
 
+from ..utils.device import select_device
 from . import layers as L
 
 N_FEATURES = 61
@@ -23,7 +24,9 @@ Params = Dict[str, Any]
 
 def init_ffn(generator: torch.Generator, device=None
              ) -> Tuple[Params, Params]:
-    """Seeded glorot init with identity batchnorms (not JAX's numbers)."""
+    """Seeded glorot init with identity batchnorms (not JAX's numbers);
+    ``device=None`` is the card."""
+    device = select_device(device)
     def dense(d_in, d_out, bias):
         p = {"w": L.glorot_uniform((d_in, d_out), d_in, d_out, generator,
                                    device)}
@@ -54,7 +57,9 @@ def feature_distance_ffn(generator: torch.Generator, device=None
     for a random projection W (c = 0.05 times the two LeakyReLU slopes).  The trunk and the combine layer use +/- weight pairs, so
     that ``leaky(u) - leaky(-u)`` and ``leaky(v) + leaky(-v)`` are linear
     in u and |v|.  It stands in for trained weights where a run needs a
-    matching that follows the cells (tests, the chip smoke run)."""
+    matching that follows the cells (tests, the chip smoke run).
+    ``device=None`` is the card."""
+    device = select_device(device)
     half = HIDDEN // 2
     w1 = torch.randn((N_FEATURES, half), generator=generator) \
         / N_FEATURES ** 0.5

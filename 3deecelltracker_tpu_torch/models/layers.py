@@ -18,6 +18,7 @@ from typing import Dict, Optional, Sequence
 import torch
 
 from ..ops.hopper_conv import conv3x3x3_bias_relu
+from ..utils.device import select_device
 
 Params = Dict[str, torch.Tensor]
 
@@ -29,7 +30,9 @@ def glorot_uniform(shape: Sequence[int], fan_in: int, fan_out: int,
                    generator: torch.Generator,
                    device=None) -> torch.Tensor:
     """Seeded glorot-uniform init.  It does not reproduce JAX's numbers:
-    parity tests carry weights across with ``utils.convert`` instead."""
+    parity tests carry weights across with ``utils.convert`` instead.
+    ``device=None`` is the card (``utils.device.select_device``)."""
+    device = select_device(device)
     limit = math.sqrt(6.0 / (fan_in + fan_out))
     u = torch.rand(tuple(shape), generator=generator, dtype=torch.float32)
     return ((u * 2.0 - 1.0) * limit).to(device)
@@ -37,6 +40,7 @@ def glorot_uniform(shape: Sequence[int], fan_in: int, fan_out: int,
 
 def init_conv3d(kernel: Sequence[int], c_in: int, c_out: int,
                 generator: torch.Generator, device=None) -> Params:
+    device = select_device(device)
     rf = int(math.prod(kernel))
     w = glorot_uniform((*kernel, c_in, c_out), rf * c_in, rf * c_out,
                        generator, device)

@@ -16,6 +16,7 @@ import torch
 import torch.nn.functional as F
 
 from ..config import StarDistConfig
+from ..utils.device import select_device
 from . import layers as L
 
 Params = Dict[str, Dict[str, torch.Tensor]]
@@ -54,7 +55,9 @@ class StarDist3DNet:
         return plan
 
     def init(self, generator: torch.Generator, device=None) -> Params:
-        """Seeded glorot init (not JAX's numbers; see ``layers``)."""
+        """Seeded glorot init (not JAX's numbers; see ``layers``);
+        ``device=None`` is the card."""
+        device = select_device(device)
         return {name: L.init_conv3d(kernel, cin, cout, generator, device)
                 for name, cin, cout, kernel in self.conv_plan()}
 

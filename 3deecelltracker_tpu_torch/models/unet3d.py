@@ -20,6 +20,7 @@ from typing import Any, Dict, List, Tuple
 
 import torch
 
+from ..utils.device import select_device
 from . import layers as L
 
 Params = Dict[str, Any]
@@ -62,7 +63,9 @@ class UNet3D:
     def init(self, generator: torch.Generator, c_in: int = 1,
              device=None) -> Tuple[Params, State]:
         """Seeded glorot convs and identity BatchNorms (not JAX's numbers;
-        parity tests carry weights across with ``utils.convert``)."""
+        parity tests carry weights across with ``utils.convert``).
+        ``device=None`` is the card."""
+        device = select_device(device)
         params: Params = {}
         state: State = {}
         plan, c_last = self.block_plan(c_in)

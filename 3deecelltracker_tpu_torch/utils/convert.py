@@ -16,6 +16,8 @@ from typing import Any, Dict, Tuple, Union
 import numpy as np
 import torch
 
+from .device import select_device
+
 
 def load_npz(path: Union[str, Path]) -> Dict[str, Any]:
     """A ``save_pytree`` file as a nested dict of numpy arrays (tuple
@@ -31,7 +33,7 @@ def load_npz(path: Union[str, Path]) -> Dict[str, Any]:
     return tree
 
 
-def _to_tensors(tree, device) -> Any:
+def _to_tensors(tree, device: torch.device) -> Any:
     if isinstance(tree, dict):
         return {k: _to_tensors(v, device) for k, v in tree.items()}
     return torch.from_numpy(np.array(tree, np.float32)).to(device)
@@ -40,7 +42,8 @@ def _to_tensors(tree, device) -> Any:
 def stardist_params_from_numpy(tree: Dict[str, Any], device=None
                                ) -> Dict[str, Dict[str, torch.Tensor]]:
     """StarDist3DNet params ``{layer: {"w", "b"}}`` (numpy or JAX arrays)
-    -> float32 tensors on ``device``."""
+    -> float32 tensors on ``device`` (``None``: the card)."""
+    device = select_device(device)
     return {name: {k: _to_tensors(v, device) for k, v in layer.items()}
             for name, layer in tree.items()}
 
@@ -50,7 +53,8 @@ def unet_from_numpy(params: Dict[str, Any], state: Dict[str, Any],
     """U-Net ``(params, state)`` pytrees (``models/unet3d.py:50-77``: per
     block ``conv`` {"w", "b"} and ``bn`` {"scale", "bias"}, ``out`` conv;
     state ``mean``/``var`` per block), numpy or JAX arrays -> float32
-    tensors on ``device``, the same nesting."""
+    tensors on ``device`` (``None``: the card), the same nesting."""
+    device = select_device(device)
     return _to_tensors(params, device), _to_tensors(state, device)
 
 
@@ -58,5 +62,7 @@ def ffn_from_numpy(params: Dict[str, Any], state: Dict[str, Any],
                    device=None) -> Tuple[Dict[str, Any], Dict[str, Any]]:
     """FFN ``(params, state)``: dense ``feat``/``comb``/``pred`` weights and
     the two batchnorms' ``scale``/``bias`` params and ``mean``/``var``
-    state (``models/ffn.py:44-56``) -> float32 tensors on ``device``."""
+    state (``models/ffn.py:44-56``) -> float32 tensors on ``device``
+    (``None``: the card)."""
+    device = select_device(device)
     return _to_tensors(params, device), _to_tensors(state, device)

@@ -22,9 +22,16 @@ def pin_float32() -> None:
 
 
 def select_device(device: Union[str, torch.device, None]) -> torch.device:
-    """Resolve ``device`` (default: CPU) and pin full float32 precision."""
+    """Resolve ``device`` and pin full float32 precision.  ``None`` means the
+    first CUDA card; without one it raises rather than fall back: the CPU
+    runs only when the caller asks for it (``device="cpu"``)."""
     pin_float32()
-    return torch.device("cpu" if device is None else device)
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: the port runs on the card by "
+                           "default; pass device=\"cpu\" to run on the CPU")
+    return torch.device("cuda", 0)
 
 
 def to_device(tree, device: torch.device):

@@ -6,9 +6,9 @@ Phases (any failure raises and the script exits non-zero):
 
 1. device: a CUDA device must be present; prints the card's name and power
    limit as ``nvidia-smi`` reports them, and the torch/CUDA versions;
-2. build: compiles the three hand-written kernels from
-   ``3deecelltracker_tpu_torch/csrc/`` with ``nvcc``, all at once (into the
-   package's ``_build/``);
+2. build: compiles the four hand-written kernel sources from
+   ``3deecelltracker_tpu_torch/csrc/`` with ``nvcc``, one each, all at once
+   (into the package's ``_build/``);
 3. conv check: the 3x3x3 conv kernel against its plain version (cuDNN with
    TF32 off) at every 3x3x3 layer shape of the bench backbone, and of the
    legacy U-Net a (a batch of 16 tiles of (160, 160, 16) and its pooled
@@ -22,18 +22,31 @@ Phases (any failure raises and the script exits non-zero):
 6. the v1.0 slice: ``segment_and_track_arrays`` on the bench scene,
    (24, 401, 168) uint16 volumes with 150 drifting cells (seed 0), at full
    bench width with seeded random weights: 1 reference volume, 1 warm
-   volume, 5 timed ones.  The launch counters are reset just before this
-   run and the conv and flood counts must be > 0 after it;
+   volume, 5 timed ones.  Every kernel's launch counter is reset just
+   before this run and read just after; the conv and flood counts must be
+   > 0;
 7. small-scene parity: that slice on a small scene, once on the card and
    once on the CPU (plain versions); see ``phase_small_parity`` for the
    bound;
 8. the legacy slice: ``legacy_segment_and_track_arrays`` with U-Net a (the
    reference's ``unet3_a``) on the same scene in the (x, y, z) frame
    (401, 168, 24), 16 tiles per volume, the ``examples/use_unet_legacy.py``
-   settings, 1 + 1 + 5 volumes; counters reset before, conv, flood and cc
-   must each be > 0 after;
+   settings, 1 + 1 + 5 volumes; every counter reset before and read after,
+   conv, flood and cc must each be > 0;
 9. legacy small-scene parity: the legacy slice on a small scene, card vs
-   CPU; see ``phase_legacy_small_parity``.
+   CPU; see ``phase_legacy_small_parity``;
+10. the conv probe: ``scripts.probe_conv_fast.run`` at the backbone's hot
+   shape (24, 204, 84), c32 -> c32 and c32 -> c128.  It holds every
+   formulation against the plain conv and each ladder kernel against its
+   plain version (``add_one`` exactly, the channel product and the
+   nine-view conv, at both widths, within ``CONV_RTOL`` / ``CONV_ATOL``),
+   and raises on a miss; the phase prints its table (ms, bound, library
+   ms, TFLOP/s).  Every counter reset before and read after; the conv's
+   and each ladder kernel's must be > 0.
+
+Every kernel's entry in the kernels line carries its bound: the least time
+the card could take, the larger of its bytes (inputs read once, the output
+written once) at 3.35 TB/s and its FLOP at the 67 TFLOP/s f32 peak.
 
 The second-to-last line is ``{"kernels": [...]}``, the last line
 ``{"ok": true, "device": {...}}``.  Weights are random: the tracking
@@ -136,7 +149,7 @@ def phase_build():
         return time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    names = ("conv3x3x3", "flood", "cc")
+    names = ("conv3x3x3", "flood", "cc", "ladder")
     with ThreadPoolExecutor(len(names)) as pool:    # one nvcc per source
         secs = list(pool.map(one, names))
     for name, sec in zip(names, secs):
@@ -150,8 +163,10 @@ def phase_conv(dev):
     from t3dct_torch.ops import hopper_conv
     from t3dct_torch.models.layers import glorot_uniform
     from t3dct_torch.models.unet3d import unet3_a
+    from t3dct_torch.utils.roofline import conv_bound, library_conv
     gen = torch.Generator().manual_seed(0)
-    worst, ms, plain_ms = 0.0, 0.0, 0.0
+    worst, ms, plain_ms, lib_ms, bound_ms = 0.0, 0.0, 0.0, 0.0, 0.0
+    bound_by = {}     # the backbone's least time, by what sets it
     for z, y, x, ci, co, count in CONV_LAYERS:
         xin = torch.relu(torch.randn((z, y, x, ci), generator=gen)).to(dev)
         w = glorot_uniform((3, 3, 3, ci, co), 27 * ci, 27 * co, gen, dev)
@@ -164,19 +179,25 @@ def phase_conv(dev):
         t_k = cuda_ms(lambda: hopper_conv.conv3x3x3_bias_relu(xin, w, b))
         t_p = cuda_ms(lambda: hopper_conv.conv3x3x3_bias_relu_plain(xin, w,
                                                                     b))
+        t_l = cuda_ms(lambda: library_conv(xin, w, b))
+        t_b, by = conv_bound(xin, w, b)
         print(f"[conv] ({z},{y},{x}) {ci}->{co} x{count}: max_abs_err "
               f"{err:.3e} (bound {bound:.3e})  kernel {t_k:.3f} ms  plain "
-              f"{t_p:.3f} ms  kernel {2 * 27 * ci * co * z * y * x / t_k / 1e9:.1f}"
-              f" TFLOP/s")
+              f"{t_p:.3f} ms  cuDNN {t_l:.3f} ms  least {t_b:.4f} ms  kernel "
+              f"{2 * 27 * ci * co * z * y * x / t_k / 1e9:.1f} TFLOP/s")
         if not err <= bound:
             raise AssertionError(f"conv ({z},{y},{x}) {ci}->{co}: error "
                                  f"{err} > {bound}")
         worst = max(worst, err)
         ms += count * t_k
         plain_ms += count * t_p
+        lib_ms += count * t_l
+        bound_ms += count * t_b
+        bound_by[by] = bound_by.get(by, 0.0) + count * t_b
     print(f"[conv] backbone 3x3x3 layers per volume: kernel {ms:.3f} ms, "
-          f"plain {plain_ms:.3f} ms")
-    leg_ms, leg_plain_ms = 0.0, 0.0
+          f"plain {plain_ms:.3f} ms, cuDNN {lib_ms:.3f} ms, least "
+          f"{bound_ms:.3f} ms")
+    leg_ms, leg_plain_ms, leg_lib_ms, leg_bound_ms = 0.0, 0.0, 0.0, 0.0
     for (x, y, z, ci, co), count in unet_conv_layers(unet3_a()).items():
         xin = torch.randn((TILE_BATCH, x, y, z, ci), generator=gen).to(dev)
         w = glorot_uniform((3, 3, 3, ci, co), 27 * ci, 27 * co, gen, dev)
@@ -191,21 +212,30 @@ def phase_conv(dev):
             xin, w, b, relu=False), reps=5, warmup=1)
         t_p = cuda_ms(lambda: hopper_conv.conv3x3x3_bias_relu_plain(
             xin, w, b, relu=False), reps=5, warmup=1)
+        t_l = cuda_ms(lambda: library_conv(xin, w, b), reps=5, warmup=1)
+        t_b, _ = conv_bound(xin, w, b)
         flop = 2 * 27 * ci * co * TILE_BATCH * x * y * z
         print(f"[conv] U-Net a {TILE_BATCH}x({x},{y},{z}) {ci}->{co} "
               f"x{count}: max_abs_err {err:.3e} (bound {bound:.3e})  kernel "
-              f"{t_k:.3f} ms  plain {t_p:.3f} ms  kernel "
-              f"{flop / t_k / 1e9:.1f} TFLOP/s")
+              f"{t_k:.3f} ms  plain {t_p:.3f} ms  cuDNN {t_l:.3f} ms  least "
+              f"{t_b:.4f} ms  kernel {flop / t_k / 1e9:.1f} TFLOP/s")
         if not err <= bound:
             raise AssertionError(f"conv U-Net ({x},{y},{z}) {ci}->{co}: "
                                  f"error {err} > {bound}")
         worst = max(worst, err)
         leg_ms += count * t_k
         leg_plain_ms += count * t_p
+        leg_lib_ms += count * t_l
+        leg_bound_ms += count * t_b
     print(f"[conv] U-Net a 3x3x3 layers per volume (16 tiles): kernel "
-          f"{leg_ms:.3f} ms, plain {leg_plain_ms:.3f} ms")
+          f"{leg_ms:.3f} ms, plain {leg_plain_ms:.3f} ms, cuDNN "
+          f"{leg_lib_ms:.3f} ms, least {leg_bound_ms:.3f} ms")
+    # the backbone's layers per volume are the kernel's headline numbers
     return dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms,
-                unet_ms=leg_ms, unet_plain_ms=leg_plain_ms)
+                bound_ms=bound_ms, bound_by=max(bound_by, key=bound_by.get),
+                library_ms=lib_ms,
+                unet_ms=leg_ms, unet_plain_ms=leg_plain_ms,
+                unet_bound_ms=leg_bound_ms, unet_library_ms=leg_lib_ms)
 
 
 def synthetic_overlaps(dev, n=N_CELLS, shape=(Y, X, Z), seed=1):
@@ -249,10 +279,13 @@ def phase_flood(dev):
     t_p = cuda_ms(lambda: hopper_flood.flood_slices_plain(elev, markers,
                                                           mask),
                   reps=3, warmup=1)
+    from t3dct_torch.utils.roofline import bound, nbytes
+    t_b, by = bound(0.0, nbytes(elev, markers, mask, got))
     print(f"[flood] {tuple(elev.shape)} overlap voxels {n_over}: exact, "
           f"rounds {rounds} (plain {rounds_p})  kernel {t_k:.3f} ms  plain "
-          f"{t_p:.3f} ms")
-    return dict(max_abs_err=0.0, ms=t_k, plain_ms=t_p)
+          f"{t_p:.3f} ms  least {t_b * 1e3:.2f} us")
+    return dict(max_abs_err=0.0, ms=t_k, plain_ms=t_p, bound_ms=t_b,
+                bound_by=by, library_ms=None)
 
 
 def phase_cc(dev):
@@ -298,8 +331,13 @@ def phase_cc(dev):
               f"voxels, {n_comp} components  kernel {t_k:.3f} ms  plain "
               f"{t_p:.3f} ms")
         out[name] = (t_k, t_p)
+    from t3dct_torch.utils.roofline import bound, nbytes
     t_k, t_p = out["3-D peaks"]
-    return dict(max_abs_err=0.0, ms=t_k, plain_ms=t_p)
+    # the mask read once, the int32 labels written once
+    t_b, by = bound(0.0, nbytes(peaks3) + 4 * peaks3.numel())
+    print(f"[cc] 3-D peaks least {t_b * 1e3:.2f} us")
+    return dict(max_abs_err=0.0, ms=t_k, plain_ms=t_p, bound_ms=t_b,
+                bound_by=by, library_ms=None)
 
 
 def bench_model(dev, n_rays=96, base=32, feat=128, max_candidates=256,
@@ -313,7 +351,7 @@ def bench_model(dev, n_rays=96, base=32, feat=128, max_candidates=256,
                          unet_n_filter_base=base, net_conv_after_unet=feat,
                          prob_thresh=0.3, nms_thresh=0.3)
     params = with_intensity_path(
-        StarDist3DNet(cfg).init(torch.Generator().manual_seed(0)), cfg)
+        StarDist3DNet(cfg).init(torch.Generator().manual_seed(0), dev), cfg)
     return StarDist3D(cfg, params=params, max_candidates=max_candidates,
                       render_box=render_box, device=dev)
 
@@ -338,12 +376,25 @@ class CudaStageTimer:
         return cm()
 
 
+def counted(fn):
+    """``fn()`` with every kernel's launch counter set to 0 just before it;
+    returns its result and every counter as read just after it."""
+    import torch
+    from t3dct_torch.ops import hopper_cc, hopper_conv, hopper_flood, ladder
+    wrappers = (hopper_conv.conv3x3x3_bias_relu, hopper_flood.flood_slices,
+                hopper_cc.cc_label) + ladder.KERNELS
+    for w in wrappers:
+        w.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {w.__name__: w.launches for w in wrappers}
+
+
 def phase_slice(dev):
     import torch
     from t3dct_torch.config import TrackingConfig
     from t3dct_torch.engine.pipeline import segment_and_track_arrays
     from t3dct_torch.models.ffn import feature_distance_ffn
-    from t3dct_torch.ops import hopper_cc, hopper_conv, hopper_flood
     n_vols = 2 + N_TIMED
     t0 = time.perf_counter()
     from t3dct_torch.utils.synthetic import make_recording
@@ -353,18 +404,11 @@ def phase_slice(dev):
     model = bench_model(dev)
     ffn = feature_distance_ffn(torch.Generator().manual_seed(1), dev)
     timer = CudaStageTimer()
-    counters = {"conv3x3x3_bias_relu": hopper_conv.conv3x3x3_bias_relu,
-                "flood_slices": hopper_flood.flood_slices,
-                "cc_label": hopper_cc.cc_label}
-    for c in counters.values():
-        c.launches = 0
     t0 = time.perf_counter()
-    res = segment_and_track_arrays(
+    res, launches = counted(lambda: segment_and_track_arrays(
         vols, model, lab1.transpose(1, 2, 0), ffn, VOXEL_SIZE, 10,
-        TrackingConfig(beta=3.0, lambda_=3.0), device=dev, timer=timer)
-    torch.cuda.synchronize()
+        TrackingConfig(beta=3.0, lambda_=3.0), device=dev, timer=timer))
     wall = time.perf_counter() - t0
-    launches = {k: c.launches for k, c in counters.items()}
     print(f"[slice] wall {wall:.2f} s for {n_vols} volumes (incl. vol-1 "
           f"interpolate); launches {launches}")
     # the v1.0 path runs no mask connected components
@@ -460,7 +504,6 @@ def phase_legacy(dev):
     from t3dct_torch.config import SegmentationConfig, TrackingConfig
     from t3dct_torch.engine.legacy import legacy_segment_and_track_arrays
     from t3dct_torch.models.unet3d import unet3_a
-    from t3dct_torch.ops import hopper_cc, hopper_conv, hopper_flood
     from t3dct_torch.utils.synthetic import make_recording
     n_vols = 2 + N_TIMED
     vols, centers, lab1 = make_recording(n_vols, N_CELLS, (Z, Y, X))
@@ -468,23 +511,17 @@ def phase_legacy(dev):
     vols_xyz = [v.transpose(1, 2, 0) for v in vols]
     unet, ffn = legacy_models(dev, unet3_a(), LEG_THRESHOLD)
     timer = CudaStageTimer()
-    counters = {"conv3x3x3_bias_relu": hopper_conv.conv3x3x3_bias_relu,
-                "flood_slices": hopper_flood.flood_slices,
-                "cc_label": hopper_cc.cc_label}
-    for c in counters.values():
-        c.launches = 0
     t0 = time.perf_counter()
-    res = legacy_segment_and_track_arrays(
+    res, launches = counted(lambda: legacy_segment_and_track_arrays(
         vols_xyz, unet, ffn, lab1.transpose(1, 2, 0),
         SegmentationConfig(**LEG_SEG), TrackingConfig(**LEG_TRACK),
-        max_cells=LEG_MAX_CELLS, device=dev, timer=timer)
-    torch.cuda.synchronize()
+        max_cells=LEG_MAX_CELLS, device=dev, timer=timer))
     wall = time.perf_counter() - t0
-    launches = {k: c.launches for k, c in counters.items()}
     print(f"[legacy] U-Net a, {len(vols_xyz)} x {vols_xyz[0].shape} "
           f"(x, y, z), {res.cells[1]} cells at t=1: wall {wall:.2f} s "
           f"(incl. vol-1 interpolate); launches {launches}")
-    if min(launches.values()) <= 0:
+    if min(launches[k] for k in ("conv3x3x3_bias_relu", "flood_slices",
+                                 "cc_label")) <= 0:
         raise AssertionError(f"a kernel was not launched on the legacy "
                              f"path: {launches}")
     seg_t = timer.times["seg"][-N_TIMED:]
@@ -570,6 +607,62 @@ def phase_legacy_small_parity(dev):
                                  "disagree")
 
 
+# the ladder's kernels: (probe entry, wrapper name, file:line of the TPU
+# kernel they replace)
+LADDER = [("pallas_A_passthrough", "ladder_add_one",
+           "scripts/probe_conv_fast.py:126"),
+          ("pallas_B_dotgeneral", "ladder_pointwise_matmul",
+           "scripts/probe_conv_fast.py:145"),
+          ("pallas_C_9view_conv", "ladder_conv9view_bias_relu",
+           "scripts/probe_conv_fast.py:187")]
+
+
+def phase_probe(dev):
+    from t3dct_torch.ops import ladder
+    from t3dct_torch.scripts import probe_conv_fast
+    t0 = time.perf_counter()
+    res, launches = counted(lambda: probe_conv_fast.run(dev))
+    print(f"[probe] shape {res['shape']}: {time.perf_counter() - t0:.1f} s; "
+          f"launches {launches}")
+    for key, rec in res.items():
+        if not isinstance(rec, dict):
+            continue
+        if "gflop" in rec:
+            names = [k[:-3] for k in rec if k.endswith("_ms")
+                     and k != "bound_ms"]
+            row = "  ".join(
+                f"{n} {rec[n + '_ms']:.3f} ms "
+                f"{rec.get(n + '_tflops', rec.get(n + '_eff_tflops')):.1f}"
+                f" TFLOP/s" + (f" (err {rec[n + '_maxerr']:.2e})"
+                               if n + "_maxerr" in rec else "")
+                for n in names)
+            print(f"[probe] {key} ({rec['gflop']:.2f} GFLOP, least "
+                  f"{rec['bound_ms']:.3f} ms by {rec['bound_by']}): {row}")
+        else:
+            lib = rec["library_ms"]
+            print(f"[probe] {key}: {rec['ms']:.4f} ms, least "
+                  f"{rec['bound_ms']:.4f} ms by {rec['bound_by']}, plain "
+                  f"{rec['plain_ms']:.4f} ms, library "
+                  f"{'-' if lib is None else f'{lib:.4f}'} ms, "
+                  f"{rec['tflops']:.2f} TFLOP/s, max_abs_err "
+                  f"{rec['maxerr']:.3e} (tol {rec['tol']:.3e})")
+    # run() raises on a miss; hold the numbers it recorded all the same
+    for key, rec in res.items():
+        if isinstance(rec, dict) and "maxerr" in rec:
+            if not rec["maxerr"] <= rec["tol"]:
+                raise AssertionError(f"probe {key}: {rec['maxerr']} > "
+                                     f"{rec['tol']}")
+    for name, _, _ in LADDER:
+        if not res[name]["ok"]:
+            raise AssertionError(f"probe {name} failed")
+    missing = [k.__name__ for k in ladder.KERNELS
+               if launches[k.__name__] <= 0]
+    if missing or launches["conv3x3x3_bias_relu"] <= 0:
+        raise AssertionError(f"a kernel was not launched on the probe "
+                             f"path: {launches}")
+    return res, launches
+
+
 def main() -> int:
     if not (ROOT / "3deecelltracker_tpu_torch").is_dir():
         print("chip_smoke.py must run from a checkout of the repository",
@@ -594,11 +687,13 @@ def main() -> int:
     phase_small_parity(dev)
     leg = phase_legacy(dev)
     phase_legacy_small_parity(dev)
+    probe, probe_launches = phase_probe(dev)
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
 
     def counts(name):
-        by_path = {"v1.0": launches[name], "legacy": leg[name]}
+        by_path = {"v1.0": launches[name], "legacy": leg[name],
+                   "probe": probe_launches[name]}
         return dict(launches=sum(by_path.values()),
                     launches_by_path=by_path)
 
@@ -616,6 +711,14 @@ def main() -> int:
              replaces="3deecelltracker_tpu/ops/pallas_kernels.py:92",
              **counts("cc_label"), **cc),
     ]
+    for entry, name, replaces in LADDER:
+        rec = probe[entry]
+        kernels.append(dict(
+            name=name, route="cuda",
+            source="3deecelltracker_tpu_torch/csrc/ladder.cu",
+            replaces=replaces, **counts(name), max_abs_err=rec["maxerr"],
+            ms=rec["ms"], plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"],
+            bound_by=rec["bound_by"], library_ms=rec["library_ms"]))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -18,7 +18,8 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 import t3dct_torch  # noqa: E402,F401
-from t3dct_torch.ops import hopper_cc, hopper_conv, hopper_flood  # noqa: E402
+from t3dct_torch.ops import (  # noqa: E402
+    hopper_cc, hopper_conv, hopper_flood, ladder)
 from t3dct_torch.utils.device import pin_float32  # noqa: E402
 from t3dct_torch.utils.synthetic import serpentine  # noqa: E402
 
@@ -120,3 +121,59 @@ def test_wrappers_refuse_mixed_devices(dev):
     b = torch.zeros((4,), device=dev)
     with pytest.raises(ValueError):
         hopper_conv.conv3x3x3_bias_relu(x, w, b)
+
+
+@pytest.mark.parametrize("n", [0, 1, 7, 4096, 100003])
+def test_add_one_kernel_matches_plain_exactly(dev, n):
+    """The float4 body and the scalar tail, and an unaligned view: one
+    launch each."""
+    x = torch.randn((n + 1,), generator=torch.Generator().manual_seed(n)
+                    ).to(dev)
+    for v in (x[:n], x[1:]):
+        n0 = ladder.ladder_add_one.launches
+        got = ladder.ladder_add_one(v)
+        torch.cuda.synchronize()
+        # an empty tensor launches nothing
+        assert ladder.ladder_add_one.launches == n0 + (n > 0)
+        assert torch.equal(got, ladder.ladder_add_one_plain(v))
+
+
+@pytest.mark.parametrize("shape", [(3, 7, 5, 32, 32), (2, 9, 11, 8, 40),
+                                   (1, 1, 130, 48, 16)])
+def test_pointwise_matmul_kernel_matches_plain(dev, shape):
+    z, y, x, ci, co = shape
+    g = torch.Generator().manual_seed(ci + co)
+    xin = torch.randn((z, y, x, ci), generator=g).to(dev)
+    w = torch.rand((ci, co), generator=g).to(dev)
+    n0 = ladder.ladder_pointwise_matmul.launches
+    got = ladder.ladder_pointwise_matmul(xin, w)
+    want = ladder.ladder_pointwise_matmul_plain(xin, w)
+    torch.cuda.synchronize()
+    assert ladder.ladder_pointwise_matmul.launches == n0 + 1
+    assert got.shape == want.shape
+    # f32 sums in another order than cuBLAS
+    bound = 1e-5 * float(want.abs().max()) + 1e-6
+    assert float((got - want).abs().max()) <= bound
+
+
+@pytest.mark.parametrize("shape", [(3, 17, 19, 32, 32), (2, 9, 33, 32, 128),
+                                   (4, 8, 16, 5, 40), (2, 11, 7, 8, 200)])
+def test_conv9view_kernel_matches_plain(dev, shape):
+    """Both tile widths (32 and 128 channels), a partial 128-channel tile
+    (c_out 40), a second c_out chunk, and ragged tiles in y and x."""
+    z, y, x, ci, co = shape
+    g = torch.Generator().manual_seed(ci * co)
+    xin = torch.rand((z, y, x, ci), generator=g).to(dev)
+    w = (torch.randn((3, 3, 3, ci, co), generator=g) / (27 * ci) ** 0.5
+         ).to(dev)
+    b = (torch.randn((co,), generator=g) * 0.1).to(dev)
+    w9 = ladder.pack_w9(w)
+    n0 = ladder.ladder_conv9view_bias_relu.launches
+    got = ladder.ladder_conv9view_bias_relu(xin, w9, b)
+    want = ladder.ladder_conv9view_bias_relu_plain(xin, w9, b)
+    conv = hopper_conv.conv3x3x3_bias_relu_plain(xin, w, b)
+    torch.cuda.synchronize()
+    assert ladder.ladder_conv9view_bias_relu.launches == n0 + 1
+    for ref in (want, conv):
+        bound = 1e-5 * float(ref.abs().max()) + 1e-6
+        assert float((got - ref).abs().max()) <= bound

@@ -84,9 +84,9 @@ def volume_at(t):
 def models():
     """(port spec, params, state), (JAX spec, params, state), FFN pair."""
     spec = UNet3D(**UNET)
-    params, state = spec.init(torch.Generator().manual_seed(0))
+    params, state = spec.init(torch.Generator().manual_seed(0), device="cpu")
     params = with_intensity_path(params, spec)
-    ffn = feature_distance_ffn(torch.Generator().manual_seed(1))
+    ffn = feature_distance_ffn(torch.Generator().manual_seed(1), "cpu")
     return ((spec, params, state),
             (JUNet3D(**UNET), to_jax(params), to_jax(state)),
             (ffn, to_jax(ffn)))
@@ -174,7 +174,7 @@ def test_slice_rejects_ensemble():
         legacy.legacy_segment_and_track_arrays(
             [np.zeros(SHAPE, np.float32)], None, None,
             np.zeros(SHAPE, np.int32), SegmentationConfig(**SEG),
-            TrackingConfig(ensemble=True))
+            TrackingConfig(ensemble=True), device="cpu")
 
 
 def test_cpu_slice_launches_no_kernel():

@@ -216,7 +216,7 @@ def test_segmenter_watershed_stage_exact(seed, method):
     cfg = dict(noise_level=20.0, min_size=20, cell_num=6, z_xy_ratio=2.0,
                shrink=(4, 4, 2))
     tm = UNet3D(**spec)
-    params, state = tm.init(torch.Generator().manual_seed(0))
+    params, state = tm.init(torch.Generator().manual_seed(0), device="cpu")
     tseg = UNetSegmenter(tm, params, state, SegmentationConfig(**cfg),
                          p.shape, max_cells=64, device="cpu")
     jparams = jax.tree_util.tree_map(lambda t: jnp.asarray(t.numpy()),

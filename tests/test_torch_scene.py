@@ -54,7 +54,8 @@ def to_jax(tree):
 
 def stardist_params(seed=0, intensity_path=True):
     cfg = StarDistConfig(**SD_CFG)
-    params = StarDist3DNet(cfg).init(torch.Generator().manual_seed(seed))
+    params = StarDist3DNet(cfg).init(torch.Generator().manual_seed(seed),
+                                     "cpu")
     return with_intensity_path(params, cfg) if intensity_path else params
 
 
@@ -64,13 +65,14 @@ def stardist_pair():
     jm = JStarDist3D(JStarDistConfig(**SD_CFG), params=to_jax(params),
                      max_candidates=MAX_CANDIDATES, render_box=RENDER_BOX)
     tm = StarDist3D(StarDistConfig(**SD_CFG), params=params,
-                    max_candidates=MAX_CANDIDATES, render_box=RENDER_BOX)
+                    max_candidates=MAX_CANDIDATES, render_box=RENDER_BOX,
+                    device="cpu")
     return jm, tm
 
 
 def ffn_pair():
     """((JAX params, state), (torch params, state)), the same numbers."""
-    p, s = feature_distance_ffn(torch.Generator().manual_seed(1))
+    p, s = feature_distance_ffn(torch.Generator().manual_seed(1), "cpu")
     return (to_jax(p), to_jax(s)), (p, s)
 
 

@@ -129,4 +129,4 @@ def test_slice_rejects_ensemble():
     with pytest.raises(ValueError):
         segment_and_track_arrays([], None, np.zeros((4, 4, 2), np.int32),
                                  None, VOXEL_SIZE, INTERP,
-                                 TrackingConfig(ensemble=True))
+                                 TrackingConfig(ensemble=True), device="cpu")

@@ -62,7 +62,7 @@ def test_network_forward_random_weights():
     jp, jd = JNet(JCfg(**SD_CFG)).apply(params, jnp.asarray(x))
     tp, td = StarDist3DNet(StarDistConfig(**SD_CFG)).apply(
         stardist_params_from_numpy(jax.tree_util.tree_map(np.asarray,
-                                                          params)),
+                                                          params), "cpu"),
         torch.from_numpy(x))
     assert np.abs(tp.numpy() - np.asarray(jp)).max() <= _conv_bound(jp)
     assert np.abs(td.numpy() - np.asarray(jd)).max() <= _conv_bound(jd)
@@ -153,7 +153,7 @@ def test_load_reads_jax_model_dir(models, tmp_path):
     """``StarDist3D.load`` reads a JAX-package model folder with numpy."""
     jm, _ = models
     jm.save(tmp_path)
-    tm = StarDist3D.load(tmp_path)
+    tm = StarDist3D.load(tmp_path, device="cpu")
     assert tm.config.grid == (1, 2, 2)
     assert tm.thresholds == {"prob": 0.3, "nms": 0.3}
     for name, layer in jm.params.items():

@@ -56,7 +56,7 @@ def scene(tmp_path_factory):
     jt = JTransformer(tmp_path_factory.mktemp("res"), VOXEL_SIZE)
     jt.load_segmentation_array(lab)
     jt.interpolate(INTERP)
-    tt = CoordsToImageTransformer(VOXEL_SIZE)
+    tt = CoordsToImageTransformer(VOXEL_SIZE, device="cpu")
     tt.load_segmentation_array(lab)
     tt.interpolate(INTERP)
     return dict(centers=centers, jt=jt, tt=tt, ffn=ffn_pair())
@@ -250,12 +250,13 @@ def test_coordinates_views_match():
     rng = np.random.RandomState(9)
     raw = (rng.rand(6, 3) * 40).astype(np.float32)
     vs = (1.0, 1.13, 4.7)
-    j, t = JC.from_raw(raw, INTERP, vs), TC.from_raw(raw, INTERP, vs)
+    j = JC.from_raw(raw, INTERP, vs)
+    t = TC.from_raw(raw, INTERP, vs, device="cpu")
     for view in ("real", "interp", "raw"):
         np.testing.assert_array_equal(getattr(t, view).numpy(),
                                       np.asarray(getattr(j, view)))
     jr_ = JC.from_real(np.asarray(j.real), INTERP, vs)
-    tr_ = TC.from_real(t.real, INTERP, vs)
+    tr_ = TC.from_real(t.real, INTERP, vs, device="cpu")
     np.testing.assert_array_equal(tr_.raw_f32.numpy(),
                                   np.asarray(jr_.raw_f32))
     assert t.cell_num == 6 and t.voxel_size == vs

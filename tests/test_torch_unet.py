@@ -72,7 +72,7 @@ def unet_pair(variant, seed=0):
     seeded weights and random BatchNorm statistics, one set of numbers."""
     spec = NARROW[variant]
     tm = UNet3D(**spec)
-    params, state = tm.init(torch.Generator().manual_seed(seed))
+    params, state = tm.init(torch.Generator().manual_seed(seed), device="cpu")
     g = torch.Generator().manual_seed(seed + 100)
     for name in state:
         c = state[name]["mean"].shape[0]
@@ -171,9 +171,10 @@ def test_unet_from_numpy_keeps_the_tree(variant):
     keys and shapes."""
     jm = JUNet3D(**NARROW[variant])
     jparams, jstate = jm.init(jax.random.PRNGKey(0))
-    tp, ts = unet_from_numpy(jax.device_get(jparams), jax.device_get(jstate))
+    tp, ts = unet_from_numpy(jax.device_get(jparams), jax.device_get(jstate),
+                             "cpu")
     mine, mine_s = UNet3D(**NARROW[variant]).init(
-        torch.Generator().manual_seed(0))
+        torch.Generator().manual_seed(0), device="cpu")
     shapes = jax.tree_util.tree_map(lambda t: tuple(t.shape), (tp, ts))
     want = jax.tree_util.tree_map(lambda t: tuple(t.shape), (mine, mine_s))
     assert shapes == want
@@ -197,7 +198,7 @@ def test_batched_conv_equals_per_volume():
     path the kernel's batch launch is held to on the card)."""
     g = torch.Generator().manual_seed(6)
     x = torch.randn((3, 10, 9, 8, 5), generator=g)
-    p = layers.init_conv3d((3, 3, 3), 5, 7, g)
+    p = layers.init_conv3d((3, 3, 3), 5, 7, g, "cpu")
     got = layers.conv3d(p, x)
     # the CPU convolution blocks a batch differently: f32 summation order
     for i in range(3):
@@ -211,7 +212,7 @@ def test_intensity_path_follows_the_lcn():
     normalized intensity clears the threshold (up to the BatchNorms'
     scaling), whatever the random weights elsewhere."""
     spec = UNet3D(**NARROW["a"])
-    params, state = spec.init(torch.Generator().manual_seed(7))
+    params, state = spec.init(torch.Generator().manual_seed(7), device="cpu")
     params = with_intensity_path(params, spec, threshold=1.0)
     x = torch.randn((1, *spec.tile_shape, 1),
                     generator=torch.Generator().manual_seed(8)) * 2
