@@ -1,0 +1,508 @@
+// SAME 3x3x3 convolution + bias (+ReLU) on Hopper's tensor cores: an implicit
+// GEMM in three TF32 passes, on a batch of channels-last f32 volumes.
+//
+// Replaces: 3deecelltracker_tpu/ops/pallas_conv.py::conv3x3x3_fused, which
+// computes relu(conv_same(x, w) + b) for x (z, y, x, c_in), w DHWIO
+// (3, 3, 3, c_in, c_out), b (c_out,), with f32 accumulation, as 9 (dy, dx)
+// dots per tile with the 3 z-taps packed into K.  It takes every 3x3x3 layer
+// with c_in % 8 == 0 and c_out % 8 == 0 (all of the StarDist backbone's and
+// the legacy U-Net's but the c_in = 1 stems, which stay on csrc/conv3x3x3.cu);
+// the U-Net's tile batch is one launch, folded into grid.z.
+//
+// What bounds it on an H100: the tensor cores.  f32 accuracy costs three TF32
+// products per multiply (below), so a layer's least time is 3 x its FLOP at
+// 495 TFLOP/s dense TF32 (the backbone at the bench geometry: 3 x 299.2 GFLOP
+// per volume = 1.81 ms), against 4.47 ms for its FLOP at the 67 TFLOP/s f32
+// CUDA-core peak.  Narrow layers (c_out 8, 16) are bound by their bytes.
+//
+// Numerics: each operand v is split into hi = tf32(v) (cvt.rna) and
+// lo = v - hi; the sum hi*hi + hi*lo + lo*hi keeps ~22 bits of every product
+// (the lo*lo term, ~2^-22 relative, is dropped).  The wgmma accumulator
+// truncates each sum it adds in, an error biased toward zero that grows with
+// K, so it holds one pipeline stage's partial sum (27 wgmmas) only, and the
+// partials are added in registers with f32 rounding: results stay within
+// f32 summation-order noise of a true f32 conv.  One TF32 pass keeps ~11
+// bits, tens of times over the parity budget.  The weights come pre-split
+// (hi, lo) from ops/hopper_conv.py; the activations are split in registers.
+//
+// Design.  GEMM: M = output pixels, N = c_out (a tile of NB = 8..128
+// channels per block), K = 27 taps x c_in in steps of 8 channels (wgmma
+// m64nNBk8 tf32).  A block owns a 16 (x) by 8 (y) pixel tile at one z of one
+// volume: two warpgroups of 64 pixels each (warp w of warpgroup q takes the
+// tile's row 4q + w, its lanes x and x + 8).  Thread 0 streams pipeline
+// stages through a ring of STAGES buffers behind full/empty mbarriers,
+// refilling a buffer as soon as both warpgroups have released it, while the
+// next stages, already in flight, are computed on.  A stage is one
+// (8-channel chunk, z-tap): the (TY + 2, TX + 2, 8) input halo plane, one
+// TMA copy from a 5-D tensor map over the (c, x, y, z, b) batch (TMA's
+// out-of-bounds zero fill is the SAME padding, and z and b are separate
+// dimensions, so a z-halo never reads the next volume), and the stage's 9
+// taps of packed hi/lo weights, one bulk copy.  Not a chunk's whole 3-z
+// window: its 27 taps of weights take 221 KB at NB = 128, more than the
+// 227 KB of shared memory a block has leaves room for beside the halo.
+// Consumers read their A fragment for each of the 9 (dy, dx) taps straight
+// from the halo plane at the tap's offset (a shifted window costs nothing),
+// split it into hi/lo in registers, and issue three wgmmas per tap
+// (A_lo.B_hi, A_hi.B_lo, A_hi.B_hi) with B from shared memory in the
+// canonical K-major, no-swizzle core-matrix layout.  Within a K step the 8
+// fragment columns map to channels (0, 2, 4, 6, 1, 3, 5, 7), so that a
+// thread's two channels of one pixel are one float2 load; the weights are
+// packed in the same order.  The epilogue adds the bias, applies the ReLU
+// and stores channels-last, masked at the ragged y/x edge and past c_out.
+
+#include <cuda.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int TX = 16;                   // output tile: x
+constexpr int TY = 8;                    // output tile: y (4 rows a warpgroup)
+constexpr int HX = TX + 2;
+constexpr int HY = TY + 2;
+constexpr int CK = 8;                    // channels per K step (k8)
+constexpr int THREADS = 256;             // two warpgroups
+constexpr int HALO_FLOATS = HY * HX * CK;
+constexpr int HALO_BYTES = HALO_FLOATS * 4;      // 5760 = 45 x 128
+
+// packed weights of one stage: [tap 9][hi, lo][CK * NB] (ops/hopper_conv.py)
+template <int NB>
+__host__ __device__ constexpr int w_stage_floats() { return 9 * 2 * CK * NB; }
+
+template <int NB>
+__host__ __device__ constexpr int stages() {
+  return NB >= 128 ? 2 : (NB >= 64 ? 3 : 4);
+}
+
+// narrow tiles fit two blocks on an SM (<= 128 registers a thread)
+template <int NB>
+__host__ __device__ constexpr int blocks_per_sm() {
+  return NB <= 32 ? 2 : 1;
+}
+
+template <int NB>
+__host__ __device__ constexpr int smem_bytes() {
+  return stages<NB>() * (w_stage_floats<NB>() * 4 + HALO_BYTES) +
+         2 * stages<NB>() * 8;
+}
+
+template <int N>
+struct Acc {
+  float r[N / 2];
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
+// wait until the phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// the (8, TX + 2, TY + 2, 1, 1) box at (c, x, y, z, b); out-of-bounds reads 0
+__device__ __forceinline__ void tma_halo(float* dst, const CUtensorMap* map,
+                                         uint64_t* bar, int c, int x, int y,
+                                         int z, int b) {
+  asm volatile(
+      "cp.async.bulk.tensor.5d.shared::cluster.global.tile.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%2, %3, %4, %5, %6}], [%7];\n" ::"r"(
+          smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c), "r"(x), "r"(y), "r"(z),
+      "r"(b), "r"(smem_u32(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_load(float* dst, const float* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ uint32_t tf32_rna(float v) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(v));
+  return r;
+}
+
+__device__ __forceinline__ void split_tf32(float v, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = tf32_rna(v);
+  lo = tf32_rna(v - __uint_as_float(hi));
+}
+
+// B operand: K-major, no swizzle; a core matrix is 8 (n) rows of 16 bytes
+// (4 k); the two core matrices of a k8 step lie 128 bytes apart (leading
+// byte offset), successive 8-column groups of n 256 bytes apart (stride byte
+// offset)
+__device__ __forceinline__ uint64_t b_desc(const float* p) {
+  const uint64_t addr = smem_u32(p);
+  return ((addr & 0x3FFFF) >> 4) | (uint64_t(128 >> 4) << 16) |
+         (uint64_t(256 >> 4) << 32);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// keep the compiler from moving accumulator accesses across the wgmmas
+template <int N>
+__device__ __forceinline__ void fence_acc(Acc<N>& d) {
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) asm volatile("" : "+f"(d.r[i])::"memory");
+}
+
+// D = A (64 x 8, registers) * B (8 x N, shared memory) (+ D if accumulate),
+// TF32 in, f32 out
+__device__ __forceinline__ void wgmma_tf32(Acc<8>& d, const uint32_t (&a)[4],
+                                           uint64_t desc, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, %8, p, 1, 1;\n}\n"
+      : "+f"(d.r[0]), "+f"(d.r[1]), "+f"(d.r[2]), "+f"(d.r[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc),
+        "r"(accumulate));
+}
+
+__device__ __forceinline__ void wgmma_tf32(Acc<16>& d, const uint32_t (&a)[4],
+                                           uint64_t desc, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1;\n}\n"
+      : "+f"(d.r[0]), "+f"(d.r[1]), "+f"(d.r[2]), "+f"(d.r[3]),
+        "+f"(d.r[4]), "+f"(d.r[5]), "+f"(d.r[6]), "+f"(d.r[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc),
+        "r"(accumulate));
+}
+
+__device__ __forceinline__ void wgmma_tf32(Acc<32>& d, const uint32_t (&a)[4],
+                                           uint64_t desc, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      " %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : "+f"(d.r[0]), "+f"(d.r[1]), "+f"(d.r[2]), "+f"(d.r[3]),
+        "+f"(d.r[4]), "+f"(d.r[5]), "+f"(d.r[6]), "+f"(d.r[7]),
+        "+f"(d.r[8]), "+f"(d.r[9]), "+f"(d.r[10]), "+f"(d.r[11]),
+        "+f"(d.r[12]), "+f"(d.r[13]), "+f"(d.r[14]), "+f"(d.r[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc),
+        "r"(accumulate));
+}
+
+__device__ __forceinline__ void wgmma_tf32(Acc<64>& d, const uint32_t (&a)[4],
+                                           uint64_t desc, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      " %8, %9, %10, %11, %12, %13, %14, %15, "
+      " %16, %17, %18, %19, %20, %21, %22, %23, "
+      " %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d.r[0]), "+f"(d.r[1]), "+f"(d.r[2]), "+f"(d.r[3]),
+        "+f"(d.r[4]), "+f"(d.r[5]), "+f"(d.r[6]), "+f"(d.r[7]),
+        "+f"(d.r[8]), "+f"(d.r[9]), "+f"(d.r[10]), "+f"(d.r[11]),
+        "+f"(d.r[12]), "+f"(d.r[13]), "+f"(d.r[14]), "+f"(d.r[15]),
+        "+f"(d.r[16]), "+f"(d.r[17]), "+f"(d.r[18]), "+f"(d.r[19]),
+        "+f"(d.r[20]), "+f"(d.r[21]), "+f"(d.r[22]), "+f"(d.r[23]),
+        "+f"(d.r[24]), "+f"(d.r[25]), "+f"(d.r[26]), "+f"(d.r[27]),
+        "+f"(d.r[28]), "+f"(d.r[29]), "+f"(d.r[30]), "+f"(d.r[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc),
+        "r"(accumulate));
+}
+
+__device__ __forceinline__ void wgmma_tf32(Acc<128>& d, const uint32_t (&a)[4],
+                                           uint64_t desc, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      " %8, %9, %10, %11, %12, %13, %14, %15, "
+      " %16, %17, %18, %19, %20, %21, %22, %23, "
+      " %24, %25, %26, %27, %28, %29, %30, %31, "
+      " %32, %33, %34, %35, %36, %37, %38, %39, "
+      " %40, %41, %42, %43, %44, %45, %46, %47, "
+      " %48, %49, %50, %51, %52, %53, %54, %55, "
+      " %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : "+f"(d.r[0]), "+f"(d.r[1]), "+f"(d.r[2]), "+f"(d.r[3]),
+        "+f"(d.r[4]), "+f"(d.r[5]), "+f"(d.r[6]), "+f"(d.r[7]),
+        "+f"(d.r[8]), "+f"(d.r[9]), "+f"(d.r[10]), "+f"(d.r[11]),
+        "+f"(d.r[12]), "+f"(d.r[13]), "+f"(d.r[14]), "+f"(d.r[15]),
+        "+f"(d.r[16]), "+f"(d.r[17]), "+f"(d.r[18]), "+f"(d.r[19]),
+        "+f"(d.r[20]), "+f"(d.r[21]), "+f"(d.r[22]), "+f"(d.r[23]),
+        "+f"(d.r[24]), "+f"(d.r[25]), "+f"(d.r[26]), "+f"(d.r[27]),
+        "+f"(d.r[28]), "+f"(d.r[29]), "+f"(d.r[30]), "+f"(d.r[31]),
+        "+f"(d.r[32]), "+f"(d.r[33]), "+f"(d.r[34]), "+f"(d.r[35]),
+        "+f"(d.r[36]), "+f"(d.r[37]), "+f"(d.r[38]), "+f"(d.r[39]),
+        "+f"(d.r[40]), "+f"(d.r[41]), "+f"(d.r[42]), "+f"(d.r[43]),
+        "+f"(d.r[44]), "+f"(d.r[45]), "+f"(d.r[46]), "+f"(d.r[47]),
+        "+f"(d.r[48]), "+f"(d.r[49]), "+f"(d.r[50]), "+f"(d.r[51]),
+        "+f"(d.r[52]), "+f"(d.r[53]), "+f"(d.r[54]), "+f"(d.r[55]),
+        "+f"(d.r[56]), "+f"(d.r[57]), "+f"(d.r[58]), "+f"(d.r[59]),
+        "+f"(d.r[60]), "+f"(d.r[61]), "+f"(d.r[62]), "+f"(d.r[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc),
+        "r"(accumulate));
+}
+
+template <int NB>
+__global__ void __launch_bounds__(THREADS, blocks_per_sm<NB>())
+conv_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
+                  const float* __restrict__ wp, const float* __restrict__ bias,
+                  float* __restrict__ y, int Z, int Y, int X, int Cin,
+                  int Cout, int tiles_x, int n_chunks, int relu) {
+  constexpr int S = stages<NB>();
+  constexpr int WF = w_stage_floats<NB>();
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* w_s = reinterpret_cast<float*>(smem);
+  float* h_s = w_s + S * WF;
+  uint64_t* full = reinterpret_cast<uint64_t*>(h_s + S * HALO_FLOATS);
+  uint64_t* empty = full + S;
+
+  const int x0 = (blockIdx.x % tiles_x) * TX;
+  const int y0 = (blockIdx.x / tiles_x) * TY;
+  const int z = blockIdx.y;
+  const int bz = blockIdx.z / n_chunks;
+  const int nc = blockIdx.z % n_chunks;
+  const int n_iters = (Cin / CK) * 3;   // stage = (channel chunk, z-tap)
+  const float* src = wp + static_cast<int64_t>(nc) * n_iters * WF;
+
+  // thread 0 issues stage `it`'s two copies into buffer it % S
+  auto load = [&](int it) {
+    const int s = it % S;
+    mbar_expect_tx(&full[s], WF * 4 + HALO_BYTES);
+    tma_halo(h_s + s * HALO_FLOATS, &xmap, &full[s], (it / 3) * CK, x0 - 1,
+             y0 - 1, z + it % 3 - 1, bz);
+    bulk_load(w_s + s * WF, src + static_cast<int64_t>(it) * WF, WF * 4,
+              &full[s]);
+  };
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], THREADS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    for (int it = 0; it < S && it < n_iters; ++it) load(it);
+  }
+  __syncthreads();
+
+  const int row = threadIdx.x / 32;   // 4 * warpgroup + warp: the tile's y
+  const int lane = threadIdx.x % 32;
+  const int g = lane / 4;
+  const int t = lane % 4;
+  // the tensor cores truncate when they add into the accumulator, so its
+  // error would grow with K in one direction: each stage's partial sum
+  // starts afresh in `part` and is added to `sum` with f32 rounding
+  Acc<NB> part;
+  float sum[NB / 2];
+#pragma unroll
+  for (int i = 0; i < NB / 2; ++i) sum[i] = 0.f;
+
+  for (int it = 0; it < n_iters; ++it) {
+    const int s = it % S;
+    mbar_wait(&full[s], (it / S) & 1);
+    const float* h = h_s + s * HALO_FLOATS;
+    // A fragments of the 9 taps: a[0] (pixel g, k t), a[1] (pixel g + 8,
+    // k t), a[2] (pixel g, k t + 4), a[3] (pixel g + 8, k t + 4); column k
+    // holds channel 2 (k % 4) + k / 4
+    uint32_t a_hi[9][4], a_lo[9][4];
+#pragma unroll
+    for (int tap = 0; tap < 9; ++tap) {
+      const float* p = h + ((row + tap / 3) * HX + g + tap % 3) * CK + 2 * t;
+      const float2 v0 = *reinterpret_cast<const float2*>(p);
+      const float2 v1 = *reinterpret_cast<const float2*>(p + 8 * CK);
+      split_tf32(v0.x, a_hi[tap][0], a_lo[tap][0]);
+      split_tf32(v1.x, a_hi[tap][1], a_lo[tap][1]);
+      split_tf32(v0.y, a_hi[tap][2], a_lo[tap][2]);
+      split_tf32(v1.y, a_hi[tap][3], a_lo[tap][3]);
+    }
+    const float* w = w_s + s * WF;
+    fence_acc(part);
+    wgmma_fence();
+#pragma unroll
+    for (int tap = 0; tap < 9; ++tap) {
+      const uint64_t d_hi = b_desc(w + (2 * tap) * CK * NB);
+      const uint64_t d_lo = b_desc(w + (2 * tap + 1) * CK * NB);
+      wgmma_tf32(part, a_lo[tap], d_hi, tap > 0);
+      wgmma_tf32(part, a_hi[tap], d_lo, 1);
+      wgmma_tf32(part, a_hi[tap], d_hi, 1);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_acc(part);
+    mbar_arrive(&empty[s]);
+#pragma unroll
+    for (int i = 0; i < NB / 2; ++i) sum[i] += part.r[i];
+    // refill buffer s once both warpgroups have released it
+    if (threadIdx.x == 0 && it + S < n_iters) {
+      mbar_wait(&empty[s], (it / S) & 1);
+      load(it + S);
+    }
+  }
+
+  // sum[4i + 2h + e] is pixel g + 8h, channel 8i + 2t + e of the tile
+  const int yo = y0 + row;
+  if (yo >= Y) return;
+  const int n0 = nc * NB;
+#pragma unroll
+  for (int i = 0; i < NB / 8; ++i) {
+    const int n = n0 + 8 * i + 2 * t;
+    if (n >= Cout) continue;   // Cout is even: n + 1 < Cout too
+    const float b0 = bias[n];
+    const float b1 = bias[n + 1];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int xo = x0 + g + 8 * h;
+      if (xo >= X) continue;
+      float v0 = sum[4 * i + 2 * h] + b0;
+      float v1 = sum[4 * i + 2 * h + 1] + b1;
+      if (relu) {
+        v0 = fmaxf(v0, 0.f);
+        v1 = fmaxf(v1, 0.f);
+      }
+      const int64_t off =
+          (((static_cast<int64_t>(bz) * Z + z) * Y + yo) * X + xo) * Cout + n;
+      *reinterpret_cast<float2*>(y + off) = make_float2(v0, v1);
+    }
+  }
+}
+
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
+                                  cuuint32_t, void*, const cuuint64_t*,
+                                  const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave,
+                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver, without linking libcuda
+EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    if (e == cudaSuccess && q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiledFn>(p);
+  }
+  return fn;
+}
+
+template <int NB>
+int launch(const CUtensorMap& map, const float* wp, const float* b, float* y,
+           int B, int Z, int Y, int X, int Cin, int Cout, int relu,
+           cudaStream_t stream) {
+  const cudaError_t e = cudaFuncSetAttribute(
+      conv_wgmma_kernel<NB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem_bytes<NB>());
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int tiles_x = (X + TX - 1) / TX;
+  const int n_chunks = (Cout + NB - 1) / NB;
+  dim3 grid(tiles_x * ((Y + TY - 1) / TY), Z, B * n_chunks);
+  conv_wgmma_kernel<NB><<<grid, THREADS, smem_bytes<NB>(), stream>>>(
+      map, wp, b, y, Z, Y, X, Cin, Cout, tiles_x, n_chunks, relu);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// B volumes of (Z, Y, X, Cin), contiguous, Cin % 8 == 0, Cout % 8 == 0; wp
+// the packed hi/lo weights for the N tile nb (8, 16, 32, 64 or 128); dims,
+// strides (bytes) and box describe the 5-D (c, x, y, z, b) tensor map
+// (ops/hopper_conv.py::tma_halo_args).  Z and B * ceil(Cout / nb) must fit
+// grid.y and grid.z (65535): the wrapper splits larger batches.  Returns
+// cudaGetLastError() after the launch, or -1 when the tensor map cannot be
+// made and -2 for an unsupported nb.
+extern "C" int conv3x3x3_wgmma_f32(const void* x, const void* wp,
+                                   const void* b, void* y, int B, int Z,
+                                   int Y, int X, int Cin, int Cout, int nb,
+                                   int relu, const uint64_t* dims,
+                                   const uint64_t* strides,
+                                   const uint32_t* box, void* stream) {
+  const EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return -1;
+  CUtensorMap map;
+  const cuuint32_t elem_strides[5] = {1, 1, 1, 1, 1};
+  if (encode(&map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 5, const_cast<void*>(x),
+             dims, strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return -1;
+  const float* w = static_cast<const float*>(wp);
+  const float* bb = static_cast<const float*>(b);
+  float* out = static_cast<float*>(y);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (nb) {
+    case 8: return launch<8>(map, w, bb, out, B, Z, Y, X, Cin, Cout, relu, s);
+    case 16: return launch<16>(map, w, bb, out, B, Z, Y, X, Cin, Cout, relu, s);
+    case 32: return launch<32>(map, w, bb, out, B, Z, Y, X, Cin, Cout, relu, s);
+    case 64: return launch<64>(map, w, bb, out, B, Z, Y, X, Cin, Cout, relu, s);
+    case 128:
+      return launch<128>(map, w, bb, out, B, Z, Y, X, Cin, Cout, relu, s);
+    default: return -2;
+  }
+}
+
+// the dynamic shared memory a block of the N tile nb takes, in bytes (-2
+// for an unsupported nb)
+extern "C" int conv3x3x3_wgmma_smem_bytes(int nb) {
+  switch (nb) {
+    case 8: return smem_bytes<8>();
+    case 16: return smem_bytes<16>();
+    case 32: return smem_bytes<32>();
+    case 64: return smem_bytes<64>();
+    case 128: return smem_bytes<128>();
+    default: return -2;
+  }
+}

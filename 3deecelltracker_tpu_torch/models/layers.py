@@ -5,9 +5,10 @@ eval-mode BatchNorm (eps 1e-3), LeakyReLU alpha 0.3, nearest upsampling.
 Layouts are the JAX package's: (b, z, y, x, c) activations (the U-Net's
 (b, x, y, z, c) tiles go through unchanged: every op here treats the three
 spatial axes alike), DHWIO conv weights, (d_in, d_out) dense weights.
-Every 3x3x3 conv goes through the hand-written CUDA kernel
-(``ops.hopper_conv``) with the bias and an optional ReLU fused; 1x1x1 convs
-are a plain matmul.
+Every 3x3x3 conv goes through ``ops.hopper_conv``, which launches one of
+its two hand-written CUDA kernels (the tensor-core one for widths that are
+multiples of 8, the direct one for the c_in = 1 stems) with the bias and an
+optional ReLU fused; 1x1x1 convs are a plain matmul.
 """
 
 from __future__ import annotations
@@ -51,7 +52,7 @@ def init_conv3d(kernel: Sequence[int], c_in: int, c_out: int,
 def conv3d(params: Params, x: torch.Tensor, relu: bool = False
            ) -> torch.Tensor:
     """SAME conv of (b, z, y, x, c_in) with DHWIO weights, + bias, with an
-    optional fused ReLU.  3x3x3 kernels run the CUDA kernel, one launch for
+    optional fused ReLU.  3x3x3 kernels run a CUDA kernel, one launch for
     the whole batch; 1x1x1 kernels are a matmul over channels."""
     w = params["w"]
     b = params.get("b")

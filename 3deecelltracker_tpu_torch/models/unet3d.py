@@ -8,7 +8,7 @@ blocks; up levels transform, upsample and concatenate the skip; head blocks
 run at full resolution; a 1x1x1 conv + sigmoid gives the cell probability.
 Layout (b, x, y, z, c), weights DHWIO; params ``{name: {"conv": {"w", "b"},
 "bn": {"scale", "bias"}}, "out": {"conv": ...}}`` and state ``{name:
-{"mean", "var"}}``, keyed like the JAX pytree.  Every 3x3x3 conv is the
+{"mean", "var"}}``, keyed like the JAX pytree.  Every 3x3x3 conv is a
 hand-written CUDA kernel (``ops.hopper_conv``) without its ReLU; the
 activation and BN stay in PyTorch, and the 1x1x1 output conv is a product.
 """

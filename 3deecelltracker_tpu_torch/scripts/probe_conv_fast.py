@@ -6,14 +6,15 @@ c32 -> c128, in the JAX probe's layouts (channels-last ``(z, y, x, c)``,
 DHWIO weights), it runs:
 
 - ``baseline``: the port's ``models.layers.conv3d`` + ReLU, which launches
-  the backbone conv kernel (``ops.hopper_conv``);
+  the backbone conv's tensor-core kernel (``ops.hopper_conv``, ``csrc/
+  conv3x3x3_wgmma.cu``: c_in 32 is on its rule);
 - ``conv9gemm``: z-taps packed into K (K = 3 * c_in), nine (dy, dx) view
   products as plain ``torch.matmul``s;
 - ``copad``: c_out zero-padded to 2x and 4x (c32: 64 and 128) through the
   baseline, then sliced;
 - the ladder of hand-written kernels (``ops.ladder``): A ``x + 1``, B and B2
-  the per-voxel channel product, C the nine-view conv, and E the backbone
-  conv kernel itself;
+  the per-voxel channel product, C the nine-view conv (f32 CUDA cores), and
+  E the backbone conv itself (the tensor-core kernel), beside cuDNN and C;
 - the library conv, cuDNN ``F.conv3d`` with TF32 off, as the yardstick
   (``library_ms``); the port never calls it.
 
@@ -30,7 +31,11 @@ ladder runs on the first width's input and weights.  The port's additions:
 the ladder does not cover (at the first width its E and C entries time
 those two kernels), and per ladder entry its ``flop``, ``bytes`` and, on
 the card, ``bound_ms`` (``utils.roofline.bound``), ``plain_ms`` and
-``library_ms``.  Each function is timed once on each input: the C and E
+``library_ms``.  The width records carry ``tc_bound_ms`` as well
+(``utils.roofline.conv_tc_bound``: three TF32 passes at the tensor cores'
+peak); E, which runs the tensor-core kernel, has that as its ``bound_ms``
+and the f32 one as ``f32_bound_ms``.  Each function is timed once on each
+input: the C and E
 entries carry the first width's cuDNN reading, B2 carries B's matmul
 reading.  Unlike the JAX probe, the bias is random rather than zero, so the
 epilogue is checked.
@@ -55,8 +60,8 @@ import torch.nn.functional as F
 from ..models import layers
 from ..ops import hopper_conv, ladder
 from ..utils.device import select_device
-from ..utils.roofline import (bound, conv_bound, conv_flop, library_conv,
-                              nbytes)
+from ..utils.roofline import (bound, conv_bound, conv_flop, conv_tc_bound,
+                              library_conv, nbytes)
 
 SHAPE = (24, 204, 84)       # the hot full-resolution backbone shape
 C_IN = 32
@@ -161,6 +166,7 @@ def width_record(x: torch.Tensor, p: Dict[str, torch.Tensor],
         rec["library_ms"] = ms
         rec["library_tflops"] = flop / ms / 1e9
         rec["bound_ms"], rec["bound_by"] = conv_bound(x, p["w"], p["b"])
+        rec["tc_bound_ms"] = conv_tc_bound(x, p["w"], p["b"])[0]
     return rec
 
 
@@ -227,6 +233,11 @@ def pallas_ladder(x: torch.Tensor, p: Dict[str, torch.Tensor],
         lambda: hopper_conv.conv3x3x3_bias_relu(x, p["w"], p["b"]),
         lambda: hopper_conv.conv3x3x3_bias_relu_plain(x, p["w"], p["b"]),
         conv_ms, c_flop, c_bytes, False, on_card, "E conv3x3x3")
+    if on_card:
+        # E runs the tensor-core kernel: its bound is three TF32 passes
+        e = results["pallas_E_manual_dma"]
+        e["f32_bound_ms"] = e["bound_ms"]
+        e["bound_ms"], e["bound_by"] = conv_tc_bound(x, p["w"], p["b"])
 
 
 def run(device=None, shape: Sequence[int] = SHAPE, c_in: int = C_IN,

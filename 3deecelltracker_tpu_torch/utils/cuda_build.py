@@ -5,8 +5,10 @@ stream as ``void*``; every entry point returns ``cudaGetLastError()``), is
 compiled for ``sm_90a`` into its own shared library, and is loaded once per
 process.  Libraries are cached under ``_build/`` in the package (listed in
 ``.gitignore``) by a digest of the source and the flags, so a changed source
-never loads a stale build.  Nothing here runs at import time: the first
-kernel call builds.
+never loads a stale build.  Beside each library, ``ptxas``'s report of its
+kernels (``-Xptxas -v``: registers, spills) is kept for
+:func:`resource_usage`.  Nothing here runs at import time: the first kernel
+call builds.
 """
 
 from __future__ import annotations
@@ -14,18 +16,19 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
 import threading
 from pathlib import Path
-from typing import Dict
+from typing import Dict, List, Tuple
 
 PKG_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -41,14 +44,19 @@ def find_nvcc() -> str:
                        "kernels are compiled from csrc/ at first use")
 
 
+def _library(name: str) -> Path:
+    """Where the build of the current ``csrc/<name>.cu`` lives."""
+    src = (CSRC_DIR / f"{name}.cu").read_bytes()
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()
+                            ).hexdigest()[:16]
+    return BUILD_DIR / f"lib{name}_{digest}.so"
+
+
 def build(name: str) -> Path:
     """Compile ``csrc/<name>.cu`` unless a build of this exact source
     exists; returns the library path.  The write is atomic (temp file +
     rename), so concurrent builders never load a half-written library."""
-    src = (CSRC_DIR / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()
-                            ).hexdigest()[:16]
-    out = BUILD_DIR / f"lib{name}_{digest}.so"
+    out = _library(name)
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -60,6 +68,7 @@ def build(name: str) -> Path:
         res = subprocess.run(cmd, capture_output=True, text=True)
         if res.returncode != 0:
             raise RuntimeError(f"nvcc failed for {name}.cu:\n{res.stderr}")
+        out.with_suffix(".ptxas.txt").write_text(res.stderr)
         os.replace(tmp, out)
     finally:
         if os.path.exists(tmp):
@@ -75,6 +84,52 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(build(name)))
             _libs[name] = lib
         return lib
+
+
+def _demangle(symbol: str) -> str:
+    """``conv_wgmma_kernel<128>`` from an Itanium-mangled kernel symbol
+    (nested names and integer template arguments); a C name as it is."""
+    m = re.match(r"_ZN?", symbol)
+    if m is None:
+        return symbol
+    i, parts = m.end(), []
+    while (d := re.match(r"\d+", symbol[i:])) is not None:
+        n = int(d.group())
+        i += d.end()
+        parts.append(symbol[i:i + n])
+        i += n
+    args = re.match(r"I((?:Li-?\d+E)+)E", symbol[i:])
+    out = parts[-1] if parts else symbol
+    if args:
+        out += "<" + ", ".join(re.findall(r"Li(-?\d+)E", args.group(1))) + ">"
+    return out
+
+
+def parse_ptxas(report: str) -> List[Tuple[str, int, int, int]]:
+    """``(kernel, registers, spill store bytes, spill load bytes)`` for each
+    entry function in a ``-Xptxas -v`` report."""
+    out, name, spills = [], None, (0, 0)
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name, spills = _demangle(m.group(1)), (0, 0)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spills = (int(m.group(1)), int(m.group(2)))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name is not None:
+            out.append((name, int(m.group(1))) + spills)
+            name = None
+    return out
+
+
+def resource_usage(name: str) -> List[Tuple[str, int, int, int]]:
+    """:func:`parse_ptxas` of the build of ``csrc/<name>.cu`` (built
+    first if it is not)."""
+    return parse_ptxas(build(name).with_suffix(".ptxas.txt").read_text())
 
 
 def check(err: int, what: str) -> None:

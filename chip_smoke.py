@@ -6,13 +6,19 @@ Phases (any failure raises and the script exits non-zero):
 
 1. device: a CUDA device must be present; prints the card's name and power
    limit as ``nvidia-smi`` reports them, and the torch/CUDA versions;
-2. build: compiles the four hand-written kernel sources from
+2. build: compiles the five hand-written kernel sources from
    ``3deecelltracker_tpu_torch/csrc/`` with ``nvcc``, one each, all at once
-   (into the package's ``_build/``);
-3. conv check: the 3x3x3 conv kernel against its plain version (cuDNN with
-   TF32 off) at every 3x3x3 layer shape of the bench backbone, and of the
-   legacy U-Net a (a batch of 16 tiles of (160, 160, 16) and its pooled
-   levels, without the ReLU);
+   (into the package's ``_build/``), and prints each kernel's registers and
+   spills as ``ptxas`` reports them, and the tensor-core conv's shared
+   memory per block;
+3. conv check: the 3x3x3 conv through its router at every 3x3x3 layer
+   shape of the bench backbone, and of the legacy U-Net a (a batch of 16
+   tiles of (160, 160, 16) and its pooled levels, without the ReLU): the
+   kernel that ran (the three-pass TF32 ``wgmma`` kernel, or the direct
+   f32 kernel for the c_in = 1 stems) against the plain version (cuDNN with
+   TF32 off); per layer its time and TFLOP/s, the direct kernel's time on
+   the same layer (interleaved), cuDNN's, the plain version's, the f32
+   bound and the three-pass TF32 bound;
 4. flood check: the per-slice flood kernel against its plain version on 24
    slices of 401x168 made from a synthetic label volume with overlaps;
 5. cc check: the connected-components kernel against its plain version,
@@ -23,8 +29,8 @@ Phases (any failure raises and the script exits non-zero):
    (24, 401, 168) uint16 volumes with 150 drifting cells (seed 0), at full
    bench width with seeded random weights: 1 reference volume, 1 warm
    volume, 5 timed ones.  Every kernel's launch counter is reset just
-   before this run and read just after; the conv and flood counts must be
-   > 0;
+   before this run and read just after; the ``wgmma`` conv's and the
+   flood's counts must be > 0, the direct conv's one per volume (the stem);
 7. small-scene parity: that slice on a small scene, once on the card and
    once on the CPU (plain versions); see ``phase_small_parity`` for the
    bound;
@@ -32,7 +38,8 @@ Phases (any failure raises and the script exits non-zero):
    reference's ``unet3_a``) on the same scene in the (x, y, z) frame
    (401, 168, 24), 16 tiles per volume, the ``examples/use_unet_legacy.py``
    settings, 1 + 1 + 5 volumes; every counter reset before and read after,
-   conv, flood and cc must each be > 0;
+   the ``wgmma`` conv, flood and cc must each be > 0, the direct conv one
+   per volume (the stem);
 9. legacy small-scene parity: the legacy slice on a small scene, card vs
    CPU; see ``phase_legacy_small_parity``;
 10. the conv probe: ``scripts.probe_conv_fast.run`` at the backbone's hot
@@ -41,12 +48,16 @@ Phases (any failure raises and the script exits non-zero):
    plain version (``add_one`` exactly, the channel product and the
    nine-view conv, at both widths, within ``CONV_RTOL`` / ``CONV_ATOL``),
    and raises on a miss; the phase prints its table (ms, bound, library
-   ms, TFLOP/s).  Every counter reset before and read after; the conv's
-   and each ladder kernel's must be > 0.
+   ms, TFLOP/s).  Every counter reset before and read after; the ``wgmma``
+   conv's and each ladder kernel's must be > 0, the direct conv's 0.
 
 Every kernel's entry in the kernels line carries its bound: the least time
 the card could take, the larger of its bytes (inputs read once, the output
-written once) at 3.35 TB/s and its FLOP at the 67 TFLOP/s f32 peak.
+written once) at 3.35 TB/s and its operations at the peak for their type.
+That is the 67 TFLOP/s f32 peak, except for the ``wgmma`` conv, whose
+``bound_ms`` (also given as ``tc_bound_ms``) counts three TF32 products per
+multiply at the 495 TFLOP/s dense TF32 peak; its ``f32_bound_ms`` is the
+same conv's f32 bound, the one the direct kernel is held to.
 
 The second-to-last line is ``{"kernels": [...]}``, the last line
 ``{"ok": true, "device": {...}}``.  Weights are random: the tracking
@@ -55,6 +66,7 @@ accuracy printed is not a measure of the system.
 
 from __future__ import annotations
 
+import functools
 import json
 import subprocess
 import sys
@@ -112,6 +124,24 @@ def unet_conv_layers(spec):
     return layers
 
 
+def stem_count(layers):
+    """How many of ``layers``, (c_in, c_out, count) per volume, the direct
+    kernel takes (widths off the tensor-core rule: the stems)."""
+    from t3dct_torch.ops.hopper_conv import route
+    return sum(n for ci, co, n in layers if route(ci, co) == "direct")
+
+
+def check_conv_launches(path, launches, n_vols, stems):
+    """The tensor-core conv ran on ``path``, and the direct kernel exactly
+    once per stem layer of each of the ``n_vols`` volumes."""
+    want = n_vols * stems
+    if launches["conv3x3x3_wgmma"] <= 0 or \
+            launches["conv3x3x3_direct"] != want:
+        raise AssertionError(f"{path}: conv launches {launches}, want "
+                             f"conv3x3x3_wgmma > 0 and conv3x3x3_direct == "
+                             f"{want}")
+
+
 def cuda_ms(fn, reps=10, warmup=2):
     import torch
     for _ in range(warmup):
@@ -149,93 +179,123 @@ def phase_build():
         return time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    names = ("conv3x3x3", "flood", "cc", "ladder")
+    names = ("conv3x3x3_wgmma", "conv3x3x3", "flood", "cc", "ladder")
     with ThreadPoolExecutor(len(names)) as pool:    # one nvcc per source
         secs = list(pool.map(one, names))
     for name, sec in zip(names, secs):
         cuda_build.load(name)
-        print(f"[build] {name}: {sec:.2f} s")
+        usage = "; ".join(f"{k} {r} registers, spills {st}/{ld} B"
+                          for k, r, st, ld in cuda_build.resource_usage(name))
+        print(f"[build] {name}: {sec:.2f} s; ptxas: {usage}")
     print(f"[build] all: {time.perf_counter() - t0:.2f} s")
+    from t3dct_torch.ops import hopper_conv
+    print("[build] conv3x3x3_wgmma dynamic shared memory per block: " +
+          ", ".join(f"N tile {nb}: {hopper_conv.wgmma_smem_bytes(nb)} B"
+                    for nb in hopper_conv.N_TILES))
+
+
+def conv_row(xin, w, b, relu):
+    """One layer: the routed kernel's error against the plain version, and
+    times of the routed kernel and of the direct kernel, interleaved
+    (direct, routed, routed, direct), the plain version and cuDNN."""
+    import torch
+    from t3dct_torch.ops import hopper_conv
+    from t3dct_torch.utils.roofline import (conv_bound, conv_flop,
+                                            conv_tc_bound, library_conv)
+    reps, warmup = (5, 1) if xin.dim() == 5 else (10, 2)
+    got = hopper_conv.conv3x3x3_bias_relu(xin, w, b, relu)
+    ref = hopper_conv.conv3x3x3_bias_relu_plain(xin, w, b, relu)
+    torch.cuda.synchronize()
+    err = float((got - ref).abs().max())
+    tol = CONV_RTOL * float(ref.abs().max()) + CONV_ATOL
+    del got, ref
+    routed = functools.partial(hopper_conv.conv3x3x3_bias_relu, xin, w, b,
+                               relu)
+    direct = functools.partial(hopper_conv.conv3x3x3_direct, xin, w, b, relu)
+    t_d1, t_k1, t_k2, t_d2 = (cuda_ms(f, reps, warmup)
+                              for f in (direct, routed, routed, direct))
+    ms = (t_k1 + t_k2) / 2
+    return dict(
+        kernel=hopper_conv.route(xin.shape[-1], w.shape[-1]), err=err,
+        tol=tol, ms=ms, direct_ms=(t_d1 + t_d2) / 2,
+        plain_ms=cuda_ms(lambda: hopper_conv.conv3x3x3_bias_relu_plain(
+            xin, w, b, relu), reps, warmup),
+        library_ms=cuda_ms(lambda: library_conv(xin, w, b), reps, warmup),
+        bound=conv_bound(xin, w, b), tc_bound=conv_tc_bound(xin, w, b),
+        tflops=conv_flop(xin, w.shape[-1]) / ms / 1e9)
 
 
 def phase_conv(dev):
+    """Every 3x3x3 layer of the backbone and of U-Net a through the router;
+    per kernel, its layers summed per volume (counts as the models run
+    them).  The backbone's sums are each kernel's headline numbers, U-Net
+    a's ride along as ``unet_*``; the direct kernel's ``all_layers_ms`` is
+    its time on every layer, the earlier design's."""
     import torch
-    from t3dct_torch.ops import hopper_conv
     from t3dct_torch.models.layers import glorot_uniform
     from t3dct_torch.models.unet3d import unet3_a
-    from t3dct_torch.utils.roofline import conv_bound, library_conv
     gen = torch.Generator().manual_seed(0)
-    worst, ms, plain_ms, lib_ms, bound_ms = 0.0, 0.0, 0.0, 0.0, 0.0
-    bound_by = {}     # the backbone's least time, by what sets it
-    for z, y, x, ci, co, count in CONV_LAYERS:
-        xin = torch.relu(torch.randn((z, y, x, ci), generator=gen)).to(dev)
+    layers = [("backbone", (z, y, x), ci, co, n, False)
+              for z, y, x, ci, co, n in CONV_LAYERS]
+    layers += [("unet", shape, ci, co, n, True) for (*shape, ci, co), n
+               in unet_conv_layers(unet3_a()).items()]
+    out = {k: {} for k in ("wgmma", "direct")}
+    for model, shape, ci, co, count, batched in layers:
+        lead = (TILE_BATCH,) if batched else ()
+        xin = torch.relu(torch.randn(lead + tuple(shape) + (ci,),
+                                     generator=gen)).to(dev)
         w = glorot_uniform((3, 3, 3, ci, co), 27 * ci, 27 * co, gen, dev)
         b = (torch.randn((co,), generator=gen) * 0.1).to(dev)
-        got = hopper_conv.conv3x3x3_bias_relu(xin, w, b)
-        ref = hopper_conv.conv3x3x3_bias_relu_plain(xin, w, b)
-        torch.cuda.synchronize()
-        err = float((got - ref).abs().max())
-        bound = CONV_RTOL * float(ref.abs().max()) + CONV_ATOL
-        t_k = cuda_ms(lambda: hopper_conv.conv3x3x3_bias_relu(xin, w, b))
-        t_p = cuda_ms(lambda: hopper_conv.conv3x3x3_bias_relu_plain(xin, w,
-                                                                    b))
-        t_l = cuda_ms(lambda: library_conv(xin, w, b))
-        t_b, by = conv_bound(xin, w, b)
-        print(f"[conv] ({z},{y},{x}) {ci}->{co} x{count}: max_abs_err "
-              f"{err:.3e} (bound {bound:.3e})  kernel {t_k:.3f} ms  plain "
-              f"{t_p:.3f} ms  cuDNN {t_l:.3f} ms  least {t_b:.4f} ms  kernel "
-              f"{2 * 27 * ci * co * z * y * x / t_k / 1e9:.1f} TFLOP/s")
-        if not err <= bound:
-            raise AssertionError(f"conv ({z},{y},{x}) {ci}->{co}: error "
-                                 f"{err} > {bound}")
-        worst = max(worst, err)
-        ms += count * t_k
-        plain_ms += count * t_p
-        lib_ms += count * t_l
-        bound_ms += count * t_b
-        bound_by[by] = bound_by.get(by, 0.0) + count * t_b
-    print(f"[conv] backbone 3x3x3 layers per volume: kernel {ms:.3f} ms, "
-          f"plain {plain_ms:.3f} ms, cuDNN {lib_ms:.3f} ms, least "
-          f"{bound_ms:.3f} ms")
-    leg_ms, leg_plain_ms, leg_lib_ms, leg_bound_ms = 0.0, 0.0, 0.0, 0.0
-    for (x, y, z, ci, co), count in unet_conv_layers(unet3_a()).items():
-        xin = torch.randn((TILE_BATCH, x, y, z, ci), generator=gen).to(dev)
-        w = glorot_uniform((3, 3, 3, ci, co), 27 * ci, 27 * co, gen, dev)
-        b = (torch.randn((co,), generator=gen) * 0.1).to(dev)
-        got = hopper_conv.conv3x3x3_bias_relu(xin, w, b, relu=False)
-        ref = hopper_conv.conv3x3x3_bias_relu_plain(xin, w, b, relu=False)
-        torch.cuda.synchronize()
-        err = float((got - ref).abs().max())
-        bound = CONV_RTOL * float(ref.abs().max()) + CONV_ATOL
-        del got, ref
-        t_k = cuda_ms(lambda: hopper_conv.conv3x3x3_bias_relu(
-            xin, w, b, relu=False), reps=5, warmup=1)
-        t_p = cuda_ms(lambda: hopper_conv.conv3x3x3_bias_relu_plain(
-            xin, w, b, relu=False), reps=5, warmup=1)
-        t_l = cuda_ms(lambda: library_conv(xin, w, b), reps=5, warmup=1)
-        t_b, _ = conv_bound(xin, w, b)
-        flop = 2 * 27 * ci * co * TILE_BATCH * x * y * z
-        print(f"[conv] U-Net a {TILE_BATCH}x({x},{y},{z}) {ci}->{co} "
-              f"x{count}: max_abs_err {err:.3e} (bound {bound:.3e})  kernel "
-              f"{t_k:.3f} ms  plain {t_p:.3f} ms  cuDNN {t_l:.3f} ms  least "
-              f"{t_b:.4f} ms  kernel {flop / t_k / 1e9:.1f} TFLOP/s")
-        if not err <= bound:
-            raise AssertionError(f"conv U-Net ({x},{y},{z}) {ci}->{co}: "
-                                 f"error {err} > {bound}")
-        worst = max(worst, err)
-        leg_ms += count * t_k
-        leg_plain_ms += count * t_p
-        leg_lib_ms += count * t_l
-        leg_bound_ms += count * t_b
-    print(f"[conv] U-Net a 3x3x3 layers per volume (16 tiles): kernel "
-          f"{leg_ms:.3f} ms, plain {leg_plain_ms:.3f} ms, cuDNN "
-          f"{leg_lib_ms:.3f} ms, least {leg_bound_ms:.3f} ms")
-    # the backbone's layers per volume are the kernel's headline numbers
-    return dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=max(bound_by, key=bound_by.get),
-                library_ms=lib_ms,
-                unet_ms=leg_ms, unet_plain_ms=leg_plain_ms,
-                unet_bound_ms=leg_bound_ms, unet_library_ms=leg_lib_ms)
+        r = conv_row(xin, w, b, relu=not batched)
+        (t_b, by), (t_tc, by_tc) = r["bound"], r["tc_bound"]
+        print(f"[conv] {model} {'x'.join(map(str, lead + tuple(shape)))} "
+              f"{ci}->{co} x{count}: {r['kernel']} {r['ms']:.3f} ms "
+              f"{r['tflops']:.1f} TFLOP/s, max_abs_err {r['err']:.3e} (tol "
+              f"{r['tol']:.3e}); direct {r['direct_ms']:.3f} ms, cuDNN "
+              f"{r['library_ms']:.3f} ms, plain {r['plain_ms']:.3f} ms; "
+              f"least f32 {t_b:.4f} ms ({by}), three-pass TF32 "
+              f"{t_tc:.4f} ms ({by_tc})")
+        if not r["err"] <= r["tol"]:
+            raise AssertionError(f"conv {model} {shape} {ci}->{co}: error "
+                                 f"{r['err']} > {r['tol']}")
+        pre = "unet_" if batched else ""
+        acc = out[r["kernel"]]
+        acc["max_abs_err"] = max(acc.get("max_abs_err", 0.0), r["err"])
+        # a kernel's bound is that of the work it does: f32 FMAs for the
+        # direct kernel, three TF32 products per multiply for the wgmma one
+        own, own_by = (t_tc, by_tc) if r["kernel"] == "wgmma" else (t_b, by)
+        sums = dict(ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=own,
+                    library_ms=r["library_ms"])
+        if r["kernel"] == "wgmma":
+            sums.update(tc_bound_ms=t_tc, f32_bound_ms=t_b)
+        for key, v in sums.items():
+            acc[pre + key] = acc.get(pre + key, 0.0) + count * v
+        d = out["direct"]
+        d[pre + "all_layers_ms"] = d.get(pre + "all_layers_ms", 0.0) + \
+            count * r["direct_ms"]
+        if not batched:
+            by_ms = acc.setdefault("_bound_by", {})
+            by_ms[own_by] = by_ms.get(own_by, 0.0) + count * own
+    for name, acc in out.items():
+        by_ms = acc.pop("_bound_by")
+        acc["bound_by"] = max(by_ms, key=by_ms.get)
+        print(f"[conv] {name} per volume: backbone {acc['ms']:.3f} ms "
+              f"(cuDNN {acc['library_ms']:.3f}, least "
+              f"{acc['bound_ms']:.3f}); U-Net a {acc['unet_ms']:.3f} ms "
+              f"(cuDNN {acc['unet_library_ms']:.3f}, least "
+              f"{acc['unet_bound_ms']:.3f})")
+    w = out["wgmma"]
+    print(f"[conv] wgmma bounds per volume: backbone f32 "
+          f"{w['f32_bound_ms']:.3f} / three-pass TF32 {w['tc_bound_ms']:.3f}"
+          f" ms; U-Net a f32 {w['unet_f32_bound_ms']:.3f} / three-pass TF32 "
+          f"{w['unet_tc_bound_ms']:.3f} ms")
+    d = out["direct"]
+    print(f"[conv] per volume, routed: backbone "
+          f"{out['wgmma']['ms'] + d['ms']:.3f} ms, U-Net a "
+          f"{out['wgmma']['unet_ms'] + d['unet_ms']:.3f} ms; the direct "
+          f"kernel on every layer: backbone {d['all_layers_ms']:.3f} ms, "
+          f"U-Net a {d['unet_all_layers_ms']:.3f} ms")
+    return out
 
 
 def synthetic_overlaps(dev, n=N_CELLS, shape=(Y, X, Z), seed=1):
@@ -381,8 +441,8 @@ def counted(fn):
     returns its result and every counter as read just after it."""
     import torch
     from t3dct_torch.ops import hopper_cc, hopper_conv, hopper_flood, ladder
-    wrappers = (hopper_conv.conv3x3x3_bias_relu, hopper_flood.flood_slices,
-                hopper_cc.cc_label) + ladder.KERNELS
+    wrappers = hopper_conv.KERNELS + (hopper_flood.flood_slices,
+                                      hopper_cc.cc_label) + ladder.KERNELS
     for w in wrappers:
         w.launches = 0
     out = fn()
@@ -412,7 +472,9 @@ def phase_slice(dev):
     print(f"[slice] wall {wall:.2f} s for {n_vols} volumes (incl. vol-1 "
           f"interpolate); launches {launches}")
     # the v1.0 path runs no mask connected components
-    if min(launches["conv3x3x3_bias_relu"], launches["flood_slices"]) <= 0:
+    check_conv_launches("v1.0", launches, n_vols, stem_count(
+        [(ci, co, n) for *_, ci, co, n in CONV_LAYERS]))
+    if launches["flood_slices"] <= 0:
         raise AssertionError(f"a kernel was not launched on the main path: "
                              f"{launches}")
     seg_ms = timer.times["seg"]
@@ -520,8 +582,10 @@ def phase_legacy(dev):
     print(f"[legacy] U-Net a, {len(vols_xyz)} x {vols_xyz[0].shape} "
           f"(x, y, z), {res.cells[1]} cells at t=1: wall {wall:.2f} s "
           f"(incl. vol-1 interpolate); launches {launches}")
-    if min(launches[k] for k in ("conv3x3x3_bias_relu", "flood_slices",
-                                 "cc_label")) <= 0:
+    check_conv_launches("legacy", launches, n_vols, stem_count(
+        [(ci, co, n) for (*_, ci, co), n
+         in unet_conv_layers(unet3_a()).items()]))
+    if min(launches[k] for k in ("flood_slices", "cc_label")) <= 0:
         raise AssertionError(f"a kernel was not launched on the legacy "
                              f"path: {launches}")
     seg_t = timer.times["seg"][-N_TIMED:]
@@ -629,7 +693,7 @@ def phase_probe(dev):
             continue
         if "gflop" in rec:
             names = [k[:-3] for k in rec if k.endswith("_ms")
-                     and k != "bound_ms"]
+                     and k not in ("bound_ms", "tc_bound_ms")]
             row = "  ".join(
                 f"{n} {rec[n + '_ms']:.3f} ms "
                 f"{rec.get(n + '_tflops', rec.get(n + '_eff_tflops')):.1f}"
@@ -637,11 +701,14 @@ def phase_probe(dev):
                                if n + "_maxerr" in rec else "")
                 for n in names)
             print(f"[probe] {key} ({rec['gflop']:.2f} GFLOP, least "
-                  f"{rec['bound_ms']:.3f} ms by {rec['bound_by']}): {row}")
+                  f"{rec['bound_ms']:.3f} ms by {rec['bound_by']}, three-pass"
+                  f" TF32 {rec['tc_bound_ms']:.3f} ms): {row}")
         else:
             lib = rec["library_ms"]
+            f32 = (f" (three-pass TF32; f32 {rec['f32_bound_ms']:.4f} ms)"
+                   if "f32_bound_ms" in rec else "")
             print(f"[probe] {key}: {rec['ms']:.4f} ms, least "
-                  f"{rec['bound_ms']:.4f} ms by {rec['bound_by']}, plain "
+                  f"{rec['bound_ms']:.4f} ms by {rec['bound_by']}{f32}, plain "
                   f"{rec['plain_ms']:.4f} ms, library "
                   f"{'-' if lib is None else f'{lib:.4f}'} ms, "
                   f"{rec['tflops']:.2f} TFLOP/s, max_abs_err "
@@ -657,9 +724,11 @@ def phase_probe(dev):
             raise AssertionError(f"probe {name} failed")
     missing = [k.__name__ for k in ladder.KERNELS
                if launches[k.__name__] <= 0]
-    if missing or launches["conv3x3x3_bias_relu"] <= 0:
+    if missing:
         raise AssertionError(f"a kernel was not launched on the probe "
                              f"path: {launches}")
+    # every conv of the probe has c_in 32: no stem
+    check_conv_launches("probe", launches, 0, 0)
     return res, launches
 
 
@@ -698,10 +767,14 @@ def main() -> int:
                     launches_by_path=by_path)
 
     kernels = [
-        dict(name="conv3x3x3_bias_relu", route="cuda",
+        dict(name="conv3x3x3_wgmma", route="cuda",
+             source="3deecelltracker_tpu_torch/csrc/conv3x3x3_wgmma.cu",
+             replaces="3deecelltracker_tpu/ops/pallas_conv.py:89",
+             **counts("conv3x3x3_wgmma"), **conv["wgmma"]),
+        dict(name="conv3x3x3_direct", route="cuda",
              source="3deecelltracker_tpu_torch/csrc/conv3x3x3.cu",
              replaces="3deecelltracker_tpu/ops/pallas_conv.py:89",
-             **counts("conv3x3x3_bias_relu"), **conv),
+             **counts("conv3x3x3_direct"), **conv["direct"]),
         dict(name="flood_slices", route="cuda",
              source="3deecelltracker_tpu_torch/csrc/flood.cu",
              replaces="3deecelltracker_tpu/ops/pallas_kernels.py:162",

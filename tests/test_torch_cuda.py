@@ -35,40 +35,104 @@ def dev():
     return torch.device("cuda")
 
 
+def _counts():
+    return [k.launches for k in hopper_conv.KERNELS]
+
+
+def _conv_case(shape, seed, batch=()):
+    z, y, x, ci, co = shape
+    g = torch.Generator().manual_seed(seed)
+    xin = torch.randn(batch + (z, y, x, ci), generator=g)
+    w = torch.randn((3, 3, 3, ci, co), generator=g) / (27 * ci) ** 0.5
+    b = torch.randn((co,), generator=g)
+    return xin, w, b
+
+
+def _held(got, want):
+    # f32 accumulation in a different summation order than cuDNN (TF32 off)
+    bound = 1e-5 * float(want.abs().max()) + 1e-6
+    assert float((got - want).abs().max()) <= bound
+
+
 @pytest.mark.parametrize("relu", [True, False])
 @pytest.mark.parametrize("shape", [(3, 17, 19, 1, 8), (4, 20, 35, 12, 40),
                                    (2, 16, 16, 33, 64)])
 def test_conv_kernel_matches_plain(dev, shape, relu):
-    z, y, x, ci, co = shape
-    g = torch.Generator().manual_seed(ci)
-    xin = torch.randn((z, y, x, ci), generator=g).to(dev)
-    w = (torch.randn((3, 3, 3, ci, co), generator=g) / (27 * ci) ** 0.5
-         ).to(dev)
-    b = torch.randn((co,), generator=g).to(dev)
-    n0 = hopper_conv.conv3x3x3_bias_relu.launches
+    """Widths off the tensor-core rule (c_in 1, 12, 33) take the direct
+    kernel: one launch of it, none of the other."""
+    xin, w, b = (t.to(dev) for t in _conv_case(shape, shape[3]))
+    assert hopper_conv.route(shape[3], shape[4]) == "direct"
+    n0 = _counts()
     got = hopper_conv.conv3x3x3_bias_relu(xin, w, b, relu=relu)
     want = hopper_conv.conv3x3x3_bias_relu_plain(xin, w, b, relu=relu)
     torch.cuda.synchronize()
-    assert hopper_conv.conv3x3x3_bias_relu.launches == n0 + 1
-    # f32 accumulation in a different summation order than cuDNN
-    bound = 1e-5 * float(want.abs().max()) + 1e-6
-    assert float((got - want).abs().max()) <= bound
+    assert _counts() == [n0[0] + 1, n0[1]]
+    _held(got, want)
 
 
 def test_conv_kernel_batch_is_one_launch(dev):
     """A tile batch (the legacy U-Net's layers) is one launch and equals
-    the plain batched conv, without the ReLU as the U-Net calls it."""
-    g = torch.Generator().manual_seed(5)
-    xin = torch.randn((5, 24, 20, 16, 8), generator=g).to(dev)
-    w = (torch.randn((3, 3, 3, 8, 16), generator=g) / (27 * 8) ** 0.5).to(dev)
-    b = torch.randn((16,), generator=g).to(dev)
-    n0 = hopper_conv.conv3x3x3_bias_relu.launches
+    the plain batched conv, without the ReLU as the U-Net calls it; at
+    c_in 8 -> c_out 16 it is the tensor-core kernel's launch."""
+    xin, w, b = (t.to(dev) for t in _conv_case((24, 20, 16, 8, 16), 5,
+                                               (5,)))
+    n0 = _counts()
     got = hopper_conv.conv3x3x3_bias_relu(xin, w, b, relu=False)
     want = hopper_conv.conv3x3x3_bias_relu_plain(xin, w, b, relu=False)
     torch.cuda.synchronize()
-    assert hopper_conv.conv3x3x3_bias_relu.launches == n0 + 1
-    bound = 1e-5 * float(want.abs().max()) + 1e-6
-    assert float((got - want).abs().max()) <= bound
+    assert _counts() == [n0[0], n0[1] + 1]
+    _held(got, want)
+
+
+@pytest.mark.parametrize("relu", [True, False])
+@pytest.mark.parametrize("shape", [
+    (1, 17, 19, 8, 8), (2, 17, 19, 32, 16), (2, 9, 33, 96, 32),
+    (1, 12, 20, 192, 64), (2, 17, 19, 32, 128), (3, 8, 16, 8, 64),
+    (2, 11, 7, 16, 136), (2, 13, 21, 8, 24)])
+def test_wgmma_kernel_matches_plain(dev, shape, relu):
+    """c_out 8-128 (every N tile), 136 (two tiles) and 24 (a padded tile);
+    c_in 8, 16, 32, 96 and 192; ragged y/x edges (17x19, 9x33, 11x7); z = 1,
+    2 and 3.  One launch of the tensor-core kernel, none of the other."""
+    xin, w, b = (t.to(dev) for t in _conv_case(shape, sum(shape)))
+    assert hopper_conv.route(shape[3], shape[4]) == "wgmma"
+    n0 = _counts()
+    got = hopper_conv.conv3x3x3_bias_relu(xin, w, b, relu=relu)
+    want = hopper_conv.conv3x3x3_bias_relu_plain(xin, w, b, relu=relu)
+    torch.cuda.synchronize()
+    assert _counts() == [n0[0], n0[1] + 1]
+    assert got.shape == want.shape
+    _held(got, want)
+
+
+@pytest.mark.parametrize("shape", [(2, 17, 19, 32, 8), (1, 9, 21, 8, 128)])
+def test_wgmma_kernel_batch_of_five(dev, shape):
+    """Five volumes in one launch: a z-halo at a volume's edge reads zeros,
+    not the next volume."""
+    xin, w, b = (t.to(dev) for t in _conv_case(shape, 11, (5,)))
+    n0 = hopper_conv.conv3x3x3_wgmma.launches
+    got = hopper_conv.conv3x3x3_wgmma(xin, w, b, relu=False)
+    want = hopper_conv.conv3x3x3_bias_relu_plain(xin, w, b, relu=False)
+    torch.cuda.synchronize()
+    assert hopper_conv.conv3x3x3_wgmma.launches == n0 + 1
+    _held(got, want)
+    for i in range(5):
+        _held(got[i], hopper_conv.conv3x3x3_bias_relu_plain(
+            xin[i], w, b, relu=False))
+
+
+def test_wgmma_kernel_raises_without_fallback(dev):
+    """A misaligned input or widths off the rule raise on the card; nothing
+    is launched and no other kernel takes the call."""
+    xin, w, b = (t.to(dev) for t in _conv_case((2, 8, 16, 8, 16), 2))
+    flat = torch.zeros(xin.numel() + 1, device=dev)
+    shifted = flat[1:].view(xin.shape)       # 4 bytes off a 16-byte line
+    n0 = _counts()
+    with pytest.raises(ValueError):
+        hopper_conv.conv3x3x3_bias_relu(shifted, w, b)
+    with pytest.raises(ValueError):
+        hopper_conv.conv3x3x3_wgmma(xin[..., :4].contiguous(),
+                                    w[:, :, :, :4].contiguous(), b)
+    assert _counts() == n0
 
 
 @pytest.mark.parametrize("per_slice", [False, True])

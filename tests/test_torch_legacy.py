@@ -178,10 +178,10 @@ def test_slice_rejects_ensemble():
 
 
 def test_cpu_slice_launches_no_kernel():
-    """On CPU tensors the three kernel wrappers run their plain versions:
+    """On CPU tensors the four kernel wrappers run their plain versions:
     the launch counters stay 0 through the legacy slice."""
-    counters = (hopper_conv.conv3x3x3_bias_relu, hopper_flood.flood_slices,
-                hopper_cc.cc_label)
+    counters = hopper_conv.KERNELS + (hopper_flood.flood_slices,
+                                      hopper_cc.cc_label)
     before = [c.launches for c in counters]
     tm, _, (ffn, _) = models()
     vols = [volume_at(t)[0] for t in (1, 2)]
@@ -189,7 +189,7 @@ def test_cpu_slice_launches_no_kernel():
         vols, tm, ffn, volume_at(1)[1], SegmentationConfig(**SEG),
         TrackingConfig(**TRACK), max_cells=MAX_CELLS, device="cpu")
     assert res.coords[2].shape == (4, 3)
-    assert [c.launches for c in counters] == before == [0, 0, 0]
+    assert [c.launches for c in counters] == before == [0, 0, 0, 0]
 
 
 def test_segment_matches():

@@ -114,7 +114,7 @@ def test_cpu_dispatch_takes_plain_path():
     from t3dct_torch.config import TrackingConfig
     from t3dct_torch.engine.pipeline import segment_and_track_arrays
     from t3dct_torch.ops import hopper_conv, hopper_flood
-    conv0 = hopper_conv.conv3x3x3_bias_relu.launches
+    conv0 = [k.launches for k in hopper_conv.KERNELS]
     flood0 = hopper_flood.flood_slices.launches
     _, tm = stardist_pair()
     _, ffn = ffn_pair()
@@ -122,7 +122,7 @@ def test_cpu_dispatch_takes_plain_path():
     res = segment_and_track_arrays(vols, tm, lab, ffn, VOXEL_SIZE, INTERP,
                                    TrackingConfig(), device="cpu")
     assert res.coords[2].shape == res.coords[1].shape
-    assert hopper_conv.conv3x3x3_bias_relu.launches == conv0 == 0
+    assert [k.launches for k in hopper_conv.KERNELS] == conv0 == [0, 0]
     assert hopper_flood.flood_slices.launches == flood0 == 0
 
 
