@@ -15,7 +15,10 @@ launches exactly one of two hand-written kernels, chosen by :func:`route`:
   described here (:func:`tma_halo_args`) and made in the ``.cu``;
 - ``csrc/conv3x3x3.cu`` (:func:`conv3x3x3_direct`) otherwise, i.e. the
   ``c_in = 1`` stems, whose 4-byte channel stride TMA cannot take: a direct
-  convolution on the f32 CUDA cores.
+  convolution on the f32 CUDA cores, built for a layer bound by its bytes
+  (exact widths, a z-march over a ring of halo planes, coalesced
+  channels-last stores).  Its output tile and z-segments are planned here
+  (:func:`direct_plan`).
 
 On a CPU tensor every entry point runs :func:`conv3x3x3_bias_relu_plain`.
 There is no fallback between the three.
@@ -32,8 +35,12 @@ import torch.nn.functional as F
 
 from ..utils import cuda_build
 
-COT = 32              # output channels per block (csrc/conv3x3x3.cu)
 GRID_Z_MAX = 65535    # CUDA's limit on gridDim.y and gridDim.z
+# csrc/conv3x3x3.cu: its output tiles (channels), the widths of its pixel
+# tile, and the blocks per SM its grid aims for (two resident, two waves)
+DIRECT_TILES = (8, 16, 32)
+DIRECT_TX = (16, 32)
+DIRECT_FILL = 4
 # csrc/conv3x3x3_wgmma.cu: channels per K step (wgmma tf32 k8), its N tiles,
 # and its 16 (x) by 8 (y) output tile
 CK = 8
@@ -64,6 +71,44 @@ def route(c_in: int, c_out: int) -> str:
     are multiples of 8 (TMA's 16-byte stride rule and the k8 step),
     ``"direct"`` otherwise."""
     return "wgmma" if c_in % CK == 0 and c_out % CK == 0 else "direct"
+
+
+def direct_tile(c_out: int) -> int:
+    """The direct kernel's output tile for ``c_out`` channels: the
+    narrowest of ``DIRECT_TILES`` that holds them, 32 above that (several
+    tiles)."""
+    return next((n for n in DIRECT_TILES if n >= c_out), DIRECT_TILES[-1])
+
+
+def direct_tx(x: int) -> int:
+    """The x width of the direct kernel's pixel tile for a volume ``x``
+    wide: 16 up to 16 (U-Net a's stem sees its 16-deep tiles as x), else
+    32."""
+    return DIRECT_TX[0] if x <= DIRECT_TX[0] else DIRECT_TX[1]
+
+
+def direct_rows(tile: int, tx: int) -> int:
+    """The y rows of the direct kernel's pixel tile for output tile
+    ``tile`` and width ``tx``: 256 threads of 8 pixels x 4 channels."""
+    return 256 * 4 * 8 // (tile * tx)
+
+
+def direct_plan(shape: Sequence[int], c_out: int, n_sm: int
+                ) -> Tuple[int, int, int, int]:
+    """``(tile, tx, zs, blocks)`` of the direct kernel on a (b, z, y, x,
+    c_in) batch: its output tile (:func:`direct_tile`), its pixel tile's
+    width (:func:`direct_tx`), the z-planes each block
+    marches over, and the grid.  A block owns one (y, x) tile, one c_out
+    tile and one z-segment.  Each segment reads two extra halo planes, so z
+    is cut into the fewest segments of equal length that give
+    ``DIRECT_FILL`` blocks per SM (into single planes if none do)."""
+    b, z, y, x = (int(s) for s in shape[:4])
+    tile, tx = direct_tile(c_out), direct_tx(x)
+    base = b * -(-c_out // tile) * -(-y // direct_rows(tile, tx)) * \
+        -(-x // tx)
+    zs = next((-(-z // n) for n in range(1, z + 1)
+               if base * -(-z // -(-z // n)) >= DIRECT_FILL * n_sm), 1)
+    return tile, tx, zs, base * -(-z // zs)
 
 
 # ---- the tensor-core kernel's host side ------------------------------------
@@ -169,25 +214,22 @@ def _check(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> None:
 def _launch_direct(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                    relu: bool) -> torch.Tensor:
     lib = cuda_build.load("conv3x3x3")
-    fn = lib.conv3x3x3_bias_relu_f32
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + \
+    fn = lib.conv3x3x3_direct_f32
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 10 + \
         [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     xb = x if x.dim() == 5 else x[None]
     nb, z, y, xl, c_in = xb.shape
-    c_out = w.shape[4]
+    c_out = int(w.shape[4])
     out = torch.empty((nb, z, y, xl, c_out), dtype=torch.float32,
                       device=x.device)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    # grid.z holds batch x z x c_out chunks: split batches that overflow it
-    per_launch = max(1, GRID_Z_MAX // (z * -(-c_out // COT)))
-    for b0 in range(0, nb, per_launch):
-        nb_i = min(per_launch, nb - b0)
-        err = fn(xb[b0].data_ptr(), w.data_ptr(), b.data_ptr(),
-                 out[b0].data_ptr(), nb_i, z, y, xl, c_in, c_out, int(relu),
-                 stream)
-        cuda_build.check(err, "conv3x3x3_direct")
-        conv3x3x3_direct.launches += 1
+    n_sm = torch.cuda.get_device_properties(x.device).multi_processor_count
+    tile, tx, zs, _ = direct_plan(xb.shape, c_out, n_sm)
+    err = fn(xb.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(), nb,
+             z, y, xl, c_in, c_out, tile, tx, zs, int(relu),
+             torch.cuda.current_stream(x.device).cuda_stream)
+    cuda_build.check(err, "conv3x3x3_direct")
+    conv3x3x3_direct.launches += 1
     return out if x.dim() == 5 else out[0]
 
 
@@ -227,6 +269,20 @@ def _launch_wgmma(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     return out if x.dim() == 5 else out[0]
 
 
+def direct_smem_bytes(c_in: int, tile: int, tx: int) -> int:
+    """The dynamic shared memory of a block of the direct kernel for
+    ``c_in`` channels, output tile ``tile`` and pixel tile width ``tx``, in
+    bytes (builds it)."""
+    fn = cuda_build.load("conv3x3x3").conv3x3x3_direct_smem_bytes
+    fn.argtypes = [ctypes.c_int] * 3
+    fn.restype = ctypes.c_int
+    out = fn(c_in, tile, tx)
+    if out < 0:
+        raise ValueError(f"no tile ({tile}, {tx}); the kernel has "
+                         f"{DIRECT_TILES} x {DIRECT_TX}")
+    return out
+
+
 def wgmma_smem_bytes(nb: int) -> int:
     """The dynamic shared memory of a block of the tensor-core kernel with
     N tile ``nb``, in bytes, as the ``.cu`` sizes it (builds it)."""
@@ -241,8 +297,8 @@ def wgmma_smem_bytes(nb: int) -> int:
 
 def conv3x3x3_direct(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                      relu: bool = True) -> torch.Tensor:
-    """The f32 CUDA-core kernel (``csrc/conv3x3x3.cu``), any widths: one
-    launch per batch (counted in ``conv3x3x3_direct.launches``) on a CUDA
+    """The f32 CUDA-core kernel (``csrc/conv3x3x3.cu``), any widths, built
+    for the c_in = 1 stems: one launch per batch (counted in ``conv3x3x3_direct.launches``) on a CUDA
     tensor, the plain version on a CPU tensor."""
     _check(x, w, b)
     if x.device.type == "cpu":

@@ -5,12 +5,13 @@ plain version.
 flood_slices`` (body ``_flood_kernel``): every masked voxel of each z-slice
 of an (x, y, z) stack takes the label of the marker reachable with the
 smallest (max elevation along the path, path length), 4-neighbourhood,
-synchronous rounds to a fixed point or ``max_iters``.  On CUDA tensors each
-round is one launch of ``csrc/flood.cu`` (design and bound: see the note at
-the top of that file); on CPU tensors :func:`flood_slices_plain` runs the
-same rounds in PyTorch.  The host looks at the per-round change flags only
+synchronous rounds to a fixed point or ``max_iters``.  On CUDA tensors one
+persistent launch of ``csrc/flood.cu`` runs every round and finds
+convergence on the device (design and bound: see the note at the top of
+that file); on CPU tensors :func:`flood_slices_plain` runs the same rounds
+in PyTorch.  The plain version looks at its per-round change flags only
 every ``CHECK_EVERY`` rounds: a converged state is a fixed point, so the
-extra rounds change nothing.
+extra rounds change nothing but the round count.
 """
 
 from __future__ import annotations
@@ -24,9 +25,10 @@ from ..utils import cuda_build
 from .neighborhood import neighbor_offsets, shift
 
 INF = 3e38
-# rounds between host reads of the change flags (any value gives the same
-# labels: a converged state is a fixed point)
+# rounds between the plain version's host reads of the change flags (any
+# value gives the same labels: a converged state is a fixed point)
 CHECK_EVERY = 16
+TILE = 1024       # voxels per tile of csrc/flood.cu
 
 
 def _init_state(elevation: torch.Tensor, markers: torch.Tensor,
@@ -108,49 +110,43 @@ def _check(elevation, markers, mask) -> None:
                              f"{elevation.device}")
 
 
-def _launch_round(lib, bufs_in, bufs_out, elev, upd, flag, stream):
-    for t in (*bufs_in, *bufs_out, elev, upd, flag):
-        if not (t.is_cuda and t.is_contiguous()):
-            raise ValueError("flood buffers must be contiguous CUDA tensors")
-    s, nx, ny = elev.shape
-    err = lib.flood_round_f32(
-        elev.data_ptr(), upd.data_ptr(),
-        *(t.data_ptr() for t in bufs_in), *(t.data_ptr() for t in bufs_out),
-        flag.data_ptr(), s, nx, ny, stream)
-    cuda_build.check(err, "flood_slices")
-    flood_slices.launches += 1
+def active_tiles(markers: torch.Tensor, mask: torch.Tensor,
+                 tile: int = TILE) -> int:
+    """How many tiles the kernel lists: runs of ``tile`` consecutive voxels
+    of the flat (x, y, z) index that hold at least one updatable voxel
+    (masked, not a marker).  Only those are visited by the rounds."""
+    upd = ((mask != 0) & ~(markers > 0)).reshape(-1)
+    pad = -upd.numel() % tile
+    upd = torch.cat((upd, upd.new_zeros(pad)))
+    return int(upd.view(-1, tile).any(dim=1).sum())
 
 
 def _flood_cuda(elevation, markers, mask, max_iters: int
                 ) -> Tuple[torch.Tensor, int]:
     lib = cuda_build.load("flood")
-    fn = lib.flood_round_f32
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 3 + \
+    fn = lib.flood_slices_f32
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + \
         [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    # slices as contiguous (z, x, y), as the Pallas wrapper transposes
-    elev = elevation.permute(2, 0, 1).contiguous()
-    m, is_marker, lab, cost, hops = _init_state(
-        elev, markers.permute(2, 0, 1), mask.permute(2, 0, 1))
-    upd = (m & ~is_marker).to(torch.uint8).contiguous()
-    cur = [lab.contiguous(), cost.contiguous(), hops.contiguous()]
-    nxt = [torch.empty_like(t) for t in cur]
-    s = elev.shape[0]
-    flags = torch.zeros((CHECK_EVERY, s), dtype=torch.int32,
-                        device=elev.device)
-    stream = torch.cuda.current_stream(elev.device).cuda_stream
-    rounds = 0
-    while rounds < max_iters:
-        n = min(CHECK_EVERY, max_iters - rounds)
-        flags.zero_()
-        for r in range(n):
-            _launch_round(lib, cur, nxt, elev, upd, flags[r], stream)
-            cur, nxt = nxt, cur
-        rounds += n
-        # converged once some round changed no slice at all
-        if not bool(flags[:n].amax(dim=1).all()):
-            break
-    return torch.where(m, cur[0], 0).permute(1, 2, 0), rounds
+    size = lib.flood_scratch_bytes
+    size.argtypes = [ctypes.c_int] * 3
+    size.restype = ctypes.c_longlong
+    # the kernel works in the caller's (x, y, z) layout
+    elev, mk, m = (t.contiguous() for t in (elevation, markers, mask))
+    nx, ny, s = elev.shape
+    dev = elev.device
+    out = torch.empty(elev.shape, dtype=torch.int32, device=dev)
+    scratch = torch.empty((size(nx, ny, s),), dtype=torch.uint8, device=dev)
+    info = torch.empty((2,), dtype=torch.int32, device=dev)
+    err = fn(elev.data_ptr(), mk.data_ptr(), m.data_ptr(), out.data_ptr(),
+             scratch.data_ptr(), info.data_ptr(), nx, ny, s, max_iters,
+             torch.cuda.current_stream(dev).cuda_stream)
+    cuda_build.check(err, "flood_slices")
+    flood_slices.launches += 1
+    rounds, tiles = info.tolist()       # the one host sync of a call
+    flood_slices.rounds += rounds
+    flood_slices.tiles = tiles
+    return out, rounds
 
 
 def flood_slices(elevation: torch.Tensor, markers: torch.Tensor,
@@ -158,8 +154,11 @@ def flood_slices(elevation: torch.Tensor, markers: torch.Tensor,
                  ) -> Tuple[torch.Tensor, int]:
     """Flood ``markers`` over ``elevation`` within ``mask``, independently
     in every z-slice of an (x, y, z) stack.  Returns (int32 labels (x, y, z),
-    rounds run).  CUDA tensors launch the kernel once per round (counted in
-    ``flood_slices.launches``); CPU tensors take :func:`flood_slices_plain`.
+    rounds run).  CUDA tensors launch the kernel once per call (counted in
+    ``flood_slices.launches``; the rounds it ran add to
+    ``flood_slices.rounds``, and ``flood_slices.tiles`` keeps the last
+    call's tile count, :func:`active_tiles`); CPU tensors take
+    :func:`flood_slices_plain`.
     """
     _check(elevation, markers, mask)
     if elevation.device.type == "cpu":
@@ -170,3 +169,5 @@ def flood_slices(elevation: torch.Tensor, markers: torch.Tensor,
 
 
 flood_slices.launches = 0
+flood_slices.rounds = 0
+flood_slices.tiles = 0

@@ -6,7 +6,8 @@ compiled for ``sm_90a`` into its own shared library, and is loaded once per
 process.  Libraries are cached under ``_build/`` in the package (listed in
 ``.gitignore``) by a digest of the source and the flags, so a changed source
 never loads a stale build.  Beside each library, ``ptxas``'s report of its
-kernels (``-Xptxas -v``: registers, spills) is kept for
+kernels (``-Xptxas -v``: registers, spills, static shared memory) is kept
+for
 :func:`resource_usage`.  Nothing here runs at import time: the first kernel
 call builds.
 """
@@ -88,7 +89,8 @@ def load(name: str) -> ctypes.CDLL:
 
 def _demangle(symbol: str) -> str:
     """``conv_wgmma_kernel<128>`` from an Itanium-mangled kernel symbol
-    (nested names and integer template arguments); a C name as it is."""
+    (nested names, integer and bool template arguments); a C name as it
+    is."""
     m = re.match(r"_ZN?", symbol)
     if m is None:
         return symbol
@@ -98,16 +100,19 @@ def _demangle(symbol: str) -> str:
         i += d.end()
         parts.append(symbol[i:i + n])
         i += n
-    args = re.match(r"I((?:Li-?\d+E)+)E", symbol[i:])
+    args = re.match(r"I((?:L[ib]-?\d+E)+)E", symbol[i:])
     out = parts[-1] if parts else symbol
     if args:
-        out += "<" + ", ".join(re.findall(r"Li(-?\d+)E", args.group(1))) + ">"
+        vals = [v if t == "i" else ("true" if v == "1" else "false")
+                for t, v in re.findall(r"L([ib])(-?\d+)E", args.group(1))]
+        out += "<" + ", ".join(vals) + ">"
     return out
 
 
-def parse_ptxas(report: str) -> List[Tuple[str, int, int, int]]:
-    """``(kernel, registers, spill store bytes, spill load bytes)`` for each
-    entry function in a ``-Xptxas -v`` report."""
+def parse_ptxas(report: str) -> List[Tuple[str, int, int, int, int]]:
+    """``(kernel, registers, spill store bytes, spill load bytes, static
+    shared memory bytes)`` for each entry function in a ``-Xptxas -v``
+    report (dynamic shared memory is sized at launch, not here)."""
     out, name, spills = [], None, (0, 0)
     for line in report.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
@@ -121,12 +126,14 @@ def parse_ptxas(report: str) -> List[Tuple[str, int, int, int]]:
             continue
         m = re.search(r"Used (\d+) registers", line)
         if m and name is not None:
-            out.append((name, int(m.group(1))) + spills)
+            smem = re.search(r"(\d+) bytes smem", line)
+            out.append((name, int(m.group(1))) + spills +
+                       (int(smem.group(1)) if smem else 0,))
             name = None
     return out
 
 
-def resource_usage(name: str) -> List[Tuple[str, int, int, int]]:
+def resource_usage(name: str) -> List[Tuple[str, int, int, int, int]]:
     """:func:`parse_ptxas` of the build of ``csrc/<name>.cu`` (built
     first if it is not)."""
     return parse_ptxas(build(name).with_suffix(".ptxas.txt").read_text())

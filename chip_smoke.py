@@ -8,19 +8,22 @@ Phases (any failure raises and the script exits non-zero):
    limit as ``nvidia-smi`` reports them, and the torch/CUDA versions;
 2. build: compiles the five hand-written kernel sources from
    ``3deecelltracker_tpu_torch/csrc/`` with ``nvcc``, one each, all at once
-   (into the package's ``_build/``), and prints each kernel's registers and
-   spills as ``ptxas`` reports them, and the tensor-core conv's shared
-   memory per block;
+   (into the package's ``_build/``), and prints each kernel's registers,
+   spills and static shared memory as ``ptxas`` reports them, and the
+   dynamic shared memory per block of both conv kernels;
 3. conv check: the 3x3x3 conv through its router at every 3x3x3 layer
    shape of the bench backbone, and of the legacy U-Net a (a batch of 16
    tiles of (160, 160, 16) and its pooled levels, without the ReLU): the
    kernel that ran (the three-pass TF32 ``wgmma`` kernel, or the direct
    f32 kernel for the c_in = 1 stems) against the plain version (cuDNN with
-   TF32 off); per layer its time and TFLOP/s, the direct kernel's time on
-   the same layer (interleaved), cuDNN's, the plain version's, the f32
-   bound and the three-pass TF32 bound;
+   TF32 off); per layer its time and TFLOP/s, cuDNN's, the plain version's,
+   the f32 bound and the three-pass TF32 bound; for the stems, the direct
+   kernel's time beside cuDNN's and its byte bound;
 4. flood check: the per-slice flood kernel against its plain version on 24
-   slices of 401x168 made from a synthetic label volume with overlaps;
+   slices of 401x168 made from a synthetic label volume with overlaps,
+   exactly; its time, its launches per call (one), its rounds (exact) and
+   the plain version's (a multiple of ``CHECK_EVERY``), and its tile list
+   against ``active_tiles``;
 5. cc check: the connected-components kernel against its plain version,
    exactly, on the (401, 168, 24) pipeline frame: the 26-conn 3-D peak mask
    of the bench scene's smoothed EDT, the 8-conn per-slice 2-D peak masks,
@@ -31,6 +34,7 @@ Phases (any failure raises and the script exits non-zero):
    volume, 5 timed ones.  Every kernel's launch counter is reset just
    before this run and read just after; the ``wgmma`` conv's and the
    flood's counts must be > 0, the direct conv's one per volume (the stem);
+   the flood's launches and rounds are printed;
 7. small-scene parity: that slice on a small scene, once on the card and
    once on the CPU (plain versions); see ``phase_small_parity`` for the
    bound;
@@ -39,7 +43,7 @@ Phases (any failure raises and the script exits non-zero):
    (401, 168, 24), 16 tiles per volume, the ``examples/use_unet_legacy.py``
    settings, 1 + 1 + 5 volumes; every counter reset before and read after,
    the ``wgmma`` conv, flood and cc must each be > 0, the direct conv one
-   per volume (the stem);
+   per volume (the stem); the flood's launches and rounds are printed;
 9. legacy small-scene parity: the legacy slice on a small scene, card vs
    CPU; see ``phase_legacy_small_parity``;
 10. the conv probe: ``scripts.probe_conv_fast.run`` at the backbone's hot
@@ -131,6 +135,16 @@ def stem_count(layers):
     return sum(n for ci, co, n in layers if route(ci, co) == "direct")
 
 
+def check_flood_launches(path, launches, n_vols):
+    """The flood ran on ``path``: print its launches and rounds."""
+    n, rounds = launches["flood_slices"], launches["flood_rounds"]
+    if n <= 0:
+        raise AssertionError(f"{path}: the flood was not launched: "
+                             f"{launches}")
+    print(f"[{path}] flood: {n} launches ({n / n_vols:.2f} per volume), "
+          f"{rounds} rounds ({rounds / n:.1f} per launch)")
+
+
 def check_conv_launches(path, launches, n_vols, stems):
     """The tensor-core conv ran on ``path``, and the direct kernel exactly
     once per stem layer of each of the ``n_vols`` volumes."""
@@ -154,6 +168,28 @@ def cuda_ms(fn, reps=10, warmup=2):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, kernel, reps=5):
+    """The device time of ``kernel`` (a substring of its name) per call of
+    ``fn``, from ``torch.profiler``'s CUDA trace over ``reps`` calls after
+    a warm-up; None where the trace holds no device time for it."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(getattr(e, "device_time_total", 0.0)
+             for e in prof.key_averages() if kernel in e.key)
+    return us / reps / 1e3 if us > 0 else None
+
+
+def fmt_ms(t):
+    return "not measured" if t is None else f"{t:.4f} ms"
 
 
 def phase_device():
@@ -184,20 +220,25 @@ def phase_build():
         secs = list(pool.map(one, names))
     for name, sec in zip(names, secs):
         cuda_build.load(name)
-        usage = "; ".join(f"{k} {r} registers, spills {st}/{ld} B"
-                          for k, r, st, ld in cuda_build.resource_usage(name))
+        usage = "; ".join(
+            f"{k} {r} registers, spills {st}/{ld} B, smem {sm} B"
+            for k, r, st, ld, sm in cuda_build.resource_usage(name))
         print(f"[build] {name}: {sec:.2f} s; ptxas: {usage}")
     print(f"[build] all: {time.perf_counter() - t0:.2f} s")
     from t3dct_torch.ops import hopper_conv
     print("[build] conv3x3x3_wgmma dynamic shared memory per block: " +
           ", ".join(f"N tile {nb}: {hopper_conv.wgmma_smem_bytes(nb)} B"
                     for nb in hopper_conv.N_TILES))
+    print("[build] conv3x3x3 (direct) dynamic shared memory per block: " +
+          ", ".join(f"c_in {ci} tile {t}x{tx}: "
+                    f"{hopper_conv.direct_smem_bytes(ci, t, tx)} B"
+                    for ci in (1, 12) for t in hopper_conv.DIRECT_TILES
+                    for tx in hopper_conv.DIRECT_TX))
 
 
 def conv_row(xin, w, b, relu):
     """One layer: the routed kernel's error against the plain version, and
-    times of the routed kernel and of the direct kernel, interleaved
-    (direct, routed, routed, direct), the plain version and cuDNN."""
+    times of the routed kernel, the plain version and cuDNN."""
     import torch
     from t3dct_torch.ops import hopper_conv
     from t3dct_torch.utils.roofline import (conv_bound, conv_flop,
@@ -209,15 +250,11 @@ def conv_row(xin, w, b, relu):
     err = float((got - ref).abs().max())
     tol = CONV_RTOL * float(ref.abs().max()) + CONV_ATOL
     del got, ref
-    routed = functools.partial(hopper_conv.conv3x3x3_bias_relu, xin, w, b,
-                               relu)
-    direct = functools.partial(hopper_conv.conv3x3x3_direct, xin, w, b, relu)
-    t_d1, t_k1, t_k2, t_d2 = (cuda_ms(f, reps, warmup)
-                              for f in (direct, routed, routed, direct))
-    ms = (t_k1 + t_k2) / 2
+    ms = cuda_ms(functools.partial(hopper_conv.conv3x3x3_bias_relu, xin, w,
+                                   b, relu), reps, warmup)
     return dict(
         kernel=hopper_conv.route(xin.shape[-1], w.shape[-1]), err=err,
-        tol=tol, ms=ms, direct_ms=(t_d1 + t_d2) / 2,
+        tol=tol, ms=ms,
         plain_ms=cuda_ms(lambda: hopper_conv.conv3x3x3_bias_relu_plain(
             xin, w, b, relu), reps, warmup),
         library_ms=cuda_ms(lambda: library_conv(xin, w, b), reps, warmup),
@@ -229,11 +266,11 @@ def phase_conv(dev):
     """Every 3x3x3 layer of the backbone and of U-Net a through the router;
     per kernel, its layers summed per volume (counts as the models run
     them).  The backbone's sums are each kernel's headline numbers, U-Net
-    a's ride along as ``unet_*``; the direct kernel's ``all_layers_ms`` is
-    its time on every layer, the earlier design's."""
+    a's ride along as ``unet_*``."""
     import torch
     from t3dct_torch.models.layers import glorot_uniform
     from t3dct_torch.models.unet3d import unet3_a
+    from t3dct_torch.ops import hopper_conv
     gen = torch.Generator().manual_seed(0)
     layers = [("backbone", (z, y, x), ci, co, n, False)
               for z, y, x, ci, co, n in CONV_LAYERS]
@@ -251,7 +288,7 @@ def phase_conv(dev):
         print(f"[conv] {model} {'x'.join(map(str, lead + tuple(shape)))} "
               f"{ci}->{co} x{count}: {r['kernel']} {r['ms']:.3f} ms "
               f"{r['tflops']:.1f} TFLOP/s, max_abs_err {r['err']:.3e} (tol "
-              f"{r['tol']:.3e}); direct {r['direct_ms']:.3f} ms, cuDNN "
+              f"{r['tol']:.3e}); cuDNN "
               f"{r['library_ms']:.3f} ms, plain {r['plain_ms']:.3f} ms; "
               f"least f32 {t_b:.4f} ms ({by}), three-pass TF32 "
               f"{t_tc:.4f} ms ({by_tc})")
@@ -270,9 +307,15 @@ def phase_conv(dev):
             sums.update(tc_bound_ms=t_tc, f32_bound_ms=t_b)
         for key, v in sums.items():
             acc[pre + key] = acc.get(pre + key, 0.0) + count * v
-        d = out["direct"]
-        d[pre + "all_layers_ms"] = d.get(pre + "all_layers_ms", 0.0) + \
-            count * r["direct_ms"]
+        if r["kernel"] == "direct":
+            dev_ms = device_ms(lambda: hopper_conv.conv3x3x3_direct(
+                xin, w, b, not batched), "conv_direct_kernel")
+            acc[pre + "device_ms"] = dev_ms
+            print(f"[conv] stem {model}: direct {r['ms']:.4f} ms (kernel on "
+                  f"the device {fmt_ms(dev_ms)}), cuDNN "
+                  f"{r['library_ms']:.4f} ms, least {t_b:.4f} ms ({by}); "
+                  f"{r['ms'] / r['library_ms']:.2f}x cuDNN, "
+                  f"{r['ms'] / t_b:.2f}x the bound")
         if not batched:
             by_ms = acc.setdefault("_bound_by", {})
             by_ms[own_by] = by_ms.get(own_by, 0.0) + count * own
@@ -292,9 +335,7 @@ def phase_conv(dev):
     d = out["direct"]
     print(f"[conv] per volume, routed: backbone "
           f"{out['wgmma']['ms'] + d['ms']:.3f} ms, U-Net a "
-          f"{out['wgmma']['unet_ms'] + d['unet_ms']:.3f} ms; the direct "
-          f"kernel on every layer: backbone {d['all_layers_ms']:.3f} ms, "
-          f"U-Net a {d['unet_all_layers_ms']:.3f} ms")
+          f"{out['wgmma']['unet_ms'] + d['unet_ms']:.3f} ms")
     return out
 
 
@@ -328,24 +369,47 @@ def phase_flood(dev):
     import torch
     from t3dct_torch.ops import hopper_flood
     elev, markers, mask, n_over = synthetic_overlaps(dev)
-    got, rounds = hopper_flood.flood_slices(elev, markers, mask)
+    flood = hopper_flood.flood_slices
+    n0 = flood.launches
+    got, rounds = flood(elev, markers, mask)
+    launches = flood.launches - n0
     ref, rounds_p = hopper_flood.flood_slices_plain(elev, markers, mask)
     torch.cuda.synchronize()
     if not torch.equal(got, ref):
         raise AssertionError(f"flood: {(got != ref).sum().item()} voxels "
                              "differ from the plain version")
-    t_k = cuda_ms(lambda: hopper_flood.flood_slices(elev, markers, mask),
-                  reps=3, warmup=1)
+    tiles = hopper_flood.active_tiles(markers, mask)
+    every = hopper_flood.CHECK_EVERY
+    # the kernel stops at the first quiet round, the plain version at the
+    # end of that round's batch of CHECK_EVERY
+    if launches != 1 or flood.tiles != tiles or \
+            not rounds_p - every < rounds <= rounds_p:
+        raise AssertionError(f"flood: {launches} launches, {rounds} rounds "
+                             f"(plain {rounds_p}), {flood.tiles} tiles "
+                             f"listed of {tiles}")
+    t_k = cuda_ms(lambda: flood(elev, markers, mask), reps=5, warmup=1)
+    # a call that runs no round: set-up, the labels' write and the host's
+    # read of the round count, i.e. what a call costs beside its rounds
+    t_0 = cuda_ms(lambda: flood(elev, markers, mask, max_iters=0), reps=5,
+                  warmup=1)
     t_p = cuda_ms(lambda: hopper_flood.flood_slices_plain(elev, markers,
                                                           mask),
                   reps=3, warmup=1)
+    t_dev = device_ms(lambda: flood(elev, markers, mask), "flood_kernel")
     from t3dct_torch.utils.roofline import bound, nbytes
     t_b, by = bound(0.0, nbytes(elev, markers, mask, got))
     print(f"[flood] {tuple(elev.shape)} overlap voxels {n_over}: exact, "
-          f"rounds {rounds} (plain {rounds_p})  kernel {t_k:.3f} ms  plain "
+          f"{launches} launch per call, rounds {rounds} (plain {rounds_p}), "
+          f"{tiles} of {-(-elev.numel() // hopper_flood.TILE)} tiles listed"
+          f"  kernel {t_k:.3f} ms (no round: {t_0:.3f} ms, so "
+          f"{(t_k - t_0) / max(rounds, 1) * 1e3:.1f} us a round; on the "
+          f"device {fmt_ms(t_dev)})  plain "
           f"{t_p:.3f} ms  least {t_b * 1e3:.2f} us")
     return dict(max_abs_err=0.0, ms=t_k, plain_ms=t_p, bound_ms=t_b,
-                bound_by=by, library_ms=None)
+                bound_by=by, library_ms=None, no_round_ms=t_0,
+                device_ms=t_dev,
+                rounds_per_call=rounds,
+                plain_rounds_per_call=rounds_p)
 
 
 def phase_cc(dev):
@@ -445,9 +509,12 @@ def counted(fn):
                                       hopper_cc.cc_label) + ladder.KERNELS
     for w in wrappers:
         w.launches = 0
+    hopper_flood.flood_slices.rounds = 0
     out = fn()
     torch.cuda.synchronize()
-    return out, {w.__name__: w.launches for w in wrappers}
+    counts = {w.__name__: w.launches for w in wrappers}
+    counts["flood_rounds"] = hopper_flood.flood_slices.rounds
+    return out, counts
 
 
 def phase_slice(dev):
@@ -474,9 +541,7 @@ def phase_slice(dev):
     # the v1.0 path runs no mask connected components
     check_conv_launches("v1.0", launches, n_vols, stem_count(
         [(ci, co, n) for *_, ci, co, n in CONV_LAYERS]))
-    if launches["flood_slices"] <= 0:
-        raise AssertionError(f"a kernel was not launched on the main path: "
-                             f"{launches}")
+    check_flood_launches("slice", launches, n_vols)
     seg_ms = timer.times["seg"]
     track_ms = timer.times["track"]
     # seg runs for t = 1..n, track for t = 2..n; timed = the last N_TIMED
@@ -585,7 +650,8 @@ def phase_legacy(dev):
     check_conv_launches("legacy", launches, n_vols, stem_count(
         [(ci, co, n) for (*_, ci, co), n
          in unet_conv_layers(unet3_a()).items()]))
-    if min(launches[k] for k in ("flood_slices", "cc_label")) <= 0:
+    check_flood_launches("legacy", launches, n_vols)
+    if launches["cc_label"] <= 0:
         raise AssertionError(f"a kernel was not launched on the legacy "
                              f"path: {launches}")
     seg_t = timer.times["seg"][-N_TIMED:]
@@ -778,7 +844,9 @@ def main() -> int:
         dict(name="flood_slices", route="cuda",
              source="3deecelltracker_tpu_torch/csrc/flood.cu",
              replaces="3deecelltracker_tpu/ops/pallas_kernels.py:162",
-             **counts("flood_slices"), **flood),
+             **counts("flood_slices"), **flood,
+             rounds_by_path={"v1.0": launches["flood_rounds"],
+                             "legacy": leg["flood_rounds"]}),
         dict(name="cc_label", route="cuda",
              source="3deecelltracker_tpu_torch/csrc/cc.cu",
              replaces="3deecelltracker_tpu/ops/pallas_kernels.py:92",

@@ -239,6 +239,51 @@ def test_routing_of_the_models_layers():
     assert sum(ci == 1 for ci, _ in unet) == 1
 
 
+@pytest.mark.parametrize("c_out", [1, 3, 8, 16, 32, 40, 64])
+def test_stems_route_to_the_direct_kernel(c_out):
+    """c_in = 1 is off the tensor-core rule at every c_out; the direct
+    kernel's output tile is the narrowest of 8 / 16 / 32 that holds c_out,
+    and 32 (several tiles) above that."""
+    assert hc.route(1, c_out) == "direct"
+    tile = hc.direct_tile(c_out)
+    holding = [t for t in hc.DIRECT_TILES if t >= c_out]
+    assert tile == (min(holding) if holding else 32)
+
+
+@pytest.mark.parametrize("shape,c_out", [
+    ((1, 24, 204, 84), 32), ((16, 160, 160, 16), 8), ((5, 3, 17, 19), 40),
+    ((1, 1, 9, 7), 1), ((2, 40, 300, 500), 16)])
+@pytest.mark.parametrize("n_sm", [1, 132])
+def test_direct_plan_covers_every_output_once(shape, c_out, n_sm):
+    """The grid the direct kernel is given, against a brute-force walk of
+    its blocks decoded as the kernel decodes them: every (batch, z, y
+    tile, x tile, channel) is written by exactly one block, and the z
+    segments are cut only as far as the fill target asks."""
+    b, z, y, x = shape
+    tile, tx, zs, blocks = hc.direct_plan(shape, c_out, n_sm)
+    assert tx == (16 if x <= 16 else 32)
+    ntx, nty = -(-x // tx), -(-y // hc.direct_rows(tile, tx))
+    assert hc.direct_rows(tile, tx) * tx * tile == 256 * 8 * 4
+    nzs, nco = -(-z // zs), -(-c_out // tile)
+    assert blocks == b * nco * nzs * nty * ntx
+    hits = np.zeros((b, z, nty, ntx, nco * tile), np.int32)
+    for blk in range(blocks):
+        tx, blk = blk % ntx, blk // ntx
+        ty, blk = blk % nty, blk // nty
+        zseg, blk = blk % nzs, blk // nzs
+        co, bi = blk % nco, blk // nco
+        hits[bi, zseg * zs:min(zseg * zs + zs, z), ty, tx,
+             co * tile:co * tile + tile] += 1
+    assert (hits == 1).all()
+    base = blocks // nzs
+    fill = hc.DIRECT_FILL * n_sm
+    # the fewest segments of equal length that fill the card (single
+    # planes if none do)
+    counts = {-(-z // n) for n in range(1, z + 1)}
+    assert nzs == min([c for c in counts if base * c >= fill] or [z])
+    assert zs == -(-z // nzs)
+
+
 @pytest.mark.parametrize("shape", [(1, 24, 204, 84, 32), (16, 160, 160, 16, 8),
                                    (2, 3, 5, 7, 96)])
 def test_tma_halo_args(shape):
@@ -283,12 +328,12 @@ ptxas info    : Used 12 registers
 
 
 def test_parse_ptxas_report():
-    """chip_smoke.py prints each kernel's registers and spills from the
-    ``-Xptxas -v`` report the build keeps."""
+    """chip_smoke.py prints each kernel's registers, spills and static
+    shared memory from the ``-Xptxas -v`` report the build keeps."""
     from t3dct_torch.utils import cuda_build
     assert cuda_build.parse_ptxas(PTXAS) == [
-        ("conv_wgmma_kernel<128>", 168, 364, 516),
-        ("flood_round", 32, 0, 0), ("cc_flatten", 12, 0, 0)]
+        ("conv_wgmma_kernel<128>", 168, 364, 516, 0),
+        ("flood_round", 32, 0, 0, 4096), ("cc_flatten", 12, 0, 0, 0)]
     assert "-v" in cuda_build.NVCC_FLAGS
 
 

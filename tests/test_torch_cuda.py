@@ -70,6 +70,29 @@ def test_conv_kernel_matches_plain(dev, shape, relu):
     _held(got, want)
 
 
+@pytest.mark.parametrize("relu", [True, False])
+@pytest.mark.parametrize("c_out", [1, 8, 16, 32, 40])
+@pytest.mark.parametrize("z", [1, 2, 3])
+@pytest.mark.parametrize("width", [45, 13])
+def test_stem_kernel_matches_plain(dev, width, c_out, z, relu):
+    """The c_in = 1 stems: every output tile (8, 16, 32, and 40 as two
+    tiles), both pixel tile widths (x 45 takes 32, x 13 takes 16), ragged
+    y/x edges, z from 1 to 3, a batch of 5; one launch of the direct kernel
+    and none of the other."""
+    xin, w, b = (t.to(dev) for t in _conv_case((z, 37, width, 1, c_out),
+                                               c_out + z, (5,)))
+    assert hopper_conv.route(1, c_out) == "direct"
+    n0 = _counts()
+    got = hopper_conv.conv3x3x3_bias_relu(xin, w, b, relu=relu)
+    want = hopper_conv.conv3x3x3_bias_relu_plain(xin, w, b, relu=relu)
+    torch.cuda.synchronize()
+    assert _counts() == [n0[0] + 1, n0[1]]
+    assert got.shape == want.shape
+    _held(got, want)
+    one = hopper_conv.conv3x3x3_direct(xin[3], w, b, relu=relu)
+    _held(one, want[3])
+
+
 def test_conv_kernel_batch_is_one_launch(dev):
     """A tile batch (the legacy U-Net's layers) is one launch and equals
     the plain batched conv, without the ReLU as the U-Net calls it; at
@@ -170,11 +193,86 @@ def test_flood_kernel_matches_plain(dev, levels):
     elev = (rng.rand(*shape) if levels is None
             else rng.randint(0, levels, shape)).astype(np.float32)
     args = [torch.from_numpy(a).to(dev) for a in (elev, seg, mask)]
+    n0 = hopper_flood.flood_slices.launches
     got, rounds = hopper_flood.flood_slices(*args)
     want, rounds_p = hopper_flood.flood_slices_plain(*args)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
     assert rounds > 1
+    assert hopper_flood.flood_slices.launches == n0 + 1
+
+
+def _exact_rounds(args, max_iters, monkeypatch):
+    """The plain version with a convergence check after every round: the
+    round the kernel must stop at."""
+    monkeypatch.setattr(hopper_flood, "CHECK_EVERY", 1)
+    return hopper_flood.flood_slices_plain(*args, max_iters=max_iters)
+
+
+def _flood_scene(case, shape=(64, 48, 5), seed=0):
+    rng = np.random.RandomState(seed)
+    elev = rng.rand(*shape).astype(np.float32)
+    seg = np.zeros(shape, np.int32)
+    mask = np.ones(shape, bool)
+    if case == "far":          # one corner marker per slice: ~100 rounds
+        seg[0, 0, :] = 1
+        seg[-1, -1, 1::2] = 2
+    elif case == "uneven":     # slices that converge at very different rounds
+        for s in range(shape[2]):
+            n = 1 + 40 * s
+            for i in range(n):
+                seg[rng.randint(shape[0]), rng.randint(shape[1]), s] = i + 1
+    elif case == "empty":      # no mask at all
+        mask[:] = False
+        seg[3, 3, :] = 1
+    elif case == "markers":    # slice 1 is markers only, slice 3 unmasked
+        seg[:, :, 1] = rng.randint(1, 5, shape[:2])
+        seg[5, 7, 0] = seg[20, 30, 2] = 3
+        mask[:, :, 3] = False
+        mask[:, :, 4] = rng.rand(*shape[:2]) < 0.7
+        seg[10, 10, 4] = 9
+    elif case == "ties":       # integer elevations: many exact ties
+        elev = rng.randint(0, 2, shape).astype(np.float32)
+        for i in range(12):
+            seg[rng.randint(shape[0]), rng.randint(shape[1]), :] = i + 1
+    return [torch.from_numpy(a) for a in (elev, seg, mask)]
+
+
+@pytest.mark.parametrize("max_iters", [1, 7, 17, 512])
+@pytest.mark.parametrize("case", ["far", "uneven", "empty", "markers",
+                                  "ties"])
+def test_flood_kernel_exact_at_every_cap(dev, case, max_iters, monkeypatch):
+    """Bit-equal labels at caps of 1, 7 and 17 rounds (stopping at exactly
+    that round) and at convergence; the kernel stops at the first round
+    that changes nothing, in one launch; its tile list is
+    ``active_tiles``."""
+    args = [t.to(dev) for t in _flood_scene(case)]
+    n0 = hopper_flood.flood_slices.launches
+    r0 = hopper_flood.flood_slices.rounds
+    got, rounds = hopper_flood.flood_slices(*args, max_iters=max_iters)
+    want, rounds_p = _exact_rounds(args, max_iters, monkeypatch)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert rounds == rounds_p
+    if case == "far":            # far from converged at every small cap
+        assert max_iters == 512 or rounds == max_iters
+    assert hopper_flood.flood_slices.launches == n0 + 1
+    assert hopper_flood.flood_slices.rounds == r0 + rounds
+    assert hopper_flood.flood_slices.tiles == hopper_flood.active_tiles(
+        args[1], args[2])
+
+
+def test_flood_kernel_on_a_512_slice(dev, monkeypatch):
+    """A (512, 512, 4) stack, the zebrafish slice size: the same kernel,
+    bit-equal to the plain version, one launch."""
+    args = [t.to(dev) for t in _flood_scene("uneven", (512, 512, 4), 7)]
+    n0 = hopper_flood.flood_slices.launches
+    got, rounds = hopper_flood.flood_slices(*args)
+    want, rounds_p = _exact_rounds(args, 512, monkeypatch)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert rounds == rounds_p
+    assert hopper_flood.flood_slices.launches == n0 + 1
 
 
 def test_wrappers_refuse_mixed_devices(dev):

@@ -88,6 +88,117 @@ def test_flood_plain_matches_pallas_and_watershed(levels, monkeypatch):
     assert 0 < rounds <= 512
 
 
+def _kernel_schedule(elev, markers, mask, max_iters, tile):
+    """A plain numpy emulation of csrc/flood.cu's schedule: (x, y, z)
+    layout; rounds that write only updatable voxels of listed tiles (flat
+    runs of ``tile`` voxels holding one) in slices whose last round changed
+    something, with a convergence check every round; the state of a voxel
+    that is not updatable read from the inputs; the ping-pong sets never
+    initialised (filled here with values that would win if read); each
+    slice's labels taken from the set its last round wrote.  Returns
+    (labels, rounds run, tiles listed)."""
+    inf = np.float32(3e38)
+    m = mask != 0
+    is_marker = m & (markers > 0)
+    upd = m & ~is_marker
+    fixed = (np.where(is_marker, markers, 0).astype(np.int32),
+             np.where(is_marker, elev, inf).astype(np.float32),
+             np.where(is_marker, 0.0, inf).astype(np.float32))
+    start = (np.int32(0), inf, inf)
+    sets = [[np.full(elev.shape, v, t) for v, t in
+             ((12345, np.int32), (-1.0, np.float32), (-1.0, np.float32))]
+            for _ in range(2)]
+    flat = np.concatenate((upd.ravel(), np.zeros(-upd.size % tile, bool)))
+    listed = flat.reshape(-1, tile).any(axis=1)
+    visit = np.repeat(listed, tile)[:upd.size].reshape(upd.shape) & upd
+    live = np.ones(elev.shape[2], bool)
+    ran = np.full(elev.shape[2], -1)
+    fills = (0, inf, inf)
+
+    def neighbour(v, axis, d, fill):
+        out = np.full_like(v, fill)
+        src = [slice(None)] * 3
+        dst = [slice(None)] * 3
+        src[axis], dst[axis] = ((slice(None, -1), slice(1, None)) if d < 0
+                                else (slice(1, None), slice(None, -1)))
+        out[tuple(dst)] = v[tuple(src)]
+        return out
+
+    r = 0
+    while r < max_iters:
+        lab, cost, hops = (np.where(upd, st if r == 0 else cur, fx)
+                           for st, cur, fx in zip(start, sets[r % 2], fixed))
+        bl, bc, bh = lab.copy(), cost.copy(), hops.copy()
+        for axis, d in ((0, -1), (1, -1), (1, 1), (0, 1)):  # x-1 y-1 y+1 x+1
+            nl, nc, nh = (neighbour(v, axis, d, f)
+                          for v, f in zip((lab, cost, hops), fills))
+            cc = np.maximum(nc, elev)
+            ch = nh + np.float32(1.0)
+            better = (nl > 0) & ((cc < bc) | ((cc == bc) & (ch < bh)))
+            bl = np.where(better, nl, bl)
+            bc = np.where(better, cc, bc)
+            bh = np.where(better, ch, bh)
+        act = visit & live[None, None, :]
+        moved = act & ((bl != lab) | (bc != cost) | (bh != hops))
+        for dst, src in zip(sets[(r + 1) % 2], (bl, bc, bh)):
+            dst[act] = src[act]
+        ran[act.any(axis=(0, 1))] = r + 1
+        r += 1
+        live = moved.any(axis=(0, 1))
+        if not live.any():
+            break
+    last = np.stack([sets[0][0], sets[1][0]])[ran % 2, :, :,
+                                              np.arange(len(ran))]
+    labels = np.where(upd, last.transpose(1, 2, 0) if r > 0 else 0,
+                      fixed[0])
+    return np.where(m, labels, 0), r, int(listed.sum())
+
+
+@pytest.mark.parametrize("max_iters", [1, 7, 512])
+@pytest.mark.parametrize("levels", [None, 3, 1])
+def test_flood_kernel_schedule_matches_plain_and_jax(levels, max_iters,
+                                                     monkeypatch):
+    """The kernel's schedule (only listed tiles, converged slices dropped,
+    a check every round) gives the plain version's and JAX's labels
+    exactly, at the cap too, and stops at the plain version's round when
+    that checks every round."""
+    elev, seg, mask = _flood_case(11 + (levels or 0), levels=levels)
+    mask[:, :, 2] = False                     # an empty slice
+    want = np.asarray(jflood_slices(jnp.asarray(elev), jnp.asarray(seg),
+                                    jnp.asarray(mask), max_iters=max_iters))
+    monkeypatch.setattr(hopper_flood, "CHECK_EVERY", 1)
+    te, ts, tm = (torch.from_numpy(a) for a in (elev, seg, mask))
+    plain, rounds_p = flood_slices_plain(te, ts, tm, max_iters=max_iters)
+    for tile in (64, hopper_flood.TILE):
+        got, rounds, listed = _kernel_schedule(elev, seg, mask, max_iters,
+                                               tile)
+        np.testing.assert_array_equal(got, want)
+        np.testing.assert_array_equal(got, plain.numpy())
+        assert rounds == rounds_p
+        assert listed == hopper_flood.active_tiles(ts, tm, tile)
+
+
+@pytest.mark.parametrize("tile", [1, 7, 64, 1024])
+@pytest.mark.parametrize("case", ["overlaps", "empty", "markers only",
+                                  "dense"])
+def test_active_tiles_matches_brute_force(case, tile):
+    """The count of tiles the flood kernel lists, against a loop over the
+    flat (x, y, z) index."""
+    rng = np.random.RandomState(tile)
+    shape = (13, 11, 5)
+    markers = np.where(rng.rand(*shape) < 0.3,
+                       rng.randint(1, 4, shape), 0).astype(np.int32)
+    mask = {"overlaps": rng.rand(*shape) < 0.05,
+            "empty": np.zeros(shape, bool),
+            "markers only": markers > 0,
+            "dense": np.ones(shape, bool)}[case]
+    upd = (mask & ~(markers > 0)).ravel()
+    want = sum(bool(upd[t:t + tile].any()) for t in range(0, upd.size, tile))
+    got = hopper_flood.active_tiles(torch.from_numpy(markers),
+                                    torch.from_numpy(mask), tile)
+    assert got == want
+
+
 def test_flood_round_cap_matches_jax():
     """Stopped by the cap before the fixed point, both stop at the same
     round (the host checks every few rounds but never runs past the cap)."""
