@@ -38,8 +38,10 @@ def seg_candidates_to_padded_real(points_zyx: torch.Tensor,
     """Seg candidates -> the tracker's padded point set, on the device:
     kept rows first (stable, so prob-descending), zyx -> pipeline (x, y, z)
     as (y, x, z), scaled to real units, padded to ``pad_n`` with the 1e6
-    parking value and a bool mask.  Kept counts above ``pad_n`` are
-    truncated."""
+    parking value and a bool mask.  The shapes are static, as in the JAX
+    twin: rows past ``pad_n`` are dropped here, so the caller checks the
+    kept count against ``pad_n`` first (``segment_and_track_arrays``
+    raises above it)."""
     dev = points_zyx.device
     k = int(points_zyx.shape[0])
     order = torch.argsort((~kept).to(torch.int8), stable=True)
@@ -163,6 +165,10 @@ def segment_and_track_arrays(volumes: Sequence[np.ndarray],
                     norm_minmax=(np.float32(mi), np.float32(ma)),
                     return_labels=(t == 1))
         stats[t] = {"kept": int(kept.sum())}
+        if stats[t]["kept"] > pad_n:
+            # the tracker's padded point set holds pad_n rows
+            raise ValueError(f"{stats[t]['kept']} cells exceeds "
+                             f"max_cells={pad_n}")
         if seg_labels is not None:
             auto_vol1 = seg_labels.cpu().numpy().astype(np.uint16)
         if t > 1:

@@ -28,7 +28,7 @@ from __future__ import annotations
 
 import ctypes
 import weakref
-from typing import Dict, Sequence, Tuple
+from typing import Callable, Dict, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -170,22 +170,31 @@ def tma_halo_args(shape: Sequence[int]
     return dims, strides, (CK, TX + 2, TY + 2, 1, 1)
 
 
-# id(w) -> (weakref to w, w._version, packed, nb): weights are packed once
-_packed: Dict[int, tuple] = {}
+# (id(w), tag) -> (weakref to w, w._version, packed, nb): weights are packed
+# once per packing
+_packed: Dict[Tuple[int, str], tuple] = {}
+
+
+def cached_pack(w: torch.Tensor, tag: str,
+                pack: Callable[[torch.Tensor], Tuple[torch.Tensor, int]]
+                ) -> Tuple[torch.Tensor, int]:
+    """``pack(w)``, a kernel's ``(packed, nb)``, cached under ``tag`` while
+    ``w`` lives and is not modified in place."""
+    key = (id(w), tag)
+    hit = _packed.get(key)
+    if hit is not None and hit[0]() is w and hit[1] == w._version:
+        return hit[2], hit[3]
+    packed, nb = pack(w)
+    if hit is None:
+        weakref.finalize(w, _packed.pop, key, None)
+    _packed[key] = (weakref.ref(w), w._version, packed, nb)
+    return packed, nb
 
 
 def packed_weights(w: torch.Tensor) -> Tuple[torch.Tensor, int]:
     """:func:`pack_weights_tc` of ``w``, cached while ``w`` lives and is
     not modified in place."""
-    key = id(w)
-    hit = _packed.get(key)
-    if hit is not None and hit[0]() is w and hit[1] == w._version:
-        return hit[2], hit[3]
-    packed, nb = pack_weights_tc(w)
-    if hit is None:
-        weakref.finalize(w, _packed.pop, key, None)
-    _packed[key] = (weakref.ref(w), w._version, packed, nb)
-    return packed, nb
+    return cached_pack(w, "conv3x3x3_wgmma", pack_weights_tc)
 
 
 # ---- wrappers ---------------------------------------------------------------

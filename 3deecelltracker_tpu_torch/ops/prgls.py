@@ -34,6 +34,15 @@ def gaussian_gram(a: torch.Tensor, b: torch.Tensor,
     return torch.exp(-pairwise_sq_dists(a, b) / (2.0 * beta_sq))
 
 
+def solve_m_step(coeff: torch.Tensor, dep: torch.Tensor) -> torch.Tensor:
+    """C (3, n) with ``C coeff = dep``, the v1.0 M-step's solve.  A system
+    that LU finds singular gives NaN, as ``jnp.linalg.solve`` gives a
+    non-finite result there, and nothing is read on the host: no sync, and
+    no raise (``torch.linalg.solve`` would raise)."""
+    c, info = torch.linalg.solve_ex(coeff.T, dep.T)
+    return torch.where(info != 0, torch.nan, c.T)
+
+
 class PrglsResult(NamedTuple):
     tracked: torch.Tensor          # moved second reference (l, 3)
     moved_ref: torch.Tensor        # T(X) (n, 3)
@@ -90,7 +99,7 @@ def prgls_with_two_ref(init_match: torch.Tensor, ptrs_tgt: torch.Tensor,
         dep = ptrs_tgt.T @ post - pred_ref.T * p1[None, :]        # (3, n)
         s_eff = torch.clamp_min(lambda_ * sigma_sq, SOLVE_FLOOR)
         coeff = gram_nn * p1[None, :] + s_eff * eye
-        return torch.linalg.solve(coeff.T, dep.T).T               # (3, n)
+        return solve_m_step(coeff, dep)                           # (3, n)
 
     pred_ref = ptrs_ref.to(f32)
     pred_tracked = tracked_ref.to(f32)

@@ -13,8 +13,9 @@ DHWIO weights), it runs:
 - ``copad``: c_out zero-padded to 2x and 4x (c32: 64 and 128) through the
   baseline, then sliced;
 - the ladder of hand-written kernels (``ops.ladder``): A ``x + 1``, B and B2
-  the per-voxel channel product, C the nine-view conv (f32 CUDA cores), and
-  E the backbone conv itself (the tensor-core kernel), beside cuDNN and C;
+  the per-voxel channel product (a streaming TMA kernel), C the nine-view
+  conv (three TF32 passes on the tensor cores, from TMA halo tiles of x),
+  and E the backbone conv itself (the tensor-core kernel), beside cuDNN;
 - the library conv, cuDNN ``F.conv3d`` with TF32 off, as the yardstick
   (``library_ms``); the port never calls it.
 
@@ -33,9 +34,12 @@ those two kernels), and per ladder entry its ``flop``, ``bytes`` and, on
 the card, ``bound_ms`` (``utils.roofline.bound``), ``plain_ms`` and
 ``library_ms``.  The width records carry ``tc_bound_ms`` as well
 (``utils.roofline.conv_tc_bound``: three TF32 passes at the tensor cores'
-peak); E, which runs the tensor-core kernel, has that as its ``bound_ms``
-and the f32 one as ``f32_bound_ms``.  Each function is timed once on each
-input: the C and E
+peak); C and E, which run on the tensor cores, have that as their
+``bound_ms`` and the f32 one as ``f32_bound_ms``.  B, B2 and C also carry
+their kernel's device time, ``device_ms`` (``conv9view_device_ms`` at the
+second width), from ``torch.profiler``'s trace (:func:`device_ms`): the
+time per call includes the wrapper's host work where that is longer.
+Each function is timed once on each input: the C and E
 entries carry the first width's cuDNN reading, B2 carries B's matmul
 reading.  Unlike the JAX probe, the bias is random rather than zero, so the
 epilogue is checked.
@@ -71,6 +75,10 @@ ROUNDS = 3
 WARMUP = 2
 # f32 sums in another order than the reference
 CONV_RTOL, CONV_ATOL = 1e-5, 1e-6
+# the CUDA kernels of ladder entries B and C (csrc/ladder.cu), by the
+# substring of their names that the profiler's trace shows
+B_KERNEL = "pointwise_kernel"
+C_KERNEL = "conv9view_wgmma_kernel"
 
 
 def timed(fn: Callable[[], object]) -> float:
@@ -89,6 +97,31 @@ def timed(fn: Callable[[], object]) -> float:
         torch.cuda.synchronize()
         means.append(start.elapsed_time(end) / N_QUEUE)
     return float(statistics.median(means))
+
+
+def device_ms(fn: Callable[[], object], kernel: str, reps: int = 10,
+              tries: int = 3) -> Optional[float]:
+    """The device time of one launch of ``kernel`` (a substring of its
+    name), from ``torch.profiler``'s CUDA trace over ``reps`` calls of
+    ``fn`` after a warm-up: the kernel's device time over the launches the
+    trace holds, so per call of a wrapper that launches it once.  A trace
+    can miss some launches, or all of them, so the trace is taken again,
+    up to ``tries`` times, until it holds one; None where none does."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        hits = [e for e in prof.key_averages() if kernel in e.key
+                and getattr(e, "device_time_total", 0.0) > 0]
+        n = sum(e.count for e in hits)
+        if n:
+            return sum(e.device_time_total for e in hits) / n / 1e3
+    return None
 
 
 def init_conv(c_in: int, c_out: int, seed: int,
@@ -161,6 +194,9 @@ def width_record(x: torch.Tensor, p: Dict[str, torch.Tensor],
             ms = timed(fn)
             rec[f"{name}_ms"] = ms
             rec[f"{name}_{rate}"] = flop / ms / 1e9
+    if on_card and "conv9view" in cands:
+        rec["conv9view_device_ms"] = device_ms(cands["conv9view"][0],
+                                               C_KERNEL)
     if on_card:
         ms = timed(lambda: library_conv(x, p["w"], p["b"]))
         rec["library_ms"] = ms
@@ -173,10 +209,12 @@ def width_record(x: torch.Tensor, p: Dict[str, torch.Tensor],
 def ladder_entry(kernel: Callable[[], torch.Tensor],
                  plain: Callable[[], torch.Tensor],
                  library_ms: Optional[float], flop: float, moved: int,
-                 exact: bool, on_card: bool, name: str) -> dict:
+                 exact: bool, on_card: bool, name: str,
+                 device_name: Optional[str] = None) -> dict:
     """Run, check and (on the card) time one ladder kernel;
     ``library_ms`` is its library call's reading (None off the card, or
-    where there is none)."""
+    where there is none); ``device_name`` names the CUDA kernel whose
+    device time the record carries as ``device_ms``."""
     got, ref = kernel(), plain()
     err = _maxerr(got, ref)
     tol = 0.0 if exact else _tol(ref)
@@ -189,6 +227,8 @@ def ladder_entry(kernel: Callable[[], torch.Tensor],
         rec.update(ms=ms, tflops=flop / ms / 1e9, bound_ms=b_ms,
                    bound_by=b_by, plain_ms=timed(plain),
                    library_ms=library_ms)
+        if device_name is not None:
+            rec["device_ms"] = device_ms(kernel, device_name)
     return rec
 
 
@@ -217,7 +257,8 @@ def pallas_ladder(x: torch.Tensor, p: Dict[str, torch.Tensor],
         results[key] = ladder_entry(
             lambda: ladder.ladder_pointwise_matmul(x, w1),
             lambda: ladder.ladder_pointwise_matmul_plain(x, w1), mm_ms,
-            mm_flop, mm_bytes, False, on_card, f"{key} pointwise_matmul")
+            mm_flop, mm_bytes, False, on_card, f"{key} pointwise_matmul",
+            B_KERNEL)
 
     # C and E compute the width record's conv; w9 holds w's numbers in
     # another order
@@ -228,16 +269,17 @@ def pallas_ladder(x: torch.Tensor, p: Dict[str, torch.Tensor],
     results["pallas_C_9view_conv"] = ladder_entry(
         lambda: ladder.ladder_conv9view_bias_relu(x, w9, p["b"]),
         lambda: ladder.ladder_conv9view_bias_relu_plain(x, w9, p["b"]),
-        conv_ms, c_flop, c_bytes, False, on_card, "C conv9view")
+        conv_ms, c_flop, c_bytes, False, on_card, "C conv9view", C_KERNEL)
     results["pallas_E_manual_dma"] = ladder_entry(
         lambda: hopper_conv.conv3x3x3_bias_relu(x, p["w"], p["b"]),
         lambda: hopper_conv.conv3x3x3_bias_relu_plain(x, p["w"], p["b"]),
         conv_ms, c_flop, c_bytes, False, on_card, "E conv3x3x3")
     if on_card:
-        # E runs the tensor-core kernel: its bound is three TF32 passes
-        e = results["pallas_E_manual_dma"]
-        e["f32_bound_ms"] = e["bound_ms"]
-        e["bound_ms"], e["bound_by"] = conv_tc_bound(x, p["w"], p["b"])
+        # C and E run on the tensor cores: their bound is three TF32 passes
+        for key in ("pallas_C_9view_conv", "pallas_E_manual_dma"):
+            e = results[key]
+            e["f32_bound_ms"] = e["bound_ms"]
+            e["bound_ms"], e["bound_by"] = conv_tc_bound(x, p["w"], p["b"])
 
 
 def run(device=None, shape: Sequence[int] = SHAPE, c_in: int = C_IN,

@@ -3,9 +3,10 @@
 Each ``csrc/<name>.cu`` exposes a plain C interface (pointers, ints and the
 stream as ``void*``; every entry point returns ``cudaGetLastError()``), is
 compiled for ``sm_90a`` into its own shared library, and is loaded once per
-process.  Libraries are cached under ``_build/`` in the package (listed in
-``.gitignore``) by a digest of the source and the flags, so a changed source
-never loads a stale build.  Beside each library, ``ptxas``'s report of its
+process; a source may include the shared headers beside it
+(``csrc/*.cuh``).  Libraries are cached under ``_build/`` in the package
+(listed in ``.gitignore``) by a digest of the source, the headers and the
+flags, so a changed source or header never loads a stale build.  Beside each library, ``ptxas``'s report of its
 kernels (``-Xptxas -v``: registers, spills, static shared memory) is kept
 for
 :func:`resource_usage`.  Nothing here runs at import time: the first kernel
@@ -46,8 +47,10 @@ def find_nvcc() -> str:
 
 
 def _library(name: str) -> Path:
-    """Where the build of the current ``csrc/<name>.cu`` lives."""
-    src = (CSRC_DIR / f"{name}.cu").read_bytes()
+    """Where the build of the current ``csrc/<name>.cu`` lives (the digest
+    covers the shared headers, ``csrc/*.cuh``, too)."""
+    src = (CSRC_DIR / f"{name}.cu").read_bytes() + b"".join(
+        p.read_bytes() for p in sorted(CSRC_DIR.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()
                             ).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}_{digest}.so"

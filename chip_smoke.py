@@ -7,10 +7,11 @@ Phases (any failure raises and the script exits non-zero):
 1. device: a CUDA device must be present; prints the card's name and power
    limit as ``nvidia-smi`` reports them, and the torch/CUDA versions;
 2. build: compiles the five hand-written kernel sources from
-   ``3deecelltracker_tpu_torch/csrc/`` with ``nvcc``, one each, all at once
-   (into the package's ``_build/``), and prints each kernel's registers,
-   spills and static shared memory as ``ptxas`` reports them, and the
-   dynamic shared memory per block of both conv kernels;
+   ``3deecelltracker_tpu_torch/csrc/`` (with their shared header) with
+   ``nvcc``, one each, all at once (into the package's ``_build/``), and
+   prints each kernel's registers, spills and static shared memory as
+   ``ptxas`` reports them, and the dynamic shared memory per block of both
+   conv kernels and of the ladder's channel product and nine-view conv;
 3. conv check: the 3x3x3 conv through its router at every 3x3x3 layer
    shape of the bench backbone, and of the legacy U-Net a (a batch of 16
    tiles of (160, 160, 16) and its pooled levels, without the ReLU): the
@@ -52,16 +53,22 @@ Phases (any failure raises and the script exits non-zero):
    plain version (``add_one`` exactly, the channel product and the
    nine-view conv, at both widths, within ``CONV_RTOL`` / ``CONV_ATOL``),
    and raises on a miss; the phase prints its table (ms, bound, library
-   ms, TFLOP/s).  Every counter reset before and read after; the ``wgmma``
-   conv's and each ladder kernel's must be > 0, the direct conv's 0.
+   ms, TFLOP/s, and the device time of the channel product and the
+   nine-view conv).  Every counter reset before and read after; the
+   ``wgmma`` conv's and each ladder kernel's must be > 0, the direct
+   conv's 0.
 
 Every kernel's entry in the kernels line carries its bound: the least time
 the card could take, the larger of its bytes (inputs read once, the output
 written once) at 3.35 TB/s and its operations at the peak for their type.
-That is the 67 TFLOP/s f32 peak, except for the ``wgmma`` conv, whose
-``bound_ms`` (also given as ``tc_bound_ms``) counts three TF32 products per
-multiply at the 495 TFLOP/s dense TF32 peak; its ``f32_bound_ms`` is the
-same conv's f32 bound, the one the direct kernel is held to.
+That is the 67 TFLOP/s f32 peak, except for the two tensor-core kernels,
+the ``wgmma`` conv and the ladder's nine-view conv, whose ``bound_ms``
+(the ``wgmma`` conv's also given as ``tc_bound_ms``) counts three TF32
+products per multiply at the 495 TFLOP/s dense TF32 peak; their
+``f32_bound_ms`` is the same conv's f32 bound, the one the direct kernel is
+held to.  The nine-view conv's entry also carries its readings at the
+probe's second width (``c128_*``); it and the channel product carry their
+device time (``device_ms``).
 
 The second-to-last line is ``{"kernels": [...]}``, the last line
 ``{"ok": true, "device": {...}}``.  Weights are random: the tracking
@@ -170,22 +177,12 @@ def cuda_ms(fn, reps=10, warmup=2):
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn, kernel, reps=5):
-    """The device time of ``kernel`` (a substring of its name) per call of
-    ``fn``, from ``torch.profiler``'s CUDA trace over ``reps`` calls after
-    a warm-up; None where the trace holds no device time for it."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(getattr(e, "device_time_total", 0.0)
-             for e in prof.key_averages() if kernel in e.key)
-    return us / reps / 1e3 if us > 0 else None
+def device_ms(fn, kernel):
+    """The device time of one launch of ``kernel`` (a substring of its
+    name) from ``torch.profiler`` (the conv probe's helper); every kernel
+    timed so launches once per call of ``fn``."""
+    from t3dct_torch.scripts.probe_conv_fast import device_ms as dev_ms
+    return dev_ms(fn, kernel)
 
 
 def fmt_ms(t):
@@ -234,6 +231,14 @@ def phase_build():
                     f"{hopper_conv.direct_smem_bytes(ci, t, tx)} B"
                     for ci in (1, 12) for t in hopper_conv.DIRECT_TILES
                     for tx in hopper_conv.DIRECT_TX))
+    from t3dct_torch.ops import ladder
+    print("[build] ladder dynamic shared memory per block: pointwise " +
+          ", ".join(f"{ci}->{co}: {ladder.pointwise_smem_bytes(ci, co)} B"
+                    for ci, co in ((32, 32), (8, 40), (48, 16))) +
+          "; conv9view " +
+          ", ".join(f"c_in {ci} c_out {co}: "
+                    f"{ladder.conv9view_smem_bytes(co, ci)} B"
+                    for ci, co in ((32, 32), (32, 128), (8, 16))))
 
 
 def conv_row(xin, w, b, relu):
@@ -759,6 +764,7 @@ def phase_probe(dev):
             continue
         if "gflop" in rec:
             names = [k[:-3] for k in rec if k.endswith("_ms")
+                     and not k.endswith("device_ms")
                      and k not in ("bound_ms", "tc_bound_ms")]
             row = "  ".join(
                 f"{n} {rec[n + '_ms']:.3f} ms "
@@ -766,14 +772,19 @@ def phase_probe(dev):
                 f" TFLOP/s" + (f" (err {rec[n + '_maxerr']:.2e})"
                                if n + "_maxerr" in rec else "")
                 for n in names)
+            dev = (f"; conv9view on the device "
+                   f"{fmt_ms(rec['conv9view_device_ms'])}"
+                   if "conv9view_device_ms" in rec else "")
             print(f"[probe] {key} ({rec['gflop']:.2f} GFLOP, least "
                   f"{rec['bound_ms']:.3f} ms by {rec['bound_by']}, three-pass"
-                  f" TF32 {rec['tc_bound_ms']:.3f} ms): {row}")
+                  f" TF32 {rec['tc_bound_ms']:.3f} ms): {row}{dev}")
         else:
             lib = rec["library_ms"]
             f32 = (f" (three-pass TF32; f32 {rec['f32_bound_ms']:.4f} ms)"
                    if "f32_bound_ms" in rec else "")
-            print(f"[probe] {key}: {rec['ms']:.4f} ms, least "
+            dev = (f" (on the device {fmt_ms(rec['device_ms'])})"
+                   if "device_ms" in rec else "")
+            print(f"[probe] {key}: {rec['ms']:.4f} ms{dev}, least "
                   f"{rec['bound_ms']:.4f} ms by {rec['bound_by']}{f32}, plain "
                   f"{rec['plain_ms']:.4f} ms, library "
                   f"{'-' if lib is None else f'{lib:.4f}'} ms, "
@@ -854,12 +865,24 @@ def main() -> int:
     ]
     for entry, name, replaces in LADDER:
         rec = probe[entry]
+        extra = {k: rec[k] for k in ("device_ms", "f32_bound_ms")
+                 if k in rec}
+        if entry == "pallas_C_9view_conv":
+            # C at the probe's second width: its width record
+            w2 = probe["c32_to_c128"]
+            extra.update(c128_ms=w2["conv9view_ms"],
+                         c128_device_ms=w2["conv9view_device_ms"],
+                         c128_max_abs_err=w2["conv9view_maxerr"],
+                         c128_bound_ms=w2["tc_bound_ms"],
+                         c128_f32_bound_ms=w2["bound_ms"],
+                         c128_library_ms=w2["library_ms"])
         kernels.append(dict(
             name=name, route="cuda",
             source="3deecelltracker_tpu_torch/csrc/ladder.cu",
             replaces=replaces, **counts(name), max_abs_err=rec["maxerr"],
             ms=rec["ms"], plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"],
-            bound_by=rec["bound_by"], library_ms=rec["library_ms"]))
+            bound_by=rec["bound_by"], library_ms=rec["library_ms"],
+            **extra))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

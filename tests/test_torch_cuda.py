@@ -301,8 +301,13 @@ def test_add_one_kernel_matches_plain_exactly(dev, n):
 
 
 @pytest.mark.parametrize("shape", [(3, 7, 5, 32, 32), (2, 9, 11, 8, 40),
-                                   (1, 1, 130, 48, 16)])
+                                   (1, 1, 130, 48, 16), (1, 1, 100, 32, 32),
+                                   (3, 100, 301, 32, 32), (2, 5, 7, 5, 3)])
 def test_pointwise_matmul_kernel_matches_plain(dev, shape):
+    """The probe's widths, N tiles of 8, 16 and 32 (c_out 40 as two), M
+    below one tile (100 rows), more tiles than resident blocks with a
+    ragged last tile (90,300 rows), and widths off the 16-byte rule
+    (5 -> 3, padded); one launch each."""
     z, y, x, ci, co = shape
     g = torch.Generator().manual_seed(ci + co)
     xin = torch.randn((z, y, x, ci), generator=g).to(dev)
@@ -319,10 +324,15 @@ def test_pointwise_matmul_kernel_matches_plain(dev, shape):
 
 
 @pytest.mark.parametrize("shape", [(3, 17, 19, 32, 32), (2, 9, 33, 32, 128),
-                                   (4, 8, 16, 5, 40), (2, 11, 7, 8, 200)])
+                                   (4, 8, 16, 5, 40), (2, 11, 7, 8, 200),
+                                   (2, 13, 21, 32, 8), (3, 9, 18, 16, 16),
+                                   (2, 11, 7, 8, 136), (1, 17, 19, 32, 32),
+                                   (1, 6, 9, 48, 24)])
 def test_conv9view_kernel_matches_plain(dev, shape):
-    """Both tile widths (32 and 128 channels), a partial 128-channel tile
-    (c_out 40), a second c_out chunk, and ragged tiles in y and x."""
+    """Every N tile (8, 16, 32 with c_out 24 padded into it, 64 for c_out
+    40, 128, two of them for 136 and 200); c_in 5 (padded to 8), 8, 16, 32
+    (one halo group of four chunks) and 48 (three groups of two); ragged
+    tiles in y and x; z = 1, 2, 3 and 4."""
     z, y, x, ci, co = shape
     g = torch.Generator().manual_seed(ci * co)
     xin = torch.rand((z, y, x, ci), generator=g).to(dev)
@@ -339,3 +349,44 @@ def test_conv9view_kernel_matches_plain(dev, shape):
     for ref in (want, conv):
         bound = 1e-5 * float(ref.abs().max()) + 1e-6
         assert float((got - ref).abs().max()) <= bound
+
+
+def test_conv9view_packs_the_weights_once(dev, monkeypatch):
+    """A second call with the same w9 reuses its packed stages: no packing,
+    the same result, one launch per call."""
+    g = torch.Generator().manual_seed(3)
+    xin = torch.rand((2, 9, 20, 32), generator=g).to(dev)
+    w = (torch.randn((3, 3, 3, 32, 32), generator=g) / 30.0).to(dev)
+    b = torch.zeros((32,), device=dev)
+    w9 = ladder.pack_w9(w)
+    packs = []
+    real = ladder.pack_w9_tc
+    monkeypatch.setattr(ladder, "pack_w9_tc",
+                        lambda v: packs.append(1) or real(v))
+    n0 = ladder.ladder_conv9view_bias_relu.launches
+    first = ladder.ladder_conv9view_bias_relu(xin, w9, b)
+    second = ladder.ladder_conv9view_bias_relu(xin, w9, b)
+    torch.cuda.synchronize()
+    assert len(packs) == 1
+    assert ladder.ladder_conv9view_bias_relu.launches == n0 + 2
+    assert torch.equal(first, second)
+
+
+def test_ladder_kernels_raise_without_fallback(dev):
+    """What the TMA kernels cannot take raises on the card and launches
+    nothing: a misaligned tensor, a channel product wider than the
+    kernel's shared memory holds."""
+    flat = torch.zeros(3 * 8 * 8 * 32 + 1, device=dev)
+    shifted = flat[1:].view(3, 8, 8, 32)     # 4 bytes off a 16-byte line
+    w = torch.zeros((3, 3, 3, 32, 16), device=dev)
+    n0 = [k.launches for k in ladder.KERNELS]
+    with pytest.raises(ValueError):
+        ladder.ladder_conv9view_bias_relu(shifted, ladder.pack_w9(w),
+                                          torch.zeros((16,), device=dev))
+    with pytest.raises(ValueError):
+        ladder.ladder_pointwise_matmul(shifted, torch.zeros((32, 8),
+                                                            device=dev))
+    with pytest.raises(ValueError):
+        ladder.ladder_pointwise_matmul(torch.zeros((4, 65), device=dev),
+                                       torch.zeros((65, 8), device=dev))
+    assert [k.launches for k in ladder.KERNELS] == n0

@@ -130,3 +130,43 @@ def test_slice_rejects_ensemble():
         segment_and_track_arrays([], None, np.zeros((4, 4, 2), np.int32),
                                  None, VOXEL_SIZE, INTERP,
                                  TrackingConfig(ensemble=True), device="cpu")
+
+
+class _StubModel:
+    """Stands in for ``StarDist3D``: every volume yields ``n_kept`` kept
+    candidates."""
+
+    def __init__(self, n_kept):
+        import types
+        self.n_kept = n_kept
+        self.config = types.SimpleNamespace(grid=(1, 2, 2))
+
+    def predict_instances_device(self, vol, norm_minmax, return_labels):
+        import torch
+        g = torch.Generator().manual_seed(0)
+        n = self.n_kept
+        points = torch.rand((n, 3), generator=g) * torch.tensor(
+            [8.0, 64.0, 48.0])
+        kept = torch.ones((n,), dtype=torch.bool)
+        prob = torch.rand((8, 32, 24), generator=g)
+        return kept, None, None, points, prob, None
+
+
+@pytest.mark.parametrize("extra", [0, 1])
+def test_slice_raises_past_max_cells(extra):
+    """A volume that keeps more candidates than the tracker's padded set
+    holds (``pad_n``, here 64 for 12 cells) raises the JAX pipelines'
+    error instead of dropping the rest; ``pad_n`` itself is taken."""
+    vols, _, lab = recording(1, seed=1)
+    pad_n = int(np.ceil(len(np.unique(lab[lab > 0])) * 1.5 / 64) * 64)
+    model = _StubModel(pad_n + extra)
+    run = lambda: segment_and_track_arrays(  # noqa: E731
+        vols, model, lab, ({}, {}), VOXEL_SIZE, INTERP, TrackingConfig(),
+        device="cpu")
+    if extra:
+        with pytest.raises(ValueError,
+                           match=f"{pad_n + 1} cells exceeds "
+                                 f"max_cells={pad_n}"):
+            run()
+    else:
+        assert run().stats[1]["kept"] == pad_n

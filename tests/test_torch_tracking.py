@@ -260,3 +260,56 @@ def test_coordinates_views_match():
     np.testing.assert_array_equal(tr_.raw_f32.numpy(),
                                   np.asarray(jr_.raw_f32))
     assert t.cell_num == 6 and t.voxel_size == vs
+
+
+@pytest.mark.parametrize("case", ["singular", "rank_deficient"])
+def test_m_step_solve_is_non_finite_on_a_singular_system(case):
+    """Where LU meets a zero pivot, the v1.0 M-step's solve gives NaN as
+    ``jnp.linalg.solve`` gives a non-finite result, and raises nothing
+    (``torch.linalg.solve`` raises there)."""
+    rng = np.random.RandomState(3)
+    coeff = rng.rand(5, 5).astype(np.float32)
+    if case == "singular":
+        coeff[:, 2] = 0.0
+    else:           # row 3 is twice row 1: an exact zero pivot in LU
+        coeff = np.array([[1, 2, 0, 0, 0], [2, 4, 0, 0, 0], [0, 0, 1, 0, 0],
+                          [0, 0, 0, 3, 1], [0, 0, 0, 1, 3]], np.float32)
+    dep = rng.rand(3, 5).astype(np.float32)
+    want = np.asarray(jnp.linalg.solve(jnp.asarray(coeff.T),
+                                       jnp.asarray(dep.T))).T
+    got = prgls.solve_m_step(T(coeff), T(dep))
+    assert got.shape == (3, 5)
+    assert not np.isfinite(want).all()
+    assert not torch.isfinite(got).any()
+
+
+def test_m_step_solve_matches_on_a_regular_system():
+    rng = np.random.RandomState(4)
+    coeff = (rng.rand(6, 6) + 6 * np.eye(6)).astype(np.float32)
+    dep = rng.rand(3, 6).astype(np.float32)
+    want = np.asarray(jnp.linalg.solve(jnp.asarray(coeff.T),
+                                       jnp.asarray(dep.T))).T
+    np.testing.assert_allclose(prgls.solve_m_step(T(coeff), T(dep)).numpy(),
+                               want, rtol=1e-5, atol=1e-6)
+
+
+def test_v1_em_reads_no_solve_status(scene, monkeypatch):
+    """The v1.0 EM solves with ``solve_ex`` and reads its status on the
+    device only: ``torch.linalg.solve``, which checks it on the host (a
+    sync per iteration on the card), is never called."""
+    (jp, js), _ = scene["ffn"]
+    (r1, m1), (r2, m2) = _padded_sets(scene)
+    conf = np.asarray(scene["jt"].coord_vol1.real)
+    cn, (mean, scale) = jnormalize(jnp.asarray(conf))
+    a1, a2 = (r1 - mean) / scale, (r2 - mean) / scale
+    sc = jscores(jp, js, jfeatures(a1, m1, 20), jfeatures(a2, m2, 20))
+    prior, _ = jsimple_match(sc, 0.1, ref_mask=m1, tgt_mask=m2)
+
+    def no_solve(*args, **kwargs):
+        raise AssertionError("torch.linalg.solve syncs on its status")
+
+    monkeypatch.setattr(torch.linalg, "solve", no_solve)
+    got = prgls_with_two_ref(T(prior), T(a2), T(a1), T(cn), tgt_mask=T(m2),
+                             ref_mask=T(m1))
+    assert torch.isfinite(got.tracked).all()
+    assert int(got.n_iterations) > 1
