@@ -13,9 +13,17 @@
 // 495 TFLOP/s dense TF32 on the tensor cores), and what the design does:
 //
 // - add_one moves 2 x 52.6 MB at the probe shape and does one add per float:
-//   bytes, 31.4 us.  One grid-stride kernel of 16-byte loads and stores
-//   (float4), then a scalar tail, keeps every transaction full.
-//
+//   bytes, 31.4 us.  The stream is twice the size of L2, so the design is
+//   about keeping enough bytes in flight and out of L2's way: a grid of the
+//   card's resident blocks (occupancy API, asked once per device by the
+//   wrapper, ops/ladder.py::add_one_plan) strides over the float4s, each
+//   thread issuing ADD_ONE_UNROLL (8) independent 16-byte loads before its
+//   stores, all with evict-first hints (__ldcs / __stcs: nothing of the
+//   stream is read again).  With 4 loads in flight, or without the hints,
+//   it ran slower than PyTorch's own x + 1.  The float4s past the last
+//   whole group of 8 run one a thread, the last n % 4 floats on threads 0-2
+//   of block 0; x or y off a 16-byte line takes a scalar kernel.
+
 // - pointwise_matmul: M = 411,264 voxels, K = N = 32 is 0.84 GFLOP against
 //   105 MB, 8 FLOP per byte: bytes, 31.4 us.  At 8 FLOP a byte the CUDA
 //   cores' f32 FMAs keep up with the memory (12.6 us of FMA work at their
@@ -115,24 +123,51 @@ __device__ __forceinline__ void bulk_wait_read_0() {
 
 // ---- A: x + 1 --------------------------------------------------------------
 
-// y = x + 1: float4 loads and stores over the first n4 * 4 floats, scalar
-// ones over the rest (all of them when x or y is not 16-byte aligned).
-__global__ void add_one_kernel(const float* __restrict__ x,
-                               float* __restrict__ y, int64_t n4, int64_t n) {
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  const int64_t t = blockIdx.x * static_cast<int64_t>(blockDim.x) +
-                    threadIdx.x;
-  const float4* x4 = reinterpret_cast<const float4*>(x);
-  float4* y4 = reinterpret_cast<float4*>(y);
-  for (int64_t i = t; i < n4; i += stride) {
-    float4 v = x4[i];
-    v.x += 1.f;
-    v.y += 1.f;
-    v.z += 1.f;
-    v.w += 1.f;
-    y4[i] = v;
+constexpr int ADD_ONE_THREADS = 256;
+constexpr int ADD_ONE_UNROLL = 8;  // float4 loads in flight per thread
+
+__device__ __forceinline__ float4 plus_one(float4 v) {
+  v.x += 1.f;
+  v.y += 1.f;
+  v.z += 1.f;
+  v.w += 1.f;
+  return v;
+}
+
+// y4 = x4 + 1 over n4 float4s: thread t of T takes float4s t, t + T, ...,
+// ADD_ONE_UNROLL of them at a time (every load before the first store,
+// evict-first) while a whole group fits, then one at a time with default
+// loads and stores; then threads 0..tail-1 of block 0 take the floats past
+// the float4s (xt, yt).  On the card this loop ran faster than the same
+// with the last group predicated in place of the one-at-a-time loop.
+__global__ void __launch_bounds__(ADD_ONE_THREADS)
+add_one_kernel(const float4* x, float4* y, int64_t n4, const float* xt,
+               float* yt, int tail) {
+  const int64_t T = static_cast<int64_t>(gridDim.x) * ADD_ONE_THREADS;
+  int64_t i = blockIdx.x * static_cast<int64_t>(ADD_ONE_THREADS) +
+              threadIdx.x;
+  for (; i + (ADD_ONE_UNROLL - 1) * T < n4; i += ADD_ONE_UNROLL * T) {
+    float4 v[ADD_ONE_UNROLL];
+#pragma unroll
+    for (int u = 0; u < ADD_ONE_UNROLL; ++u) v[u] = __ldcs(x + i + u * T);
+#pragma unroll
+    for (int u = 0; u < ADD_ONE_UNROLL; ++u)
+      __stcs(y + i + u * T, plus_one(v[u]));
   }
-  for (int64_t i = n4 * 4 + t; i < n; i += stride) y[i] = x[i] + 1.f;
+  for (; i < n4; i += T) y[i] = plus_one(x[i]);
+  if (blockIdx.x == 0 && static_cast<int>(threadIdx.x) < tail)
+    yt[threadIdx.x] = xt[threadIdx.x] + 1.f;
+}
+
+// y = x + 1 over n floats one at a time, t, t + T, ...: x or y off a
+// 16-byte line.
+__global__ void __launch_bounds__(ADD_ONE_THREADS)
+add_one_scalar_kernel(const float* x, float* y, int64_t n) {
+  const int64_t T = static_cast<int64_t>(gridDim.x) * ADD_ONE_THREADS;
+  for (int64_t i = blockIdx.x * static_cast<int64_t>(ADD_ONE_THREADS) +
+                   threadIdx.x;
+       i < n; i += T)
+    y[i] = x[i] + 1.f;
 }
 
 // ---- B: per-voxel channel product -----------------------------------------
@@ -596,21 +631,32 @@ int launch_conv9view(const CUtensorMap& map, const float* wp, const float* b,
 
 }  // namespace
 
-// y = x + 1 over n floats, one launch.
+// Blocks of add_one_kernel one SM holds (the occupancy API), or -(CUDA
+// error).
+extern "C" int ladder_add_one_blocks_per_sm() {
+  int per_sm = 0;
+  const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, add_one_kernel, ADD_ONE_THREADS, 0);
+  return err == cudaSuccess ? per_sm : -static_cast<int>(err);
+}
+
+// y = x + 1 over n floats, one launch of `blocks` blocks
+// (ops/ladder.py::add_one_plan); n4 = n / 4 when x and y are 16-byte
+// aligned (the float4 stream), else 0 (every float scalar).
 extern "C" int ladder_add_one_f32(const void* x, void* y, long long n,
-                                  void* stream) {
+                                  long long n4, int blocks, void* stream) {
   const bool aligned = (reinterpret_cast<uintptr_t>(x) |
                         reinterpret_cast<uintptr_t>(y)) % 16 == 0;
-  const int64_t n4 = aligned ? n / 4 : 0;
-  const int64_t work = n4 > n - n4 * 4 ? n4 : n - n4 * 4;
-  if (work <= 0) return static_cast<int>(cudaGetLastError());
-  const int threads = 256;
-  const int64_t max_blocks = 132 * 16;
-  int64_t blocks = (work + threads - 1) / threads;
-  if (blocks > max_blocks) blocks = max_blocks;
-  add_one_kernel<<<static_cast<int>(blocks), threads, 0,
-                   static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<float*>(y), n4, n);
+  if (blocks < 1 || n4 != (aligned ? n / 4 : 0)) return cudaErrorInvalidValue;
+  const auto* xf = static_cast<const float*>(x);
+  auto* yf = static_cast<float*>(y);
+  const auto s = static_cast<cudaStream_t>(stream);
+  if (aligned)
+    add_one_kernel<<<blocks, ADD_ONE_THREADS, 0, s>>>(
+        reinterpret_cast<const float4*>(xf), reinterpret_cast<float4*>(yf),
+        n4, xf + 4 * n4, yf + 4 * n4, static_cast<int>(n - 4 * n4));
+  else
+    add_one_scalar_kernel<<<blocks, ADD_ONE_THREADS, 0, s>>>(xf, yf, n);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -27,7 +27,7 @@ no fallback between the two: what the kernel cannot take raises.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Tuple
+from typing import Tuple
 
 import torch
 import torch.nn.functional as F
@@ -38,47 +38,20 @@ from . import hopper_conv
 GRID_Z_MAX = 65535    # CUDA's limit on gridDim.y and gridDim.z
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-# csrc/ladder.cu's C interface: each function is resolved once per process
+_LL = ctypes.c_longlong
+# csrc/ladder.cu's C interface
 _ARGTYPES = {
-    "ladder_add_one_f32": [_P, _P, ctypes.c_longlong, _P],
-    "ladder_pointwise_matmul_f32": [_P] * 3 + [ctypes.c_longlong] + [_I] * 4
-    + [_P],
+    "ladder_add_one_f32": [_P, _P, _LL, _LL, _I, _P],
+    "ladder_pointwise_matmul_f32": [_P] * 3 + [_LL] + [_I] * 4 + [_P],
     "ladder_pointwise_smem_bytes": [_I] * 3,
     "ladder_conv9view_bias_relu_f32": [_P] * 4 + [_I] * 7 + [_P] * 4,
     "ladder_conv9view_smem_bytes": [_I] * 2,
 }
-_fns: Dict[str, ctypes._CFuncPtr] = {}
 
 
 def _lib_fn(name: str):
-    """The ctypes handle of ``name`` with its argument and result types,
-    resolved at its first call and kept."""
-    fn = _fns.get(name)
-    if fn is None:
-        fn = getattr(cuda_build.load("ladder"), name)
-        fn.argtypes = _ARGTYPES[name]
-        fn.restype = ctypes.c_int
-        _fns[name] = fn
-    return fn
-
-
-def _stream(t: torch.Tensor) -> int:
-    """The raw handle of the current stream of t's card (what
-    ``torch.cuda.current_stream(t.device).cuda_stream`` gives, without
-    building a Stream object: these kernels are short enough that their
-    wrappers' host work shows)."""
-    return torch._C._cuda_getCurrentRawStream(t.device.index)
-
-
-_n_sm: Dict[int, int] = {}
-
-
-def _sm_count(device: torch.device) -> int:
-    n = _n_sm.get(device.index)
-    if n is None:
-        n = torch.cuda.get_device_properties(device).multi_processor_count
-        _n_sm[device.index] = n
-    return n
+    """The ctypes handle of ``name``, resolved once per process."""
+    return cuda_build.function("ladder", name, _ARGTYPES[name])
 
 
 def _check_f32(device: torch.device, **tensors) -> None:
@@ -103,6 +76,24 @@ def _aligned(*tensors: torch.Tensor) -> None:
 
 # ---- A: x + 1 ---------------------------------------------------------------
 
+# csrc/ladder.cu's add_one kernel: threads per block, float4s in flight per
+# thread
+ADD_ONE_THREADS = 256
+ADD_ONE_UNROLL = 8
+
+
+def add_one_plan(n: int, aligned: bool, resident: int) -> Tuple[int, int]:
+    """``(n4, blocks)`` of the add_one kernel for ``n`` floats: the float4s
+    of its stream (none when x or y is off a 16-byte line: then every float
+    is scalar) and its grid, one thread per float4 (per float when scalar;
+    at least one per float of the tail past the float4s), at most
+    ``resident`` blocks (the card's: blocks per SM from the occupancy API
+    times the SMs)."""
+    n4 = n // 4 if aligned else 0
+    work = max(n4, n - 4 * n4)
+    return n4, max(1, min(resident, -(-work // ADD_ONE_THREADS)))
+
+
 def ladder_add_one_plain(x: torch.Tensor) -> torch.Tensor:
     return x + 1.0
 
@@ -113,10 +104,15 @@ def ladder_add_one(x: torch.Tensor) -> torch.Tensor:
     if x.device.type == "cpu":
         return ladder_add_one_plain(x)
     out = torch.empty_like(x)
-    if x.numel() == 0:
+    n = x.numel()
+    if n == 0:
         return out
-    err = _lib_fn("ladder_add_one_f32")(x.data_ptr(), out.data_ptr(),
-                                        x.numel(), _stream(x))
+    n4, blocks = add_one_plan(n, (x.data_ptr() | out.data_ptr()) % 16 == 0,
+                              cuda_build.resident_blocks(
+                                  "ladder", "ladder_add_one_blocks_per_sm",
+                                  x.device))
+    err = _lib_fn("ladder_add_one_f32")(x.data_ptr(), out.data_ptr(), n, n4,
+                                        blocks, cuda_build.raw_stream(x))
     cuda_build.check(err, "ladder_add_one")
     ladder_add_one.launches += 1
     return out
@@ -189,7 +185,7 @@ def ladder_pointwise_matmul(x: torch.Tensor, w: torch.Tensor
                          f"{PW_C_IN_MAX} -> {PW_C_OUT_MAX} channels on the "
                          f"card, got {c_in} -> {c_out}")
     cp, cop, nb, _, blocks = pointwise_plan(m, c_in, c_out,
-                                            _sm_count(x.device))
+                                            cuda_build.sm_count(x.device))
     x2 = x.reshape(m, c_in)
     if cp != c_in:
         x2 = F.pad(x2, (0, cp - c_in))
@@ -200,7 +196,7 @@ def ladder_pointwise_matmul(x: torch.Tensor, w: torch.Tensor
     _aligned(x2, wp, y2)
     err = _lib_fn("ladder_pointwise_matmul_f32")(
         x2.data_ptr(), wp.data_ptr(), y2.data_ptr(), m, cp, cop, nb, blocks,
-        _stream(x))
+        cuda_build.raw_stream(x))
     cuda_build.check(err, "ladder_pointwise_matmul")
     ladder_pointwise_matmul.launches += 1
     if cop != c_out:
@@ -343,7 +339,7 @@ def ladder_conv9view_bias_relu(x: torch.Tensor, w9: torch.Tensor,
         xin.data_ptr(), packed.data_ptr(), b.data_ptr(), out.data_ptr(), z, y,
         xl, cp, co, nb, gc, (ctypes.c_uint64 * 5)(*dims),
         (ctypes.c_uint64 * 4)(*strides), (ctypes.c_uint32 * 5)(*box),
-        _stream(x))
+        cuda_build.raw_stream(x))
     cuda_build.check(err, "ladder_conv9view_bias_relu")
     ladder_conv9view_bias_relu.launches += 1
     return out

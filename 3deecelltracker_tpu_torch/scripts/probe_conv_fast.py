@@ -12,7 +12,8 @@ DHWIO weights), it runs:
   products as plain ``torch.matmul``s;
 - ``copad``: c_out zero-padded to 2x and 4x (c32: 64 and 128) through the
   baseline, then sliced;
-- the ladder of hand-written kernels (``ops.ladder``): A ``x + 1``, B and B2
+- the ladder of hand-written kernels (``ops.ladder``): A ``x + 1`` (a
+  streaming copy with eight 16-byte loads in flight a thread), B and B2
   the per-voxel channel product (a streaming TMA kernel), C the nine-view
   conv (three TF32 passes on the tensor cores, from TMA halo tiles of x),
   and E the backbone conv itself (the tensor-core kernel), beside cuDNN;
@@ -35,10 +36,11 @@ the card, ``bound_ms`` (``utils.roofline.bound``), ``plain_ms`` and
 ``library_ms``.  The width records carry ``tc_bound_ms`` as well
 (``utils.roofline.conv_tc_bound``: three TF32 passes at the tensor cores'
 peak); C and E, which run on the tensor cores, have that as their
-``bound_ms`` and the f32 one as ``f32_bound_ms``.  B, B2 and C also carry
-their kernel's device time, ``device_ms`` (``conv9view_device_ms`` at the
-second width), from ``torch.profiler``'s trace (:func:`device_ms`): the
-time per call includes the wrapper's host work where that is longer.
+``bound_ms`` and the f32 one as ``f32_bound_ms``.  A, B, B2 and C also
+carry their kernel's device time, ``device_ms`` (``conv9view_device_ms``
+at the second width), from ``torch.profiler``'s trace (:func:`device_ms`):
+the time per call includes the wrapper's host work where that is longer.
+A also carries its library call's device time, ``library_device_ms``.
 Each function is timed once on each input: the C and E
 entries carry the first width's cuDNN reading, B2 carries B's matmul
 reading.  Unlike the JAX probe, the bias is random rather than zero, so the
@@ -75,8 +77,11 @@ ROUNDS = 3
 WARMUP = 2
 # f32 sums in another order than the reference
 CONV_RTOL, CONV_ATOL = 1e-5, 1e-6
-# the CUDA kernels of ladder entries B and C (csrc/ladder.cu), by the
-# substring of their names that the profiler's trace shows
+# the CUDA kernels of ladder entries A, B and C (csrc/ladder.cu), and
+# PyTorch's kernel of A's library call (x + 1), by the substring of their
+# names that the profiler's trace shows
+A_KERNEL = "add_one_kernel"
+A_LIBRARY_KERNEL = "elementwise_kernel"
 B_KERNEL = "pointwise_kernel"
 C_KERNEL = "conv9view_wgmma_kernel"
 
@@ -243,10 +248,13 @@ def pallas_ladder(x: torch.Tensor, p: Dict[str, torch.Tensor],
     def lib_ms(fn: Callable[[], object]) -> Optional[float]:
         return timed(fn) if on_card else None
 
-    results["pallas_A_passthrough"] = ladder_entry(
+    results["pallas_A_passthrough"] = a = ladder_entry(
         lambda: ladder.ladder_add_one(x),
         lambda: ladder.ladder_add_one_plain(x), lib_ms(lambda: x + 1.0),
-        float(x.numel()), 2 * nbytes(x), True, on_card, "A add_one")
+        float(x.numel()), 2 * nbytes(x), True, on_card, "A add_one",
+        A_KERNEL)
+    if on_card:
+        a["library_device_ms"] = device_ms(lambda: x + 1.0, A_LIBRARY_KERNEL)
 
     w1 = torch.from_numpy(np.random.RandomState(1).rand(ci, co).astype(
         np.float32)).to(x.device)

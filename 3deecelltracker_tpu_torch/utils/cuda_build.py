@@ -6,11 +6,13 @@ compiled for ``sm_90a`` into its own shared library, and is loaded once per
 process; a source may include the shared headers beside it
 (``csrc/*.cuh``).  Libraries are cached under ``_build/`` in the package
 (listed in ``.gitignore``) by a digest of the source, the headers and the
-flags, so a changed source or header never loads a stale build.  Beside each library, ``ptxas``'s report of its
-kernels (``-Xptxas -v``: registers, spills, static shared memory) is kept
-for
-:func:`resource_usage`.  Nothing here runs at import time: the first kernel
-call builds.
+flags, so a changed source or header never loads a stale build.  Beside
+each library, ``ptxas``'s report of its kernels (``-Xptxas -v``: registers,
+spills, static shared memory) is kept for :func:`resource_usage`.  Nothing
+here runs at import time: the first kernel call builds.  The wrappers'
+hot path goes through :func:`function`, :func:`raw_stream`,
+:func:`sm_count` and :func:`resident_blocks`, which resolve once and take
+no lock afterwards.
 """
 
 from __future__ import annotations
@@ -24,7 +26,9 @@ import subprocess
 import tempfile
 import threading
 from pathlib import Path
-from typing import Dict, List, Tuple
+from typing import Dict, List, Sequence, Tuple
+
+import torch
 
 PKG_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PKG_DIR / "csrc"
@@ -34,6 +38,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
+_fns: Dict[Tuple[str, str], ctypes._CFuncPtr] = {}
+_n_sm: Dict[int, int] = {}
+_resident: Dict[Tuple[str, str, int], int] = {}
 
 
 def find_nvcc() -> str:
@@ -88,6 +95,53 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(build(name)))
             _libs[name] = lib
         return lib
+
+
+def function(name: str, symbol: str, argtypes: Sequence = ()):
+    """The ctypes handle of ``symbol`` in ``csrc/<name>.cu``'s library,
+    with ``argtypes`` and an int result, resolved at its first call and
+    kept: later calls take no lock and set nothing."""
+    fn = _fns.get((name, symbol))
+    if fn is None:
+        fn = getattr(load(name), symbol)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+        _fns[(name, symbol)] = fn
+    return fn
+
+
+def raw_stream(t) -> int:
+    """The raw handle of the current stream of tensor t's card (what
+    ``torch.cuda.current_stream(t.device).cuda_stream`` gives, without
+    building a Stream object: for kernels short enough that their
+    wrappers' host work shows)."""
+    return torch._C._cuda_getCurrentRawStream(t.device.index)
+
+
+def sm_count(device) -> int:
+    """The card's streaming multiprocessors, asked once per device."""
+    n = _n_sm.get(device.index)
+    if n is None:
+        n = torch.cuda.get_device_properties(device).multi_processor_count
+        _n_sm[device.index] = n
+    return n
+
+
+def resident_blocks(name: str, symbol: str, device) -> int:
+    """The blocks of one kernel the whole card holds at once: ``symbol``
+    of ``csrc/<name>.cu`` returns the blocks an SM holds (the occupancy
+    API; a CUDA error as a negative number), times the SMs.  Asked once
+    per device."""
+    key = (name, symbol, device.index)
+    n = _resident.get(key)
+    if n is None:
+        per_sm = function(name, symbol)()
+        if per_sm <= 0:
+            raise RuntimeError(f"{symbol}: occupancy query failed "
+                               f"({per_sm})")
+        n = per_sm * sm_count(device)
+        _resident[key] = n
+    return n
 
 
 def _demangle(symbol: str) -> str:

@@ -28,7 +28,10 @@ Phases (any failure raises and the script exits non-zero):
 5. cc check: the connected-components kernel against its plain version,
    exactly, on the (401, 168, 24) pipeline frame: the 26-conn 3-D peak mask
    of the bench scene's smoothed EDT, the 8-conn per-slice 2-D peak masks,
-   and one serpentine component (3-D and per slice);
+   and one serpentine component (3-D and per slice); for each mask its
+   launches per call (one), its time per call, its device time from
+   ``torch.profiler`` in full and stopped after its first and second phase,
+   and the byte bound;
 6. the v1.0 slice: ``segment_and_track_arrays`` on the bench scene,
    (24, 401, 168) uint16 volumes with 150 drifting cells (seed 0), at full
    bench width with seeded random weights: 1 reference volume, 1 warm
@@ -53,10 +56,10 @@ Phases (any failure raises and the script exits non-zero):
    plain version (``add_one`` exactly, the channel product and the
    nine-view conv, at both widths, within ``CONV_RTOL`` / ``CONV_ATOL``),
    and raises on a miss; the phase prints its table (ms, bound, library
-   ms, TFLOP/s, and the device time of the channel product and the
-   nine-view conv).  Every counter reset before and read after; the
-   ``wgmma`` conv's and each ladder kernel's must be > 0, the direct
-   conv's 0.
+   ms, TFLOP/s, and the device time of ``add_one`` and of its library call
+   ``x + 1``, of the channel product and of the nine-view conv).  Every
+   counter reset before and read after; the ``wgmma`` conv's and each
+   ladder kernel's must be > 0, the direct conv's 0.
 
 Every kernel's entry in the kernels line carries its bound: the least time
 the card could take, the larger of its bytes (inputs read once, the output
@@ -67,8 +70,10 @@ the ``wgmma`` conv and the ladder's nine-view conv, whose ``bound_ms``
 products per multiply at the 495 TFLOP/s dense TF32 peak; their
 ``f32_bound_ms`` is the same conv's f32 bound, the one the direct kernel is
 held to.  The nine-view conv's entry also carries its readings at the
-probe's second width (``c128_*``); it and the channel product carry their
-device time (``device_ms``).
+probe's second width (``c128_*``); it, the channel product, ``add_one``
+(beside ``x + 1``'s, ``library_device_ms``) and ``cc_label`` (the 3-D peak
+mask's; every mask's readings under ``by_mask``) carry their device time
+(``device_ms``).
 
 The second-to-last line is ``{"kernels": [...]}``, the last line
 ``{"ok": true, "device": {...}}``.  Weights are random: the tracking
@@ -435,18 +440,33 @@ def phase_cc(dev):
     peaks2 = peak_local_max_mask(d2, 7, batch_ndim=1).permute(
         1, 2, 0).contiguous()
     snake = torch.from_numpy(serpentine(tuple(cells.shape))).to(dev)
+    from t3dct_torch.utils.roofline import bound, nbytes
+    # the mask read once, the int32 labels written once
+    t_b, by = bound(0.0, nbytes(peaks3) + 4 * peaks3.numel())
+    cc = hopper_cc.cc_label
+    reps, warmup = 10, 2
     out = {}
     for name, m, per_slice in (("3-D peaks", peaks3, False),
                                ("per-slice peaks", peaks2, True),
                                ("snake 3-D", snake, False),
                                ("snake per slice", snake, True)):
-        got = hopper_cc.cc_label(m, per_slice=per_slice)
+        n0 = cc.launches
+        got = cc(m, per_slice=per_slice)
         ref = hopper_cc.label_components_raw_plain(m, per_slice=per_slice)
         torch.cuda.synchronize()
         if not torch.equal(got, ref):
             raise AssertionError(f"cc {name}: {(got != ref).sum().item()} "
                                  "voxels differ from the plain version")
-        t_k = cuda_ms(lambda: hopper_cc.cc_label(m, per_slice=per_slice))
+        if cc.launches != n0 + 1:
+            raise AssertionError(f"cc {name}: {cc.launches - n0} launches "
+                                 "for one call")
+        n0 = cc.launches
+        t_k = cuda_ms(lambda: cc(m, per_slice=per_slice), reps, warmup)
+        per_call = (cc.launches - n0) / (reps + warmup)
+        t_dev = device_ms(lambda: cc(m, per_slice=per_slice), "cc_kernel")
+        # the same launch stopped after phase 1, and after phase 2
+        t_ph = [device_ms(lambda: hopper_cc._launch(m, per_slice, k),
+                          "cc_kernel") for k in (1, 2)]
         t_p = cuda_ms(lambda: hopper_cc.label_components_raw_plain(
             m, per_slice=per_slice), reps=2, warmup=1)
         # a component's root is the voxel labeled with its own index
@@ -457,16 +477,18 @@ def phase_cc(dev):
                 nx, ny, 1)
         n_comp = int((m & (ref == own)).sum())
         print(f"[cc] {name} {tuple(m.shape)}: exact, {int(m.sum())} fg "
-              f"voxels, {n_comp} components  kernel {t_k:.3f} ms  plain "
-              f"{t_p:.3f} ms")
-        out[name] = (t_k, t_p)
-    from t3dct_torch.utils.roofline import bound, nbytes
-    t_k, t_p = out["3-D peaks"]
-    # the mask read once, the int32 labels written once
-    t_b, by = bound(0.0, nbytes(peaks3) + 4 * peaks3.numel())
-    print(f"[cc] 3-D peaks least {t_b * 1e3:.2f} us")
-    return dict(max_abs_err=0.0, ms=t_k, plain_ms=t_p, bound_ms=t_b,
-                bound_by=by, library_ms=None)
+              f"voxels, {n_comp} components  kernel {t_k:.4f} ms per call, "
+              f"{per_call:g} launch per call, on the device "
+              f"{fmt_ms(t_dev)} (through phase 1 {fmt_ms(t_ph[0])}, "
+              f"through phase 2 {fmt_ms(t_ph[1])})  plain {t_p:.3f} ms  "
+              f"least {t_b * 1e3:.2f} us ({by})")
+        out[name] = dict(ms=t_k, device_ms=t_dev, phase1_device_ms=t_ph[0],
+                         phase12_device_ms=t_ph[1], plain_ms=t_p,
+                         launches_per_call=per_call)
+    head = out["3-D peaks"]
+    return dict(max_abs_err=0.0, ms=head["ms"], plain_ms=head["plain_ms"],
+                bound_ms=t_b, bound_by=by, library_ms=None,
+                device_ms=head["device_ms"], by_mask=out)
 
 
 def bench_model(dev, n_rays=96, base=32, feat=128, max_candidates=256,
@@ -784,6 +806,9 @@ def phase_probe(dev):
                    if "f32_bound_ms" in rec else "")
             dev = (f" (on the device {fmt_ms(rec['device_ms'])})"
                    if "device_ms" in rec else "")
+            if "library_device_ms" in rec:
+                dev += (f" (library on the device "
+                        f"{fmt_ms(rec['library_device_ms'])})")
             print(f"[probe] {key}: {rec['ms']:.4f} ms{dev}, least "
                   f"{rec['bound_ms']:.4f} ms by {rec['bound_by']}{f32}, plain "
                   f"{rec['plain_ms']:.4f} ms, library "
@@ -865,8 +890,8 @@ def main() -> int:
     ]
     for entry, name, replaces in LADDER:
         rec = probe[entry]
-        extra = {k: rec[k] for k in ("device_ms", "f32_bound_ms")
-                 if k in rec}
+        extra = {k: rec[k] for k in ("device_ms", "library_device_ms",
+                                     "f32_bound_ms") if k in rec}
         if entry == "pallas_C_9view_conv":
             # C at the probe's second width: its width record
             w2 = probe["c32_to_c128"]

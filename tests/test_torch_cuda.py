@@ -20,6 +20,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 import t3dct_torch  # noqa: E402,F401
 from t3dct_torch.ops import (  # noqa: E402
     hopper_cc, hopper_conv, hopper_flood, ladder)
+from t3dct_torch.utils import cuda_build  # noqa: E402
 from t3dct_torch.utils.device import pin_float32  # noqa: E402
 from t3dct_torch.utils.synthetic import serpentine  # noqa: E402
 
@@ -158,18 +159,44 @@ def test_wgmma_kernel_raises_without_fallback(dev):
     assert _counts() == n0
 
 
-@pytest.mark.parametrize("per_slice", [False, True])
-@pytest.mark.parametrize("case", ["sparse", "dense", "snake", "empty"])
-def test_cc_kernel_matches_plain(dev, per_slice, case):
-    """Exact: the kernel and the plain loop give every voxel its
-    component's smallest flat index."""
-    shape = (61, 47, 9)
-    rng = np.random.RandomState(len(case))
-    mask = {"sparse": rng.rand(*shape) < 0.2,
-            "dense": rng.rand(*shape) < 0.55,
-            "snake": serpentine(shape),
-            "empty": np.zeros(shape, bool)}[case]
-    m = torch.from_numpy(mask).to(dev)
+# cc cases: (shape, tile_max of the host's plan (None: the kernel's), mask);
+# shapes ragged on every axis at the card's plan (z past TILE_Z_MAX, with z
+# % 4 = 2 and 0: byte and word loads), small tiles (ragged everywhere, one
+# a block, or more of them than the card holds blocks: several a block),
+# axes of length 1, the full pipeline frame
+CC_CASES = {
+    "sparse": ((61, 47, 9), None, "sparse"),
+    "dense": ((61, 47, 9), None, "dense"),
+    "snake": ((61, 47, 9), None, "snake"),
+    "empty": ((61, 47, 9), None, "empty"),
+    "full": ((61, 47, 9), None, "full"),
+    "ragged bytes": ((29, 21, 70), None, "dense"),
+    "ragged words": ((29, 21, 68), None, "dense"),
+    "small tiles": ((61, 47, 9), 150, "dense"),
+    "small tiles snake": ((61, 47, 9), 150, "snake"),
+    "many tiles per block": ((61, 47, 9), 8, "sparse"),
+    "many tiles per block snake": ((61, 47, 10), 8, "snake"),
+    "snake ragged": ((29, 21, 70), None, "snake"),
+    "x 1": ((1, 50, 40), None, "dense"),
+    "y 1": ((50, 1, 40), None, "dense"),
+    "z 1": ((50, 40, 1), None, "dense"),
+    "frame sparse": ((401, 168, 24), None, "sparse"),
+    "frame snake": ((401, 168, 24), None, "snake"),
+    "frame full": ((401, 168, 24), None, "full"),
+}
+
+
+def _cc_mask(shape, kind, seed):
+    rng = np.random.RandomState(seed)
+    return {"sparse": lambda: rng.rand(*shape) < 0.2,
+            "dense": lambda: rng.rand(*shape) < 0.55,
+            "snake": lambda: serpentine(shape),
+            "empty": lambda: np.zeros(shape, bool),
+            "full": lambda: np.ones(shape, bool)}[kind]()
+
+
+def _cc_held(m, per_slice):
+    """cc_label on the card: exact against the plain version, one launch."""
     n0 = hopper_cc.cc_label.launches
     got = hopper_cc.cc_label(m, per_slice=per_slice)
     want = hopper_cc.label_components_raw_plain(m, per_slice=per_slice)
@@ -177,8 +204,34 @@ def test_cc_kernel_matches_plain(dev, per_slice, case):
     assert hopper_cc.cc_label.launches == n0 + 1
     assert got.dtype == torch.int32 and got.shape == m.shape
     assert torch.equal(got, want)
-    if case == "snake":
+    return got
+
+
+@pytest.mark.parametrize("per_slice", [False, True])
+@pytest.mark.parametrize("case", list(CC_CASES))
+def test_cc_kernel_matches_plain(dev, per_slice, case, monkeypatch):
+    """Exact: the kernel and the plain loop give every voxel its
+    component's smallest flat index, in one launch per call."""
+    shape, tile_max, kind = CC_CASES[case]
+    if tile_max is not None:
+        monkeypatch.setattr(hopper_cc, "TILE_MAX", tile_max)
+        resident = cuda_build.resident_blocks("cc", "cc_blocks_per_sm", dev)
+        n_tiles = hopper_cc.tile_plan(shape, resident, tile_max)[1]
+        assert (n_tiles > resident) == case.startswith("many tiles")
+    m = torch.from_numpy(_cc_mask(shape, kind, len(case))).to(dev)
+    got = _cc_held(m, per_slice)
+    if kind == "snake":
         assert int(got.max()) == 1 if per_slice else len(got.unique()) == 2
+
+
+@pytest.mark.parametrize("shape", [(1,), (1000,), (4099,), (1, 1), (70, 90),
+                                   (1, 300), (300, 1), (1, 1, 1)])
+def test_cc_kernel_on_1d_and_2d_masks(dev, shape):
+    """1-D and 2-D masks (padded to three axes by the wrapper), exact, one
+    launch per call."""
+    rng = np.random.RandomState(sum(shape))
+    m = torch.from_numpy(rng.rand(*shape) < 0.6).to(dev)
+    _cc_held(m, False)
 
 
 @pytest.mark.parametrize("levels", [None, 2])
@@ -298,6 +351,48 @@ def test_add_one_kernel_matches_plain_exactly(dev, n):
         # an empty tensor launches nothing
         assert ladder.ladder_add_one.launches == n0 + (n > 0)
         assert torch.equal(got, ladder.ladder_add_one_plain(v))
+
+
+def _add_one_held(v):
+    n0 = ladder.ladder_add_one.launches
+    got = ladder.ladder_add_one(v)
+    torch.cuda.synchronize()
+    assert ladder.ladder_add_one.launches == n0 + 1
+    assert got.shape == v.shape
+    assert torch.equal(got, ladder.ladder_add_one_plain(v))
+
+
+@pytest.mark.parametrize("n", [1, 3, 5, 255, 256, 257, 1023, 1029,
+                               4 * 256 * 4 + 6])
+def test_ladder_add_one_below_one_block_and_ragged_tails(dev, n):
+    """Sizes below one block of float4s, at it, just past it, and with a
+    ragged tail of 1-3 floats: exact, one launch per call."""
+    g = torch.Generator().manual_seed(n)
+    _add_one_held(torch.randn((n,), generator=g).to(dev))
+
+
+@pytest.mark.parametrize("n", [8, 4096, 1 << 20, 3 * (1 << 20) + 5])
+def test_ladder_add_one_unaligned_view(dev, n):
+    """A view 4 bytes off a 16-byte line (all floats take the scalar
+    path): exact, one launch per call."""
+    flat = torch.randn((n + 1,), generator=torch.Generator().manual_seed(n)
+                       ).to(dev)
+    v = flat[1:]
+    assert v.data_ptr() % 16 == 4
+    _add_one_held(v)
+
+
+@pytest.mark.parametrize("shape", [(24, 204, 84, 32), (3, 1, 5)])
+def test_ladder_add_one_many_passes(dev, shape):
+    """The probe's tensor (more float4s than the resident grid takes in
+    one unrolled pass) and a small 3-D one: exact, one launch per call;
+    the grid never exceeds the card's resident blocks."""
+    x = torch.rand(shape, generator=torch.Generator().manual_seed(1)).to(dev)
+    _add_one_held(x)
+    resident = cuda_build.resident_blocks(
+        "ladder", "ladder_add_one_blocks_per_sm", dev)
+    n4, blocks = ladder.add_one_plan(x.numel(), True, resident)
+    assert blocks <= resident and n4 == x.numel() // 4
 
 
 @pytest.mark.parametrize("shape", [(3, 7, 5, 32, 32), (2, 9, 11, 8, 40),
