@@ -5,14 +5,18 @@ One call per volume: normalize the raw volume on the device with the
 host's 1/99.8 percentiles, reflect-pad to the network's ``div_by``, run the
 backbone, gather the sparse candidates, then overlap matrix, greedy NMS
 and, when asked, the label render.  Outputs stay on the device.
+``finalize_instances`` is the host half of a call that writes artifacts
+(``StarDist3D._finalize_instances``, JAX ``engine/stardist.py:327``): it
+orders the kept candidates once their arrays are on the host.
 """
 
 from __future__ import annotations
 
 import json
 from pathlib import Path
-from typing import Tuple, Union
+from typing import Dict, Tuple, Union
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -111,3 +115,21 @@ class StarDist3D:
                 centers, dists, self.rays, probs, kept, orig_shape,
                 self.render_box)
         return kept, probs, dists, points, prob_map, labels
+
+    def finalize_instances(self, fetched):
+        """Host selection from one call's outputs as numpy arrays,
+        ``(kept, probs, dists, points, prob_map, labels)`` (``dists`` and
+        ``labels`` may be None): the kept candidates by descending prob,
+        stably (tied probs keep candidate order, as the device adapter
+        ``seg_candidates_to_padded_real`` does), and the grid prob map in
+        float32.  Returns ``((labels, details), prob_map)``."""
+        kept, probs, dists, points, prob_map, labels = fetched
+        order = np.argsort(-np.where(kept, probs, -np.inf), kind="stable")
+        sel = order[:int(kept.sum())]
+        details: Dict[str, np.ndarray] = {
+            "points": points[sel],
+            "prob": probs[sel],
+            "dist": dists[sel] if dists is not None else None,
+            "rays_vertices": self.rays.cpu().numpy(),
+        }
+        return (labels, details), np.asarray(prob_map, np.float32)

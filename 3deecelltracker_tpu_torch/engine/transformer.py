@@ -1,21 +1,32 @@
 """Vol-1 labels -> subregion atlas and cell coordinates (counterpart of
 ``3deecelltracker_tpu/engine/transformer.py``: ``upsample_prob_pipeline``,
-``load_segmentation_array``, ``interpolate`` without its disk writes)."""
+``load_segmentation`` :73, ``load_segmentation_array``, ``interpolate``
+:135-200 and ``save_tracking_results``).
+
+The array half builds the atlas from labels in memory.  Given a results
+folder, the disk half reads the proofed ``manual_vol1`` TIFFs and writes
+what the JAX transformer writes: the vol-1 labels and centres at
+``t_start``, then each tracked volume's labels and coordinates."""
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from glob import glob
+from pathlib import Path
+from typing import Optional, Tuple, Union
 
 import numpy as np
 import torch
 
 from ..coordinates import Coordinates
+from ..io.artifacts import ResultsTree
+from ..io.imageio import imread_stack
 from ..ops.connected import label_components_values
 from ..ops.segment_reduce import center_of_mass, find_objects_bounds
 from ..ops.subregions import (SubregionAtlas, build_subregion_atlas,
                               move_cells_sampled)
 from ..ops.watershed import recalculate_cell_boundaries
 from ..utils.device import select_device
+from ..viz import save_merged_labels
 
 BOUNDARY_XY = 6  # reference tracker.py:47
 
@@ -49,16 +60,34 @@ def _box_shape(labels: torch.Tensor, n_cells: int) -> Tuple[int, int, int]:
 
 
 class CoordsToImageTransformer:
-    """Array-in, array-out twin of the JAX transformer for the main path."""
+    """Twin of the JAX transformer for the main path.  ``results_folder``:
+    the results tree that :meth:`interpolate` and
+    :meth:`save_tracking_results` write (None: arrays only)."""
 
-    def __init__(self, voxel_size, device=None):
+    def __init__(self, voxel_size, device=None,
+                 results_folder: Union[str, Path, None] = None):
         self.voxel_size = tuple(float(v) for v in np.asarray(voxel_size))
         self.device = select_device(device)
+        self.tree = (ResultsTree(results_folder)
+                     if results_folder is not None else None)
+        self.use_8_bit = True
         self.proofed_segmentation: Optional[np.ndarray] = None
         self.atlas: Optional[SubregionAtlas] = None
         self.auto_corrected_segmentation: Optional[np.ndarray] = None
         self.coord_vol1: Optional[Coordinates] = None
         self.interpolation_factor: int = 1
+
+    def load_segmentation(self, manual_vol_start_path: str) -> None:
+        """The proofed vol-1 labels from the z-slice TIFFs that the glob
+        ``manual_vol_start_path`` finds, in sorted order."""
+        slice_paths = sorted(glob(manual_vol_start_path))
+        if not slice_paths:
+            raise FileNotFoundError(
+                f"No image in {manual_vol_start_path} was found")
+        self.load_segmentation_array(imread_stack(slice_paths)
+                                     .transpose(1, 2, 0))
+        n = int(np.count_nonzero(np.unique(self.proofed_segmentation)))
+        print(f"Loaded the proofed segmentations at vol 1 with {n} cells")
 
     def load_segmentation_array(self, seg_xyz: np.ndarray) -> None:
         """Proofed vol-1 labels in the (x, y, z) frame."""
@@ -76,10 +105,11 @@ class CoordsToImageTransformer:
             labels, overlap, sampling_xy=self.voxel_size[:2])
 
     def interpolate(self, interpolation_factor: int,
-                    smooth_sigma: float = 2.5) -> None:
+                    smooth_sigma: float = 2.5, t_start: int = 1) -> None:
         """Smooth the proofed labels through the z-interpolated atlas, fix
         labelling errors (value-equal connected components), rebuild the
-        atlas, and set the vol-1 labels and centre coordinates."""
+        atlas, and set the vol-1 labels and centre coordinates; with a
+        results tree, write both as volume ``t_start``."""
         if interpolation_factor <= 0:
             raise ValueError("Interpolation factor must be greater than zero.")
         if self.proofed_segmentation is None:
@@ -106,3 +136,25 @@ class CoordsToImageTransformer:
         self.coord_vol1 = Coordinates(com.to(torch.float32),
                                       self.interpolation_factor,
                                       self.voxel_size)
+        self.use_8_bit = int(self.auto_corrected_segmentation.max()) <= 255
+        if self.tree is not None:
+            self.save_tracking_results(
+                self.coord_vol1.real.cpu().numpy(),
+                self.auto_corrected_segmentation, t_start)
+
+    def save_tracking_results(self, coords_real: np.ndarray,
+                              labels_xyz: np.ndarray, t2: int,
+                              images_path: Optional[str] = None) -> None:
+        """Volume ``t2``'s tracked coordinates (``coords_real/``, real
+        units) and labels (``labels/``, uint8 when vol 1 has at most 255
+        cells, else uint16, LZW); given the recording, also the labels
+        over the raw volume (``viz.save_merged_labels``), which, as in the
+        JAX package, never stops tracking when it fails."""
+        self.tree.save_coords_real(t2, np.asarray(coords_real))
+        self.tree.save_tracked_labels(labels_xyz, t2, self.use_8_bit)
+        if images_path is not None:
+            try:
+                save_merged_labels(self.tree.root, labels_xyz, images_path,
+                                   t2, self.interpolation_factor)
+            except Exception as e:      # a figure, not a result
+                print(f"merged-label figure skipped: {e!r}")

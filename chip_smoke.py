@@ -59,7 +59,23 @@ Phases (any failure raises and the script exits non-zero):
    ms, TFLOP/s, and the device time of ``add_one`` and of its library call
    ``x + 1``, of the channel product and of the nine-view conv).  Every
    counter reset before and read after; the ``wgmma`` conv's and each
-   ladder kernel's must be > 0, the direct conv's 0.
+   ladder kernel's must be > 0, the direct conv's 0;
+11. bench scene, trained weights, real entry point: the bench scene's 21
+   volumes written as TIFF slices with the ``manual_vol1`` labels (the
+   port's codec), then ``engine.pipeline.segment_and_track`` with
+   ``handoff="device"`` and the committed weights
+   (``3deecelltracker_tpu_torch/assets/bench/``) into a fresh results
+   tree, held to JAX's record of the same run (``jax_record.npz``): kept
+   cells per volume exact (one candidate within ``KEPT_MARGIN`` of a
+   threshold may differ, and is printed with its margin), tracked
+   coordinates within ``COORD_MEDIAN`` per volume and every cell within
+   the record's identity gate of JAX's same cell, labels
+   ``LABELS_EQUAL`` per recorded volume, strict recall and identity
+   switches equal.  Every counter reset before and read after; the
+   ``wgmma`` conv's and the flood's must be > 0, the direct conv's one per
+   volume.  Prints the wall per volume of the whole call (host I/O
+   included), seg and track per volume, strict recall, accuracy over
+   every t and identity switches, with the card's name and power limit.
 
 Every kernel's entry in the kernels line carries its bound: the least time
 the card could take, the larger of its bytes (inputs read once, the output
@@ -76,8 +92,9 @@ mask's; every mask's readings under ``by_mask``) carry their device time
 (``device_ms``).
 
 The second-to-last line is ``{"kernels": [...]}``, the last line
-``{"ok": true, "device": {...}}``.  Weights are random: the tracking
-accuracy printed is not a measure of the system.
+``{"ok": true, "device": {...}}``.  Phases 6-9 use seeded random weights,
+so the tracking accuracy they print is not a measure of the system;
+phase 11 uses the trained weights.
 """
 
 from __future__ import annotations
@@ -117,6 +134,25 @@ LEG_MAX_CELLS = 512
 # stand-in U-Net: a voxel is a cell where its LCN value exceeds 2; at 1.0
 # (the default) the bench scene's cells merge into ~40 blobs
 LEG_THRESHOLD = 2.0
+# phase 11: the bench scene's 21 volumes through ``segment_and_track``
+# with the trained weights, held to JAX's record of the same run
+BENCH_VOLS = 21
+ASSETS = ROOT / "3deecelltracker_tpu_torch" / "assets" / "bench"
+# one candidate may be kept on one side only if it sits this close to a
+# threshold (prob, or NMS overlap)
+KEPT_MARGIN = 1e-4
+# tracked coordinates against JAX's (real units): the median per volume
+# within the slice tests' 1e-2.  No per-cell bound below a voxel holds: the
+# f32 PR-GLS EM of the two frameworks parts by ~1e-2 on the bench scene
+# with equal inputs (JAX's own output moves 2e-3 for a 1-ulp input
+# change), and the correction loop's integer rounding turns that into a
+# whole voxel step for a cell near a rounding boundary, which later volumes
+# can carry on.  So every cell is held to JAX's cell of the same identity:
+# within the record's identity gate (half the median nearest-neighbour
+# spacing of the true t = 1 cloud), the gate of the strict-recall metric.
+COORD_MEDIAN = 1e-2
+# share of voxels equal per recorded label volume (the slice tests' bound)
+LABELS_EQUAL = 0.995
 
 
 def unet_conv_layers(spec):
@@ -507,26 +543,6 @@ def bench_model(dev, n_rays=96, base=32, feat=128, max_candidates=256,
                       render_box=render_box, device=dev)
 
 
-class CudaStageTimer:
-    def __init__(self):
-        self.times = {}
-        self._t = 1
-
-    def stage(self, name):
-        import contextlib
-        import torch
-
-        @contextlib.contextmanager
-        def cm():
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            yield
-            torch.cuda.synchronize()
-            self.times.setdefault(name, []).append(
-                1e3 * (time.perf_counter() - t0))
-        return cm()
-
-
 def counted(fn):
     """``fn()`` with every kernel's launch counter set to 0 just before it;
     returns its result and every counter as read just after it."""
@@ -557,6 +573,7 @@ def phase_slice(dev):
           f"{N_CELLS} cells: {time.perf_counter() - t0:.1f} s")
     model = bench_model(dev)
     ffn = feature_distance_ffn(torch.Generator().manual_seed(1), dev)
+    from t3dct_torch.utils.timing import CudaStageTimer
     timer = CudaStageTimer()
     t0 = time.perf_counter()
     res, launches = counted(lambda: segment_and_track_arrays(
@@ -664,6 +681,7 @@ def phase_legacy(dev):
     # the legacy (x, y, z) frame of the raw (z, y, x) volumes
     vols_xyz = [v.transpose(1, 2, 0) for v in vols]
     unet, ffn = legacy_models(dev, unet3_a(), LEG_THRESHOLD)
+    from t3dct_torch.utils.timing import CudaStageTimer
     timer = CudaStageTimer()
     t0 = time.perf_counter()
     res, launches = counted(lambda: legacy_segment_and_track_arrays(
@@ -764,6 +782,155 @@ def phase_legacy_small_parity(dev):
                                  "disagree")
 
 
+def write_bench_scene(root):
+    """The bench scene as ``bench.py`` writes it (``make_recording``,
+    ``_save_manual_vol1``): per-(t, z) uint16 TIFF slices of the 21 volumes,
+    and the vol-1 ground truth as the proofed ``manual_vol1`` labels, with
+    the port's codec.  Returns the recording's pattern and the true
+    centres."""
+    from t3dct_torch.io.imageio import save_label_slices
+    from t3dct_torch.utils.synthetic import make_recording
+    vols, centers, lab1 = make_recording(BENCH_VOLS, N_CELLS, (Z, Y, X))
+    for t, v in enumerate(vols, start=1):
+        save_label_slices(v.transpose(1, 2, 0), root / "raw",
+                          "raw_t%03i_z%04i.tif", t, use_8_bit=False,
+                          compression=None)
+    save_label_slices(lab1.transpose(1, 2, 0), root / "results" /
+                      "manual_vol1", "manual_vol1_t%04i_z%04i.tif", 0,
+                      use_8_bit=False, compression=None)
+    return str(root / "raw" / "raw_t%03i_z*.tif"), centers
+
+
+def kept_difference(t, got_zyx, want_zyx, cands, model):
+    """Candidates that one side kept and the other did not at volume
+    ``t``, each with its margin: the distance of its probability to the
+    prob threshold, or of its overlap with another candidate to the NMS
+    threshold, whichever is less (from this run's candidates)."""
+    import torch
+    from t3dct_torch.ops.nms import overlap_matrix
+    got = {tuple(int(v) for v in p) for p in got_zyx}
+    want = {tuple(int(v) for v in p) for p in want_zyx}
+    if got == want:
+        return []
+    kept, probs, dists, points = cands
+    ov = overlap_matrix(points.to(torch.float32), dists, model.rays,
+                        torch.ones_like(kept), prob=probs).cpu().numpy()
+    np.fill_diagonal(ov, np.inf)
+    probs, points = probs.cpu().numpy(), points.cpu().numpy()
+    out = []
+    for p in sorted(got ^ want):
+        i = np.flatnonzero((points == p).all(axis=1))
+        side = "card" if p in got else "JAX"
+        if i.size == 0:
+            out.append((t, p, side, np.inf))
+            continue
+        i = int(i[0])
+        margin = min(abs(float(probs[i]) - model.thresholds["prob"]),
+                     float(np.abs(np.concatenate([ov[i], ov[:, i]])
+                                  - model.thresholds["nms"]).min()))
+        out.append((t, p, side, margin))
+    return out
+
+
+def phase_bench_scene(dev, smi):
+    """Phase 11: the bench scene through the real entry point with the
+    trained weights, held to JAX's record of the same run
+    (``assets/bench/jax_record.npz``)."""
+    import tempfile
+    from t3dct_torch.config import TrackingConfig
+    from t3dct_torch.engine.metrics import tracking_id_metrics
+    from t3dct_torch.engine.pipeline import segment_and_track
+    from t3dct_torch.engine.stardist import StarDist3D
+    from t3dct_torch.io.imageio import imread_stack
+    from t3dct_torch.utils.timing import CudaStageTimer
+    record = np.load(ASSETS / "jax_record.npz")
+    want_metrics = json.loads(str(record["metrics"]))
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        t0 = time.perf_counter()
+        pattern, centers = write_bench_scene(root)
+        print(f"[bench] scene: {BENCH_VOLS} volumes of {(Z, Y, X)} uint16 "
+              f"as TIFF slices, {N_CELLS} cells: "
+              f"{time.perf_counter() - t0:.1f} s")
+        model = StarDist3D.load(ASSETS / "sd_model", device=dev)
+        model.max_candidates, model.render_box = 256, (9, 33, 33)
+        cands = []
+        seg = model.predict_instances_device
+
+        def keep_candidates(*args, **kwargs):
+            out = seg(*args, **kwargs)
+            cands.append(out[:4])
+            return out
+
+        model.predict_instances_device = keep_candidates
+        timer = CudaStageTimer()
+        results = root / "results"
+        coords, launches = counted(lambda: segment_and_track(
+            pattern, model, results, str(results / "manual_vol1" / "*.tif"),
+            ASSETS / "ffn.npz", VOXEL_SIZE, 10, (1, BENCH_VOLS),
+            TrackingConfig(beta=3.0, lambda_=3.0), verbose=False,
+            timer=timer, device=dev))
+        print(f"[bench] launches {launches}")
+        check_conv_launches("bench", launches, BENCH_VOLS, stem_count(
+            [(ci, co, n) for *_, ci, co, n in CONV_LAYERS]))
+        check_flood_launches("bench", launches, BENCH_VOLS)
+        diffs, kept = [], []
+        for t in range(1, BENCH_VOLS + 1):
+            got = np.load(results / "seg" / f"coords{t:06d}.npy")
+            want = record[f"seg_coords_{t}"]
+            kept.append((len(got), len(want)))
+            diffs += kept_difference(t, got[:, [2, 0, 1]],
+                                     want[:, [2, 0, 1]], cands[t - 1], model)
+        for t, p, side, margin in diffs:
+            print(f"[bench] t={t}: candidate {p} kept on the {side} side "
+                  f"only, margin {margin:.3e}")
+        print(f"[bench] kept per volume (card, JAX): {kept}")
+        if len(diffs) > 1 or any(m > KEPT_MARGIN for *_, m in diffs):
+            raise AssertionError(f"bench scene: kept cells differ from "
+                                 f"JAX's record: {diffs}")
+        bad = []
+        for t in range(1, BENCH_VOLS + 1):
+            d = np.linalg.norm(coords[t] - record[f"coords_{t}"], axis=1)
+            line = (f"[bench] t={t}: coords off JAX's record by median "
+                    f"{np.median(d):.3e}, max {d.max():.3e} real units "
+                    f"(cell {int(d.argmax())}), {int((d > 1e-2).sum())} "
+                    f"cells beyond 1e-2, {int((d > 0.5).sum())} beyond 0.5")
+            if not np.isfinite(coords[t]).all() or \
+                    np.median(d) > COORD_MEDIAN or \
+                    d.max() > want_metrics["gate"]:
+                bad.append(f"t={t} coords")
+            key = f"labels_{t}"
+            if key in record:
+                lab = imread_stack(sorted((results / "track_results" /
+                                           "labels").glob(
+                    "track_results_t%06i_z*.tif" % t))).transpose(1, 2, 0)
+                same = float((lab == record[key]).mean())
+                line += f"; labels equal {same:.5f}"
+                if lab.dtype != record[key].dtype or same < LABELS_EQUAL:
+                    bad.append(f"t={t} labels")
+            print(line)
+        got_metrics = tracking_id_metrics(coords, centers, VOXEL_SIZE,
+                                          BENCH_VOLS)
+    wall = timer.times["call"][0] / BENCH_VOLS
+    seg_ms, track_ms = np.mean(timer.times["seg"]), \
+        np.mean(timer.times["track"])
+    print(f"[bench] {smi}: wall {wall:.2f} ms per volume for the whole call "
+          f"(TIFF decode, percentiles, uploads, artifacts, vol-1 "
+          f"interpolation {timer.times['interpolate_vol1'][0]:.1f} ms "
+          f"included); seg {seg_ms:.2f} ms, track {track_ms:.2f} ms per "
+          f"volume")
+    print(f"[bench] strict recall {got_metrics['strict_recall']}, accuracy "
+          f"over every t {got_metrics['strict_accuracy_all_t']}, identity "
+          f"switches {got_metrics['id_switches']} (JAX's record: "
+          f"{want_metrics})")
+    bad += [f"{key} {got_metrics[key]}" for key in ("strict_recall",
+                                                     "id_switches")
+            if got_metrics[key] != want_metrics[key]]
+    if bad:
+        raise AssertionError(f"bench scene: off JAX's record: {bad}")
+    return launches
+
+
 # the ladder's kernels: (probe entry, wrapper name, file:line of the TPU
 # kernel they replace)
 LADDER = [("pallas_A_passthrough", "ladder_add_one",
@@ -859,12 +1026,13 @@ def main() -> int:
     leg = phase_legacy(dev)
     phase_legacy_small_parity(dev)
     probe, probe_launches = phase_probe(dev)
+    bench = phase_bench_scene(dev, smi)
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
 
     def counts(name):
         by_path = {"v1.0": launches[name], "legacy": leg[name],
-                   "probe": probe_launches[name]}
+                   "probe": probe_launches[name], "bench": bench[name]}
         return dict(launches=sum(by_path.values()),
                     launches_by_path=by_path)
 
@@ -882,7 +1050,8 @@ def main() -> int:
              replaces="3deecelltracker_tpu/ops/pallas_kernels.py:162",
              **counts("flood_slices"), **flood,
              rounds_by_path={"v1.0": launches["flood_rounds"],
-                             "legacy": leg["flood_rounds"]}),
+                             "legacy": leg["flood_rounds"],
+                             "bench": bench["flood_rounds"]}),
         dict(name="cc_label", route="cuda",
              source="3deecelltracker_tpu_torch/csrc/cc.cu",
              replaces="3deecelltracker_tpu/ops/pallas_kernels.py:92",

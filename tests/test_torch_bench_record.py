@@ -1,0 +1,303 @@
+"""The committed bench assets (``3deecelltracker_tpu_torch/assets/bench/``)
+and JAX's record of the bench scene.
+
+The assets were made with the JAX package on the CPU by ``bench.py``'s own
+recipe: ``get_trained_model`` (StarDist3D, 16 epochs x 30 steps on the
+vol-1 ground truth of the bench scene) and ``train_ffn`` (600 iterations,
+seed 0, on the trained model's vol-1 ``seg/coords000001.npy``).  The
+record is JAX's ``segment_and_track(handoff="device")`` over the 21-volume
+bench scene with those weights and ``bench_composition``'s arguments.
+Regenerate the record (JAX, on the CPU) with
+
+    python tests/test_torch_bench_record.py --write
+
+The tier-1 tests hold the port's loaders to JAX's on the assets and check
+the record; the ``slow`` tests re-derive the record with JAX and run the
+port on the CPU over the whole scene against it, with the bounds of
+``chip_smoke.py``'s phase 11."""
+
+import json
+import sys
+import time
+from pathlib import Path
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+import numpy as np  # noqa: E402
+import pytest  # noqa: E402
+import torch  # noqa: E402
+
+from test_torch_scene import REPO, jax_script  # noqa: E402
+
+import t3dct_torch  # noqa: E402,F401
+from t3dct.engine.stardist import StarDist3D as JStarDist3D  # noqa: E402
+from t3dct.engine.tracker import TrackerLite as JTrackerLite  # noqa: E402
+from t3dct.models.ffn import FFN  # noqa: E402
+from t3dct.models.ffn import ffn_pair_scores as j_scores  # noqa: E402
+from t3dct.utils.checkpoint import load_pytree  # noqa: E402
+from t3dct_torch.coordinates import Coordinates  # noqa: E402
+from t3dct_torch.engine.stardist import StarDist3D  # noqa: E402
+from t3dct_torch.engine.tracker import TrackerLite  # noqa: E402
+from t3dct_torch.models.ffn import ffn_pair_scores  # noqa: E402
+from t3dct_torch.utils.convert import ffn_from_numpy, load_npz  # noqa: E402
+from t3dct_torch.utils.synthetic import make_recording  # noqa: E402
+
+ASSETS = REPO / "3deecelltracker_tpu_torch" / "assets" / "bench"
+RECORD = ASSETS / "jax_record.npz"
+N_VOLS = 21
+SHAPE = (24, 401, 168)
+VOXEL_SIZE = (1.0, 1.0, 9.2)
+# bench_composition's arguments (bench.py:369-387)
+MAX_CANDIDATES, RENDER_BOX = 256, (9, 33, 33)
+# the record keeps every volume's labels unless they pass this compressed
+# size; then volumes 2, 11 and 21 and every volume's per-label counts
+LABELS_BUDGET = 8 * 1024 * 1024
+# chip_smoke.py phase 11's bounds (kept cells are held exactly here): the
+# median per volume of the tracked coordinates' distance to JAX's, and
+# every cell within the record's identity gate (see chip_smoke.py)
+COORD_MEDIAN = 1e-2
+LABELS_EQUAL = 0.995
+
+
+def _conv_bound(ref):
+    # f32 accumulation in a different summation order (the bound of
+    # test_torch_stardist.py)
+    return 1e-5 * float(np.abs(ref).max()) + 1e-6
+
+
+def jax_ffn_weights():
+    template = FFN().init(jax.random.PRNGKey(0))
+    return load_pytree(template, ASSETS / "ffn.npz")
+
+
+def jax_model():
+    model = JStarDist3D.load(ASSETS / "sd_model")
+    model.max_candidates, model.render_box = MAX_CANDIDATES, RENDER_BOX
+    return model
+
+
+def write_record(out: Path, work: Path) -> dict:
+    """JAX's ``segment_and_track(handoff="device")`` over the bench scene
+    with the committed weights, through ``bench.py``'s own
+    ``make_recording`` and ``bench_composition``; writes the record to
+    ``out`` and returns its metrics."""
+    from t3dct.io.imageio import imread_stack
+    with jax_script(REPO / "bench.py", "jax_bench", work / "xla") as bench:
+        raw = work / "raw"
+        raw.mkdir(parents=True)
+        images_path, centers, lab1 = bench.make_recording(raw)
+        results = work / "results"
+        t0 = time.perf_counter()
+        _, coords = bench.bench_composition(images_path, results, lab1,
+                                            jax_model(), jax_ffn_weights(),
+                                            handoff="device")
+        wall = time.perf_counter() - t0
+        metrics = bench.tracking_id_metrics(coords, centers)
+    metrics["cpu_wall_s"] = wall
+    arrays, labels, counts = {}, {}, {}
+    for t in range(1, N_VOLS + 1):
+        arrays[f"seg_coords_{t}"] = np.load(results / "seg" /
+                                            f"coords{t:06d}.npy")
+        arrays[f"coords_{t}"] = np.asarray(coords[t], np.float32)
+        lab = imread_stack(sorted((results / "track_results" / "labels")
+                                  .glob("track_results_t%06i_z*.tif" % t)))
+        labels[f"labels_{t}"] = lab.transpose(1, 2, 0)
+        counts[f"label_counts_{t}"] = np.bincount(lab.ravel())
+    np.savez_compressed(out, metrics=json.dumps(metrics), **arrays,
+                        **labels)
+    if out.stat().st_size > LABELS_BUDGET:
+        kept = {k: v for k, v in labels.items()
+                if k in ("labels_2", "labels_11", "labels_21")}
+        np.savez_compressed(out, metrics=json.dumps(metrics), **arrays,
+                            **kept, **counts)
+    return metrics
+
+
+@pytest.fixture(scope="module")
+def record():
+    with np.load(RECORD) as data:
+        return {k: data[k] for k in data.files}
+
+
+def test_assets_are_the_bench_recipe():
+    """The StarDist folder (``StarDist3D.save``'s three files) and the FFN
+    pytree, with the bench's config."""
+    for name in ("sd_model/weights.npz", "sd_model/config.json",
+                 "sd_model/thresholds.json", "ffn.npz", "jax_record.npz"):
+        assert (ASSETS / name).is_file(), name
+    cfg = json.loads((ASSETS / "sd_model/config.json").read_text())
+    assert cfg["n_rays"] == 96 and tuple(cfg["grid"]) == (1, 2, 2)
+    assert tuple(cfg["train_patch_size"]) == (24, 96, 96)
+    assert cfg["prob_thresh"] == 0.3 and cfg["arch"] == "tpu"
+    total = sum(p.stat().st_size for p in ASSETS.rglob("*") if p.is_file())
+    assert total < 32 * 1024 * 1024
+
+
+def test_stardist_assets_load_like_jax():
+    """The port's ``StarDist3D.load`` reads the trained folder with numpy
+    and its network gives JAX's outputs on a (24, 96, 96) crop of the
+    bench scene's vol 1, within the f32 summation-order bound."""
+    tm = StarDist3D.load(ASSETS / "sd_model", device="cpu")
+    jm = jax_model()
+    assert tm.thresholds == jm._thresholds
+    assert tm.config.grid == tuple(jm.config.grid)
+    vol = make_recording(1, shape=SHAPE)[0][0]
+    mi, ma = np.percentile(vol, (1.0, 99.8))
+    crop = ((vol[:, 150:246, 40:136] - mi) / (ma - mi + 1e-20)
+            ).astype(np.float32)[None, ..., None]
+    jp, jd = (np.asarray(a) for a in jm.net.apply(jm.params,
+                                                  jnp.asarray(crop)))
+    tp, td = (a.numpy() for a in tm.net.apply(tm.params,
+                                              torch.from_numpy(crop)))
+    assert tp.shape == jp.shape and td.shape == jd.shape
+    assert np.abs(tp - jp).max() <= _conv_bound(jp)
+    assert np.abs(td - jd).max() <= _conv_bound(jd)
+    assert (jp > 0.3).any()               # the trained model sees cells
+
+
+def test_ffn_assets_load_like_jax(tmp_path):
+    """``ffn_from_numpy`` of the ``.npz`` scores pairs as JAX's loaded FFN
+    does, to 1e-5; the port's ``TrackerLite`` loads the same file and pads
+    point sets as JAX's."""
+    jp, js = jax_ffn_weights()
+    tree = load_npz(ASSETS / "ffn.npz")
+    tp, ts = ffn_from_numpy(tree["0"], tree["1"], "cpu")
+    rng = np.random.RandomState(0)
+    f1 = rng.randn(40, 61).astype(np.float32)
+    f2 = rng.randn(35, 61).astype(np.float32)
+    want = np.asarray(j_scores(jp, js, jnp.asarray(f1), jnp.asarray(f2)))
+    got = ffn_pair_scores(tp, ts, torch.from_numpy(f1), torch.from_numpy(f2))
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-5)
+    vol1 = Coordinates.from_raw(rng.rand(150, 3) * 100, 10, VOXEL_SIZE,
+                                device="cpu")
+    tracker = TrackerLite(tmp_path / "port", ASSETS / "ffn.npz", vol1)
+    assert tracker.max_cells == 256
+    for key, w in tracker.ffn_params["feat"].items():
+        np.testing.assert_array_equal(w.numpy(), tp["feat"][key].numpy())
+    jt = JTrackerLite(tmp_path / "jax", (jp, js),
+                      type("Vol1", (), {"cell_num": 150})())
+    pts = rng.rand(143, 3).astype(np.float32)
+    for a, b in zip(tracker._pad_np(pts), jt._pad_np(pts)):
+        np.testing.assert_array_equal(a, b)
+    with pytest.raises(ValueError, match="257 cells exceeds"):
+        tracker._pad_np(np.zeros((257, 3), np.float32))
+
+
+def test_record_holds_the_bench_run(record):
+    """Every volume's kept seg coordinates and tracked coordinates, the
+    recorded label volumes, and JAX's tracking metrics."""
+    metrics = json.loads(str(record["metrics"]))
+    assert set(metrics) >= {"gate", "strict_recall", "strict_accuracy_all_t",
+                            "id_switches"}
+    n1 = record["coords_1"].shape[0]
+    for t in range(1, N_VOLS + 1):
+        seg = record[f"seg_coords_{t}"]
+        assert seg.ndim == 2 and seg.shape[1] == 3 and seg.dtype == np.int32
+        assert 0 < len(seg) <= 256
+        c = record[f"coords_{t}"]
+        assert c.shape == (n1, 3) and np.isfinite(c).all()
+    labels = [k for k in record if k.startswith("labels_")]
+    assert labels
+    for k in labels:
+        assert record[k].shape == (SHAPE[1], SHAPE[2], SHAPE[0])
+        assert record[k].dtype == np.uint8
+
+
+def test_port_scene_is_the_bench_scene(tmp_path):
+    """``utils.synthetic.make_recording`` gives the volumes, labels and
+    centres that ``bench.make_recording`` writes (first two volumes)."""
+    from t3dct.io.imageio import load_2d_slices_at_time
+    with jax_script(REPO / "bench.py", "jax_bench",
+                    tmp_path / "xla") as bench:
+        bench.N_VOLS = 2
+        pattern, centers, lab1 = bench.make_recording(tmp_path)
+    vols, my_centers, my_lab1 = make_recording(2, shape=SHAPE)
+    np.testing.assert_array_equal(my_lab1, lab1)
+    for t in (1, 2):
+        np.testing.assert_array_equal(
+            load_2d_slices_at_time(pattern, t, do_normalize=False),
+            vols[t - 1])
+        np.testing.assert_array_equal(my_centers[t], centers[t])
+
+
+def hold_to_record(record, results: Path, coords, centers) -> dict:
+    """Phase 11's checks on a run of the port (without the candidate
+    margins, which need the run's candidates): kept cells exact, coords
+    and labels within the bounds, strict recall and switches equal."""
+    from t3dct_torch.engine.metrics import tracking_id_metrics
+    from t3dct_torch.io.imageio import imread_stack
+    want = json.loads(str(record["metrics"]))
+    gate = want["gate"]
+    for t in range(1, N_VOLS + 1):
+        got = np.load(results / "seg" / f"coords{t:06d}.npy")
+        np.testing.assert_array_equal(got, record[f"seg_coords_{t}"])
+        d = np.linalg.norm(coords[t] - record[f"coords_{t}"], axis=1)
+        assert np.median(d) <= COORD_MEDIAN and d.max() <= gate, t
+        if f"labels_{t}" in record:
+            lab = imread_stack(sorted((results / "track_results" / "labels")
+                                      .glob("track_results_t%06i_z*.tif"
+                                            % t))).transpose(1, 2, 0)
+            assert (lab == record[f"labels_{t}"]).mean() >= LABELS_EQUAL
+    got = tracking_id_metrics(coords, centers, VOXEL_SIZE, N_VOLS)
+    assert got["strict_recall"] == want["strict_recall"]
+    assert got["id_switches"] == want["id_switches"]
+    return got
+
+
+@pytest.mark.slow
+def test_record_rederives_with_jax(record, tmp_path):
+    """JAX re-run from the committed weights: the same record within the
+    phase's bounds (exact on the machine that wrote it)."""
+    out = tmp_path / "again.npz"
+    write_record(out, tmp_path / "work")
+    want = json.loads(str(record["metrics"]))
+    with np.load(out) as again:
+        for t in range(1, N_VOLS + 1):
+            np.testing.assert_array_equal(again[f"seg_coords_{t}"],
+                                          record[f"seg_coords_{t}"])
+            d = np.linalg.norm(again[f"coords_{t}"] - record[f"coords_{t}"],
+                               axis=1)
+            assert np.median(d) <= COORD_MEDIAN and d.max() <= want["gate"]
+        got = json.loads(str(again["metrics"]))
+        for key in ("strict_recall", "id_switches"):
+            assert got[key] == want[key]
+
+
+@pytest.mark.slow
+def test_port_on_cpu_matches_record(record, tmp_path):
+    """The port's ``segment_and_track`` on the CPU over the whole bench
+    scene with the committed weights, held to the record."""
+    sys.path.insert(0, str(REPO))
+    import chip_smoke
+    from t3dct_torch.config import TrackingConfig
+    from t3dct_torch.engine.pipeline import segment_and_track
+    pattern, centers = chip_smoke.write_bench_scene(tmp_path)
+    model = StarDist3D.load(ASSETS / "sd_model", device="cpu")
+    model.max_candidates, model.render_box = MAX_CANDIDATES, RENDER_BOX
+    results = tmp_path / "results"
+    coords = segment_and_track(
+        pattern, model, results, str(results / "manual_vol1" / "*.tif"),
+        ASSETS / "ffn.npz", VOXEL_SIZE, 10, (1, N_VOLS),
+        TrackingConfig(beta=3.0, lambda_=3.0), verbose=False, device="cpu")
+    hold_to_record(record, results, coords, centers)
+
+
+if __name__ == "__main__":
+    import argparse
+    import os
+    import tempfile
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--write", action="store_true",
+                    help="run JAX over the bench scene and write "
+                         "assets/bench/jax_record.npz")
+    args = ap.parse_args()
+    if not args.write:
+        ap.error("nothing to do without --write")
+    os.environ.setdefault("JAX_PLATFORMS", "cpu")
+    jax.config.update("jax_platforms", "cpu")
+    with tempfile.TemporaryDirectory() as tmp:
+        m = write_record(RECORD, Path(tmp))
+    print(json.dumps(m))
+    print(f"{RECORD}: {RECORD.stat().st_size} bytes")

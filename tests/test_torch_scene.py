@@ -11,6 +11,8 @@ lattice with equal spacings many cells are exactly equidistant, and the
 kNN order of such ties is decided by each framework's rounding noise.
 """
 
+import contextlib
+import importlib.util
 import subprocess
 import sys
 from pathlib import Path
@@ -39,6 +41,27 @@ SD_CFG = dict(n_rays=32, grid=(1, 2, 2), anisotropy=(4.0, 1.0, 1.0),
               unet_n_filter_base=8, net_conv_after_unet=16, prob_thresh=0.3)
 MAX_CANDIDATES = 64
 RENDER_BOX = (5, 17, 17)
+
+
+@contextlib.contextmanager
+def jax_script(path, name, cache_dir):
+    """A JAX-side script of the repo (``bench.py``) imported as a module.
+    Importing it turns on JAX's persistent compilation cache, so the cache
+    points at ``cache_dir`` while it loads, and the process's settings come
+    back when the block ends."""
+    keys = ("jax_compilation_cache_dir",
+            "jax_persistent_cache_min_compile_time_secs")
+    saved = {k: getattr(jax.config, k) for k in keys}
+    try:
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setenv("T3DCT_CACHE_DIR", str(cache_dir))
+            spec = importlib.util.spec_from_file_location(name, path)
+            mod = importlib.util.module_from_spec(spec)
+            spec.loader.exec_module(mod)
+        yield mod
+    finally:
+        for k, v in saved.items():
+            jax.config.update(k, v)
 
 
 def recording(n_vols=3, seed=0):
