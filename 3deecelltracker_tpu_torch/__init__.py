@@ -1,7 +1,7 @@
 """PyTorch + CUDA port of 3DeeCellTracker-TPU for NVIDIA Hopper (H100):
-the v1.0 StarDist segment-and-track main path (from a TIFF recording to a
-results tree, or on arrays), the legacy v0.4 U-Net path on arrays, single
-mode, and the conv probe.
+the v1.0 StarDist workflow (segment a TIFF recording into a results tree,
+track it in single or ensemble mode, read activities), the legacy v0.4
+U-Net path on arrays, and the conv probe.
 
 It sits beside the JAX package ``3deecelltracker_tpu``, which stays the
 reference: every module here mirrors a module there, keeps its array
@@ -17,24 +17,34 @@ The directory name starts with a digit, so ``import t3dct_torch`` (the
 alias module at the repository root) is the import path; the alias also
 covers every submodule, e.g. ``t3dct_torch.engine.pipeline``.
 
-Entry points: ``engine.pipeline.segment_and_track`` (v1.0 over a TIFF
-recording, ``handoff="device"``), ``engine.pipeline.segment_and_track_arrays``
-(v1.0 on arrays),
-``engine.legacy.legacy_segment_and_track_arrays`` (v0.4 U-Net) and
-``scripts.probe_conv_fast.run`` (the conv probe).
+Entry points:
+
+- the v1.0 workflow of the examples: ``engine.stardist.load_stardist_model``
+  and ``predict_and_save`` (step 1, ``seg/`` and ``auto_vol1/``), then
+  ``engine.pipeline.track_timelapse`` (step 2, single or ensemble mode),
+  ``engine.tracker.TrackerLite`` (``match_by_ffn``, ``activities``),
+  ``io.artifacts.ResultsTree.export_coordinates_csv`` /
+  ``export_activities_csv`` and ``engine.analyses.get_activities``;
+- ``engine.pipeline.segment_and_track``: both steps at once over a TIFF
+  recording, ``handoff="disk"`` (default) or ``"device"``;
+- ``engine.pipeline.segment_and_track_arrays`` (v1.0 on arrays);
+- ``engine.legacy.legacy_segment_and_track_arrays`` (v0.4 U-Net);
+- ``scripts.probe_conv_fast.run`` (the conv probe).
 """
 
 import sys as _sys
 
 from . import config, coordinates  # noqa: F401
-from .engine import correction, legacy, metrics, pipeline  # noqa: F401
-from .engine import segmentation, stardist, tracker, transformer  # noqa: F401
+from .engine import analyses, correction, legacy, metrics  # noqa: F401
+from .engine import pipeline, segmentation, stardist  # noqa: F401
+from .engine import tracker, transformer  # noqa: F401
 from .io import artifacts, imageio, prefetch, tiff  # noqa: F401
 from .models import ffn, layers, stardist3d, unet3d  # noqa: F401
 from .ops import (connected, edt, filters, hopper_cc,  # noqa: F401
                   hopper_conv, hopper_flood, knn, ladder, lcn, matching,
                   neighborhood, nms, numerics, peaks, pointset, prgls, rays,
-                  segment_reduce, subregions, tiling, watershed)
+                  segment_reduce, subregions, tiling, trim, watershed)
+from .parallel import ensemble  # noqa: F401
 from .utils import (convert, cuda_build, device, roofline,  # noqa: F401
                     synthetic, timing)
 

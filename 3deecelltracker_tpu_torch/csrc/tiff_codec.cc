@@ -112,7 +112,12 @@ bool parse_ifd(const std::vector<uint8_t>& d, TiffInfo* info) {
 // TIFF-variant LZW decode: MSB-first codes, Clear=256, EOI=257, early
 // code-width change at table sizes 511/1023/2047.  Allocation-free hot
 // loop: the string table is (parent code, tail byte, length) arrays and
-// entries are emitted by walking parent pointers backwards.
+// entries are emitted by walking parent pointers backwards.  Decoding
+// stops once the strip is full, as libtiff's decoder does: the encoder
+// below (and the JAX package's, the same source) writes EOI at the width
+// before the decoder's last code-width change when the table ends one
+// entry short of it, so a decoder that reads on after the last pixel can
+// take EOI plus padding for a valid code.
 bool lzw_decode(const uint8_t* src, size_t src_len, uint8_t* dst,
                 size_t dst_len) {
   constexpr int kClear = 256, kEoi = 257, kMax = 4096;
@@ -136,7 +141,7 @@ bool lzw_decode(const uint8_t* src, size_t src_len, uint8_t* dst,
   int acc_bits = 0;
   size_t si = 0, di = 0;
   int prev = -1;
-  while (true) {
+  while (di < dst_len) {
     while (acc_bits < bits && si < src_len) {
       acc = (acc << 8) | src[si++];
       acc_bits += 8;

@@ -1,5 +1,6 @@
 """Boundary-cell flagging and the accurate-correction loop (counterpart of
-``3deecelltracker_tpu/engine/correction.py``).
+``3deecelltracker_tpu/engine/correction.py``), and the correction half of a
+tracking step that every driver shares (:func:`correct_prediction`).
 
 The JAX ``while_loop`` becomes a Python loop whose state freezes under a
 device-side ``done`` flag once the loop condition fails; the host reads the
@@ -15,6 +16,7 @@ import torch
 
 from ..ops.segment_reduce import center_of_mass
 from ..ops.subregions import SubregionAtlas, move_cells_sampled
+from ..ops.watershed import recalculate_cell_boundaries
 
 CHECK_EVERY = 4
 
@@ -83,3 +85,27 @@ def accurate_correction_loop(atlas: SubregionAtlas,
     labels, overlap = move_cells_sampled(atlas, displacement(coords),
                                          include)
     return coords, labels, overlap, it
+
+
+def correct_prediction(atlas: SubregionAtlas, coord_vol1_raw: torch.Tensor,
+                       pred_raw: torch.Tensor, pred_real: torch.Tensor,
+                       prob_img: torch.Tensor,
+                       image_shape: Tuple[int, int, int],
+                       voxel_size: Tuple[float, float, float],
+                       ensemble: bool = False, max_repetition: int = 20,
+                       boundary_xy: int = 6):
+    """A tracking step's correction half (the JAX ``_track_correct_body``
+    after ``track_step``, and ``CoordsToImageTransformer.
+    accurate_correction``): flag the boundary cells of the prediction
+    (none at x/y in ensemble mode), refine its centres against the
+    full-resolution f32 ``prob_img`` and redraw the cell boundaries.
+    Returns (corrected raw (n, 3), labels (x, y, z) int32, correction
+    iterations)."""
+    boundary = get_cells_on_boundary(pred_real, image_shape, voxel_size,
+                                     ensemble=ensemble,
+                                     boundary_xy=boundary_xy)
+    corrected_raw, labels, overlap, n_corr = accurate_correction_loop(
+        atlas, coord_vol1_raw, pred_raw, prob_img, boundary,
+        max_repetition=max_repetition)
+    return corrected_raw, recalculate_cell_boundaries(
+        labels, overlap, sampling_xy=tuple(voxel_size[:2])), n_corr

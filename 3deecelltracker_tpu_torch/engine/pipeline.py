@@ -1,16 +1,22 @@
-"""The v1.0 segment-and-track main path (counterpart of
-``3deecelltracker_tpu/engine/pipeline.py``: ``seg_candidates_to_padded_real``,
-the track-from-seg body (:40-86, :165-204), ``segment_and_track`` with
-``handoff="device"`` (``_segment_and_track_device`` :359-583) and its
-artifact savers (:600-835), single device).
+"""The v1.0 workflow's drivers (counterpart of
+``3deecelltracker_tpu/engine/pipeline.py``, single device):
+``seg_candidates_to_padded_real``, the per-volume track-and-correct step
+fed from the ``seg/`` artifacts (``fused_track_and_correct`` :40-125) or
+straight from the seg outputs (``fused_track_from_seg`` :165-204),
+``segment_and_track`` with ``handoff="disk"`` (:207-356) or ``"device"``
+(``_segment_and_track_device`` :359-583), the artifact savers (:600-835)
+and ``track_timelapse`` (:847-1074), single and ensemble mode.
 
-Per volume: one seg call (``StarDist3D.predict_instances_device``), then one
-track call fed straight from the seg outputs, which stay on the device.
-The vol-1 proofed labels build the subregion atlas and the vol-1 centres
-once per recording.  ``segment_and_track`` reads a TIFF recording and
-writes the results tree, the artifacts off the critical path on saver
-threads; ``segment_and_track_arrays`` takes arrays in and gives arrays
-out.
+The reference's workflow: ``engine.stardist.predict_and_save`` segments
+the recording into ``seg/``, the user proofreads ``auto_vol1`` into
+``manual_vol1``, and ``track_timelapse`` tracks the recording from
+``seg/``.  ``segment_and_track`` runs both at once: with
+``handoff="disk"`` the segmenter writes ``seg/`` on its own thread and
+stream while tracking follows it volume by volume; with
+``handoff="device"`` tracking takes each volume's seg outputs on the
+device.  Vol-1's proofed labels build the subregion atlas and the vol-1
+centres once per recording.  ``segment_and_track_arrays`` takes arrays in
+and gives arrays out.
 """
 
 from __future__ import annotations
@@ -27,17 +33,17 @@ import torch
 
 from ..config import TrackingConfig
 from ..coordinates import Coordinates
-from ..io.artifacts import ResultsTree
-from ..io.imageio import (check_transport, fast_percentiles,
-                          load_2d_slices_at_time, save_volume_slices,
+from ..io.imageio import (check_recording, check_transport,
+                          fast_percentiles, load_2d_slices_at_time,
                           transport_encode)
-from ..io.prefetch import VolumePrefetcher, upload_async
+from ..io.prefetch import VolumePrefetcher, ready_event, to_host, upload_async
 from ..ops.subregions import SubregionAtlas
-from ..ops.watershed import recalculate_cell_boundaries
+from ..ops.trim import trim_mean
+from ..parallel.ensemble import ensemble_member_predictions
 from ..utils.device import select_device, to_device, upload_raw
-from .correction import accurate_correction_loop, get_cells_on_boundary
-from .stardist import StarDist3D
-from .tracker import TrackerLite, track_step
+from .correction import correct_prediction
+from .stardist import SegArtifactSaver, StarDist3D, predict_and_save
+from .tracker import TrackerLite, get_volumes_list, track_step
 from .transformer import (BOUNDARY_XY, CoordsToImageTransformer,
                           upsample_prob_pipeline)
 
@@ -76,6 +82,40 @@ class TrackOutput(NamedTuple):
     correction_iterations: torch.Tensor
 
 
+def track_and_correct(ffn_params, ffn_state, confirmed_raw: torch.Tensor,
+                      coord_vol1_raw: torch.Tensor,
+                      seg_t1_real: torch.Tensor, seg_t1_mask: torch.Tensor,
+                      seg_t2_real: torch.Tensor, seg_t2_mask: torch.Tensor,
+                      prob_img: torch.Tensor, atlas: SubregionAtlas,
+                      voxel_size, image_shape, beta: float, lambda_: float,
+                      max_repetition: int = 20, k_points: int = 20,
+                      max_iteration: int = 2000,
+                      prob_grid: Tuple[int, int, int] = (1, 1, 1)
+                      ) -> TrackOutput:
+    """One volume of the single-mode tracking recurrence
+    (``fused_track_and_correct``): FFN matching + PR-GLS from the padded
+    seg point sets of t1 and t2 (real units, ``TrackerLite._pad_np``),
+    then boundary flags, accurate correction and boundary recalculation.
+    ``prob_img``: t2's probability map in the (x, y, z) frame, any float
+    dtype; with ``prob_grid`` != (1, 1, 1) it is the grid-resolution map
+    of ``seg/prob*.npy``, upsampled and cropped on the device."""
+    if tuple(prob_grid) != (1, 1, 1):
+        prob_img = upsample_prob_pipeline(prob_img, prob_grid, image_shape)
+    # prob maps travel as float16; the correction weighs in f32
+    prob_img = prob_img.to(torch.float32)
+    vs = torch.tensor(voxel_size, dtype=torch.float32,
+                      device=confirmed_raw.device)
+    res = track_step(ffn_params, ffn_state, confirmed_raw * vs, seg_t1_real,
+                     seg_t1_mask, seg_t2_real, seg_t2_mask, beta=beta,
+                     lambda_=lambda_, k_points=k_points,
+                     max_iteration=max_iteration)
+    corrected_raw, labels, n_corr = correct_prediction(
+        atlas, coord_vol1_raw, res.tracked / vs, res.tracked, prob_img,
+        image_shape, voxel_size, max_repetition=max_repetition,
+        boundary_xy=BOUNDARY_XY)
+    return TrackOutput(corrected_raw, labels, res.n_iterations, n_corr)
+
+
 def track_from_seg(ffn_params, ffn_state, confirmed_raw: torch.Tensor,
                    coord_vol1_raw: torch.Tensor,
                    pts1_zyx: torch.Tensor, kept1: torch.Tensor,
@@ -86,36 +126,19 @@ def track_from_seg(ffn_params, ffn_state, confirmed_raw: torch.Tensor,
                    max_iteration: int = 2000,
                    prob_grid: Tuple[int, int, int] = (1, 1, 1),
                    pad_n: int = 192) -> TrackOutput:
-    """One volume of the tracking recurrence fed directly from the seg
-    outputs of t1 and t2 (``fused_track_from_seg`` with the single-mode
-    ``_track_correct_body``): candidate compress/pad and the grid prob
-    map's (z, y, x) -> (x, y, z) transpose and upsample on the device,
-    then FFN matching + PR-GLS, boundary flags, accurate correction and
-    boundary recalculation."""
+    """:func:`track_and_correct` fed directly from the seg outputs of t1
+    and t2 (``fused_track_from_seg``): the candidates compressed and
+    padded, and the grid prob map transposed (z, y, x) -> (x, y, z), on
+    the device, as the ``seg/`` artifacts would hold them."""
     seg1_real, m1 = seg_candidates_to_padded_real(pts1_zyx, kept1, pad_n,
                                                   voxel_size)
     seg2_real, m2 = seg_candidates_to_padded_real(pts2_zyx, kept2, pad_n,
                                                   voxel_size)
-    prob_img = prob_zyx_grid.permute(1, 2, 0)
-    if tuple(prob_grid) != (1, 1, 1):
-        prob_img = upsample_prob_pipeline(prob_img, prob_grid, image_shape)
-    prob_img = prob_img.to(torch.float32)
-    vs = torch.tensor(voxel_size, dtype=torch.float32,
-                      device=confirmed_raw.device)
-    res = track_step(ffn_params, ffn_state, confirmed_raw * vs,
-                     seg1_real, m1, seg2_real, m2, beta=beta,
-                     lambda_=lambda_, k_points=k_points,
-                     max_iteration=max_iteration)
-    boundary = get_cells_on_boundary(res.tracked, image_shape, voxel_size,
-                                     ensemble=False,
-                                     boundary_xy=BOUNDARY_XY)
-    corrected_raw, labels, overlap, n_corr = accurate_correction_loop(
-        atlas, coord_vol1_raw, res.tracked / vs, prob_img, boundary,
-        max_repetition=max_repetition)
-    corrected_labels = recalculate_cell_boundaries(
-        labels, overlap, sampling_xy=tuple(voxel_size[:2]))
-    return TrackOutput(corrected_raw, corrected_labels, res.n_iterations,
-                       n_corr)
+    return track_and_correct(
+        ffn_params, ffn_state, confirmed_raw, coord_vol1_raw, seg1_real, m1,
+        seg2_real, m2, prob_zyx_grid.permute(1, 2, 0), atlas, voxel_size,
+        image_shape, beta, lambda_, max_repetition=max_repetition,
+        k_points=k_points, max_iteration=max_iteration, prob_grid=prob_grid)
 
 
 @dataclasses.dataclass
@@ -207,129 +230,23 @@ def segment_and_track_arrays(volumes: Sequence[np.ndarray],
 
 
 
-def _ready_event(device: torch.device) -> Optional[torch.cuda.Event]:
-    """An event at the end of the work enqueued so far on ``device``'s
-    current stream (None off the card)."""
-    if device.type != "cuda":
-        return None
-    event = torch.cuda.Event()
-    event.record(torch.cuda.current_stream(device))
-    return event
-
-
-def _to_host(tensors, ready: Optional[torch.cuda.Event],
-             stream: Optional["torch.cuda.Stream"]) -> List:
-    """Host numpy copies of ``tensors`` (None passes through).  On the
-    card: pinned buffers filled by ``non_blocking`` copies on ``stream``
-    once ``ready`` has passed, then waited for.  The caller holds the
-    tensors until this returns, so their memory is not reused while the
-    side stream reads it."""
-    if ready is None:
-        return [None if a is None else a.detach().cpu().numpy()
-                for a in tensors]
-    with torch.cuda.stream(stream):
-        stream.wait_event(ready)
-        host = [None if a is None else
-                torch.empty(a.shape, dtype=a.dtype, pin_memory=True)
-                .copy_(a, non_blocking=True) for a in tensors]
-        done = torch.cuda.Event()
-        done.record(stream)
-    done.synchronize()
-    return [None if h is None else h.numpy() for h in host]
-
-
-class _AsyncSegSaver:
-    """Writes each volume's seg artifacts as ``predict_and_save`` does
-    (``seg/coords*.npy``, ``seg/prob*.npy``, and the ``auto_vol1`` labels
-    of the first volume) on its own thread, off the tracking path.
-
-    It also holds the contract that the device adapter cannot: a volume
-    that keeps more candidates than the tracker's pad raises here (the
-    adapter's static shapes drop the rest).  An error is terminal: no
-    later volume's artifacts are written."""
-
-    def __init__(self, model: StarDist3D, tree: ResultsTree,
-                 results_folder, t_min: int, max_cells: int,
-                 stream: Optional["torch.cuda.Stream"]):
-        self.model = model
-        self.tree = tree
-        self.results_folder = Path(results_folder)
-        self.t_min = t_min
-        self.max_cells = int(max_cells)
-        self.stream = stream
-        self.q: "queue.Queue" = queue.Queue(maxsize=4)
-        self.errors: List[Exception] = []
-        # volumes arrive and are written in t order on the one thread, so
-        # "written through t" is one integer; the track saver waits on it
-        self._cond = threading.Condition()
-        self._done_t = t_min - 1
-        self.thread = threading.Thread(target=self._run, daemon=True)
-        self.thread.start()
-
-    def wait_written(self, t: int) -> bool:
-        """Block until volume ``t``'s seg artifacts are written; False if
-        the saver failed first."""
-        with self._cond:
-            self._cond.wait_for(lambda: self._done_t >= t or self.errors)
-            return self._done_t >= t
-
-    def put(self, t: int, seg_out) -> None:
-        kept, probs, _, points, prob_map, labels = seg_out
-        self.q.put((t, (kept, probs, points, prob_map, labels),
-                    _ready_event(kept.device)))
-
-    def close(self) -> None:
-        self.q.put(None)
-        self.thread.join()
-
-    def _write_one(self, t: int, finalized) -> None:
-        (labels, details), prob_map = finalized
-        n = int(details["points"].shape[0])
-        if n > self.max_cells:
-            raise ValueError(f"{n} cells exceeds max_cells={self.max_cells}")
-        self.tree.save_seg_coords(t, details["points"][:, [1, 2, 0]])
-        self.tree.save_seg_prob(t, prob_map.transpose((1, 2, 0)))
-        if t == self.t_min and labels is not None:
-            save_volume_slices(labels.transpose((1, 2, 0)),
-                               self.results_folder / "auto_vol1",
-                               "auto_vol1_z%04i.tif")
-        with self._cond:
-            self._done_t = t
-            self._cond.notify_all()
-
-    def _run(self) -> None:
-        while True:
-            item = self.q.get()
-            if item is None:
-                return
-            if self.errors:
-                continue        # drain, so the producer never blocks
-            t, arrays, ready = item
-            try:
-                kept, probs, points, prob_map, labels = _to_host(
-                    arrays, ready, self.stream)
-                self._write_one(t, self.model.finalize_instances(
-                    (kept, probs, None, points, prob_map, labels)))
-            except Exception as e:      # surfaced by the driver
-                self.errors.append(e)
-                with self._cond:
-                    self._cond.notify_all()
-
 
 class _AsyncTrackSaver:
     """Writes each tracked volume's ``coords_real``, label TIFFs and
     merged-label PNGs on ``N_WRITERS`` threads (the codec encodes with the
     GIL released).  A volume's labels stay on the device until a writer
-    fetches them.  A writer waits until the same volume's seg artifacts
-    are written (``seg_gate``) and writes nothing for a volume whose seg
-    artifacts failed: no tracked artifacts from a truncated candidate
-    set."""
+    fetches them.  With a ``seg_gate`` (the device handoff, whose seg
+    artifacts are written beside tracking), a writer waits until the same
+    volume's seg artifacts are written and writes nothing for a volume
+    whose seg artifacts failed: no tracked artifacts from a truncated
+    candidate set."""
 
     N_WRITERS = 2
 
     def __init__(self, transformer: CoordsToImageTransformer,
-                 images_path: str, stream: Optional["torch.cuda.Stream"],
-                 seg_gate: _AsyncSegSaver):
+                 images_path: Optional[str],
+                 stream: Optional["torch.cuda.Stream"],
+                 seg_gate: Optional[SegArtifactSaver] = None):
         self.transformer = transformer
         self.images_path = images_path
         self.stream = stream
@@ -343,7 +260,7 @@ class _AsyncTrackSaver:
 
     def put(self, t2: int, real: torch.Tensor, labels: torch.Tensor
             ) -> None:
-        self.q.put((t2, (real, labels), _ready_event(real.device)))
+        self.q.put((t2, (real, labels), ready_event(real.device)))
 
     def close(self) -> None:
         for _ in self.threads:
@@ -358,8 +275,8 @@ class _AsyncTrackSaver:
                 return
             t2, arrays, ready = item
             try:
-                real, labels = _to_host(arrays, ready, self.stream)
-                if self.seg_gate.wait_written(t2):
+                real, labels = to_host(arrays, ready, self.stream)
+                if self.seg_gate is None or self.seg_gate.wait_written(t2):
                     self.transformer.save_tracking_results(
                         real, labels, t2, images_path=self.images_path)
             except Exception as e:      # surfaced by the driver
@@ -382,49 +299,51 @@ def segment_and_track(images_path: str, model: StarDist3D,
                       save_figures: bool = False,
                       verbose: bool = True,
                       timer=None,
-                      handoff: str = "device",
+                      handoff: str = "disk",
                       mesh=None,
                       transport: str = "u16",
                       device=None) -> Dict[int, np.ndarray]:
-    """Segment and track a TIFF recording into a results tree: the v1.0
-    driver with ``handoff="device"`` (JAX ``segment_and_track`` ->
-    ``_segment_and_track_device``).
+    """Segment and track a TIFF recording into a results tree, the two
+    stages at once (JAX ``segment_and_track``).
 
     ``images_path``: the recording's slices as a pattern over t, e.g.
     ``"raw/raw_t%03i_z*.tif"``; ``manual_vol1_glob``: the proofed vol-1
     label slices (``"results/manual_vol1/*.tif"``); ``ffn_weights``: a
     ``.npz`` path or a (params, state) pair (``engine.tracker.TrackerLite``);
     ``t_range``: (first, last) volume.  Returns ``{t: (n, 3) real
-    coordinates}`` of the vol-1 cells, t_range[0] included.
-
-    Per volume: the prefetcher decodes the TIFFs and takes the exact 1/99.8
-    percentiles on two threads and starts the upload on a side stream;
-    then one seg call, and one track call fed from the seg outputs on the
-    device.  Saver threads copy results to the host on a side stream and
+    coordinates}`` of the vol-1 cells, t_range[0] included.  Both handoffs
     write the tree as JAX does: ``seg/`` for every volume, ``auto_vol1/``,
     and ``track_results/`` (``coords_real/``, ``labels/``,
-    ``merged_labels{,_xz}/``) for every tracked volume, a volume's track
-    artifacts after its seg artifacts.
+    ``merged_labels{,_xz}/``) for every tracked volume.
+
+    ``handoff``: how tracking takes the segmentation.
+      - ``"disk"`` (default, as in JAX): ``predict_and_save`` runs on a
+        thread of its own, on its own CUDA stream, and
+        :func:`track_timelapse` on the caller's, each volume tracked once
+        its ``seg/`` artifacts are written (a watermark under a
+        condition).  Single or ensemble mode.  When tracking fails, the
+        segmenter stops after its volume in flight; a segmenter error
+        surfaces here.
+      - ``"device"``: per volume one seg call, then one track call fed
+        from the seg outputs on the device (single mode only, as in JAX);
+        the saver threads write ``seg/`` and ``track_results/`` off the
+        critical path, a volume's track artifacts after its seg artifacts.
     A volume in ``miss_frame`` is segmented but not tracked: it keeps the
     previous positions, and the next volume pairs with the last tracked
-    one.  A recording that ends before ``t_range[1]`` raises once the
-    volumes before the gap are tracked.
+    one.  A recording that ends before ``t_range[1]`` raises JAX's
+    ``RuntimeError`` once the volumes before the gap are tracked.
 
-    ``timer``: optional ``utils.timing.CudaStageTimer``; it times each
-    volume's ``"seg"`` and ``"track"`` and the whole ``"call"`` (host work
-    included: decode, percentiles, uploads, the artifacts' wait at the
-    end).  ``device``: the card by default (``"cpu"`` to run on the CPU);
-    the model must be on it.
+    ``timer``: optional ``utils.timing.CudaStageTimer``; it times the whole
+    ``"call"`` (host work included: decode, percentiles, uploads, the
+    artifacts' wait at the end), the vol-1 interpolation, and each
+    volume's ``"track"`` (and, with ``handoff="device"``, ``"seg"``).
+    ``device``: the card by default (``"cpu"`` to run on the CPU); the
+    model must be on it.
 
-    Not ported yet, each raising: ``handoff="disk"`` (ROADMAP.md A.2),
-    ``mesh`` and ``transport="u8"`` (A.5), ``save_figures=True`` (A.9),
-    and ensemble tracking, which the JAX device handoff refuses as
-    well."""
-    if handoff == "disk":
-        raise NotImplementedError(
-            "handoff='disk' (tracking through the seg/ tree) is not ported "
-            "yet (ROADMAP.md A.2); use handoff='device'")
-    if handoff != "device":
+    Not ported yet, each raising: ``mesh`` and ``transport="u8"``
+    (ROADMAP.md A.5), ``save_figures=True`` (A.9), HDF5 recordings
+    (A.2)."""
+    if handoff not in ("disk", "device"):
         raise ValueError(f"handoff must be 'disk' or 'device', got "
                          f"{handoff!r}")
     if mesh is not None:
@@ -435,20 +354,23 @@ def segment_and_track(images_path: str, model: StarDist3D,
         raise NotImplementedError(
             "save_figures=True (the matching figures) is not ported yet "
             "(ROADMAP.md A.9)")
-    if config.ensemble:
+    if handoff == "device" and config.ensemble:
         raise ValueError(
             "handoff='device' supports single mode only; ensemble "
             "tracking draws confirmed references from many past volumes "
             "— use the disk-coupled driver (handoff='disk')")
     check_transport(transport)
+    check_recording(images_path)
     dev = select_device(device)
     if not _same_device(model.device, dev):
         raise ValueError(f"the model is on {model.device}, the driver on "
                          f"{dev}")
     stage = timer.stage if timer is not None else (
         lambda name: contextlib.nullcontext())
+    drive = (_segment_and_track_device if handoff == "device"
+             else _segment_and_track_disk)
     with stage("call"):
-        coords_by_t = _segment_and_track_device(
+        coords_by_t = drive(
             images_path, model, results_dir, manual_vol1_glob, ffn_weights,
             voxel_size, interpolation_factor, t_range, config, miss_frame,
             verbose, stage, transport, dev)
@@ -456,6 +378,82 @@ def segment_and_track(images_path: str, model: StarDist3D,
         print()
         print(timer.summary())
     return coords_by_t
+
+
+def _segment_and_track_disk(images_path, model, results_dir,
+                            manual_vol1_glob, ffn_weights, voxel_size,
+                            interpolation_factor, t_range, config,
+                            miss_frame, verbose, stage, transport, dev
+                            ) -> Dict[int, np.ndarray]:
+    """``predict_and_save`` on a thread (and CUDA stream) of its own,
+    :func:`track_timelapse` here, gated volume by volume on the written
+    ``seg/`` artifacts (JAX ``pipeline.py:281-356``)."""
+    t_min, t_max = t_range
+    done_lock = threading.Condition()
+    done: set = set()
+    watermark = [t_min - 1]
+    seg_error: List[Exception] = []
+    seg_done = [False]
+    # set when tracking fails: the segmenter stops after its volume in
+    # flight instead of sweeping the rest of the recording
+    cancel = threading.Event()
+
+    def progress(t):
+        with done_lock:
+            done.add(t)
+            while watermark[0] + 1 in done:
+                watermark[0] += 1
+            done_lock.notify_all()
+
+    seg_stream = torch.cuda.Stream(dev) if dev.type == "cuda" else None
+
+    def seg_thread():
+        try:
+            with (torch.cuda.stream(seg_stream) if seg_stream is not None
+                  else contextlib.nullcontext()):
+                predict_and_save(images_path, model, results_dir,
+                                 volumes=list(range(t_min, t_max + 1)),
+                                 progress_cb=progress,
+                                 should_stop=cancel.is_set,
+                                 transport=transport)
+        except Exception as e:          # surfaced on the tracking side
+            seg_error.append(e)
+        with done_lock:
+            seg_done[0] = True
+            done_lock.notify_all()
+
+    def volume_ready(t):
+        # a segmenter that has finished does not imply volume t exists:
+        # predict_and_save stops with a warning where the raw images end
+        with done_lock:
+            done_lock.wait_for(
+                lambda: watermark[0] >= t or seg_done[0] or seg_error)
+            reached = watermark[0]
+        if seg_error:
+            raise RuntimeError("segmentation failed") from seg_error[0]
+        if reached < t:
+            raise RuntimeError(
+                f"segmentation ended at t={reached} before volume {t} "
+                f"(raw images missing from the recording?); tracking "
+                f"cannot continue")
+
+    th = threading.Thread(target=seg_thread, daemon=True)
+    th.start()
+    tracked_ok = False
+    try:
+        coords = _track_timelapse(
+            results_dir, manual_vol1_glob, ffn_weights, voxel_size,
+            interpolation_factor, t_range,
+            tuple(int(g) for g in model.config.grid), config, miss_frame,
+            images_path, verbose, stage, volume_ready, dev)
+        tracked_ok = True
+    finally:
+        if not tracked_ok:
+            cancel.set()
+        th.join()
+    if seg_error:
+        raise seg_error[0]
+    return coords
 
 
 def _segment_and_track_device(images_path, model, results_dir,
@@ -486,8 +484,8 @@ def _segment_and_track_device(images_path, model, results_dir,
 
     loader = VolumePrefetcher(_load_raw, range(t_min, t_max + 1), depth=2,
                               workers=2)
-    seg_saver = _AsyncSegSaver(model, transformer.tree, results_dir, t_min,
-                               tracker.max_cells, side)
+    seg_saver = SegArtifactSaver(model, results_dir, t_min, side,
+                                 n_writers=1, max_cells=tracker.max_cells)
     track_saver = _AsyncTrackSaver(transformer, images_path, side,
                                    seg_saver)
     coords_t1 = vol1
@@ -559,6 +557,192 @@ def _segment_and_track_device(images_path, model, results_dir,
     if track_saver.errors:
         raise track_saver.errors[0]
     print(f"All images from t={t_min} to t={done_t} have been segmented")
+    coords_by_t = {t_min: vol1.real.cpu().numpy()}
+    for t2, c in corrected_by_t.items():
+        coords_by_t[t2] = c.real.cpu().numpy()
+    return coords_by_t
+
+
+def track_timelapse(results_dir: Union[str, Path],
+                    manual_vol1_glob: str,
+                    ffn_weights,
+                    voxel_size: Tuple[float, float, float],
+                    interpolation_factor: int,
+                    t_range: Tuple[int, int],
+                    grid: Tuple[int, int, int] = (1, 1, 1),
+                    config: TrackingConfig = TrackingConfig(),
+                    miss_frame: Optional[List[int]] = None,
+                    images_path: Optional[str] = None,
+                    save_figures: bool = False,
+                    verbose: bool = True,
+                    timer=None,
+                    mesh=None,
+                    volume_ready=None,
+                    device=None) -> Dict[int, np.ndarray]:
+    """Track every volume of ``t_range`` from the ``seg/`` artifacts that
+    ``engine.stardist.predict_and_save`` wrote and the proofed vol-1 labels
+    at ``manual_vol1_glob``; returns ``{t: (n, 3) real coordinates}``
+    (JAX ``track_timelapse``).  ``grid``: the StarDist model's grid, which
+    ``seg/prob*.npy`` is sampled on.
+
+    Single mode: per volume one track-and-correct step
+    (:func:`track_and_correct`) from the seg point sets of t and of the
+    last tracked volume.  Ensemble mode (``config.ensemble``): t is
+    predicted from each reference volume of
+    ``engine.tracker.get_volumes_list`` (up to ``config.sampling_number``)
+    with its corrected coordinates from this run, all members in one batch
+    (``parallel.ensemble``), combined by the trimmed mean over the real
+    members (``config.trim_proportion``), then corrected with no x/y
+    boundary.  A volume in ``miss_frame`` keeps the previous positions and
+    is no reference.
+
+    Two prefetch workers read each volume's artifacts (and wait on
+    ``volume_ready(t)`` first, when given: the disk handoff's gate) and
+    start their upload on a side stream; the saver threads write
+    ``track_results/`` (``coords_real/``, ``labels/``, and with
+    ``images_path`` the merged-label PNGs) off the critical path.
+    ``timer``: optional ``utils.timing.CudaStageTimer`` (``"track"`` per
+    volume, ``"interpolate_vol1"``).  ``device``: the card by default.
+
+    Not ported yet, each raising: ``mesh`` (ROADMAP.md A.5) and
+    ``save_figures=True`` (A.9)."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "mesh= (the member fan-out over several cards) is not ported "
+            "yet (ROADMAP.md A.5)")
+    if save_figures:
+        raise NotImplementedError(
+            "save_figures=True (the matching figures) is not ported yet "
+            "(ROADMAP.md A.9)")
+    dev = select_device(device)
+    stage = timer.stage if timer is not None else (
+        lambda name: contextlib.nullcontext())
+    coords_by_t = _track_timelapse(
+        results_dir, manual_vol1_glob, ffn_weights, voxel_size,
+        interpolation_factor, t_range, tuple(int(g) for g in grid), config,
+        miss_frame, images_path, verbose, stage, volume_ready, dev)
+    if verbose and timer is not None:
+        print()
+        print(timer.summary())
+    return coords_by_t
+
+
+def _track_timelapse(results_dir, manual_vol1_glob, ffn_weights, voxel_size,
+                     interpolation_factor, t_range, grid_t, config,
+                     miss_frame, images_path, verbose, stage, volume_ready,
+                     dev) -> Dict[int, np.ndarray]:
+    t_min, t_max = t_range
+    transformer = CoordsToImageTransformer(voxel_size, dev, results_dir)
+    transformer.load_segmentation(manual_vol1_glob)
+    with stage("interpolate_vol1"):
+        transformer.interpolate(interpolation_factor, t_start=t_min)
+    tracker = TrackerLite(results_dir, ffn_weights, transformer.coord_vol1,
+                          miss_frame=miss_frame,
+                          m_step_refine=config.m_step_refine)
+    vol1 = transformer.coord_vol1
+    vs_t = tuple(transformer.voxel_size)
+    vs_np = np.asarray(vs_t, np.float32)
+    image_shape = transformer.proofed_segmentation.shape
+    labels_dtype = torch.uint8 if vol1.cell_num <= 255 else torch.int32
+    miss = set(tracker.miss_frame)
+    side = torch.cuda.Stream(dev) if dev.type == "cuda" else None
+    # single mode pairs each volume with the last volume that is not a
+    # miss frame (a miss frame is no reference)
+    prev_of: Dict[int, int] = {}
+    prev = t_min
+    for t in range(t_min + 1, t_max + 1):
+        if t not in miss:
+            prev_of[t] = prev
+            prev = t
+
+    def padded_seg(t):
+        # the seg point set in real units, padded: the f32 product of
+        # TrackerLite._get_segmented_pos(t).real
+        return tracker._pad_np(
+            tracker.tree.load_seg_coords(t).astype(np.float32) * vs_np)
+
+    def load_inputs(t2):
+        if volume_ready is not None:
+            volume_ready(t2)
+        prob = transformer.tree.load_seg_prob(t2).astype(np.float16)
+        if config.ensemble:
+            return upload_async(prob, dev, side), None, None
+        (p1, m1), (p2, m2) = padded_seg(prev_of[t2]), padded_seg(t2)
+        return (upload_async(prob, dev, side),
+                upload_async(np.stack([p1, p2]), dev, side),
+                upload_async(np.stack([m1, m2]), dev, side))
+
+    prefetcher = VolumePrefetcher(
+        load_inputs, [t for t in range(t_min + 1, t_max + 1)
+                      if t not in miss], depth=2, workers=2)
+    inputs = iter(prefetcher)
+    saver = _AsyncTrackSaver(transformer, images_path, side)
+    coords_t1 = vol1
+    corrected_by_t: Dict[int, Coordinates] = {}
+    try:
+        for t2 in range(t_min + 1, t_max + 1):
+            if t2 in miss:
+                corrected_by_t[t2] = coords_t1
+                continue
+            t_in, (prob_up, pts_up, masks_up) = next(inputs)
+            assert t_in == t2
+            if config.ensemble:
+                # the reference volumes' seg/coords are read here, not by
+                # the gated prefetcher: the segmenter has written them
+                # once t2 is ready
+                t1s = get_volumes_list(t2, tracker.miss_frame,
+                                       config.sampling_number,
+                                       config.adjacent, t_min)
+                seg1, mask1 = (torch.from_numpy(np.stack(a)).to(dev)
+                               for a in zip(*map(padded_seg, t1s)))
+                seg2, mask2 = (torch.from_numpy(a).to(dev)
+                               for a in padded_seg(t2))
+                confirmed = torch.stack(
+                    [(vol1 if t1 == t_min else corrected_by_t[t1]).real
+                     for t1 in t1s])
+                with stage("track"):
+                    preds = ensemble_member_predictions(
+                        tracker.ffn_params, tracker.ffn_state, confirmed,
+                        seg1, mask1, seg2, mask2, beta=config.beta,
+                        lambda_=config.lambda_, k_points=config.k_neighbors,
+                        max_iteration=config.max_iteration)
+                    pred = Coordinates.from_real(
+                        trim_mean(preds, config.trim_proportion, axis=0),
+                        transformer.interpolation_factor, vs_t)
+                    corrected, labels = transformer.accurate_correction(
+                        t2, grid_t, pred, ensemble=True,
+                        max_repetition=config.max_correction_reps,
+                        prob_map_grid=prob_up.wait(), return_device=True)
+            else:
+                pts, masks = pts_up.wait(), masks_up.wait()
+                with stage("track"):
+                    out = track_and_correct(
+                        tracker.ffn_params, tracker.ffn_state,
+                        coords_t1.raw_f32, vol1.raw_f32, pts[0], masks[0],
+                        pts[1], masks[1], prob_up.wait(), transformer.atlas,
+                        vs_t, image_shape, beta=config.beta,
+                        lambda_=config.lambda_,
+                        max_repetition=config.max_correction_reps,
+                        k_points=config.k_neighbors,
+                        max_iteration=config.max_iteration,
+                        prob_grid=grid_t)
+                corrected = Coordinates(out.corrected_raw,
+                                        transformer.interpolation_factor,
+                                        vs_t)
+                labels = out.labels
+            saver.put(t2, corrected.real, labels.to(labels_dtype))
+            corrected_by_t[t2] = coords_t1 = corrected
+            if saver.errors:
+                raise saver.errors[0]
+            if verbose:
+                print(f"tracked t={t2}/{t_max}", end="\r")
+    finally:
+        # stop the prefetch workers first: an early error would otherwise
+        # leave one blocked on the bounded queue
+        prefetcher.close()
+        saver.close()
+    if saver.errors:
+        raise saver.errors[0]
     coords_by_t = {t_min: vol1.real.cpu().numpy()}
     for t2, c in corrected_by_t.items():
         coords_by_t[t2] = c.real.cpu().numpy()

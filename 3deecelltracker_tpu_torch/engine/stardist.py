@@ -1,5 +1,7 @@
-"""StarDist3D instance program (counterpart of
-``3deecelltracker_tpu/engine/stardist.py:173-217``, ``:292-325``).
+"""StarDist3D instance program and the segmentation step of the v1.0
+workflow (counterpart of ``3deecelltracker_tpu/engine/stardist.py``:
+:173-217, :292-327, ``load_stardist_model`` :779 and ``predict_and_save``
+:833-1083).
 
 One call per volume: normalize the raw volume on the device with the
 host's 1/99.8 percentiles, reflect-pad to the network's ``div_by``, run the
@@ -8,19 +10,29 @@ and, when asked, the label render.  Outputs stay on the device.
 ``finalize_instances`` is the host half of a call that writes artifacts
 (``StarDist3D._finalize_instances``, JAX ``engine/stardist.py:327``): it
 orders the kept candidates once their arrays are on the host.
+:class:`SegArtifactSaver` writes them as ``seg/`` artifacts on saver
+threads, and :func:`predict_and_save` segments a whole TIFF recording into
+a results tree with it.
 """
 
 from __future__ import annotations
 
 import json
+import queue
+import threading
 from pathlib import Path
-from typing import Dict, Tuple, Union
+from typing import Callable, Dict, List, Optional, Set, Tuple, Union
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from ..config import StarDistConfig
+from ..io.artifacts import ResultsTree
+from ..io.imageio import (check_recording, check_transport, get_t_range,
+                          load_2d_slices_at_time, save_volume_slices,
+                          transport_encode)
+from ..io.prefetch import VolumePrefetcher, ready_event, to_host, upload_async
 from ..models.stardist3d import StarDist3DNet, sparse_candidates
 from ..ops.nms import greedy_nms, overlap_matrix, render_polyhedra_labels
 from ..ops.rays import rays_golden_spiral
@@ -133,3 +145,200 @@ class StarDist3D:
             "rays_vertices": self.rays.cpu().numpy(),
         }
         return (labels, details), np.asarray(prob_map, np.float32)
+
+
+def load_stardist_model(model_name: str = "stardist",
+                        basedir: str = "stardist_models",
+                        device=None) -> StarDist3D:
+    """``stardistwrapper.load_stardist_model`` (:39-43): the model folder
+    ``basedir/model_name`` in the JAX package's format (``config.json`` +
+    ``weights.npz`` [+ ``thresholds.json``]).  A reference Keras folder
+    (``weights_*.h5``) is not ported yet (ROADMAP.md A.8) and raises.
+    ``device``: the card by default."""
+    model_dir = Path(basedir) / model_name
+    if not (model_dir / "weights.npz").exists():
+        raise NotImplementedError(
+            f"{model_dir} has no weights.npz: Keras model folders are not "
+            f"ported yet (ROADMAP.md A.8)")
+    model = StarDist3D.load(model_dir, device=device)
+    print(f"Load pretrained stardist model '{model_name}' "
+          f"from folder '{basedir}'")
+    return model
+
+
+class SegArtifactSaver:
+    """Writes each volume's ``seg/`` artifacts as the JAX package's
+    ``predict_and_save`` does, on ``n_writers`` threads: ``put(t, seg_out)``
+    takes one call's device outputs; a writer copies them to the host on
+    ``stream`` once they are ready, orders the kept candidates
+    (``finalize_instances``) and writes ``seg/coords*.npy`` (pipeline
+    frame), ``seg/prob*.npy`` (the grid map, (x, y, z)) and, for volume
+    ``labels_t``, ``auto_vol1/``, then calls ``progress_cb(t)``.
+
+    ``max_cells``: a volume that keeps more candidates raises (the device
+    handoff's tracker pads to it and would drop the rest).  An error is
+    kept in ``errors`` and is terminal: no volume taken from the queue
+    after it is written, so a resumable tree holds no artifacts queued
+    past a failure."""
+
+    def __init__(self, model: StarDist3D, results_folder: Union[str, Path],
+                 labels_t: int, stream: Optional["torch.cuda.Stream"],
+                 n_writers: int = 2, max_cells: Optional[int] = None,
+                 progress_cb: Optional[Callable[[int], None]] = None):
+        self.model = model
+        self.tree = ResultsTree(results_folder)
+        self.results_folder = Path(results_folder)
+        self.labels_t = labels_t
+        self.stream = stream
+        self.max_cells = max_cells
+        self.progress_cb = progress_cb
+        self.q: "queue.Queue" = queue.Queue(maxsize=2 + n_writers)
+        self.errors: List[Exception] = []
+        self._cond = threading.Condition()
+        self._written: Set[int] = set()
+        self.threads = [threading.Thread(target=self._run, daemon=True)
+                        for _ in range(n_writers)]
+        for th in self.threads:
+            th.start()
+
+    def wait_written(self, t: int) -> bool:
+        """Block until volume ``t``'s artifacts are written; False if a
+        writer failed first."""
+        with self._cond:
+            self._cond.wait_for(lambda: t in self._written or self.errors)
+            return t in self._written
+
+    def put(self, t: int, seg_out) -> None:
+        kept, probs, _, points, prob_map, labels = seg_out
+        self.q.put((t, (kept, probs, points, prob_map, labels),
+                    ready_event(kept.device)))
+
+    def close(self) -> None:
+        for _ in self.threads:
+            self.q.put(None)
+        for th in self.threads:
+            th.join()
+
+    def _write_one(self, t: int, finalized) -> None:
+        (labels, details), prob_map = finalized
+        n = int(details["points"].shape[0])
+        if self.max_cells is not None and n > self.max_cells:
+            raise ValueError(f"{n} cells exceeds max_cells={self.max_cells}")
+        self.tree.save_seg_coords(t, details["points"][:, [1, 2, 0]])
+        self.tree.save_seg_prob(t, prob_map.transpose((1, 2, 0)))
+        if t == self.labels_t and labels is not None:
+            save_volume_slices(labels.transpose((1, 2, 0)),
+                               self.results_folder / "auto_vol1",
+                               "auto_vol1_z%04i.tif")
+        if self.progress_cb is not None:
+            self.progress_cb(t)
+        with self._cond:
+            self._written.add(t)
+            self._cond.notify_all()
+
+    def _run(self) -> None:
+        while True:
+            item = self.q.get()
+            if item is None:
+                return
+            if self.errors:
+                continue        # drain, so the producer never blocks
+            t, arrays, ready = item
+            try:
+                kept, probs, points, prob_map, labels = to_host(
+                    arrays, ready, self.stream)
+                self._write_one(t, self.model.finalize_instances(
+                    (kept, probs, None, points, prob_map, labels)))
+            except Exception as e:      # surfaced by the caller
+                with self._cond:
+                    self.errors.append(e)
+                    self._cond.notify_all()
+
+
+def predict_and_save(images_path: str, model: StarDist3D,
+                     results_folder: Union[str, Path],
+                     prefetch_depth: int = 2,
+                     batch_size: int = 4,
+                     volumes=None,
+                     progress_cb: Optional[Callable[[int], None]] = None,
+                     tile_shape=None,
+                     should_stop: Optional[Callable[[], bool]] = None,
+                     mesh=None,
+                     transport: str = "u16") -> None:
+    """Segment every volume of a TIFF recording into ``results_folder/seg/``
+    (``stardistwrapper.predict_and_save`` :75-111): ``seg/coords*.npy``, the
+    kept centres in the pipeline's (x, y, z) frame, and ``seg/prob*.npy``,
+    the grid-resolution probability map in (x, y, z) (float16 values, as
+    the device ships them, stored in float32 as JAX stores them), and the
+    recording's first volume rendered as ``auto_vol1/`` labels for the
+    user to proofread into ``manual_vol1/``.
+
+    ``volumes``: the time points to segment (default: the recording).
+    ``progress_cb``: ``cb(t)``, called on a saver thread once volume t's
+    artifacts are written.  ``should_stop``: ``fn() -> bool``, polled once
+    per volume; the sweep ends when it turns true.  A recording whose
+    images end early stops with JAX's warning; a write failure raises.
+
+    Pipelined as in JAX: two prefetch workers decode the TIFFs, take the
+    exact percentiles and start the upload on a side stream; one seg call
+    per volume runs on the caller's current stream (``batch_size`` is
+    accepted for JAX's signature: the card needs no dispatch batching);
+    two saver threads copy the results back on the side stream and write
+    them.  ``model.device`` is the device.
+
+    Not ported yet, each raising: ``tile_shape`` (ROADMAP.md A.6; its
+    ``tile_candidates``, ``tile_batch`` and ``shrink`` come with it),
+    ``mesh`` and ``transport="u8"`` (A.5), HDF5 recordings (A.2)."""
+    if tile_shape is not None:
+        raise NotImplementedError(
+            "tile_shape= (the tiled StarDist sweep) is not ported yet "
+            "(ROADMAP.md A.6)")
+    if mesh is not None:
+        raise NotImplementedError(
+            "mesh= (segmentation over several cards) is not ported yet "
+            "(ROADMAP.md A.5)")
+    check_transport(transport)
+    check_recording(images_path)
+    tree = ResultsTree(results_folder)
+    tree.make_dirs()
+    t_max, t_min = get_t_range(images_path)
+    work = list(volumes) if volumes is not None else \
+        list(range(t_min, t_max + 1))
+    dev = model.device
+    side = torch.cuda.Stream(dev) if dev.type == "cuda" else None
+
+    def _load_raw(t):
+        x = load_2d_slices_at_time(images_path, t=t, do_normalize=False)
+        x, mi, ma = transport_encode(x, transport)
+        return upload_async(x, dev, side), mi, ma
+
+    loader = VolumePrefetcher(_load_raw, work, depth=prefetch_depth,
+                              workers=2)
+    saver = SegArtifactSaver(model, results_folder, t_min, side,
+                             progress_cb=progress_cb)
+    done_t = work[0] - 1
+    volumes_in = iter(loader)
+    try:
+        while not (should_stop is not None and should_stop()):
+            # only the image load is the end of the recording: a write
+            # failure surfaces from the saver as itself
+            try:
+                t, (upload, mi, ma) = next(volumes_in)
+            except StopIteration:
+                break
+            except FileNotFoundError:
+                print(f"Warning: segmentation stopped; images at "
+                      f"t={done_t + 1} cannot be loaded!")
+                break
+            saver.put(t, model.predict_instances_device(
+                upload.wait(), norm_minmax=(mi, ma),
+                return_labels=(t == t_min)))
+            done_t = t
+            if saver.errors:
+                break
+    finally:
+        loader.close()
+        saver.close()
+    if saver.errors:
+        raise saver.errors[0]
+    print(f"All images from t={work[0]} to t={done_t} have been segmented")

@@ -1,7 +1,9 @@
-"""Vol-1 labels -> subregion atlas and cell coordinates (counterpart of
+"""Vol-1 labels -> subregion atlas and cell coordinates, and the accurate
+correction against a probability map (counterpart of
 ``3deecelltracker_tpu/engine/transformer.py``: ``upsample_prob_pipeline``,
 ``load_segmentation`` :73, ``load_segmentation_array``, ``interpolate``
-:135-200 and ``save_tracking_results``).
+:135-200, ``get_cells_on_boundary`` :227, ``load_prob_map`` :235,
+``accurate_correction`` :244-281 and ``save_tracking_results``).
 
 The array half builds the atlas from labels in memory.  Given a results
 folder, the disk half reads the proofed ``manual_vol1`` TIFFs and writes
@@ -27,6 +29,7 @@ from ..ops.subregions import (SubregionAtlas, build_subregion_atlas,
 from ..ops.watershed import recalculate_cell_boundaries
 from ..utils.device import select_device
 from ..viz import save_merged_labels
+from .correction import correct_prediction, get_cells_on_boundary
 
 BOUNDARY_XY = 6  # reference tracker.py:47
 
@@ -141,6 +144,63 @@ class CoordsToImageTransformer:
             self.save_tracking_results(
                 self.coord_vol1.real.cpu().numpy(),
                 self.auto_corrected_segmentation, t_start)
+
+    def get_cells_on_boundary(self, coordinates_real, ensemble: bool,
+                              boundary_xy: int = BOUNDARY_XY) -> np.ndarray:
+        """1-based labels of the cells at the image boundary
+        (``coord_image_transformer.py:371-385``)."""
+        mask = get_cells_on_boundary(
+            torch.as_tensor(coordinates_real, dtype=torch.float32),
+            self.proofed_segmentation.shape, self.voxel_size,
+            ensemble=ensemble, boundary_xy=boundary_xy)
+        return np.where(mask.cpu().numpy())[0] + 1
+
+    def load_prob_map(self, t: int, grid: Tuple[int, int, int],
+                      fmt: str = "prob%06d.npy") -> np.ndarray:
+        """``seg/prob*.npy`` upsampled by the StarDist grid and cropped to
+        the vol-1 shape (``coord_image_transformer.py:431-435``), f32."""
+        prob = torch.from_numpy(self.tree.load_seg_prob(t, fmt))
+        return upsample_prob_pipeline(
+            prob, grid, self.proofed_segmentation.shape).to(
+                torch.float32).numpy()
+
+    def accurate_correction(self, t: int, grid: Tuple[int, int, int],
+                            coords: Coordinates, ensemble: bool,
+                            max_repetition: int = 20,
+                            format: str = "prob%06d.npy",
+                            prob_map: Optional[np.ndarray] = None,
+                            prob_map_grid=None,
+                            return_device: bool = False):
+        """Refine the predicted centres against volume ``t``'s probability
+        map and render the corrected labels
+        (``coord_image_transformer.py:406-447``).  Returns (corrected
+        Coordinates, corrected (x, y, z) labels), the labels a tensor on
+        the device with ``return_device=True`` and a numpy array
+        otherwise.  The map: ``prob_map_grid`` (the grid-resolution map,
+        array or tensor of any float dtype, upsampled on the device), else
+        ``prob_map`` (full resolution), else ``seg/`` read through
+        :meth:`load_prob_map`.  Ensemble mode flags no cell at the x/y
+        boundary (``boundary_xy`` 0, ``engine/correction.py:37``)."""
+        dev = self.device
+        if prob_map_grid is not None:
+            prob = upsample_prob_pipeline(
+                torch.as_tensor(prob_map_grid).to(dev), grid,
+                self.proofed_segmentation.shape)
+        else:
+            if prob_map is None:
+                prob_map = self.load_prob_map(t, grid, format)
+            prob = torch.as_tensor(prob_map).to(dev)
+        corrected_raw, labels, _ = correct_prediction(
+            self.atlas, self.coord_vol1.raw_f32, coords.raw_f32.to(dev),
+            coords.real.to(dev), prob.to(torch.float32),
+            self.proofed_segmentation.shape, self.voxel_size,
+            ensemble=ensemble, max_repetition=max_repetition,
+            boundary_xy=BOUNDARY_XY)
+        corrected = Coordinates(corrected_raw, self.interpolation_factor,
+                                self.voxel_size)
+        if not return_device:
+            labels = labels.cpu().numpy()
+        return corrected, labels
 
     def save_tracking_results(self, coords_real: np.ndarray,
                               labels_xyz: np.ndarray, t2: int,

@@ -1,6 +1,7 @@
 """The results tree (counterpart of ``3deecelltracker_tpu/io/artifacts.py``,
 ``ResultsTree`` :38): the same file names, dtypes and frames as the JAX
-package writes, so a tree from either package resumes in the other.
+package writes, so a tree from either package resumes in the other, and
+the same CSV exports, byte for byte.
 
     seg/coords%06d.npy, seg/prob%06d.npy
     auto_vol1/
@@ -12,6 +13,7 @@ package writes, so a tree from either package resumes in the other.
 
 from __future__ import annotations
 
+import csv
 from pathlib import Path
 from typing import Union
 
@@ -64,8 +66,8 @@ class ResultsTree:
         self.seg_dir.mkdir(parents=True, exist_ok=True)
         np.save(str(self.seg_dir / f"prob{t:06d}.npy"), np.asarray(prob))
 
-    def load_seg_prob(self, t: int) -> np.ndarray:
-        return np.load(str(self.seg_dir / f"prob{t:06d}.npy"))
+    def load_seg_prob(self, t: int, fmt: str = "prob%06d.npy") -> np.ndarray:
+        return np.load(str(self.seg_dir / (fmt % t)))
 
     def save_coords_real(self, t: int, coords_real: np.ndarray) -> None:
         self.coords_real_dir.mkdir(parents=True, exist_ok=True)
@@ -79,3 +81,32 @@ class ResultsTree:
                             use_8_bit: bool) -> None:
         save_label_slices(labels_xyz, self.labels_dir,
                           "track_results_t%06i_z%04i.tif", t, use_8_bit)
+
+    def export_coordinates_csv(self, coords_by_t: dict,
+                               filename: str = "tracked_coordinates.csv"
+                               ) -> Path:
+        """A (t, cell, x, y, z) row per cell and volume
+        (``tracker.py:1538-1551``); ``coords_by_t``: ``{t: (n, 3) array}``,
+        as ``track_timelapse`` returns it."""
+        path = self.root / filename
+        with open(path, "w", newline="") as fh:
+            w = csv.writer(fh)
+            w.writerow(["t", "cell", "x", "y", "z"])
+            for t in sorted(coords_by_t):
+                for i, row in enumerate(np.asarray(coords_by_t[t])):
+                    w.writerow([t, i + 1, *row.tolist()])
+        return path
+
+    def export_activities_csv(self, activities: np.ndarray,
+                              filename: str = "activities.csv") -> Path:
+        """A row per volume (t from 1) of the (volumes, cells)
+        activities."""
+        path = self.root / filename
+        arr = np.asarray(activities)
+        with open(path, "w", newline="") as fh:
+            w = csv.writer(fh)
+            w.writerow(["t"] + [f"cell_{i + 1}" for i in
+                                range(arr.shape[1])])
+            for t, row in enumerate(arr, start=1):
+                w.writerow([t] + row.tolist())
+        return path

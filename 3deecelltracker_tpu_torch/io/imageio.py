@@ -2,10 +2,10 @@
 ``3deecelltracker_tpu/io/imageio.py``: ``imread`` :31, ``imread_stack`` :98,
 ``fast_percentiles`` :119, ``transport_encode`` :204,
 ``percentile_normalize`` :227, ``load_2d_slices_at_time`` :255,
-``get_t_range`` :285, ``save_label_slices`` :310, ``save_volume_slices``
-:334).
+``get_t_range`` :285, ``read_image_ts`` :302, ``save_label_slices`` :310,
+``save_volume_slices`` :334).
 
-Only what the v1.0 ``segment_and_track`` path uses, and no PIL: every read
+Only what the v1.0 workflow uses, and no PIL: every read
 and write goes through the port's codec (``io.tiff``), which raises where
 the JAX package would fall back to PIL.  The data contract is the JAX
 package's: per-(t, z) single-page grayscale TIFFs found by a
@@ -26,6 +26,15 @@ import numpy as np
 from . import tiff
 
 _TIFF = (".tif", ".tiff")
+
+
+def check_recording(images_path) -> None:
+    """Raise unless ``images_path`` is a recording the port reads: a TIFF
+    path pattern (HDF5 recordings are ROADMAP.md A.2)."""
+    if not isinstance(images_path, str):
+        raise NotImplementedError(
+            "the port reads TIFF recordings given as a path pattern; HDF5 "
+            "recordings are not ported yet (ROADMAP.md A.2)")
 
 
 def _require_tiff(path) -> None:
@@ -125,9 +134,7 @@ def load_2d_slices_at_time(images_path: str, t: int,
     """Every 2-D slice of volume ``t`` as a (z, y, x) stack: the files
     ``sorted(glob(images_path % t))``.  Raises ``FileNotFoundError`` when
     there is none (the end of a recording)."""
-    if not isinstance(images_path, str):
-        raise NotImplementedError("the port reads TIFF recordings given as "
-                                  "a path pattern (HDF5: not ported)")
+    check_recording(images_path)
     if os.path.splitext(images_path)[1] not in _TIFF:
         raise AssertionError(
             "Only TIFF sequences or HDF5 datasets are supported")
@@ -140,9 +147,7 @@ def load_2d_slices_at_time(images_path: str, t: int,
 
 def get_t_range(images_path: str) -> Tuple[int, int]:
     """(largest, smallest) time index of the files near the pattern."""
-    if not isinstance(images_path, str):
-        raise NotImplementedError("the port reads TIFF recordings given as "
-                                  "a path pattern (HDF5: not ported)")
+    check_recording(images_path)
     p = Path(images_path)
     filenames = glob(str(p.parent / ("*t*" + p.suffix)))
     if not filenames:
@@ -150,6 +155,15 @@ def get_t_range(images_path: str) -> Tuple[int, int]:
     numbers = [int(re.findall(r"t(\d+)", Path(f).name)[0])
                for f in filenames]
     return max(numbers), min(numbers)
+
+
+def read_image_ts(vol: int, path_pattern: str, z_range: Tuple[int, int]
+                  ) -> np.ndarray:
+    """The slices ``path_pattern % (vol, z)`` for z in ``range(*z_range)``
+    as an (x, y, z) volume (the legacy per-(t, z) loader,
+    ``tracker.py:113-133``)."""
+    return np.stack([imread(path_pattern % (vol, z))
+                     for z in range(z_range[0], z_range[1])], axis=2)
 
 
 def save_label_slices(labels_xyz: np.ndarray, out_dir: Union[str, Path],

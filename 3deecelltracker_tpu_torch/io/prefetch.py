@@ -1,6 +1,7 @@
 """Volumes loaded ahead of the device (counterpart of
-``3deecelltracker_tpu/io/prefetch.py``, ``VolumePrefetcher`` :15), and
-their upload to the card off the main stream.
+``3deecelltracker_tpu/io/prefetch.py``, ``VolumePrefetcher`` :15), their
+upload to the card off the main stream, and results copied back the same
+way (:func:`to_host`).
 
 The tracking recurrence is serial over t; the prefetcher decodes volume
 t + k on background threads while the card works on volume t, so the
@@ -16,7 +17,8 @@ from __future__ import annotations
 import queue
 import threading
 from concurrent.futures import ThreadPoolExecutor
-from typing import Callable, Iterable, Iterator, NamedTuple, Optional
+from typing import (Callable, Iterable, Iterator, List, NamedTuple,
+                    Optional)
 
 import numpy as np
 import torch
@@ -170,3 +172,34 @@ def upload_async(vol: np.ndarray, device: torch.device,
         event = torch.cuda.Event()
         event.record(stream)
     return Upload(data, event, pinned, widen)
+
+
+def ready_event(device: torch.device) -> Optional[torch.cuda.Event]:
+    """An event at the end of the work enqueued so far on ``device``'s
+    current stream (None off the card)."""
+    if device.type != "cuda":
+        return None
+    event = torch.cuda.Event()
+    event.record(torch.cuda.current_stream(device))
+    return event
+
+
+def to_host(tensors, ready: Optional[torch.cuda.Event],
+            stream: Optional["torch.cuda.Stream"]) -> List:
+    """Host numpy copies of ``tensors`` (None passes through).  On the
+    card: pinned buffers filled by ``non_blocking`` copies on ``stream``
+    once ``ready`` (:func:`ready_event`) has passed, then waited for.  The
+    caller holds the tensors until this returns, so their memory is not
+    reused while the side stream reads it."""
+    if ready is None:
+        return [None if a is None else a.detach().cpu().numpy()
+                for a in tensors]
+    with torch.cuda.stream(stream):
+        stream.wait_event(ready)
+        host = [None if a is None else
+                torch.empty(a.shape, dtype=a.dtype, pin_memory=True)
+                .copy_(a, non_blocking=True) for a in tensors]
+        done = torch.cuda.Event()
+        done.record(stream)
+    done.synchronize()
+    return [None if h is None else h.numpy() for h in host]

@@ -94,7 +94,8 @@ def ffn_pair_scores(params: Params, state: Params,
                     tgt_feats: torch.Tensor) -> torch.Tensor:
     """(m_tgt, n_ref) scores of all pairs: the trunk runs once per set and
     the combine layer splits into ref/tgt halves (eval-mode BN is
-    affine)."""
+    affine).  With a leading member axis ((E, n, 61) features), (E, m, n)
+    scores, each member's as it is alone."""
     def trunk(f):
         return L.leaky_relu(L.batchnorm(params["feat_bn"], state["feat_bn"],
                                         L.dense(params["feat"], f)))
@@ -110,7 +111,7 @@ def ffn_pair_scores(params: Params, state: Params,
     shift = bn_p["bias"] - bn_s["mean"] * inv
     w_pred = params["pred"]["w"][:, 0]
     b_pred = params["pred"]["b"][0]
-    z = zt[:, None, :] + zr[None, :, :]                   # (m, n, hidden)
+    z = zt[..., :, None, :] + zr[..., None, :, :]         # (m, n, hidden)
     h = L.leaky_relu(z * inv + shift)
-    logits = torch.einsum("mnc,c->mn", h, w_pred) + b_pred
+    logits = torch.einsum("...mnc,c->...mn", h, w_pred) + b_pred
     return torch.sigmoid(logits)

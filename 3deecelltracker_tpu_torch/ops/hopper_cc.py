@@ -176,7 +176,7 @@ def _launch(mask: torch.Tensor, per_slice: bool,
         *_launch_args(shape3, per_slice, mask.device.index, TILE_MAX),
         phases, cuda_build.raw_stream(mask))
     cuda_build.check(err, "cc_label")
-    cc_label.launches += 1
+    cuda_build.count_launch(cc_label)
     return out.reshape(mask.shape)
 
 

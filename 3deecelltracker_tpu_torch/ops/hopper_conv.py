@@ -238,7 +238,7 @@ def _launch_direct(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
              z, y, xl, c_in, c_out, tile, tx, zs, int(relu),
              torch.cuda.current_stream(x.device).cuda_stream)
     cuda_build.check(err, "conv3x3x3_direct")
-    conv3x3x3_direct.launches += 1
+    cuda_build.count_launch(conv3x3x3_direct)
     return out if x.dim() == 5 else out[0]
 
 
@@ -274,7 +274,7 @@ def _launch_wgmma(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                  (ctypes.c_uint64 * 4)(*strides),
                  (ctypes.c_uint32 * 5)(*box), stream)
         cuda_build.check(err, "conv3x3x3_wgmma")
-        conv3x3x3_wgmma.launches += 1
+        cuda_build.count_launch(conv3x3x3_wgmma)
     return out if x.dim() == 5 else out[0]
 
 

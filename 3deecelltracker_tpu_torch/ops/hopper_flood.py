@@ -142,9 +142,8 @@ def _flood_cuda(elevation, markers, mask, max_iters: int
              scratch.data_ptr(), info.data_ptr(), nx, ny, s, max_iters,
              torch.cuda.current_stream(dev).cuda_stream)
     cuda_build.check(err, "flood_slices")
-    flood_slices.launches += 1
     rounds, tiles = info.tolist()       # the one host sync of a call
-    flood_slices.rounds += rounds
+    cuda_build.count_launch(flood_slices, rounds=rounds)
     flood_slices.tiles = tiles
     return out, rounds
 

@@ -114,7 +114,7 @@ def ladder_add_one(x: torch.Tensor) -> torch.Tensor:
     err = _lib_fn("ladder_add_one_f32")(x.data_ptr(), out.data_ptr(), n, n4,
                                         blocks, cuda_build.raw_stream(x))
     cuda_build.check(err, "ladder_add_one")
-    ladder_add_one.launches += 1
+    cuda_build.count_launch(ladder_add_one)
     return out
 
 
@@ -198,7 +198,7 @@ def ladder_pointwise_matmul(x: torch.Tensor, w: torch.Tensor
         x2.data_ptr(), wp.data_ptr(), y2.data_ptr(), m, cp, cop, nb, blocks,
         cuda_build.raw_stream(x))
     cuda_build.check(err, "ladder_pointwise_matmul")
-    ladder_pointwise_matmul.launches += 1
+    cuda_build.count_launch(ladder_pointwise_matmul)
     if cop != c_out:
         out.view(m, c_out).copy_(y2[:, :c_out])
     return out
@@ -341,7 +341,7 @@ def ladder_conv9view_bias_relu(x: torch.Tensor, w9: torch.Tensor,
         (ctypes.c_uint64 * 4)(*strides), (ctypes.c_uint32 * 5)(*box),
         cuda_build.raw_stream(x))
     cuda_build.check(err, "ladder_conv9view_bias_relu")
-    ladder_conv9view_bias_relu.launches += 1
+    cuda_build.count_launch(ladder_conv9view_bias_relu)
     return out
 
 

@@ -1,6 +1,8 @@
 """Greedy match peeling (counterpart of
 ``3deecelltracker_tpu/ops/matching.py``: ``_peel_loop``, ``simple_match``,
-``legacy_init_match``).
+``legacy_init_match``).  ``_peel_loop`` and ``simple_match`` also take a
+leading member axis, (E, m, n) matrices with (E, n) / (E, m) masks, and
+peel each member as it is alone.
 """
 
 from __future__ import annotations
@@ -24,21 +26,23 @@ def _peel_loop(match_matrix: torch.Tensor, threshold: float
     mask, consumed matrix)."""
     mat = match_matrix.to(torch.float32)
     pairs = torch.zeros(mat.shape, dtype=torch.bool, device=mat.device)
-    max_rounds = min(mat.shape) + 1
+    max_rounds = min(mat.shape[-2:]) + 1
     rounds = 0
     while rounds < max_rounds:
         for _ in range(min(CHECK_EVERY, max_rounds - rounds)):
-            row_max = torch.amax(mat, dim=1, keepdim=True)
-            col_max = torch.amax(mat, dim=0, keepdim=True)
+            row_max = torch.amax(mat, dim=-1, keepdim=True)
+            col_max = torch.amax(mat, dim=-2, keepdim=True)
             mutual = ((mat >= threshold) & (mat == row_max)
                       & (mat == col_max) & (mat > 0))
-            mutual = mutual & (torch.cumsum(mutual.to(torch.int32), 1) == 1)
-            mutual = mutual & (torch.cumsum(mutual.to(torch.int32), 0) == 1)
+            mutual = mutual & (torch.cumsum(mutual.to(torch.int32), -1) == 1)
+            mutual = mutual & (torch.cumsum(mutual.to(torch.int32), -2) == 1)
             pairs = pairs | mutual
-            used = (torch.any(mutual, dim=1, keepdim=True)
-                    | torch.any(mutual, dim=0, keepdim=True))
+            used = (torch.any(mutual, dim=-1, keepdim=True)
+                    | torch.any(mutual, dim=-2, keepdim=True))
             mat = torch.where(used, 0.0, mat)
             rounds += 1
+        # a member whose peel has ended accepts nothing in further rounds,
+        # so the loop runs while any member still can
         mx = torch.amax(mat)
         if not bool((mx >= threshold) & (mx > 0)):
             break
@@ -51,21 +55,21 @@ def simple_match(initial_match_matrix: torch.Tensor, threshold: float = 0.1,
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Every valid pair gets prior 0.1/(n_valid_ref-1); peeled (tgt, ref)
     pairs get 0.9.  Returns (prior (m, n) f32, pair mask)."""
-    m, n = initial_match_matrix.shape
+    *lead, m, n = initial_match_matrix.shape
     dev = initial_match_matrix.device
     if ref_mask is None:
-        ref_mask = torch.ones((n,), dtype=torch.bool, device=dev)
+        ref_mask = torch.ones((*lead, n), dtype=torch.bool, device=dev)
     if tgt_mask is None:
-        tgt_mask = torch.ones((m,), dtype=torch.bool, device=dev)
-    valid = tgt_mask[:, None] & ref_mask[None, :]
+        tgt_mask = torch.ones((*lead, m), dtype=torch.bool, device=dev)
+    valid = tgt_mask[..., :, None] & ref_mask[..., None, :]
     pairs, _ = _peel_loop(torch.where(valid, initial_match_matrix, 0.0),
                           threshold)
-    n_valid = torch.sum(ref_mask.to(torch.float32))
+    n_valid = torch.sum(ref_mask.to(torch.float32), dim=-1)
     # a true f32 division (python scalar / tensor would multiply by the
     # reciprocal and round differently)
     base = torch.div(torch.tensor(0.1, dtype=torch.float32, device=dev),
                      n_valid - 1.0)
-    prob = torch.where(valid, base, 0.0)
+    prob = torch.where(valid, base[..., None, None], 0.0)
     return torch.where(pairs, 0.9, prob).to(torch.float32), pairs
 
 

@@ -8,7 +8,8 @@ Every product is true float32 (the device pins TF32 off): the EM's 1e-3
 convergence tail is unreachable otherwise.  The JAX ``while_loop`` becomes
 a Python loop whose state freezes under a device-side ``active`` flag; the
 host reads it every ``CHECK_EVERY`` iterations, so the loop stops at the
-same iteration as JAX's.
+same iteration as JAX's.  The v1.0 EM also runs an ensemble's members in
+one batch, each with its own ``active`` flag.
 """
 
 from __future__ import annotations
@@ -31,16 +32,19 @@ STALL_LIMIT = 30.0          # stop after this many non-improving iterations
 
 def gaussian_gram(a: torch.Tensor, b: torch.Tensor,
                   beta_sq) -> torch.Tensor:
+    """exp(-|a_i - b_j|^2 / (2 beta_sq)); ``beta_sq`` a number or a tensor
+    that broadcasts against the (..., n, m) distances."""
     return torch.exp(-pairwise_sq_dists(a, b) / (2.0 * beta_sq))
 
 
 def solve_m_step(coeff: torch.Tensor, dep: torch.Tensor) -> torch.Tensor:
-    """C (3, n) with ``C coeff = dep``, the v1.0 M-step's solve.  A system
-    that LU finds singular gives NaN, as ``jnp.linalg.solve`` gives a
-    non-finite result there, and nothing is read on the host: no sync, and
-    no raise (``torch.linalg.solve`` would raise)."""
-    c, info = torch.linalg.solve_ex(coeff.T, dep.T)
-    return torch.where(info != 0, torch.nan, c.T)
+    """C (3, n) with ``C coeff = dep``, the v1.0 M-step's solve (batched
+    over leading axes).  A system that LU finds singular gives NaN, as
+    ``jnp.linalg.solve`` gives a non-finite result there, and nothing is
+    read on the host: no sync, and no raise (``torch.linalg.solve`` would
+    raise)."""
+    c, info = torch.linalg.solve_ex(coeff.mT, dep.mT)
+    return torch.where(info[..., None, None] != 0, torch.nan, c.mT)
 
 
 class PrglsResult(NamedTuple):
@@ -62,83 +66,96 @@ def prgls_with_two_ref(init_match: torch.Tensor, ptrs_tgt: torch.Tensor,
     ``init_match`` and apply it to ``tracked_ref`` (see the JAX twin for
     the reference-parity details: the first movement is discarded, gamma
     clamps at 1e-4, the stop is a movement norm < 1e-3 or 30 stalled
-    iterations)."""
-    m, n = init_match.shape
+    iterations).
+
+    Every input may carry a leading member axis (E): (E, m, n) priors,
+    (E, m, 3) / (E, n, 3) / (E, l, 3) points, (E, m) / (E, n) masks.  Then
+    each member runs its own EM, as ``vmap`` runs JAX's: ``active`` is an
+    (E,) vector, a member that has stopped keeps its state while the
+    others iterate, and the host reads whether any member still runs.  The
+    result carries the member axis, ``n_iterations`` (E,)."""
+    *lead, m, n = init_match.shape
     dev = init_match.device
     f32 = torch.float32
     if tgt_mask is None:
-        tgt_mask = torch.ones((m,), dtype=torch.bool, device=dev)
+        tgt_mask = torch.ones((*lead, m), dtype=torch.bool, device=dev)
     if ref_mask is None:
-        ref_mask = torch.ones((n,), dtype=torch.bool, device=dev)
+        ref_mask = torch.ones((*lead, n), dtype=torch.bool, device=dev)
+
+    def per_member(x):          # (...) -> (..., 1, 1), to broadcast
+        return x[..., None, None]
 
     beta_sq = beta ** 2
-    valid_pair = tgt_mask[:, None] & ref_mask[None, :]
+    valid_pair = tgt_mask[..., :, None] & ref_mask[..., None, :]
     prior = torch.where(valid_pair, init_match.to(f32), 0.0)
     gram_nn = gaussian_gram(ptrs_ref, ptrs_ref, beta_sq)
-    gram_nn = torch.where(ref_mask[:, None] & ref_mask[None, :], gram_nn, 0.0)
+    gram_nn = torch.where(ref_mask[..., :, None] & ref_mask[..., None, :],
+                          gram_nn, 0.0)
     gram_ln = gaussian_gram(tracked_ref, ptrs_ref, beta_sq)
-    gram_ln = torch.where(ref_mask[None, :], gram_ln, 0.0)
+    gram_ln = torch.where(ref_mask[..., None, :], gram_ln, 0.0)
     d2_init = pairwise_sq_dists(ptrs_tgt, ptrs_ref)
-    n_pairs = torch.sum(valid_pair.to(f32))
-    sigma_sq = torch.sum(torch.where(valid_pair, d2_init, 0.0)) / \
-        (3.0 * n_pairs)
-    m_valid = torch.sum(tgt_mask.to(f32))
+    n_pairs = torch.sum(valid_pair.to(f32), dim=(-2, -1))
+    sigma_sq = torch.sum(torch.where(valid_pair, d2_init, 0.0),
+                         dim=(-2, -1)) / (3.0 * n_pairs)
+    m_valid = torch.sum(tgt_mask.to(f32), dim=-1)
     eye = torch.eye(n, dtype=f32, device=dev)
 
     def e_step(pred_ref, sigma_sq, gamma):
-        k = gaussian_gram(ptrs_tgt, pred_ref, sigma_sq)
-        p_joint = (1.0 - gamma) * prior * k / \
-            (2.0 * math.pi * sigma_sq) ** 1.5
+        s = per_member(sigma_sq)
+        k = gaussian_gram(ptrs_tgt, pred_ref, s)
+        p_joint = (1.0 - per_member(gamma)) * prior * k / \
+            (2.0 * math.pi * s) ** 1.5
         p_joint = torch.where(valid_pair, p_joint, 0.0)
-        denom = torch.sum(p_joint, dim=1) + gamma / VOL
-        post = p_joint / denom[:, None]
+        denom = torch.sum(p_joint, dim=-1) + gamma[..., None] / VOL
+        post = p_joint / denom[..., :, None]
         return torch.where(valid_pair, post, 0.0)
 
     def m_step(post, pred_ref, sigma_sq):
-        p1 = torch.sum(post, dim=0)
-        dep = ptrs_tgt.T @ post - pred_ref.T * p1[None, :]        # (3, n)
+        p1 = torch.sum(post, dim=-2)
+        dep = ptrs_tgt.mT @ post - pred_ref.mT * p1[..., None, :]   # (3, n)
         s_eff = torch.clamp_min(lambda_ * sigma_sq, SOLVE_FLOOR)
-        coeff = gram_nn * p1[None, :] + s_eff * eye
-        return solve_m_step(coeff, dep)                           # (3, n)
+        coeff = gram_nn * p1[..., None, :] + per_member(s_eff) * eye
+        return solve_m_step(coeff, dep)                             # (3, n)
 
     pred_ref = ptrs_ref.to(f32)
     pred_tracked = tracked_ref.to(f32)
-    gamma = torch.tensor(0.05, dtype=f32, device=dev)
-    post = torch.zeros((m, n), dtype=f32, device=dev)
-    move_norm = torch.tensor(torch.inf, dtype=f32, device=dev)
-    best = torch.tensor(torch.inf, dtype=f32, device=dev)
-    stall = torch.tensor(0.0, dtype=f32, device=dev)
-    it = torch.ones((), dtype=torch.int32, device=dev)
+    gamma = torch.full(lead, 0.05, dtype=f32, device=dev)
+    post = torch.zeros((*lead, m, n), dtype=f32, device=dev)
+    move_norm = torch.full(lead, torch.inf, dtype=f32, device=dev)
+    best = torch.full(lead, torch.inf, dtype=f32, device=dev)
+    stall = torch.zeros(lead, dtype=f32, device=dev)
+    it = torch.ones(lead, dtype=torch.int32, device=dev)
 
     def running():
         converged = (it > 1) & ((move_norm < CONVERGENCE_EPSILON)
                                 | (stall >= STALL_LIMIT))
         return (it < max_iteration) & ~converged
 
-    while bool(running()):
+    while bool(running().any()):
         for _ in range(CHECK_EVERY):
             active = running()
             p = e_step(pred_ref, sigma_sq, gamma)
             c = m_step(p, pred_ref, sigma_sq)
-            move_ref = (c @ gram_nn).T
-            move_tracked = (c @ gram_ln.T).T
-            apply = active & (it > 1)
+            move_ref = (c @ gram_nn).mT
+            move_tracked = (c @ gram_ln.mT).mT
+            apply = per_member(active & (it > 1))
             n_pred_ref = torch.where(apply, pred_ref + move_ref, pred_ref)
             pred_tracked = torch.where(apply, pred_tracked + move_tracked,
                                        pred_tracked)
-            sum_post = torch.sum(p)
+            sum_post = torch.sum(p, dim=(-2, -1))
             n_gamma = torch.clamp_min(1.0 - sum_post / m_valid, 1e-4)
-            d2 = pairwise_sq_dists(n_pred_ref, ptrs_tgt).T
-            n_sigma = torch.sum(torch.where(valid_pair, d2, 0.0) * p) / \
+            d2 = pairwise_sq_dists(n_pred_ref, ptrs_tgt).mT
+            n_sigma = torch.sum(torch.where(valid_pair, d2, 0.0) * p,
+                                dim=(-2, -1)) / \
                 (3.0 * torch.clamp_min(sum_post, 1e-20))
             n_sigma = torch.clamp_min(n_sigma, 1e-12)
             n_move = numerics.sqrt(torch.sum(torch.square(torch.where(
-                ref_mask[:, None], move_ref, 0.0))))
+                ref_mask[..., :, None], move_ref, 0.0)), dim=(-2, -1)))
             improving = n_move < 0.99 * best
             n_stall = torch.where(improving, 0.0, stall + 1.0)
             n_best = torch.minimum(best, n_move)
             pred_ref = n_pred_ref
-            post = torch.where(active, p, post)
+            post = torch.where(per_member(active), p, post)
             sigma_sq = torch.where(active, n_sigma, sigma_sq)
             gamma = torch.where(active, n_gamma, gamma)
             move_norm = torch.where(active, n_move, move_norm)

@@ -12,7 +12,8 @@ spills, static shared memory) is kept for :func:`resource_usage`.  Nothing
 here runs at import time: the first kernel call builds.  The wrappers'
 hot path goes through :func:`function`, :func:`raw_stream`,
 :func:`sm_count` and :func:`resident_blocks`, which resolve once and take
-no lock afterwards.
+no lock afterwards; :func:`count_launch` adds to a wrapper's launch
+counter under a lock.
 """
 
 from __future__ import annotations
@@ -41,6 +42,7 @@ _lock = threading.Lock()
 _fns: Dict[Tuple[str, str], ctypes._CFuncPtr] = {}
 _n_sm: Dict[int, int] = {}
 _resident: Dict[Tuple[str, str, int], int] = {}
+_count_lock = threading.Lock()
 
 
 def find_nvcc() -> str:
@@ -194,6 +196,17 @@ def resource_usage(name: str) -> List[Tuple[str, int, int, int, int]]:
     """:func:`parse_ptxas` of the build of ``csrc/<name>.cu`` (built
     first if it is not)."""
     return parse_ptxas(build(name).with_suffix(".ptxas.txt").read_text())
+
+
+def count_launch(wrapper, **adds: int) -> None:
+    """Add one to ``wrapper.launches`` (and each of ``adds`` to the
+    attribute of its name) under a lock: the disk-coupled driver launches
+    kernels from two threads at once, and ``+=`` on an attribute is not
+    atomic across threads."""
+    with _count_lock:
+        wrapper.launches += 1
+        for key, n in adds.items():
+            setattr(wrapper, key, getattr(wrapper, key) + n)
 
 
 def check(err: int, what: str) -> None:

@@ -21,11 +21,24 @@ def pin_float32() -> None:
     torch.backends.cudnn.allow_tf32 = False
 
 
+def prefer_cusolver() -> None:
+    """Factor matrices with cuSOLVER (process-wide, on a CUDA build).
+    PyTorch's default heuristic sends a batch of LU factorizations below
+    512 rows to cuBLAS's batched ``getrf``, which is many times slower on
+    the card than cuSOLVER for the ensemble's batched M-step solves (one
+    256-row system a member, ``ops/prgls.py``); a single system already
+    goes to cuSOLVER, so single mode is unchanged."""
+    if torch.version.cuda is not None:
+        torch.backends.cuda.preferred_linalg_library("cusolver")
+
+
 def select_device(device: Union[str, torch.device, None]) -> torch.device:
-    """Resolve ``device`` and pin full float32 precision.  ``None`` means the
-    first CUDA card; without one it raises rather than fall back: the CPU
-    runs only when the caller asks for it (``device="cpu"``)."""
+    """Resolve ``device``, pin full float32 precision and cuSOLVER
+    factorizations.  ``None`` means the first CUDA card; without one it
+    raises rather than fall back: the CPU runs only when the caller asks
+    for it (``device="cpu"``)."""
     pin_float32()
+    prefer_cusolver()
     if device is not None:
         return torch.device(device)
     if not torch.cuda.is_available():

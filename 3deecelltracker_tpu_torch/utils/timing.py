@@ -1,6 +1,7 @@
-"""Stage timing on the host clock, the card synchronized around each stage
-(the counterpart of ``3deecelltracker_tpu/utils/profiling.py::StageTimer``
-for a device that runs ahead of the host)."""
+"""Stage timing on the host clock, the caller's stream synchronized around
+each stage (the counterpart of
+``3deecelltracker_tpu/utils/profiling.py::StageTimer`` for a device that
+runs ahead of the host)."""
 
 from __future__ import annotations
 
@@ -13,13 +14,15 @@ import torch
 
 def _sync() -> None:
     if torch.cuda.is_available() and torch.cuda.is_initialized():
-        torch.cuda.synchronize()
+        torch.cuda.current_stream().synchronize()
 
 
 class CudaStageTimer:
-    """``times[name]``: the ms of every run of stage ``name``.  The card is
-    synchronized before and after a stage, so its time holds the device
-    work it enqueued, not only the enqueue."""
+    """``times[name]``: the ms of every run of stage ``name``.  The
+    caller's current stream is synchronized before and after a stage, so
+    its time holds the device work it enqueued there, not only the
+    enqueue, and not the work of another thread's stream (the disk
+    handoff's segmenter)."""
 
     def __init__(self):
         self.times: Dict[str, List[float]] = {}

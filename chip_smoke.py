@@ -103,6 +103,7 @@ import functools
 import json
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -832,85 +833,128 @@ def kept_difference(t, got_zyx, want_zyx, cands, model):
     return out
 
 
-def phase_bench_scene(dev, smi):
-    """Phase 11: the bench scene through the real entry point with the
-    trained weights, held to JAX's record of the same run
-    (``assets/bench/jax_record.npz``)."""
-    import tempfile
-    from t3dct_torch.config import TrackingConfig
-    from t3dct_torch.engine.metrics import tracking_id_metrics
-    from t3dct_torch.engine.pipeline import segment_and_track
+def trained_model(dev, cands):
+    """The committed StarDist model with ``bench_composition``'s settings;
+    each seg call's candidates are appended to ``cands`` (for the kept
+    cells' margins)."""
     from t3dct_torch.engine.stardist import StarDist3D
+    model = StarDist3D.load(ASSETS / "sd_model", device=dev)
+    model.max_candidates, model.render_box = 256, (9, 33, 33)
+    seg = model.predict_instances_device
+
+    def keep_candidates(*args, **kwargs):
+        out = seg(*args, **kwargs)
+        cands.append(out[:4])
+        return out
+
+    model.predict_instances_device = keep_candidates
+    return model
+
+
+def hold_to_record(path, record, results, coords, centers, cands, model):
+    """The bench phases' checks of a run against a JAX record: kept cells
+    exact per volume (one candidate within ``KEPT_MARGIN`` of a threshold
+    may differ; without ``cands`` none may), tracked coordinates within
+    ``COORD_MEDIAN`` per volume and every cell within the record's
+    identity gate, labels ``LABELS_EQUAL`` per recorded volume, strict
+    recall and identity switches equal.  Prints a line per volume; returns
+    (what failed, this run's metrics, the record's)."""
+    from t3dct_torch.engine.metrics import tracking_id_metrics
     from t3dct_torch.io.imageio import imread_stack
+    want_metrics = json.loads(str(record["metrics"]))
+    diffs, kept = [], []
+    for t in range(1, BENCH_VOLS + 1):
+        got = np.load(results / "seg" / f"coords{t:06d}.npy")
+        want = record[f"seg_coords_{t}"]
+        kept.append((len(got), len(want)))
+        if cands is None:
+            if got.shape != want.shape or not (got == want).all():
+                diffs.append((t, "seg coordinates", "card", np.inf))
+            continue
+        diffs += kept_difference(t, got[:, [2, 0, 1]], want[:, [2, 0, 1]],
+                                 cands[t - 1], model)
+    for t, p, side, margin in diffs:
+        print(f"[{path}] t={t}: candidate {p} kept on the {side} side "
+              f"only, margin {margin:.3e}")
+    print(f"[{path}] kept per volume (card, JAX): {kept}")
+    bad = []
+    if len(diffs) > 1 or any(m > KEPT_MARGIN for *_, m in diffs):
+        bad.append(f"kept cells {diffs}")
+    for t in range(1, BENCH_VOLS + 1):
+        d = np.linalg.norm(coords[t] - record[f"coords_{t}"], axis=1)
+        line = (f"[{path}] t={t}: coords off JAX's record by median "
+                f"{np.median(d):.3e}, max {d.max():.3e} real units "
+                f"(cell {int(d.argmax())}), {int((d > 1e-2).sum())} "
+                f"cells beyond 1e-2, {int((d > 0.5).sum())} beyond 0.5")
+        if not np.isfinite(coords[t]).all() or \
+                np.median(d) > COORD_MEDIAN or \
+                d.max() > want_metrics["gate"]:
+            bad.append(f"t={t} coords")
+        key = f"labels_{t}"
+        if key in record:
+            lab = imread_stack(sorted((results / "track_results" /
+                                       "labels").glob(
+                "track_results_t%06i_z*.tif" % t))).transpose(1, 2, 0)
+            same = float((lab == record[key]).mean())
+            line += f"; labels equal {same:.5f}"
+            if lab.dtype != record[key].dtype or same < LABELS_EQUAL:
+                bad.append(f"t={t} labels")
+        print(line)
+    # where a cell parts from JAX's by more than a voxel step: how far
+    # each run's cell is from its true centre (identities from t = 1)
+    sc = np.asarray(VOXEL_SIZE)
+    gt = {t: centers[t][:, [1, 2, 0]] * sc for t in centers}
+    ident = np.linalg.norm(coords[1][:, None] - gt[1][None], axis=2
+                           ).argmin(axis=1)
+    for t in range(1, BENCH_VOLS + 1):
+        d = np.linalg.norm(coords[t] - record[f"coords_{t}"], axis=1)
+        for i in np.flatnonzero(d > 1.0):
+            truth = gt[t][ident[i]]
+            print(f"[{path}] t={t}: cell {i} {d[i]:.3f} real units off "
+                  f"JAX's; from its true centre: card "
+                  f"{np.linalg.norm(coords[t][i] - truth):.3f}, JAX "
+                  f"{np.linalg.norm(record[f'coords_{t}'][i] - truth):.3f}")
+    got_metrics = tracking_id_metrics(coords, centers, VOXEL_SIZE,
+                                      BENCH_VOLS)
+    print(f"[{path}] strict recall {got_metrics['strict_recall']}, "
+          f"accuracy over every t {got_metrics['strict_accuracy_all_t']}, "
+          f"identity switches {got_metrics['id_switches']} (JAX's record: "
+          f"{want_metrics})")
+    bad += [f"{key} {got_metrics[key]}" for key in ("strict_recall",
+                                                     "id_switches")
+            if got_metrics[key] != want_metrics[key]]
+    return bad, got_metrics, want_metrics
+
+
+def phase_bench_scene(dev, smi, root):
+    """Phase 11: the bench scene through the real entry point with the
+    trained weights and ``handoff="device"``, held to JAX's record of the
+    same run (``assets/bench/jax_record.npz``).  Leaves the recording and
+    its results tree in ``root`` for phases 12 and 13."""
+    from t3dct_torch.config import TrackingConfig
+    from t3dct_torch.engine.pipeline import segment_and_track
     from t3dct_torch.utils.timing import CudaStageTimer
     record = np.load(ASSETS / "jax_record.npz")
-    want_metrics = json.loads(str(record["metrics"]))
-    with tempfile.TemporaryDirectory() as tmp:
-        root = Path(tmp)
-        t0 = time.perf_counter()
-        pattern, centers = write_bench_scene(root)
-        print(f"[bench] scene: {BENCH_VOLS} volumes of {(Z, Y, X)} uint16 "
-              f"as TIFF slices, {N_CELLS} cells: "
-              f"{time.perf_counter() - t0:.1f} s")
-        model = StarDist3D.load(ASSETS / "sd_model", device=dev)
-        model.max_candidates, model.render_box = 256, (9, 33, 33)
-        cands = []
-        seg = model.predict_instances_device
-
-        def keep_candidates(*args, **kwargs):
-            out = seg(*args, **kwargs)
-            cands.append(out[:4])
-            return out
-
-        model.predict_instances_device = keep_candidates
-        timer = CudaStageTimer()
-        results = root / "results"
-        coords, launches = counted(lambda: segment_and_track(
-            pattern, model, results, str(results / "manual_vol1" / "*.tif"),
-            ASSETS / "ffn.npz", VOXEL_SIZE, 10, (1, BENCH_VOLS),
-            TrackingConfig(beta=3.0, lambda_=3.0), verbose=False,
-            timer=timer, device=dev))
-        print(f"[bench] launches {launches}")
-        check_conv_launches("bench", launches, BENCH_VOLS, stem_count(
-            [(ci, co, n) for *_, ci, co, n in CONV_LAYERS]))
-        check_flood_launches("bench", launches, BENCH_VOLS)
-        diffs, kept = [], []
-        for t in range(1, BENCH_VOLS + 1):
-            got = np.load(results / "seg" / f"coords{t:06d}.npy")
-            want = record[f"seg_coords_{t}"]
-            kept.append((len(got), len(want)))
-            diffs += kept_difference(t, got[:, [2, 0, 1]],
-                                     want[:, [2, 0, 1]], cands[t - 1], model)
-        for t, p, side, margin in diffs:
-            print(f"[bench] t={t}: candidate {p} kept on the {side} side "
-                  f"only, margin {margin:.3e}")
-        print(f"[bench] kept per volume (card, JAX): {kept}")
-        if len(diffs) > 1 or any(m > KEPT_MARGIN for *_, m in diffs):
-            raise AssertionError(f"bench scene: kept cells differ from "
-                                 f"JAX's record: {diffs}")
-        bad = []
-        for t in range(1, BENCH_VOLS + 1):
-            d = np.linalg.norm(coords[t] - record[f"coords_{t}"], axis=1)
-            line = (f"[bench] t={t}: coords off JAX's record by median "
-                    f"{np.median(d):.3e}, max {d.max():.3e} real units "
-                    f"(cell {int(d.argmax())}), {int((d > 1e-2).sum())} "
-                    f"cells beyond 1e-2, {int((d > 0.5).sum())} beyond 0.5")
-            if not np.isfinite(coords[t]).all() or \
-                    np.median(d) > COORD_MEDIAN or \
-                    d.max() > want_metrics["gate"]:
-                bad.append(f"t={t} coords")
-            key = f"labels_{t}"
-            if key in record:
-                lab = imread_stack(sorted((results / "track_results" /
-                                           "labels").glob(
-                    "track_results_t%06i_z*.tif" % t))).transpose(1, 2, 0)
-                same = float((lab == record[key]).mean())
-                line += f"; labels equal {same:.5f}"
-                if lab.dtype != record[key].dtype or same < LABELS_EQUAL:
-                    bad.append(f"t={t} labels")
-            print(line)
-        got_metrics = tracking_id_metrics(coords, centers, VOXEL_SIZE,
-                                          BENCH_VOLS)
+    t0 = time.perf_counter()
+    pattern, centers = write_bench_scene(root)
+    print(f"[bench] scene: {BENCH_VOLS} volumes of {(Z, Y, X)} uint16 "
+          f"as TIFF slices, {N_CELLS} cells: "
+          f"{time.perf_counter() - t0:.1f} s")
+    cands = []
+    model = trained_model(dev, cands)
+    timer = CudaStageTimer()
+    results = root / "results"
+    coords, launches = counted(lambda: segment_and_track(
+        pattern, model, results, str(results / "manual_vol1" / "*.tif"),
+        ASSETS / "ffn.npz", VOXEL_SIZE, 10, (1, BENCH_VOLS),
+        TrackingConfig(beta=3.0, lambda_=3.0), verbose=False,
+        timer=timer, handoff="device", device=dev))
+    print(f"[bench] launches {launches}")
+    check_conv_launches("bench", launches, BENCH_VOLS, stem_count(
+        [(ci, co, n) for *_, ci, co, n in CONV_LAYERS]))
+    check_flood_launches("bench", launches, BENCH_VOLS)
+    bad, _, _ = hold_to_record("bench", record, results, coords, centers,
+                               cands, model)
     wall = timer.times["call"][0] / BENCH_VOLS
     seg_ms, track_ms = np.mean(timer.times["seg"]), \
         np.mean(timer.times["track"])
@@ -919,15 +963,182 @@ def phase_bench_scene(dev, smi):
           f"interpolation {timer.times['interpolate_vol1'][0]:.1f} ms "
           f"included); seg {seg_ms:.2f} ms, track {track_ms:.2f} ms per "
           f"volume")
-    print(f"[bench] strict recall {got_metrics['strict_recall']}, accuracy "
-          f"over every t {got_metrics['strict_accuracy_all_t']}, identity "
-          f"switches {got_metrics['id_switches']} (JAX's record: "
-          f"{want_metrics})")
-    bad += [f"{key} {got_metrics[key]}" for key in ("strict_recall",
-                                                     "id_switches")
-            if got_metrics[key] != want_metrics[key]]
     if bad:
         raise AssertionError(f"bench scene: off JAX's record: {bad}")
+    return launches, (pattern, centers)
+
+
+def wgmma_count(n_vols):
+    """``conv3x3x3_wgmma`` launches for ``n_vols`` volumes of the
+    backbone: one per tensor-core layer, every layer one launch."""
+    from t3dct_torch.ops.hopper_conv import route
+    return n_vols * sum(n for *_, ci, co, n in CONV_LAYERS
+                        if route(ci, co) == "wgmma")
+
+
+def f16_steps(a, b):
+    """How many float16 steps apart two maps of float16 values (stored as
+    float32, non-negative) are, at most."""
+    bits = [np.asarray(x, np.float16).view(np.int16).astype(np.int32)
+            for x in (a, b)]
+    return int(np.abs(bits[0] - bits[1]).max())
+
+
+def phase_bench_disk(dev, smi, root, pattern, centers):
+    """Phase 12: ``segment_and_track(handoff="disk")`` over phase 11's
+    TIFFs into a fresh results tree: ``predict_and_save`` on its own
+    thread and CUDA stream, ``track_timelapse`` on this one.  Held to
+    ``jax_record.npz`` with phase 11's bounds, and its ``seg/`` to phase
+    11's: coordinates exact, prob maps within one float16 step."""
+    import shutil
+    from t3dct_torch.config import TrackingConfig
+    from t3dct_torch.engine.pipeline import segment_and_track
+    from t3dct_torch.io.artifacts import ResultsTree
+    from t3dct_torch.utils.timing import CudaStageTimer
+    record = np.load(ASSETS / "jax_record.npz")
+    results = root / "results_disk"
+    shutil.copytree(root / "results" / "manual_vol1",
+                    results / "manual_vol1")
+    cands = []
+    model = trained_model(dev, cands)
+    timer = CudaStageTimer()
+    coords, launches = counted(lambda: segment_and_track(
+        pattern, model, results, str(results / "manual_vol1" / "*.tif"),
+        ASSETS / "ffn.npz", VOXEL_SIZE, 10, (1, BENCH_VOLS),
+        TrackingConfig(beta=3.0, lambda_=3.0), verbose=False,
+        timer=timer, handoff="disk", device=dev))
+    print(f"[bench_disk] launches {launches}")
+    check_conv_launches("bench_disk", launches, BENCH_VOLS, stem_count(
+        [(ci, co, n) for *_, ci, co, n in CONV_LAYERS]))
+    if launches["conv3x3x3_wgmma"] != wgmma_count(BENCH_VOLS):
+        raise AssertionError(f"bench_disk: {launches['conv3x3x3_wgmma']} "
+                             f"wgmma launches, want "
+                             f"{wgmma_count(BENCH_VOLS)}")
+    check_flood_launches("bench_disk", launches, BENCH_VOLS - 1)
+    bad, _, _ = hold_to_record("bench_disk", record, results, coords,
+                               centers, cands, model)
+    mine, dev_tree = ResultsTree(results), ResultsTree(root / "results")
+    steps = []
+    for t in range(1, BENCH_VOLS + 1):
+        if not np.array_equal(mine.load_seg_coords(t),
+                              dev_tree.load_seg_coords(t)):
+            bad.append(f"t={t} seg coords off phase 11's")
+        steps.append(f16_steps(mine.load_seg_prob(t),
+                               dev_tree.load_seg_prob(t)))
+    print(f"[bench_disk] seg/ against phase 11's: coordinates "
+          f"{'equal' if not any('seg coords' in b for b in bad) else 'DIFFER'}"
+          f", prob maps at most {max(steps)} float16 steps apart")
+    # the two handoffs' tracked artifacts, side by side (reported)
+    from t3dct_torch.io.imageio import imread_stack
+    off, same = [], []
+    for t in range(1, BENCH_VOLS + 1):
+        off.append(float(np.abs(mine.load_coords_real(t)
+                                - dev_tree.load_coords_real(t)).max()))
+        pat = "track_results_t%06i_z*.tif" % t
+        a, b = (imread_stack(sorted(tr.labels_dir.glob(pat)))
+                for tr in (mine, dev_tree))
+        same.append(float((a == b).mean()))
+    print(f"[bench_disk] track_results/ against phase 11's (handoff="
+          f"\"device\"): coords_real max difference {max(off):.3e} real "
+          f"units ({sum(o > 0 for o in off)} of {BENCH_VOLS} volumes not "
+          f"bit-equal), labels equal {min(same):.6f} at least")
+    if max(steps) > 1:
+        bad.append(f"prob maps {max(steps)} float16 steps off phase 11's")
+    wall = timer.times["call"][0] / BENCH_VOLS
+    print(f"[bench_disk] {smi}: wall {wall:.2f} ms per volume for the whole "
+          f"call (segmenter thread and tracker at once; host I/O and vol-1 "
+          f"interpolation {timer.times['interpolate_vol1'][0]:.1f} ms "
+          f"included); track {np.mean(timer.times['track']):.2f} ms per "
+          f"tracked volume on the tracker's stream")
+    if bad:
+        raise AssertionError(f"bench_disk: {bad}")
+    return launches
+
+
+ENSEMBLE = dict(beta=3.0, lambda_=3.0, ensemble=True, sampling_number=20,
+                adjacent=False)
+
+
+def phase_bench_ensemble(dev, smi, root, pattern, centers):
+    """Phase 13: the second step of the workflow in ensemble mode,
+    ``track_timelapse`` over phase 12's ``seg/`` in a fresh results tree,
+    held to ``jax_record_ensemble.npz`` with phase 11's bounds and the
+    record's members per volume; then ``TrackerLite.activities`` over its
+    labels and ``export_activities_csv``, printed beside the record's."""
+    import shutil
+    from t3dct_torch.config import TrackingConfig
+    from t3dct_torch.coordinates import Coordinates
+    from t3dct_torch.engine import pipeline
+    from t3dct_torch.engine.tracker import TrackerLite
+    from t3dct_torch.io.artifacts import ResultsTree
+    from t3dct_torch.utils.timing import CudaStageTimer
+    record = np.load(ASSETS / "jax_record_ensemble.npz")
+    results = root / "results_ensemble"
+    for sub in ("seg", "manual_vol1"):
+        shutil.copytree(root / ("results_disk" if sub == "seg"
+                                else "results") / sub, results / sub)
+    # what the run used: each volume's reference list and member batch
+    members, batch = {}, []
+    volumes_list = pipeline.get_volumes_list
+    fan_out = pipeline.ensemble_member_predictions
+
+    def listed(t2, *args, **kwargs):
+        members[t2] = volumes_list(t2, *args, **kwargs)
+        return members[t2]
+
+    def counted_members(params, state, confirmed, *args, **kwargs):
+        batch.append(int(confirmed.shape[0]))
+        return fan_out(params, state, confirmed, *args, **kwargs)
+
+    pipeline.get_volumes_list = listed
+    pipeline.ensemble_member_predictions = counted_members
+    timer = CudaStageTimer()
+    try:
+        t0 = time.perf_counter()
+        coords, launches = counted(lambda: pipeline.track_timelapse(
+            results, str(results / "manual_vol1" / "*.tif"),
+            ASSETS / "ffn.npz", VOXEL_SIZE, 10, (1, BENCH_VOLS), grid=GRID,
+            config=TrackingConfig(**ENSEMBLE), verbose=False, timer=timer,
+            device=dev))
+        wall = 1e3 * (time.perf_counter() - t0) / BENCH_VOLS
+    finally:
+        pipeline.get_volumes_list = volumes_list
+        pipeline.ensemble_member_predictions = fan_out
+    print(f"[bench_ensemble] launches {launches}")
+    if launches["conv3x3x3_direct"] or launches["conv3x3x3_wgmma"]:
+        raise AssertionError(f"bench_ensemble ran a conv: {launches}")
+    check_flood_launches("bench_ensemble", launches, BENCH_VOLS - 1)
+    bad, _, _ = hold_to_record("bench_ensemble", record, results, coords,
+                               centers, None, None)
+    want = {t: record[f"members_{t}"].tolist()
+            for t in range(2, BENCH_VOLS + 1)}
+    if members != want or batch != [len(want[t]) for t in sorted(want)]:
+        bad.append(f"members {members} / batches {batch}, record {want}")
+    track = timer.times["track"]
+    print(f"[bench_ensemble] {smi}: wall {wall:.2f} ms per volume for the "
+          f"call (host I/O and vol-1 interpolation "
+          f"{timer.times['interpolate_vol1'][0]:.1f} ms included); ensemble "
+          f"track {np.mean(track):.2f} ms per volume; per volume (members, "
+          f"ms): {[(n, round(ms, 2)) for n, ms in zip(batch, track)]}")
+    vol1 = Coordinates.from_real(coords[1], 10, VOXEL_SIZE, device=dev)
+    t0 = time.perf_counter()
+    acts = TrackerLite(results, ASSETS / "ffn.npz", vol1).activities(
+        pattern, discard_ratio=json.loads(str(record["recipe"]))[
+            "discard_ratio"])
+    csv = ResultsTree(results).export_activities_csv(acts)
+    act_ms = 1e3 * (time.perf_counter() - t0)
+    ref = record["activities"]
+    diff = np.abs(acts - ref)
+    rel = diff / np.maximum(np.abs(ref), 1e-12)
+    print(f"[bench_ensemble] activities {acts.shape} in {act_ms:.1f} ms "
+          f"({csv.name}, {csv.stat().st_size} bytes): off the record's by "
+          f"max {diff.max():.3e} (relative {rel.max():.3e}), median "
+          f"{np.median(diff):.3e}; {int((rel > 1e-3).sum())} of {rel.size} "
+          f"beyond 1e-3 relative")
+    if acts.shape != ref.shape or not np.isfinite(acts).all():
+        bad.append(f"activities {acts.shape}")
+    if bad:
+        raise AssertionError(f"bench_ensemble: {bad}")
     return launches
 
 
@@ -1026,13 +1237,17 @@ def main() -> int:
     leg = phase_legacy(dev)
     phase_legacy_small_parity(dev)
     probe, probe_launches = phase_probe(dev)
-    bench = phase_bench_scene(dev, smi)
+    with tempfile.TemporaryDirectory() as tmp:
+        bench, scene = phase_bench_scene(dev, smi, Path(tmp))
+        disk = phase_bench_disk(dev, smi, Path(tmp), *scene)
+        ens = phase_bench_ensemble(dev, smi, Path(tmp), *scene)
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
 
     def counts(name):
         by_path = {"v1.0": launches[name], "legacy": leg[name],
-                   "probe": probe_launches[name], "bench": bench[name]}
+                   "probe": probe_launches[name], "bench": bench[name],
+                   "bench_disk": disk[name], "bench_ensemble": ens[name]}
         return dict(launches=sum(by_path.values()),
                     launches_by_path=by_path)
 
@@ -1051,7 +1266,9 @@ def main() -> int:
              **counts("flood_slices"), **flood,
              rounds_by_path={"v1.0": launches["flood_rounds"],
                              "legacy": leg["flood_rounds"],
-                             "bench": bench["flood_rounds"]}),
+                             "bench": bench["flood_rounds"],
+                             "bench_disk": disk["flood_rounds"],
+                             "bench_ensemble": ens["flood_rounds"]}),
         dict(name="cc_label", route="cuda",
              source="3deecelltracker_tpu_torch/csrc/cc.cu",
              replaces="3deecelltracker_tpu/ops/pallas_kernels.py:92",

@@ -11,10 +11,15 @@ Regenerate the record (JAX, on the CPU) with
 
     python tests/test_torch_bench_record.py --write
 
+The ensemble record is JAX's two-step workflow of the examples over the
+same scene and weights: ``predict_and_save``, then ``track_timelapse`` in
+ensemble mode (``ENSEMBLE``), then ``TrackerLite.activities``; regenerate
+it with ``--write-ensemble``.
+
 The tier-1 tests hold the port's loaders to JAX's on the assets and check
-the record; the ``slow`` tests re-derive the record with JAX and run the
-port on the CPU over the whole scene against it, with the bounds of
-``chip_smoke.py``'s phase 11."""
+the records; the ``slow`` tests re-derive the record with JAX and run the
+port on the CPU over the whole scene against each record, with the bounds
+of ``chip_smoke.py``'s phases 11 and 13."""
 
 import json
 import sys
@@ -46,6 +51,7 @@ from t3dct_torch.utils.synthetic import make_recording  # noqa: E402
 
 ASSETS = REPO / "3deecelltracker_tpu_torch" / "assets" / "bench"
 RECORD = ASSETS / "jax_record.npz"
+ENSEMBLE_RECORD = ASSETS / "jax_record_ensemble.npz"
 N_VOLS = 21
 SHAPE = (24, 401, 168)
 VOXEL_SIZE = (1.0, 1.0, 9.2)
@@ -112,6 +118,72 @@ def write_record(out: Path, work: Path) -> dict:
                 if k in ("labels_2", "labels_11", "labels_21")}
         np.savez_compressed(out, metrics=json.dumps(metrics), **arrays,
                             **kept, **counts)
+    return metrics
+
+
+# the ensemble record's recipe: JAX's two-step workflow, predict_and_save
+# then track_timelapse in ensemble mode with these settings
+ENSEMBLE = dict(beta=3.0, lambda_=3.0, ensemble=True, sampling_number=20,
+                adjacent=False)
+ACTIVITY_DISCARD = 0.1
+
+
+def write_ensemble_record(out: Path, work: Path) -> dict:
+    """JAX's v1.0 two-step workflow over the bench scene with the
+    committed weights: ``predict_and_save``, then ``track_timelapse`` in
+    ensemble mode (``ENSEMBLE``) with ``bench_composition``'s voxel size
+    and interpolation and the proofed vol-1 labels, then
+    ``TrackerLite.activities``.  Writes each volume's tracked coordinates,
+    uint8 labels and reference volumes (members), the metrics and the
+    activities to ``out``; returns the metrics."""
+    from t3dct.config import TrackingConfig
+    from t3dct.engine.pipeline import track_timelapse
+    from t3dct.engine.stardist import predict_and_save
+    from t3dct.engine.tracker import get_volumes_list
+    from t3dct.io.imageio import imread_stack
+    with jax_script(REPO / "bench.py", "jax_bench", work / "xla") as bench:
+        raw = work / "raw"
+        raw.mkdir(parents=True)
+        images_path, centers, lab1 = bench.make_recording(raw)
+        results = work / "results"
+        bench._save_manual_vol1(results, lab1)
+        t0 = time.perf_counter()
+        predict_and_save(images_path, jax_model(), results)
+        seg_wall = time.perf_counter() - t0
+        ffn = jax_ffn_weights()
+        coords = track_timelapse(
+            results, str(results / "manual_vol1" / "*.tif"), ffn,
+            voxel_size=VOXEL_SIZE, interpolation_factor=10,
+            t_range=(1, N_VOLS), grid=(1, 2, 2),
+            config=TrackingConfig(**ENSEMBLE), verbose=False)
+        wall = time.perf_counter() - t0
+        metrics = bench.tracking_id_metrics(coords, centers)
+    tracker = JTrackerLite(results, ffn, type(
+        "Vol1", (), {"cell_num": int(coords[1].shape[0])})())
+    activities = tracker.activities(images_path,
+                                    discard_ratio=ACTIVITY_DISCARD)
+    metrics.update(cpu_wall_s=wall, cpu_seg_wall_s=seg_wall)
+    arrays = {}
+    for t in range(1, N_VOLS + 1):
+        arrays[f"seg_coords_{t}"] = np.load(results / "seg" /
+                                            f"coords{t:06d}.npy")
+        arrays[f"coords_{t}"] = np.asarray(coords[t], np.float32)
+        lab = imread_stack(sorted((results / "track_results" / "labels")
+                                  .glob("track_results_t%06i_z*.tif" % t)))
+        arrays[f"labels_{t}"] = lab.transpose(1, 2, 0)
+        if t > 1:
+            arrays[f"members_{t}"] = np.asarray(get_volumes_list(
+                t, [], ENSEMBLE["sampling_number"], ENSEMBLE["adjacent"],
+                1), np.int32)
+    np.savez_compressed(out, metrics=json.dumps(metrics),
+                        recipe=json.dumps(dict(
+                            ENSEMBLE, voxel_size=VOXEL_SIZE,
+                            interpolation_factor=10, t_range=(1, N_VOLS),
+                            max_candidates=MAX_CANDIDATES,
+                            render_box=RENDER_BOX,
+                            discard_ratio=ACTIVITY_DISCARD)),
+                        activities=np.asarray(activities, np.float64),
+                        **arrays)
     return metrics
 
 
@@ -205,6 +277,53 @@ def test_record_holds_the_bench_run(record):
         assert record[k].dtype == np.uint8
 
 
+@pytest.fixture(scope="module")
+def ensemble_record():
+    with np.load(ENSEMBLE_RECORD) as data:
+        return {k: data[k] for k in data.files}
+
+
+def test_ensemble_record_holds_its_recipe(ensemble_record, record):
+    """JAX's two-step ensemble run: the recipe it states, each volume's
+    members (``get_volumes_list``: 1..t-1, the evenly spread 20 at t =
+    21), tracked coordinates, uint8 labels and metrics, the activities of
+    every cell and volume, within the labels budget; its segmentation is
+    the single-mode record's, volume for volume."""
+    from t3dct.engine.tracker import get_volumes_list
+    rec = ensemble_record
+    assert ENSEMBLE_RECORD.stat().st_size < LABELS_BUDGET
+    recipe = json.loads(str(rec["recipe"]))
+    for key, value in ENSEMBLE.items():
+        assert recipe[key] == value, key
+    assert tuple(recipe["voxel_size"]) == VOXEL_SIZE
+    assert recipe["interpolation_factor"] == 10
+    assert tuple(recipe["t_range"]) == (1, N_VOLS)
+    assert recipe["discard_ratio"] == ACTIVITY_DISCARD
+    assert recipe["max_candidates"] == MAX_CANDIDATES
+    metrics = json.loads(str(rec["metrics"]))
+    assert set(metrics) >= {"gate", "strict_recall", "id_switches",
+                            "cpu_wall_s"}
+    n1 = rec["coords_1"].shape[0]
+    np.testing.assert_array_equal(rec["coords_1"], record["coords_1"])
+    for t in range(1, N_VOLS + 1):
+        np.testing.assert_array_equal(rec[f"seg_coords_{t}"],
+                                      record[f"seg_coords_{t}"])
+        assert rec[f"coords_{t}"].shape == (n1, 3)
+        assert np.isfinite(rec[f"coords_{t}"]).all()
+        lab = rec[f"labels_{t}"]
+        assert lab.dtype == np.uint8 and lab.shape == (SHAPE[1], SHAPE[2],
+                                                      SHAPE[0])
+        if t > 1:
+            assert rec[f"members_{t}"].tolist() == get_volumes_list(
+                t, [], ENSEMBLE["sampling_number"], ENSEMBLE["adjacent"], 1)
+    assert rec["members_21"].tolist() == list(range(1, 21))
+    acts = rec["activities"]
+    assert acts.shape == (N_VOLS, n1) and np.isfinite(acts).all()
+    # the ensemble is a different prediction from the single-mode run
+    assert any(not np.array_equal(rec[f"coords_{t}"], record[f"coords_{t}"])
+               for t in range(2, N_VOLS + 1))
+
+
 def test_port_scene_is_the_bench_scene(tmp_path):
     """``utils.synthetic.make_recording`` gives the volumes, labels and
     centres that ``bench.make_recording`` writes (first two volumes)."""
@@ -280,8 +399,37 @@ def test_port_on_cpu_matches_record(record, tmp_path):
     coords = segment_and_track(
         pattern, model, results, str(results / "manual_vol1" / "*.tif"),
         ASSETS / "ffn.npz", VOXEL_SIZE, 10, (1, N_VOLS),
-        TrackingConfig(beta=3.0, lambda_=3.0), verbose=False, device="cpu")
+        TrackingConfig(beta=3.0, lambda_=3.0), verbose=False,
+        handoff="device", device="cpu")
     hold_to_record(record, results, coords, centers)
+
+
+@pytest.mark.slow
+def test_port_ensemble_on_cpu_matches_record(ensemble_record, tmp_path):
+    """The port's two-step workflow on the CPU over the whole bench scene,
+    ensemble mode, held to JAX's ensemble record with phase 13's bounds,
+    and its activities within 1e-4 relative of the record's."""
+    sys.path.insert(0, str(REPO))
+    import chip_smoke
+    from t3dct_torch.config import TrackingConfig
+    from t3dct_torch.engine.pipeline import track_timelapse
+    from t3dct_torch.engine.stardist import predict_and_save
+    from t3dct_torch.engine.tracker import TrackerLite as PortTracker
+    pattern, centers = chip_smoke.write_bench_scene(tmp_path)
+    model = StarDist3D.load(ASSETS / "sd_model", device="cpu")
+    model.max_candidates, model.render_box = MAX_CANDIDATES, RENDER_BOX
+    results = tmp_path / "results"
+    predict_and_save(pattern, model, results)
+    coords = track_timelapse(
+        results, str(results / "manual_vol1" / "*.tif"), ASSETS / "ffn.npz",
+        VOXEL_SIZE, 10, (1, N_VOLS), grid=(1, 2, 2),
+        config=TrackingConfig(**ENSEMBLE), verbose=False, device="cpu")
+    hold_to_record(ensemble_record, results, coords, centers)
+    vol1 = Coordinates.from_real(coords[1], 10, VOXEL_SIZE, device="cpu")
+    acts = PortTracker(results, ASSETS / "ffn.npz", vol1).activities(
+        pattern, discard_ratio=ACTIVITY_DISCARD)
+    np.testing.assert_allclose(acts, ensemble_record["activities"],
+                               rtol=1e-4)
 
 
 if __name__ == "__main__":
@@ -292,12 +440,20 @@ if __name__ == "__main__":
     ap.add_argument("--write", action="store_true",
                     help="run JAX over the bench scene and write "
                          "assets/bench/jax_record.npz")
+    ap.add_argument("--write-ensemble", action="store_true",
+                    help="run JAX's two-step workflow in ensemble mode "
+                         "over the bench scene and write "
+                         "assets/bench/jax_record_ensemble.npz")
     args = ap.parse_args()
-    if not args.write:
-        ap.error("nothing to do without --write")
+    if not (args.write or args.write_ensemble):
+        ap.error("nothing to do without --write or --write-ensemble")
     os.environ.setdefault("JAX_PLATFORMS", "cpu")
     jax.config.update("jax_platforms", "cpu")
-    with tempfile.TemporaryDirectory() as tmp:
-        m = write_record(RECORD, Path(tmp))
-    print(json.dumps(m))
-    print(f"{RECORD}: {RECORD.stat().st_size} bytes")
+    for flag, path, writer in ((args.write, RECORD, write_record),
+                               (args.write_ensemble, ENSEMBLE_RECORD,
+                                write_ensemble_record)):
+        if flag:
+            with tempfile.TemporaryDirectory() as tmp:
+                m = writer(path, Path(tmp))
+            print(json.dumps(m))
+            print(f"{path}: {path.stat().st_size} bytes")

@@ -485,3 +485,101 @@ def test_ladder_kernels_raise_without_fallback(dev):
         ladder.ladder_pointwise_matmul(torch.zeros((4, 65), device=dev),
                                        torch.zeros((65, 8), device=dev))
     assert [k.launches for k in ladder.KERNELS] == n0
+
+
+# ---- the ensemble's batched EM, and two threads on the card --------------
+
+EM_TOL = 1e-2      # real units: the f32 EM's noise (test_torch_tracking.py)
+
+
+def _members(n_members=5, pad=32, seed=2):
+    """Members predicting volume n + 1 of a drifting 12-cell scene from
+    volumes 1..n: (confirmed (E, 12, 3), seg1 (E, pad, 3), mask1, seg2,
+    mask2), real units."""
+    from t3dct_torch.utils.synthetic import drifting_centers
+    vs = np.float32([1.0, 1.13, 4.7])
+    centers = drifting_centers(np.random.RandomState(seed), n_members + 1,
+                               12, (8, 64, 48))
+
+    def real(t, s):
+        c = centers[t][:, [1, 2, 0]] + np.random.RandomState(s).uniform(
+            -0.5, 0.5, (12, 3))
+        return (c * vs).astype(np.float32)
+
+    def padded(t):
+        out = np.full((pad, 3), 1e6, np.float32)
+        out[:12] = real(t, t)
+        mask = np.zeros(pad, bool)
+        mask[:12] = True
+        return out, mask
+
+    ts = range(1, n_members + 1)
+    seg2, mask2 = padded(n_members + 1)
+    return (np.stack([real(t, 100 + t) for t in ts]),
+            np.stack([padded(t)[0] for t in ts]),
+            np.stack([padded(t)[1] for t in ts]), seg2, mask2)
+
+
+@pytest.mark.parametrize("frozen", [False, True])
+def test_batched_em_on_the_card_matches_its_solo_run(dev, frozen):
+    """Every member of the batched ``track_step`` on the card against the
+    same member run alone on the card, and against the CPU: within the f32
+    EM's noise, with the solo iteration count give or take the card's
+    other summation order.  ``frozen``: one member starts at the target's
+    own cells and stops early while the others iterate."""
+    from t3dct_torch.engine.tracker import track_step
+    from t3dct_torch.models.ffn import feature_distance_ffn
+    params, state = feature_distance_ffn(torch.Generator().manual_seed(1),
+                                         "cpu")
+    conf, seg1, mask1, seg2, mask2 = _members()
+    if frozen:
+        seg1[1], mask1[1] = seg2, mask2
+    host = [torch.from_numpy(a) for a in (conf, seg1, mask1, seg2, mask2)]
+    card = [a.to(dev) for a in host]
+    pc = {k: {n: w.to(dev) for n, w in v.items()} for k, v in params.items()}
+    sc = {k: {n: w.to(dev) for n, w in v.items()} for k, v in state.items()}
+    res = track_step(pc, sc, *card)
+    cpu = track_step(params, state, *host)
+    its = res.n_iterations.tolist()
+    for e in range(len(conf)):
+        solo = track_step(pc, sc, card[0][e], card[1][e], card[2][e],
+                          card[3], card[4])
+        got = res.tracked[e].cpu()
+        assert float((got - solo.tracked.cpu()).abs().max()) <= EM_TOL
+        assert float((got - cpu.tracked[e]).abs().max()) <= EM_TOL
+        assert abs(its[e] - int(solo.n_iterations)) <= 1
+    if frozen:
+        assert min(its) < max(its)
+
+
+def test_two_threads_count_every_flood(dev):
+    """Two threads, each on its own stream, launch the cooperative flood
+    at once: every call is bit-equal to the plain version, nothing hangs,
+    and the shared counters hold every launch and round."""
+    import threading
+    args = [t.to(dev) for t in _flood_scene("uneven")]
+    want, _ = hopper_flood.flood_slices_plain(*args)
+    _, solo_rounds = hopper_flood.flood_slices(*args)
+    n0 = hopper_flood.flood_slices.launches
+    r0 = hopper_flood.flood_slices.rounds
+    errors, per_thread = [], 20
+
+    def run():
+        try:
+            with torch.cuda.stream(torch.cuda.Stream(dev)):
+                for _ in range(per_thread):
+                    got, rounds = hopper_flood.flood_slices(*args)
+                    assert torch.equal(got, want) and rounds == solo_rounds
+        except Exception as e:          # reported on the test's thread
+            errors.append(e)
+
+    threads = [threading.Thread(target=run) for _ in range(2)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=120)
+    assert not any(th.is_alive() for th in threads)
+    assert not errors, errors
+    assert hopper_flood.flood_slices.launches == n0 + 2 * per_thread
+    assert hopper_flood.flood_slices.rounds == r0 + 2 * per_thread * \
+        solo_rounds

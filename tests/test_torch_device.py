@@ -12,10 +12,13 @@ import t3dct_torch  # noqa: F401
 from t3dct_torch.config import (SegmentationConfig, StarDistConfig,
                                 TrackingConfig)
 from t3dct_torch.coordinates import Coordinates
+from t3dct_torch.engine.analyses import get_activities
 from t3dct_torch.engine.legacy import Tracker, legacy_segment_and_track_arrays
-from t3dct_torch.engine.pipeline import segment_and_track_arrays
+from t3dct_torch.engine.pipeline import (segment_and_track,
+                                         segment_and_track_arrays,
+                                         track_timelapse)
 from t3dct_torch.engine.segmentation import UNetSegmenter
-from t3dct_torch.engine.stardist import StarDist3D
+from t3dct_torch.engine.stardist import StarDist3D, load_stardist_model
 from t3dct_torch.engine.transformer import CoordsToImageTransformer
 from t3dct_torch.models import ffn, layers
 from t3dct_torch.models.stardist3d import StarDist3DNet
@@ -37,6 +40,13 @@ def _stardist_load(tmp_path):
     return StarDist3D.load(tmp_path)
 
 
+def _load_stardist_model(tmp_path):
+    (tmp_path / "m").mkdir()
+    (tmp_path / "m" / "config.json").write_text(json.dumps({"arch": "tpu"}))
+    (tmp_path / "m" / "weights.npz").write_bytes(b"")
+    return load_stardist_model("m", basedir=str(tmp_path))
+
+
 ENTRY_POINTS = {
     "segment_and_track_arrays": lambda tmp: segment_and_track_arrays(
         [], None, np.zeros(SHAPE, np.int32), None, (1.0, 1.0, 1.0), 1,
@@ -53,6 +63,15 @@ ENTRY_POINTS = {
         UNet3D(), {}, {}, SegmentationConfig(), SHAPE),
     "CoordsToImageTransformer":
         lambda tmp: CoordsToImageTransformer((1.0, 1.0, 1.0)),
+    "load_stardist_model": _load_stardist_model,
+    "segment_and_track": lambda tmp: segment_and_track(
+        str(tmp / "r_t%03i_z*.tif"), None, tmp, str(tmp / "m/*.tif"), None,
+        (1.0, 1.0, 1.0), 1, (1, 2)),
+    "track_timelapse": lambda tmp: track_timelapse(
+        tmp, str(tmp / "m/*.tif"), None, (1.0, 1.0, 1.0), 1, (1, 2)),
+    "get_activities": lambda tmp: get_activities(
+        str(tmp / "r_t%04i_z%04i.tif"), str(tmp / "l_t%04i_z%04i.tif"), 1,
+        1),
 }
 
 HELPERS = {

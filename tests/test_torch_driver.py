@@ -56,6 +56,7 @@ def manual_vol1(results: Path, lab) -> str:
 
 def run_port(pattern, results, lab, model, ffn, t_range=(1, N_VOLS),
              **kwargs):
+    kwargs.setdefault("handoff", "device")
     return segment_and_track(pattern, model, results,
                              manual_vol1(results, lab), ffn, VOXEL_SIZE,
                              INTERP, t_range, TrackingConfig(),
@@ -252,14 +253,13 @@ def test_driver_raises_past_max_cells(scene, models, tmp_path, extra):
 
 
 @pytest.mark.parametrize("kwargs,err,match", [
-    (dict(handoff="disk"), NotImplementedError, "A.2"),
     (dict(handoff="wire"), ValueError, "handoff must be"),
     (dict(mesh=object()), NotImplementedError, "A.5"),
     (dict(save_figures=True), NotImplementedError, "A.9"),
     (dict(transport="u8"), NotImplementedError, "A.5"),
-    (dict(config=TrackingConfig(ensemble=True)), ValueError,
-     "supports single mode only"),
-], ids=["disk", "bad_handoff", "mesh", "figures", "u8", "ensemble"])
+    (dict(config=TrackingConfig(ensemble=True), handoff="device"),
+     ValueError, "supports single mode only"),
+], ids=["bad_handoff", "mesh", "figures", "u8", "ensemble"])
 def test_driver_raises_for_what_is_not_ported(tmp_path, kwargs, err, match):
     """Each raises before anything is read or written."""
     args = dict(config=TrackingConfig(), verbose=False, device="cpu")
@@ -280,7 +280,8 @@ def test_driver_ensemble_message_is_jax(tmp_path):
     with pytest.raises(ValueError) as got:
         segment_and_track("x_t%03i.tif", None, tmp_path, "m", None,
                           VOXEL_SIZE, INTERP, (1, 2),
-                          TrackingConfig(ensemble=True), device="cpu")
+                          TrackingConfig(ensemble=True), handoff="device",
+                          device="cpu")
     assert str(got.value) == str(want.value)
 
 

@@ -336,3 +336,37 @@ def test_port_imports_no_pil_or_matplotlib():
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
+
+
+def _eoi_width_cases():
+    """Label slices whose LZW table ends one entry short of a code-width
+    change: the encoder (the JAX package's source too) then writes EOI at
+    the old width, and the padding after it reads as a valid code at the
+    new one.  A small seeded slice, and slice 9 of volume 8 of JAX's
+    ensemble record, where the port first met it."""
+    rng = np.random.RandomState(987)
+    w, h = rng.randint(20, 70), rng.randint(20, 70)
+    small = ((rng.rand(h, w) < 0.3) * rng.randint(1, 5, (h, w))
+             ).astype(np.uint8)
+    with np.load(REPO / "3deecelltracker_tpu_torch" / "assets" / "bench" /
+                 "jax_record_ensemble.npz") as rec:
+        bench = np.ascontiguousarray(rec["labels_8"][:, :, 8])
+    return {"small": small, "bench": bench}
+
+
+@pytest.mark.parametrize("case", ["small", "bench"])
+@pytest.mark.parametrize("writer", ["port", "jax"])
+def test_codec_reads_lzw_with_early_eoi(tmp_path, case, writer):
+    """The decoder stops once the strip is full, as libtiff's does, so it
+    reads these slices, written by the port or by the JAX package, as PIL
+    reads them."""
+    img = _eoi_width_cases()[case]
+    vol = img[:, :, None]
+    save = imageio.save_label_slices if writer == "port" else \
+        jio.save_label_slices
+    save(vol, tmp_path, "s_t%06i_z%04i.tif", 1, True)
+    path = tmp_path / "s_t000001_z0001.tif"
+    np.testing.assert_array_equal(np.asarray(Image.open(path)), img)
+    np.testing.assert_array_equal(imageio.imread(path), img)
+    np.testing.assert_array_equal(imageio.imread_stack([path, path])[1],
+                                  img)

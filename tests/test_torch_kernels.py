@@ -503,3 +503,28 @@ def test_add_one_plan_at_the_probe_shape():
     n4, blocks = ladder.add_one_plan(n, True, 132 * 8)
     assert (n4, blocks) == (n // 4, 132 * 8)
     assert (_add_one_walk(n, n4, blocks, True) == 1).all()
+
+
+def test_count_launch_is_exact_across_threads():
+    """Kernel wrappers count their launches under a lock: eight threads
+    counting at once lose no launch and no round (the disk-coupled
+    driver launches from the segmenter's thread and the tracker's)."""
+    import threading
+    from t3dct_torch.utils import cuda_build
+
+    def wrapper():
+        pass
+
+    wrapper.launches, wrapper.rounds = 0, 0
+
+    def run():
+        for _ in range(20000):
+            cuda_build.count_launch(wrapper, rounds=3)
+
+    threads = [threading.Thread(target=run) for _ in range(8)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    assert wrapper.launches == 8 * 20000
+    assert wrapper.rounds == 3 * 8 * 20000
