@@ -1,7 +1,8 @@
 """PyTorch + CUDA port of 3DeeCellTracker-TPU for NVIDIA Hopper (H100):
 the v1.0 StarDist workflow (segment a TIFF recording into a results tree,
-track it in single or ensemble mode, read activities), the legacy v0.4
-U-Net path on arrays, and the conv probe.
+track it in single or ensemble mode, read activities), its two trainers
+(StarDist3D and the FFN matcher), the legacy v0.4 U-Net path on arrays,
+and the conv probe.
 
 It sits beside the JAX package ``3deecelltracker_tpu``, which stays the
 reference: every module here mirrors a module there, keeps its array
@@ -29,6 +30,10 @@ Entry points:
   recording, ``handoff="disk"`` (default) or ``"device"``;
 - ``engine.pipeline.segment_and_track_arrays`` (v1.0 on arrays);
 - ``engine.legacy.legacy_segment_and_track_arrays`` (v0.4 U-Net);
+- training: ``models.train_stardist.TrainStarDist3D`` (with
+  ``engine.stardist.load_training_images`` / ``configure`` and
+  ``engine.metrics.optimize_thresholds``) and ``models.train_ffn.TrainFFN``,
+  as ``scripts.train_stardist`` and ``scripts.train_ffn`` run them;
 - ``scripts.probe_conv_fast.run`` (the conv probe).
 """
 
@@ -39,14 +44,16 @@ from .engine import analyses, correction, legacy, metrics  # noqa: F401
 from .engine import pipeline, segmentation, stardist  # noqa: F401
 from .engine import tracker, transformer  # noqa: F401
 from .io import artifacts, imageio, prefetch, tiff  # noqa: F401
-from .models import ffn, layers, stardist3d, unet3d  # noqa: F401
+from .models import ffn, layers, stardist3d, synthesize  # noqa: F401
+from .models import train_ffn, train_stardist, unet3d  # noqa: F401
 from .ops import (connected, edt, filters, hopper_cc,  # noqa: F401
                   hopper_conv, hopper_flood, knn, ladder, lcn, matching,
                   neighborhood, nms, numerics, peaks, pointset, prgls, rays,
-                  segment_reduce, subregions, tiling, trim, watershed)
+                  segment_reduce, stardist_gt, subregions, tiling, trim,
+                  watershed)
 from .parallel import ensemble  # noqa: F401
-from .utils import (convert, cuda_build, device, roofline,  # noqa: F401
-                    synthetic, timing)
+from .utils import (checkpoint, convert, cuda_build, device,  # noqa: F401
+                    optim, roofline, synthetic, timing)
 
 __version__ = "0.1.0"
 

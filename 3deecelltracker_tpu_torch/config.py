@@ -1,7 +1,7 @@
 """Typed configuration for the PyTorch port: the stage configs the
-segment-and-track main path and the legacy U-Net path read, with the same
-fields and defaults as ``3deecelltracker_tpu/config.py`` so one config
-describes both packages."""
+segment-and-track main path, the legacy U-Net path and the FFN trainer
+read, with the same fields and defaults as ``3deecelltracker_tpu/config.py``
+so one config describes both packages."""
 
 from __future__ import annotations
 
@@ -58,3 +58,16 @@ class StarDistConfig:
     prob_thresh: float = 0.5
     nms_thresh: float = 0.3
     backbone: str = "unet"
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainFfnConfig:
+    """FFN trainer (reference ``ffn.py:17-26``, ``synthesize.py``)."""
+    batch_size: int = 128
+    iterations_per_epoch: int = 5000
+    learning_rate: float = 1e-3
+    affine_level: float = 0.2
+    random_movement_level: float = 0.001
+    ratio_seg_error: float = 0.15
+    kde_bandwidth: float = 0.1
+    num_sets: int = 20

@@ -3,7 +3,8 @@
 // The reference leans on tifffile/PIL C internals for all image IO
 // (SURVEY §2.2 N7).  This is the TPU build's native data-loader: a minimal,
 // dependency-free reader for the data contract actually used by the
-// pipeline — single-page little-endian grayscale TIFFs, 8/16-bit,
+// pipeline — little-endian grayscale TIFFs, 8/16-bit, single-page slices or
+// multi-page volumes (training data),
 // uncompressed or LZW (incl. horizontal predictor), strip-based — plus a
 // std::thread fan-out that decodes a whole z-stack in parallel, and an
 // uncompressed writer for label output.
@@ -44,12 +45,19 @@ uint32_t rd32(const uint8_t* p) {
   return p[0] | (p[1] << 8) | (p[2] << 16) | (uint32_t(p[3]) << 24);
 }
 
-bool parse_ifd(const std::vector<uint8_t>& d, TiffInfo* info) {
-  if (d.size() < 8 || d[0] != 'I' || d[1] != 'I' || rd16(&d[2]) != 42)
-    return false;  // little-endian classic TIFF only
-  uint32_t ifd = rd32(&d[4]);
+bool is_tiff_le(const std::vector<uint8_t>& d) {
+  // little-endian classic TIFF only
+  return d.size() >= 8 && d[0] == 'I' && d[1] == 'I' && rd16(&d[2]) == 42;
+}
+
+// parse the IFD at byte offset ifd; *next gets the next IFD's offset
+// (0 after the last page)
+bool parse_ifd_at(const std::vector<uint8_t>& d, uint32_t ifd,
+                  TiffInfo* info, uint32_t* next) {
   if (uint64_t(ifd) + 2 > d.size()) return false;
   uint16_t n = rd16(&d[ifd]);
+  uint64_t next_at = uint64_t(ifd) + 2 + 12 * uint64_t(n);
+  *next = next_at + 4 <= d.size() ? rd32(&d[next_at]) : 0;
   // Every offset/count below comes from the (possibly truncated or
   // corrupt) file and must be bounds-checked before dereferencing — the
   // Python wrapper's contract is "fall back to PIL on error", which
@@ -107,6 +115,37 @@ bool parse_ifd(const std::vector<uint8_t>& d, TiffInfo* info) {
   }
   if (info->rows_per_strip == 0) info->rows_per_strip = info->height;
   return info->width && info->height && !info->strip_offsets.empty();
+}
+
+bool parse_ifd(const std::vector<uint8_t>& d, TiffInfo* info) {
+  uint32_t next;
+  return is_tiff_le(d) && parse_ifd_at(d, rd32(&d[4]), info, &next);
+}
+
+// every page of a multi-page file, in order; at most max_pages, each IFD
+// after the one before it (a chain that loops back is corrupt)
+const uint32_t kMaxPages = 1u << 16;
+
+int parse_pages(const std::vector<uint8_t>& d, std::vector<TiffInfo>* pages) {
+  if (!is_tiff_le(d)) return 2;
+  uint32_t ifd = rd32(&d[4]);
+  uint32_t prev = 0;
+  while (ifd != 0) {
+    if (pages->size() >= kMaxPages || (!pages->empty() && ifd <= prev))
+      return 2;
+    TiffInfo info;
+    uint32_t next;
+    if (!parse_ifd_at(d, ifd, &info, &next)) return 2;
+    if (info.samples != 1 || (info.bits != 8 && info.bits != 16)) return 6;
+    if (!pages->empty() && (info.width != (*pages)[0].width ||
+                            info.height != (*pages)[0].height ||
+                            info.bits != (*pages)[0].bits))
+      return 7;
+    pages->push_back(info);
+    prev = ifd;
+    ifd = next;
+  }
+  return pages->empty() ? 2 : 0;
 }
 
 // TIFF-variant LZW decode: MSB-first codes, Clear=256, EOI=257, early
@@ -376,6 +415,41 @@ int write_tiff(const char* path, const uint16_t* data, int width,
 }  // namespace
 
 extern "C" {
+
+// the page count and the (shared) size of a multi-page grayscale TIFF
+int t3dct_tiff_pages(const char* path, int* n_pages, int* width,
+                     int* height, int* bits) {
+  std::vector<uint8_t> d;
+  if (!read_file(path, d)) return 1;
+  std::vector<TiffInfo> pages;
+  int rc = parse_pages(d, &pages);
+  if (rc) return rc;
+  *n_pages = int(pages.size());
+  *width = int(pages[0].width);
+  *height = int(pages[0].height);
+  *bits = int(pages[0].bits);
+  return 0;
+}
+
+// decode every page into out (n_pages * width * height uint16), after
+// checking that the file holds n_pages pages of that size
+int t3dct_tiff_read_pages(const char* path, uint16_t* out, int n_pages,
+                          int width, int height) {
+  std::vector<uint8_t> d;
+  if (!read_file(path, d)) return 1;
+  std::vector<TiffInfo> pages;
+  int rc = parse_pages(d, &pages);
+  if (rc) return rc;
+  if (int(pages.size()) != n_pages || int(pages[0].width) != width ||
+      int(pages[0].height) != height)
+    return 7;
+  size_t stride = size_t(width) * height;
+  for (int i = 0; i < n_pages; ++i) {
+    rc = decode_into(pages[i], d, out + stride * i);
+    if (rc) return rc;
+  }
+  return 0;
+}
 
 // returns 0 on success; fills width/height/bits
 int t3dct_tiff_info(const char* path, int* width, int* height, int* bits) {

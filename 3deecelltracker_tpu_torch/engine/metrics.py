@@ -1,7 +1,8 @@
 """Accuracy of a run against ground truth (counterpart of
 ``3deecelltracker_tpu/engine/metrics.py``: ``instance_matching`` :52 and
-``tracking_accuracy`` :95, and of ``bench.py::tracking_id_metrics``
-:338-366), in numpy: the card's machine has no JAX to run them.
+``tracking_accuracy`` :95, ``optimize_thresholds`` :174-238, and of
+``bench.py::tracking_id_metrics`` :338-366), in numpy: the card's machine
+has no JAX to run them.
 
 The instance contingency table is one ``np.bincount`` over the label
 pairs, as the JAX version's; every other step is the same host code.
@@ -9,9 +10,10 @@ pairs, as the JAX version's; every other step is the same host code.
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Sequence, Tuple
 
 import numpy as np
+import torch
 
 
 def _pair_contingency(gt: np.ndarray, pred: np.ndarray, max_gt: int,
@@ -142,3 +144,57 @@ def tracking_id_metrics(coords_by_t: Dict[int, np.ndarray],
                 strict_recall=round(acc["per_volume"][last_t], 4),
                 strict_accuracy_all_t=round(acc["accuracy"], 4),
                 id_switches=switches)
+
+
+def optimize_thresholds(model, X_val: Sequence[np.ndarray],
+                        Y_val: Sequence[np.ndarray],
+                        prob_grid: Sequence[float] = (0.3, 0.4, 0.5, 0.6,
+                                                      0.7),
+                        nms_grid: Sequence[float] = (0.3, 0.4, 0.5),
+                        iou_thresh: float = 0.5,
+                        verbose: bool = True) -> Tuple[float, float]:
+    """Grid-search ``(prob_thresh, nms_thresh)`` maximizing the mean
+    F1@IoU over validation volumes (normalized (z, y, x) images, labels in
+    the same frame) and store the best pair on ``model.thresholds`` (the
+    first best in grid order).  The backbone runs once per volume
+    (``StarDist3D.forward_grid``); only candidates, NMS and the render
+    run again per grid point (``instances_from_grid``), with the
+    thresholds in float32 as JAX passes them."""
+    if len(X_val) == 0 or len(X_val) != len(Y_val):
+        raise ValueError(
+            f"optimize_thresholds needs matched non-empty X_val/Y_val "
+            f"(got {len(X_val)} images, {len(Y_val)} labels)")
+    grids = []
+    with torch.no_grad():
+        for x in X_val:
+            xt = torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(
+                model.device)
+            grids.append(model.forward_grid(xt) + (tuple(x.shape),))
+    best = (-1.0, None, None)
+    with torch.no_grad():
+        for prob_t in prob_grid:
+            for nms_t in nms_grid:
+                scores = []
+                for (prob_g, dist_g, shape), y in zip(grids, Y_val):
+                    labels = model.instances_from_grid(
+                        prob_g, dist_g, shape, float(np.float32(prob_t)),
+                        float(np.float32(nms_t)))[-1]
+                    scores.append(instance_matching(
+                        y, labels.cpu().numpy().astype(np.int32),
+                        iou_thresh)["f1"])
+                mean_f1 = float(np.mean(scores))
+                if verbose:
+                    print(f"prob={prob_t:.2f} nms={nms_t:.2f} "
+                          f"F1@{iou_thresh}={mean_f1:.4f}")
+                if mean_f1 > best[0]:
+                    best = (mean_f1, prob_t, nms_t)
+    _, prob_t, nms_t = best
+    if prob_t is None:
+        raise RuntimeError(
+            "optimize_thresholds: no grid point produced a finite score "
+            "(all F1 values were NaN) - check the validation volumes")
+    model.thresholds = dict(prob=prob_t, nms=nms_t)
+    if verbose:
+        print(f"selected prob_thresh={prob_t}, nms_thresh={nms_t} "
+              f"(F1={best[0]:.4f})")
+    return prob_t, nms_t

@@ -1,7 +1,9 @@
-"""StarDist3D instance program and the segmentation step of the v1.0
-workflow (counterpart of ``3deecelltracker_tpu/engine/stardist.py``:
-:173-217, :292-327, ``load_stardist_model`` :779 and ``predict_and_save``
-:833-1083).
+"""StarDist3D instance program, the segmentation step of the v1.0
+workflow and the training data helpers (counterpart of
+``3deecelltracker_tpu/engine/stardist.py``: ``save`` :82, :173-217,
+:292-327, ``load_stardist_model`` :779, ``predict_and_save`` :833-1083,
+``fill_label_holes``, ``load_training_images``, ``configure`` and
+``calculate_extents`` :1085-1229).
 
 One call per volume: normalize the raw volume on the device with the
 host's 1/99.8 percentiles, reflect-pad to the network's ``div_by``, run the
@@ -17,6 +19,7 @@ a results tree with it.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import queue
 import threading
@@ -36,6 +39,7 @@ from ..io.prefetch import VolumePrefetcher, ready_event, to_host, upload_async
 from ..models.stardist3d import StarDist3DNet, sparse_candidates
 from ..ops.nms import greedy_nms, overlap_matrix, render_polyhedra_labels
 from ..ops.rays import rays_golden_spiral
+from ..utils.checkpoint import save_pytree
 from ..utils.convert import load_npz, stardist_params_from_numpy
 from ..utils.device import select_device
 
@@ -86,6 +90,19 @@ class StarDist3D:
                 model.thresholds = json.load(fh)
         return model
 
+    def save(self, model_dir: Union[str, Path]) -> None:
+        """Write the model folder JAX's ``StarDist3D.load`` reads:
+        ``weights.npz`` (``save_pytree`` of the params), ``config.json``
+        (the config with ``arch``) and ``thresholds.json``."""
+        model_dir = Path(model_dir)
+        model_dir.mkdir(parents=True, exist_ok=True)
+        save_pytree(self.params, model_dir / "weights.npz")
+        cfg = dict(dataclasses.asdict(self.config), arch="tpu")
+        with open(model_dir / "config.json", "w") as fh:
+            json.dump(cfg, fh, indent=2)
+        with open(model_dir / "thresholds.json", "w") as fh:
+            json.dump(self.thresholds, fh)
+
     def predict_instances_device(self, x_raw: torch.Tensor,
                                  norm_minmax: Tuple[float, float],
                                  return_labels: bool = True):
@@ -104,29 +121,50 @@ class StarDist3D:
         mi = torch.tensor(norm_minmax[0], dtype=torch.float32, device=dev)
         ma = torch.tensor(norm_minmax[1], dtype=torch.float32, device=dev)
         x = (x_raw.to(dev).to(torch.float32) - mi) / (ma - mi + 1e-20)
-        pads = [(-s) % d for s, d in zip(orig_shape, self.net.div_by)]
+        prob_g, dist_g = self.forward_grid(x)
+        prob_map = prob_g[:gshape[0], :gshape[1], :gshape[2]].to(
+            torch.float16)
+        kept, probs, dists, points, labels = self.instances_from_grid(
+            prob_g, dist_g, orig_shape, self.thresholds["prob"],
+            self.thresholds["nms"], return_labels)
+        return kept, probs, dists, points, prob_map, labels
+
+    def forward_grid(self, x: torch.Tensor
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The backbone on one normalized (z, y, x) float32 volume on the
+        device, reflect-padded to ``div_by``: the padded grid-resolution
+        ``(prob (gz, gy, gx), dist (gz, gy, gx, n_rays))``."""
+        pads = [(-s) % d for s, d in zip(x.shape, self.net.div_by)]
         xp = F.pad(x[None, None], (0, pads[2], 0, pads[1], 0, pads[0]),
                    mode="reflect")[0, 0]
         prob_g, dist_g = self.net.apply(self.params, xp[None, ..., None])
-        prob_g, dist_g = prob_g[0, ..., 0], dist_g[0]
+        return prob_g[0, ..., 0], dist_g[0]
+
+    def instances_from_grid(self, prob_g: torch.Tensor,
+                            dist_g: torch.Tensor,
+                            orig_shape: Tuple[int, int, int],
+                            prob_thresh: float, nms_thresh: float,
+                            return_labels: bool = True):
+        """Candidates, overlaps, greedy NMS and (when asked) the label
+        render of one volume of shape ``orig_shape`` from its
+        :meth:`forward_grid` output, at the given thresholds: ``(kept,
+        probs, dists, points, labels)`` on the device."""
         probs, dists, points, valid = sparse_candidates(
-            prob_g, dist_g, cfg.grid, self.thresholds["prob"],
+            prob_g, dist_g, self.config.grid, prob_thresh,
             max_candidates=self.max_candidates)
-        prob_map = prob_g[:gshape[0], :gshape[1], :gshape[2]].to(
-            torch.float16)
         valid = (valid & (points[:, 0] < orig_shape[0])
                  & (points[:, 1] < orig_shape[1])
                  & (points[:, 2] < orig_shape[2]))
         centers = points.to(torch.float32)
         overlaps = overlap_matrix(centers, dists, self.rays, valid,
                                   prob=probs)
-        kept = greedy_nms(probs, overlaps, valid, self.thresholds["nms"])
+        kept = greedy_nms(probs, overlaps, valid, nms_thresh)
         labels = None
         if return_labels:
             labels = render_polyhedra_labels(
                 centers, dists, self.rays, probs, kept, orig_shape,
                 self.render_box)
-        return kept, probs, dists, points, prob_map, labels
+        return kept, probs, dists, points, labels
 
     def finalize_instances(self, fetched):
         """Host selection from one call's outputs as numpy arrays,
@@ -342,3 +380,124 @@ def predict_and_save(images_path: str, model: StarDist3D,
     if saver.errors:
         raise saver.errors[0]
     print(f"All images from t={work[0]} to t={done_t} have been segmented")
+
+
+UP_LIMIT = 400000  # stardistwrapper.py:32
+
+
+def fill_label_holes(lbl: np.ndarray) -> np.ndarray:
+    """Fill holes inside each labeled instance (csbdeep/stardist
+    ``fill_label_holes``, used by ``stardistwrapper.py:180``)."""
+    import scipy.ndimage as ndi
+
+    out = lbl.copy()
+    for sl, idx in zip(ndi.find_objects(lbl), range(1, lbl.max() + 1)):
+        if sl is None:
+            continue
+        grown = tuple(slice(max(s.start - 1, 0), s.stop + 1) for s in sl)
+        mask = lbl[grown] == idx
+        filled = ndi.binary_fill_holes(mask)
+        out[grown][filled] = idx
+    return out
+
+
+def load_training_images(path_train_images: str, path_train_labels: str,
+                         max_projection: bool = True, plot: bool = True):
+    """Load and normalize StarDist training volumes and split them
+    (``stardistwrapper.load_training_images`` :168-211): sorted globs with
+    matching file names, every page of each multi-page TIFF
+    (``io.imageio.imread_volume``), per-volume 1/99.8 percentile
+    normalization, label-hole filling, the single-volume duplication and
+    the seeded 15% validation split.  ``plot=True`` (the matplotlib
+    preview) is not ported yet (ROADMAP.md A.9) and raises.
+
+    Returns (X, Y, X_trn, Y_trn, X_val, Y_val, n_channel)."""
+    from glob import glob
+
+    from ..io.imageio import imread_volume, percentile_normalize
+
+    if plot:
+        raise NotImplementedError(
+            "plot=True (the training preview figure) is not ported yet "
+            "(ROADMAP.md A.9); pass plot=False")
+    del max_projection
+    X_paths = sorted(glob(path_train_images))
+    Y_paths = sorted(glob(path_train_labels))
+    if not X_paths or not Y_paths:
+        raise FileNotFoundError("Error: No images found in either X or Y.")
+    if len(X_paths) != len(Y_paths) or not all(
+            Path(x).name == Path(y).name for x, y in zip(X_paths, Y_paths)):
+        raise ValueError("Error: Filenames in X and Y do not match.")
+    X = [np.asarray(imread_volume(p)) for p in X_paths]
+    Y = [np.asarray(imread_volume(p)) for p in Y_paths]
+    if X[0].ndim != 3:
+        raise NotImplementedError(
+            f"{X_paths[0]}: volumes with channels are not ported yet; the "
+            f"port reads (z, y, x) grayscale pages, got {X[0].shape}")
+    n_channel = 1
+    X = [percentile_normalize(x.astype(np.float32), 1, 99.8) for x in X]
+    Y = [fill_label_holes(y.astype(np.int32)) for y in Y]
+    if len(X) == 1:
+        print("Warning: only one training data was provided! It will be "
+              "used for both training and validation purposes!")
+        X = [X[0], X[0]]
+        Y = [Y[0], Y[0]]
+    rng = np.random.RandomState(42)
+    ind = rng.permutation(len(X))
+    n_val = max(1, int(round(0.15 * len(ind))))
+    ind_train, ind_val = ind[:-n_val], ind[-n_val:]
+    X_val, Y_val = [X[i] for i in ind_val], [Y[i] for i in ind_val]
+    X_trn, Y_trn = [X[i] for i in ind_train], [Y[i] for i in ind_train]
+    print('number of images: %3d' % len(X))
+    print('- training:       %3d' % len(X_trn))
+    print('- validation:     %3d' % len(X_val))
+    print(f"X[0].shape={X[0].shape}")
+    return X, Y, X_trn, Y_trn, X_val, Y_val, n_channel
+
+
+def configure(Y: List[np.ndarray], n_channel: int = 1,
+              up_limit: int = UP_LIMIT) -> StarDistConfig:
+    """Config heuristics from training labels
+    (``stardistwrapper.configure`` :213-259): anisotropy from the median
+    instance extents, grid 2 on near-isotropic axes, 96 golden-spiral
+    rays, the patch solved under the voxel budget and the ``div_by``
+    constraint, square y/x patches."""
+    extents = calculate_extents(Y)
+    anisotropy = tuple(float(np.max(extents) / e) for e in extents)
+    n_rays = 96
+    grid = tuple(1 if a > 1.5 else 2 for a in anisotropy)
+
+    a, b, c = anisotropy
+    train_patch_size = np.cbrt(up_limit * a * b * c) / np.array([a, b, c])
+    up_limit_xyz = (Y[0].shape[0], min(Y[0].shape[1:3]),
+                    min(Y[0].shape[1:3]))
+    scaling = np.min(np.asarray(up_limit_xyz) / train_patch_size)
+    if scaling < 1:
+        train_patch_size = train_patch_size * scaling
+    unet_n_depth = 2
+    unet_pool = (2, 2, 2)
+    div_by = tuple(p ** unet_n_depth * g for p, g in zip(unet_pool, grid))
+    train_patch_size = [int(d * (i // d))
+                        for i, d in zip(train_patch_size, div_by)]
+    train_patch_size[1] = train_patch_size[2] = min(train_patch_size[1:])
+
+    return StarDistConfig(
+        n_rays=n_rays, grid=grid, anisotropy=anisotropy,
+        unet_n_depth=unet_n_depth, unet_pool=unet_pool,
+        n_channel_in=n_channel,
+        train_patch_size=tuple(train_patch_size))
+
+
+def calculate_extents(Y: List[np.ndarray], func=np.median) -> np.ndarray:
+    """Median per-axis instance extent over labeled volumes (stardist
+    ``calculate_extents``)."""
+    import scipy.ndimage as ndi
+    extents = []
+    for y in Y:
+        for sl in ndi.find_objects(y):
+            if sl is None:
+                continue
+            extents.append([s.stop - s.start for s in sl])
+    if not extents:
+        return np.ones(3)
+    return func(np.asarray(extents, np.float64), axis=0)

@@ -1,11 +1,12 @@
 """TIFF recordings in, label TIFFs out (counterpart of
-``3deecelltracker_tpu/io/imageio.py``: ``imread`` :31, ``imread_stack`` :98,
+``3deecelltracker_tpu/io/imageio.py``: ``imread`` :31, ``imread_volume`` :44,
+``imread_stack`` :98,
 ``fast_percentiles`` :119, ``transport_encode`` :204,
 ``percentile_normalize`` :227, ``load_2d_slices_at_time`` :255,
 ``get_t_range`` :285, ``read_image_ts`` :302, ``save_label_slices`` :310,
 ``save_volume_slices`` :334).
 
-Only what the v1.0 workflow uses, and no PIL: every read
+Only what the v1.0 workflow and its trainers use, and no PIL: every read
 and write goes through the port's codec (``io.tiff``), which raises where
 the JAX package would fall back to PIL.  The data contract is the JAX
 package's: per-(t, z) single-page grayscale TIFFs found by a
@@ -46,6 +47,16 @@ def imread(path) -> np.ndarray:
     """One grayscale TIFF slice."""
     _require_tiff(path)
     return tiff.tiff_read(path)
+
+
+def imread_volume(path) -> np.ndarray:
+    """A (multi-page) TIFF as a volume: (n_pages, h, w), or the 2-D slice
+    of a single-page file (the ``tifffile.imread`` role for the training
+    volumes, ``stardistwrapper.py:173-175``).  Every page is read: a
+    reader of page 0 alone would train on one z-slice of each volume."""
+    _require_tiff(path)
+    vol = tiff.tiff_read_pages(path)
+    return vol[0] if vol.shape[0] == 1 else vol
 
 
 def imread_stack(paths: List) -> np.ndarray:

@@ -3,7 +3,7 @@ JAX package's ``native/tiff_codec.cc`` carried over unchanged).
 
 The codec reads and writes the recording contract (single-page grayscale
 TIFFs, 8/16-bit, uncompressed or LZW), decodes or encodes a whole z-stack
-on a thread pool, and computes the exact 65536-bin histogram behind
+on a thread pool, reads multi-page volumes (training data), and computes the exact 65536-bin histogram behind
 ``io.imageio.fast_percentiles``.  It is a host library: the card's machine
 has no PIL, so nothing here falls back to one, and a failed build or a
 failed call raises.
@@ -52,6 +52,9 @@ _SIGNATURES = {
     "t3dct_tiff_write_volume": [_PATHS, ctypes.c_int, _U16P, ctypes.c_int,
                                 ctypes.c_int, ctypes.c_int, ctypes.c_int,
                                 ctypes.c_int],
+    "t3dct_tiff_pages": [ctypes.c_char_p, _INTP, _INTP, _INTP, _INTP],
+    "t3dct_tiff_read_pages": [ctypes.c_char_p, _U16P, ctypes.c_int,
+                              ctypes.c_int, ctypes.c_int],
     "t3dct_hist_u16": [_U16P, ctypes.c_longlong,
                        ctypes.POINTER(ctypes.c_uint64)],
 }
@@ -167,6 +170,25 @@ def tiff_read_volume(paths: List) -> np.ndarray:
                                          _u16(out), w, h, 0),
            f"decoding the stack of {paths[0]}")
     return out.astype(np.uint8) if bits == 8 else out
+
+
+def tiff_read_pages(path) -> np.ndarray:
+    """Every page of a (multi-page) grayscale TIFF as (n_pages, h, w); the
+    pages must share their size and bit depth."""
+    n, w, h, b = (ctypes.c_int() for _ in range(4))
+    _check(load().t3dct_tiff_pages(str(path).encode(), ctypes.byref(n),
+                                   ctypes.byref(w), ctypes.byref(h),
+                                   ctypes.byref(b)),
+           f"reading the pages of {path}")
+    if not (0 < w.value and 0 < h.value and
+            n.value * w.value * h.value <= MAX_SLICE_PIXELS * 64):
+        raise OSError(f"{path}: implausible TIFF size {n.value}x"
+                      f"{w.value}x{h.value}")
+    out = np.empty((n.value, h.value, w.value), np.uint16)
+    _check(load().t3dct_tiff_read_pages(str(path).encode(), _u16(out),
+                                        n.value, w.value, h.value),
+           f"decoding {path}")
+    return out.astype(np.uint8) if b.value == 8 else out
 
 
 def _bits(a: np.ndarray) -> int:

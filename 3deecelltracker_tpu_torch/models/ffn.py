@@ -3,7 +3,8 @@
 
 A shared trunk Dense(61->512, no bias) -> BN -> LeakyReLU on each half of
 a pair, concat -> Dense(512, no bias) -> BN -> LeakyReLU -> Dense(1) ->
-sigmoid.  Eval mode only.  Params ``{"feat", "comb", "pred", "feat_bn",
+sigmoid.  Eval mode, and train mode (batch statistics) for the trainer.
+Params ``{"feat", "comb", "pred", "feat_bn",
 "comb_bn"}``, state ``{"feat_bn", "comb_bn"}`` with ``mean``/``var``.
 """
 
@@ -77,16 +78,28 @@ def feature_distance_ffn(generator: torch.Generator, device=None
 
 
 def ffn_apply(params: Params, state: Params, x: torch.Tensor,
-              n_features: int = N_FEATURES) -> torch.Tensor:
-    """Eval-mode forward on (batch, 2*n_features) pair rows -> (batch, 1)."""
+              train: bool = False, n_features: int = N_FEATURES):
+    """Forward on (batch, 2*n_features) pair rows -> (batch, 1) scores.
+    ``train=True`` normalizes with the batch's statistics (the trunk's
+    batchnorm over both halves at once, as JAX's ``ffn_apply``) and
+    returns ``(scores, new_state)``; eval mode returns the scores."""
+    new_state = dict(state)
+
+    def bn(name, h):
+        if not train:
+            return L.batchnorm(params[name], state[name], h)
+        h, new_state[name] = L.batchnorm(params[name], state[name], h,
+                                         train=True)
+        return h
+
     a = L.dense(params["feat"], x[:, :n_features])
     b = L.dense(params["feat"], x[:, n_features:])
-    both = L.leaky_relu(L.batchnorm(params["feat_bn"], state["feat_bn"],
-                                    torch.cat([a, b], dim=0)))
+    both = L.leaky_relu(bn("feat_bn", torch.cat([a, b], dim=0)))
     a, b = torch.chunk(both, 2, dim=0)
     h = L.dense(params["comb"], torch.cat([a, b], dim=1))
-    h = L.leaky_relu(L.batchnorm(params["comb_bn"], state["comb_bn"], h))
-    return torch.sigmoid(L.dense(params["pred"], h))
+    h = L.leaky_relu(bn("comb_bn", h))
+    out = torch.sigmoid(L.dense(params["pred"], h))
+    return (out, new_state) if train else out
 
 
 def ffn_pair_scores(params: Params, state: Params,

@@ -1,14 +1,16 @@
 """Functional NN building blocks on channels-last tensors.
 
 Counterpart of ``3deecelltracker_tpu/models/layers.py``: 'same' convs,
-eval-mode BatchNorm (eps 1e-3), LeakyReLU alpha 0.3, nearest upsampling.
+BatchNorm (eps 1e-3, momentum 0.99), LeakyReLU alpha 0.3, nearest
+upsampling.
 Layouts are the JAX package's: (b, z, y, x, c) activations (the U-Net's
 (b, x, y, z, c) tiles go through unchanged: every op here treats the three
 spatial axes alike), DHWIO conv weights, (d_in, d_out) dense weights.
 Every 3x3x3 conv goes through ``ops.hopper_conv``, which launches one of
 its two hand-written CUDA kernels (the tensor-core one for widths that are
 multiples of 8, the direct one for the c_in = 1 stems) with the bias and an
-optional ReLU fused; 1x1x1 convs are a plain matmul.
+optional ReLU fused, through ``ops.hopper_conv.Conv3x3x3BiasReLU``, whose
+input gradient runs on the same kernels; 1x1x1 convs are a plain matmul.
 """
 
 from __future__ import annotations
@@ -17,13 +19,15 @@ import math
 from typing import Dict, Optional, Sequence
 
 import torch
+import torch.nn.functional as F
 
-from ..ops.hopper_conv import conv3x3x3_bias_relu
+from ..ops.hopper_conv import Conv3x3x3BiasReLU
 from ..utils.device import select_device
 
 Params = Dict[str, torch.Tensor]
 
 LEAKY_ALPHA = 0.3
+BN_MOMENTUM = 0.99
 BN_EPS = 1e-3
 
 
@@ -53,7 +57,8 @@ def conv3d(params: Params, x: torch.Tensor, relu: bool = False
            ) -> torch.Tensor:
     """SAME conv of (b, z, y, x, c_in) with DHWIO weights, + bias, with an
     optional fused ReLU.  3x3x3 kernels run a CUDA kernel, one launch for
-    the whole batch; 1x1x1 kernels are a matmul over channels."""
+    the whole batch (with a gradient under autograd); 1x1x1 kernels are a
+    matmul over channels."""
     w = params["w"]
     b = params.get("b")
     if b is None:
@@ -64,14 +69,28 @@ def conv3d(params: Params, x: torch.Tensor, relu: bool = False
         return torch.relu(y) if relu else y
     if k != (3, 3, 3):
         raise NotImplementedError(f"conv kernel {k}")
-    return conv3x3x3_bias_relu(x.contiguous(), w, b, relu)
+    return Conv3x3x3BiasReLU.apply(x.contiguous(), w, b, relu)
 
 
 def batchnorm(params: Params, state: Params, x: torch.Tensor,
-              eps: float = BN_EPS) -> torch.Tensor:
-    """Eval-mode BatchNorm over the last axis."""
-    inv = torch.rsqrt(state["var"] + eps) * params["scale"]
-    return (x - state["mean"]) * inv + params["bias"]
+              train: bool = False, momentum: float = BN_MOMENTUM,
+              eps: float = BN_EPS):
+    """BatchNorm over the last axis.  Eval mode returns ``y`` from the
+    running statistics; ``train=True`` returns ``(y, new_state)``: ``y``
+    from the batch's mean and population variance (``jnp.var``'s, the
+    mean of the centred squares) and the running statistics moved by
+    ``momentum`` as JAX's ``layers.batchnorm`` does."""
+    if not train:
+        inv = torch.rsqrt(state["var"] + eps) * params["scale"]
+        return (x - state["mean"]) * inv + params["bias"]
+    axes = tuple(range(x.dim() - 1))
+    mean = torch.mean(x, axes)
+    centred = x - mean
+    var = torch.mean(centred * centred, axes)
+    new_state = {"mean": momentum * state["mean"] + (1 - momentum) * mean,
+                 "var": momentum * state["var"] + (1 - momentum) * var}
+    inv = torch.rsqrt(var + eps) * params["scale"]
+    return (x - mean) * inv + params["bias"], new_state
 
 
 def leaky_relu(x: torch.Tensor, alpha: float = LEAKY_ALPHA) -> torch.Tensor:
@@ -79,12 +98,12 @@ def leaky_relu(x: torch.Tensor, alpha: float = LEAKY_ALPHA) -> torch.Tensor:
 
 
 def max_pool3d(x: torch.Tensor, pool: Sequence[int]) -> torch.Tensor:
-    """VALID max-pool of (b, z, y, x, c) with window == stride == pool."""
-    b, z, y, xl, c = x.shape
-    pz, py, px = (int(p) for p in pool)
-    x = x[:, :z // pz * pz, :y // py * py, :xl // px * px]
-    x = x.reshape(b, z // pz, pz, y // py, py, xl // px, px, c)
-    return x.amax(dim=(2, 4, 6))
+    """VALID max-pool of (b, z, y, x, c) with window == stride == pool:
+    ``F.max_pool3d``, whose gradient goes to the first maximum of a window
+    in (z, y, x) order, as XLA's select-and-scatter does for JAX's
+    ``reduce_window`` max (``amax`` would split a tie)."""
+    return F.max_pool3d(x.permute(0, 4, 1, 2, 3), tuple(int(p) for p in pool)
+                        ).permute(0, 2, 3, 4, 1)
 
 
 def upsample3d(x: torch.Tensor, size: Sequence[int]) -> torch.Tensor:

@@ -1,5 +1,5 @@
-"""Exact Euclidean distance transform, dense method (counterpart of
-``3deecelltracker_tpu/ops/edt.py:221-267``).
+"""Exact Euclidean distance transform, dense and windowed methods
+(counterpart of ``3deecelltracker_tpu/ops/edt.py:59-88`` and ``:221-267``).
 
 The squared EDT is separable: the first pass runs straight off the binary
 mask with two cumulative index scans; every further pass is a dense
@@ -60,12 +60,32 @@ def _minplus_pass(fsq: torch.Tensor, axis: int, w: float) -> torch.Tensor:
     return out.reshape(shape).movedim(-1, axis)
 
 
+def _minplus_pass_windowed(fsq: torch.Tensor, axis: int, w: float,
+                           window: int) -> torch.Tensor:
+    """fsq'[..., i] = min over |d| <= window of fsq[..., i + d] + (w d)^2,
+    the d = 0 term first and then d = -W..W in order, as JAX's scan
+    takes them."""
+    x = _move_last(fsq, axis)
+    L = x.shape[-1]
+    W = min(int(window), L - 1)
+    xp = torch.nn.functional.pad(x, (W, W), value=_INF)
+    costs = (np.arange(-W, W + 1, dtype=np.float32) * np.float32(w)) ** 2
+    best = x + float(costs[W])
+    for k in range(2 * W + 1):
+        best = torch.minimum(best, xp[..., k:k + L] + float(costs[k]))
+    return best.movedim(-1, axis)
+
+
 def distance_transform_edt(mask: torch.Tensor,
                            sampling: Optional[Sequence[float]] = None,
-                           batch_ndim: int = 0) -> torch.Tensor:
+                           batch_ndim: int = 0,
+                           window: Optional[int] = None) -> torch.Tensor:
     """Exact EDT: distance from each nonzero voxel to the nearest zero
     voxel, with physical ``sampling`` per axis.  The first ``batch_ndim``
-    axes are independent batch axes (the JAX package vmaps instead)."""
+    axes are independent batch axes (the JAX package vmaps instead).
+    ``window``: the search radius in voxels of every pass after the first
+    (JAX's windowed method, O(L * window) a line), exact wherever the true
+    distance is below ``window * min(sampling)``."""
     nd = mask.dim() - batch_ndim
     if sampling is None:
         sampling = (1.0,) * nd
@@ -77,6 +97,8 @@ def distance_transform_edt(mask: torch.Tensor,
         axis = batch_ndim + i
         if fsq is None:
             fsq = _binary_pass_scan(mask, axis, w)
+        elif window is not None:
+            fsq = _minplus_pass_windowed(fsq, axis, w, window)
         else:
             fsq = _minplus_pass(fsq, axis, w)
     return numerics.sqrt(fsq)

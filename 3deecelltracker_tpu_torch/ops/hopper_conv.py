@@ -22,6 +22,14 @@ launches exactly one of two hand-written kernels, chosen by :func:`route`:
 
 On a CPU tensor every entry point runs :func:`conv3x3x3_bias_relu_plain`.
 There is no fallback between the three.
+
+:class:`Conv3x3x3BiasReLU` is the router as an autograd function, for
+training (the JAX package differentiates its conv in XLA).  Its input
+gradient is a SAME conv of the output gradient with the weights flipped on
+their three spatial axes and ``c_in``/``c_out`` swapped, so it runs on the
+same two kernels; the weight gradient is PyTorch's ``conv3d_weight`` with
+TF32 off (the JAX package computes that product in XLA too, outside any
+Pallas kernel).
 """
 
 from __future__ import annotations
@@ -243,7 +251,7 @@ def _launch_direct(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
 
 
 def _launch_wgmma(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
-                  relu: bool) -> torch.Tensor:
+                  relu: bool, cache: bool = True) -> torch.Tensor:
     c_in, c_out = int(w.shape[3]), int(w.shape[4])
     if route(c_in, c_out) != "wgmma":
         raise ValueError(f"conv3x3x3_wgmma takes c_in and c_out that are "
@@ -253,7 +261,7 @@ def _launch_wgmma(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     if xb.data_ptr() % 16 or z > GRID_Z_MAX:
         raise ValueError("conv3x3x3_wgmma needs a 16-byte aligned x and at "
                          f"most {GRID_Z_MAX} z-planes")
-    packed, nt = packed_weights(w)
+    packed, nt = packed_weights(w) if cache else pack_weights_tc(w)
     n_chunks = packed.shape[0]
     lib = cuda_build.load("conv3x3x3_wgmma")
     fn = lib.conv3x3x3_wgmma_f32
@@ -328,19 +336,83 @@ def conv3x3x3_wgmma(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
 
 
 def conv3x3x3_bias_relu(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
-                        relu: bool = True) -> torch.Tensor:
+                        relu: bool = True, cache: bool = True
+                        ) -> torch.Tensor:
     """SAME 3x3x3 conv + bias (+ReLU) on one (z, y, x, c_in) f32 volume or
     a (b, z, y, x, c_in) batch of them.
 
     CUDA tensors launch the kernel :func:`route` names, once per batch;
-    CPU tensors take the plain version.
+    CPU tensors take the plain version.  ``cache=False`` packs ``w`` for
+    the tensor-core kernel afresh instead of through :func:`cached_pack`,
+    for a weight that is used once.
     """
     _check(x, w, b)
     if x.device.type == "cpu":
         return conv3x3x3_bias_relu_plain(x, w, b, relu)
     if route(x.shape[-1], w.shape[4]) == "wgmma":
-        return _launch_wgmma(x, w, b, relu)
+        return _launch_wgmma(x, w, b, relu, cache)
     return _launch_direct(x, w, b, relu)
+
+
+def flipped_weights(w: torch.Tensor) -> torch.Tensor:
+    """DHWIO ``w`` (3, 3, 3, c_in, c_out) -> the input gradient's weights
+    (3, 3, 3, c_out, c_in): flipped on the three spatial axes, the two
+    channel axes swapped, contiguous."""
+    return w.flip((0, 1, 2)).transpose(3, 4).contiguous()
+
+
+def conv3x3x3_weight_grad(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """``dW[kz, ky, kx, ci, co] = sum_v x[v + k - 1, ci] g[v, co]`` for a
+    ([b,] z, y, x, c_in) input and the ([b,] z, y, x, c_out) gradient of
+    the conv's pre-bias output: (3, 3, 3, c_in, c_out).  On the card it is
+    cuDNN's, in full f32 as ``utils.device.select_device`` pins it (its
+    TF32 default would put a ~1e-3 relative error into every weight
+    gradient); it raises if TF32 is on."""
+    if x.is_cuda and torch.backends.cudnn.allow_tf32:
+        raise RuntimeError("cuDNN TF32 is on: the weight gradient needs "
+                           "utils.device.pin_float32()")
+    xb = x if x.dim() == 5 else x[None]
+    gb = g if g.dim() == 5 else g[None]
+    c_in, c_out = int(xb.shape[-1]), int(gb.shape[-1])
+    dw = torch.nn.grad.conv3d_weight(
+        xb.permute(0, 4, 1, 2, 3), (c_out, c_in, 3, 3, 3),
+        gb.permute(0, 4, 1, 2, 3), padding=1)
+    return dw.permute(2, 3, 4, 1, 0).contiguous()
+
+
+class Conv3x3x3BiasReLU(torch.autograd.Function):
+    """:func:`conv3x3x3_bias_relu` with a gradient.  Forward: the router's
+    kernel (its plain version on a CPU tensor).  Backward, with ``g' = g *
+    (y > 0)`` under the ReLU (JAX's relu has gradient 0 at 0): dX, only
+    when x needs it, is the SAME conv of ``g'`` with
+    :func:`flipped_weights` through the router, on the card one more
+    launch of the kernel :func:`route` picks for the swapped widths; db is
+    ``g'`` summed over every axis but the channels; dW is
+    :func:`conv3x3x3_weight_grad`.  A failed build or launch raises."""
+
+    @staticmethod
+    def forward(ctx, x, w, b, relu: bool):
+        y = conv3x3x3_bias_relu(x, w, b, relu)
+        ctx.relu = relu
+        ctx.save_for_backward(x, w, y)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w, y = ctx.saved_tensors
+        g = (g * (y > 0) if ctx.relu else g).contiguous()
+        dx = dw = db = None
+        if ctx.needs_input_grad[0]:
+            wt = flipped_weights(w)
+            dx = conv3x3x3_bias_relu(
+                g, wt, torch.zeros(wt.shape[4], dtype=g.dtype,
+                                   device=g.device), relu=False,
+                cache=False)
+        if ctx.needs_input_grad[1]:
+            dw = conv3x3x3_weight_grad(x, g)
+        if ctx.needs_input_grad[2]:
+            db = g.reshape(-1, g.shape[-1]).sum(0)
+        return dx, dw, db, None
 
 
 conv3x3x3_direct.launches = 0

@@ -78,3 +78,21 @@ def knn_feature_vectors(points: torch.Tensor, mask: torch.Tensor,
         rel_flat = F.pad(rel_flat, (0, 3 * (k - kk + 1)))
     feats = torch.cat([rel_flat, mean_dist[..., None]], dim=-1)
     return torch.where(mask[..., None], feats, 0.0)
+
+
+def knn_feature_vectors_cross(base: torch.Tensor, query: torch.Tensor,
+                              k: int = 20) -> torch.Tensor:
+    """The FFN trainer's feature build (JAX ``ops/knn.py:51``): the
+    (k+1)-NN of each query point within ``base`` (ties toward the lower
+    index), the offsets of neighbours 1..k from the query point over the
+    mean (k+1)-NN distance, then that mean distance: (n_query, 3k+1)."""
+    kk = min(k + 1, base.shape[0])
+    d2 = pairwise_sq_dists(query, base)
+    srt, idx = torch.sort(d2, dim=-1, stable=True)
+    dists = numerics.sqrt(torch.clamp_min(srt[:, :kk], 0.0))
+    mean_dist = torch.mean(dists, dim=1)
+    rel = (base[idx[:, 1:kk]] - query[:, None, :]) / mean_dist[:, None, None]
+    rel_flat = rel.reshape(query.shape[0], 3 * (kk - 1))
+    if kk - 1 < k:
+        rel_flat = F.pad(rel_flat, (0, 3 * (k - kk + 1)))
+    return torch.cat([rel_flat, mean_dist[:, None]], dim=1)

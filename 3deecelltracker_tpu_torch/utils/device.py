@@ -55,6 +55,18 @@ def to_device(tree, device: torch.device):
     return torch.as_tensor(tree, dtype=torch.float32).to(device)
 
 
+def fresh_tensors(tree, device: torch.device, requires_grad: bool):
+    """A nested dict of arrays or tensors -> new float32 leaf tensors on
+    ``device`` (a trainer's parameters; the caller's tensors are not
+    touched)."""
+    if isinstance(tree, dict):
+        return {k: fresh_tensors(v, device, requires_grad)
+                for k, v in tree.items()}
+    t = tree.detach() if isinstance(tree, torch.Tensor) else \
+        torch.from_numpy(np.array(tree, np.float32))
+    return t.to(device, torch.float32).clone().requires_grad_(requires_grad)
+
+
 def upload_raw(vol, device: torch.device) -> torch.Tensor:
     """A raw volume on the device in its own width; uint16 travels as int16
     bits and widens there (uint16 tensors have few kernels)."""

@@ -77,6 +77,38 @@ Phases (any failure raises and the script exits non-zero):
    included), seg and track per volume, strict recall, accuracy over
    every t and identity switches, with the card's name and power limit.
 
+12. disk handoff: ``segment_and_track(handoff="disk")`` over phase 11's
+   TIFFs, held to the same record and its ``seg/`` to phase 11's;
+13. ensemble: ``track_timelapse`` in ensemble mode (20 samples) over phase
+   12's ``seg/``, held to ``jax_record_ensemble.npz``, then the activities;
+14. the trainers (``bench.py``'s recipe, the records in
+   ``3deecelltracker_tpu_torch/assets/train/``): (1) the conv's autograd
+   Function's dX, dW and db against autograd through the plain version
+   in float64 (with the Function's ReLU mask; the voxels whose mask differs from
+   cuDNN's are counted) at every 3x3x3 layer shape of the recipe's network
+   on its (2, 24, 48, 48) patch batch after the grid pool, stem included,
+   within ``GRAD_RTOL`` in the norm, with the forward's, dX's (kernel) and dW's (library) times
+   and bounds per step; (2) the first 30 steps of ``TrainStarDist3D`` and
+   of ``TrainFFN`` from JAX's initial parameters and seed, their losses
+   held to JAX's record (steps 1-5 within ``LOSS_FIRST_TOL``, then
+   ``LOSS_LATER_TOL``; StarDist's per step through ``LOSS_PER_STEP``, or
+   within twice JAX's own spread under one-ulp nudges of its init where
+   that is larger, then by the mean of the rest within twice theirs, and
+   faults planted in the conv's backward (``PLANTED``) must fail; the FFN
+   on JAX's
+   normalized cloud, its lattice ties decided by the normalization's last
+   bit), the first step at which they part by more than ``LOSS_PART``
+   printed, and the conv's launches in one step's forward and backward; (3) the whole recipe from JAX's inits (16 x 30 StarDist
+   steps; 600 FFN iterations on the card-trained model's vol-1 cloud),
+   saved and run through ``segment_and_track(handoff="device")`` over
+   phase 11's recording: cells at t = 1 against ``bench.py``'s bar, GT
+   cells matched at IoU 0.5 (``MIN_MATCHED``), strict recall
+   (``MIN_RECALL``) and identity switches (``MAX_SWITCHES``), beside the
+   JAX-trained weights'; ms per StarDist step (and by stage) and per FFN
+   iteration.  Every counter is reset before the training and read after
+   it (the path ``train``): each step launches the conv kernels the
+   forward and the backward's dX take, and nothing else.
+
 Every kernel's entry in the kernels line carries its bound: the least time
 the card could take, the larger of its bytes (inputs read once, the output
 written once) at 3.35 TB/s and its operations at the peak for their type.
@@ -91,10 +123,16 @@ probe's second width (``c128_*``); it, the channel product, ``add_one``
 mask's; every mask's readings under ``by_mask``) carry their device time
 (``device_ms``).
 
+The conv's entry also carries phase 14's sums per training step
+(``train_fwd_ms``, ``train_dx_ms`` with ``train_dx_flip_pack_ms``,
+``train_dx_bound_ms``, ``train_dx_library_ms``, ``train_dw_ms`` (the
+library's), ``train_dw_bound_ms``, ``train_grad_max_rel_err``) and its
+training times (``sd_step_ms``, ``ffn_iter_ms``, ``step_*_ms``).
+
 The second-to-last line is ``{"kernels": [...]}``, the last line
 ``{"ok": true, "device": {...}}``.  Phases 6-9 use seeded random weights,
 so the tracking accuracy they print is not a measure of the system;
-phase 11 uses the trained weights.
+phases 11-13 use the trained weights, phase 14 weights it trains.
 """
 
 from __future__ import annotations
@@ -1152,6 +1190,523 @@ LADDER = [("pallas_A_passthrough", "ladder_add_one",
            "scripts/probe_conv_fast.py:187")]
 
 
+# phase 14: the trainers on the card (bench.py's recipe, :63-73, :214-262)
+TRAIN_ASSETS = ROOT / "3deecelltracker_tpu_torch" / "assets" / "train"
+TRAIN_BATCH = 2
+# the conv Function's gradients against autograd through the plain
+# version, relative in the norm (three TF32 passes on both convs, cuDNN
+# f32 for dW)
+GRAD_RTOL = 1e-4
+# JAX's 30-step loss records, relative: each of steps 1-5 within
+# LOSS_FIRST_TOL, each later step within LOSS_LATER_TOL; the FFN's every
+# step.  The StarDist recipe is chaotic: its first Adam steps move every
+# weight by the sign of its gradient, so an ulp decides the sign of the
+# smallest ones, and JAX's own runs from its init nudged by one ulp
+# (``sd_losses_ulp``, every weight up; ``sd_losses_nudged``, a seeded
+# random sign each) part from the record at step 2 (its loss spike) by
+# more than LOSS_FIRST_TOL, and by up to tens of percent past step 16.
+# So a StarDist step's bound is at least LOSS_SPREAD_FACTOR times the
+# largest of the nudged runs' departures there, per step through
+# LOSS_PER_STEP; past that horizon the runs are different draws of one
+# training, and the steps after it are held by their mean within
+# LOSS_SPREAD_FACTOR times the largest of the nudged runs' (a sanity
+# bound: a trainer with a fault in its backward can train as far in 30
+# steps, and the per-step horizon is what rejects PLANTED).  LOSS_PART:
+# the size of a difference reported as the first parting
+LOSS_FIRST, LOSS_FIRST_TOL, LOSS_LATER_TOL = 5, 1e-4, 1e-2
+LOSS_PER_STEP, LOSS_SPREAD_FACTOR = 16, 2.0
+# faults planted in the conv Function's backward, which the record check
+# must reject: (name, the gradient zeroed (0 dX, 1 dW, 2 db), only in the
+# layers of this c_in or, with None, in every 3x3x3 layer)
+PLANTED = (("dW zeroed", 1, None), ("dX zeroed", 0, None),
+           ("db zeroed", 2, None), ("the stem's dW zeroed", 1, 1))
+LOSS_PART = 1e-5
+SD_EPOCHS, SD_STEPS, FFN_ITERS = 16, 30, 600
+# the card-trained model on the bench scene: the t = 1 bar of
+# bench.py:645-650, GT cells matched at IoU 0.5 at t = 1 (JAX's trained
+# model: 150), strict recall and identity switches
+MIN_MATCHED, MIN_RECALL, MAX_SWITCHES = 145, 0.95, 3
+
+
+def train_recipe():
+    """(StarDistConfig, trainer kwargs, FFN seed, steps) of the record."""
+    from t3dct_torch.config import StarDistConfig
+    with np.load(TRAIN_ASSETS / "jax_train_record.npz") as rec:
+        recipe = json.loads(str(rec["recipe"]))
+    cfg = {k: tuple(v) if isinstance(v, list) else v
+           for k, v in recipe["sd_config"].items()}
+    return (StarDistConfig(**cfg), recipe["sd_trainer"], recipe["ffn_seed"],
+            recipe["steps"])
+
+
+def train_conv_layers(cfg):
+    """Every 3x3x3 layer of ``cfg``'s network at the recipe's patch batch
+    after the grid pool: {(b, z, y, x, c_in, c_out): count}."""
+    from t3dct_torch.models.stardist3d import StarDist3DNet
+    base = tuple(p // g for p, g in zip(cfg.train_patch_size, cfg.grid))
+    depth = cfg.unet_n_depth
+    layers = {}
+    for name, ci, co, k in StarDist3DNet(cfg).conv_plan():
+        if tuple(k) != (3, 3, 3):
+            continue
+        level = 0
+        if name.startswith(("down", "up")):
+            level = int(name.lstrip("downup")[0])
+        elif name.startswith("bottom"):
+            level = depth
+        shape = (TRAIN_BATCH,) + tuple(s // p ** level for s, p in
+                                       zip(base, cfg.unet_pool))
+        key = shape + (ci, co)
+        layers[key] = layers.get(key, 0) + 1
+    return layers
+
+
+def phase_train_grads(dev, cfg):
+    """Part 1 of phase 14: the conv Function's dX, dW and db against
+    autograd through the plain version in float64 (under the Function's
+    own ReLU mask) at every layer shape of the
+    recipe's network (the c_in = 1 stem without dX: its input is the
+    image), within ``GRAD_RTOL`` in the norm; per layer the forward's
+    kernel time, dX's kernel time (with the flipped weights' packing) and
+    cuDNN's for the same conv, dW's library time, each with its bound.
+    Returns the sums per training step."""
+    import torch
+    from t3dct_torch.models.layers import glorot_uniform
+    from t3dct_torch.ops import hopper_conv as hc
+    from t3dct_torch.utils.roofline import (bound, conv_bound, conv_flop,
+                                            conv_tc_bound, library_conv,
+                                            nbytes)
+    gen = torch.Generator().manual_seed(14)
+    sums, worst = {}, 0.0
+
+    def add(key, v, n):
+        sums[key] = sums.get(key, 0.0) + n * v
+
+    def own_bound(xin, w, b):
+        if hc.route(xin.shape[-1], w.shape[-1]) == "wgmma":
+            return conv_tc_bound(xin, w, b)[0]
+        return conv_bound(xin, w, b)[0]
+
+    for (*shape, ci, co), n in train_conv_layers(cfg).items():
+        xin = torch.relu(torch.randn(tuple(shape) + (ci,), generator=gen)
+                         ).to(dev)
+        w = glorot_uniform((3, 3, 3, ci, co), 27 * ci, 27 * co, gen, dev)
+        b = (torch.randn((co,), generator=gen) * 0.1).to(dev)
+        go = torch.randn(tuple(shape) + (co,), generator=gen).to(dev)
+        stem = ci == 1
+        leaves = [xin.clone().requires_grad_(not stem),
+                  w.clone().requires_grad_(True),
+                  b.clone().requires_grad_(True)]
+        y = hc.Conv3x3x3BiasReLU.apply(*leaves, True)
+        if y.grad_fn is None:
+            raise AssertionError("the conv Function's result has no grad_fn")
+        got = torch.autograd.grad(y, [t for t in leaves if t.requires_grad],
+                                  go)
+        # the reference is autograd through the plain version in float64
+        # (cuDNN's f64 kernels, not the f32 ones that compute dW) and takes
+        # the Function's ReLU mask: where |y| is a few ulp from 0 the
+        # kernel's and cuDNN's sums fall on either side, and each such
+        # voxel moves a gradient by its whole g
+        mask = (y > 0).detach()
+        ref = [t.detach().double().requires_grad_(t.requires_grad)
+               for t in leaves]
+        want = torch.autograd.grad(
+            hc.conv3x3x3_bias_relu_plain(*ref, False) * mask,
+            [t for t in ref if t.requires_grad], go.double())
+        flips = int(((hc.conv3x3x3_bias_relu_plain(xin, w, b, True) > 0)
+                     != mask).sum())
+        torch.cuda.synchronize()
+        errs = [float((a.double() - r).norm() / r.norm().clamp_min(1e-30))
+                for a, r in zip(got, want)]
+        worst = max(worst, max(errs))
+        gm = (go * (y > 0)).detach().contiguous()
+        wt = hc.flipped_weights(w)
+        zeros = torch.zeros(ci, device=dev)
+        fwd = cuda_ms(lambda: hc.conv3x3x3_bias_relu(xin, w, b, True), 5, 1)
+        row = dict(fwd=fwd, fwd_bound=own_bound(xin, w, b))
+        dw = cuda_ms(lambda: hc.conv3x3x3_weight_grad(xin, gm), 5, 1)
+        dw_bound = bound(conv_flop(xin, co), nbytes(xin, gm, w))[0]
+        row.update(dw=dw, dw_bound=dw_bound)
+        if not stem:
+            row.update(
+                dx=cuda_ms(lambda: hc.conv3x3x3_bias_relu(gm, wt, zeros,
+                                                          False), 5, 1),
+                dx_flip_pack=cuda_ms(lambda: hc.conv3x3x3_bias_relu(
+                    gm, hc.flipped_weights(w), zeros, False, cache=False),
+                    5, 1),
+                dx_bound=own_bound(gm, wt, zeros),
+                dx_library=cuda_ms(lambda: library_conv(gm, wt, zeros), 5,
+                                   1),
+                dx_plain=cuda_ms(lambda: hc.conv3x3x3_bias_relu_plain(
+                    gm, wt, zeros, False), 5, 1))
+        for key, v in row.items():
+            add(key, v, n)
+        print(f"[train grad] {'x'.join(map(str, shape))} {ci}->{co} x{n}: "
+              f"rel err (dX, dW, db / dW, db) "
+              f"{', '.join(f'{e:.2e}' for e in errs)} ({flips} of "
+              f"{y.numel()} ReLU mask voxels differ from cuDNN's); forward "
+              f"{fwd:.4f} ms (least {row['fwd_bound']:.4f}); dX "
+              + (f"{row['dx']:.4f} ms, {row['dx_flip_pack']:.4f} with the "
+                 f"flip and its packing (least {row['dx_bound']:.4f}, cuDNN "
+                 f"{row['dx_library']:.4f}, plain {row['dx_plain']:.4f})"
+                 if not stem else "none (the stem)")
+              + f"; dW (library) {dw:.4f} ms (least {dw_bound:.4f})")
+        if max(errs) > GRAD_RTOL:
+            raise AssertionError(f"conv gradient {shape} {ci}->{co}: "
+                                 f"{errs} > {GRAD_RTOL}")
+    print(f"[train grad] per step: forward {sums['fwd']:.3f} ms (least "
+          f"{sums['fwd_bound']:.3f}), dX {sums['dx']:.3f} ms "
+          f"({sums['dx_flip_pack']:.3f} with the flips' packing; least "
+          f"{sums['dx_bound']:.3f}, cuDNN {sums['dx_library']:.3f}), dW "
+          f"{sums['dw']:.3f} ms (least {sums['dw_bound']:.3f}); worst rel "
+          f"err {worst:.2e} (bound {GRAD_RTOL:g})")
+    sums["max_rel_err"] = worst
+    return sums
+
+
+def first_parting(got, want, tol):
+    """The first step (1-based) whose losses part by more than ``tol``
+    relative, or None."""
+    for i, (a, b) in enumerate(zip(got, want)):
+        if abs(a - b) > tol * abs(b):
+            return i + 1
+    return None
+
+
+def loss_departures(got, want, per_step=None, spread=None):
+    """The record check's readings of per-step losses ``got`` against
+    JAX's ``want``: the relative difference per step; its bound, within
+    ``LOSS_FIRST_TOL`` for steps 1-5 and ``LOSS_LATER_TOL`` after, or
+    ``LOSS_SPREAD_FACTOR`` times the largest relative difference of JAX's
+    own runs from its init nudged by one ulp (``spread``, runs x steps)
+    where that is larger; the steps through ``per_step`` (all by default)
+    beyond their bound; and for the steps after them, the relative
+    difference of their mean, and its bound, ``LOSS_SPREAD_FACTOR`` times
+    the largest of the nudged runs'."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    per_step = len(want) if per_step is None else per_step
+    rel = np.abs(got - want) / np.abs(want)
+    bound = np.where(np.arange(len(want)) < LOSS_FIRST, LOSS_FIRST_TOL,
+                     LOSS_LATER_TOL)
+    if spread is not None:
+        spread = np.asarray(spread, np.float64)
+        bound = np.maximum(bound, LOSS_SPREAD_FACTOR * (
+            np.abs(spread - want) / np.abs(want)).max(0))
+    out = dict(rel=rel, bound=bound, late=None,
+               bad=[i + 1 for i in range(min(per_step, len(got)))
+                    if rel[i] > bound[i]])
+    if per_step < len(want):
+        late = slice(per_step, None)
+        mean = want[late].mean()
+        out["late"] = (abs(got[late].mean() - mean) / abs(mean),
+                       LOSS_SPREAD_FACTOR * float(np.max(
+                           np.abs(spread[:, late].mean(1) - mean))
+                           / abs(mean)))
+    return out
+
+
+def fmt_rel(v):
+    return [float(f"{r:.2e}") for r in v]
+
+
+def hold_losses(name, got, want, per_step=None, spread=None):
+    """:func:`loss_departures`, printed; raises if a step through
+    ``per_step`` or the mean of the steps after it is beyond its bound."""
+    dep = loss_departures(got, want, per_step, spread)
+    print(f"[train record] {name}: {len(got)} steps, rel diff per step "
+          f"{fmt_rel(dep['rel'])}; first parting beyond {LOSS_PART:g} at "
+          f"step {first_parting(got, want, LOSS_PART)}")
+    if spread is not None:
+        print(f"[train record] {name}: bound per step through step "
+              f"{per_step} {fmt_rel(dep['bound'][:per_step])} (JAX's own "
+              f"runs from its init nudged by one ulp: {len(spread)}, their "
+              f"largest rel diff times {LOSS_SPREAD_FACTOR:g} where above "
+              f"the tolerance)")
+    bad = list(dep["bad"])
+    if dep["late"] is not None:
+        late = slice(per_step, None)
+        mean_rel, mean_bound = dep["late"]
+        print(f"[train record] {name}: steps {per_step + 1}-{len(want)} "
+              f"mean loss card {np.mean(got[late]):.5f}, JAX "
+              f"{np.mean(want[late]):.5f} (rel {mean_rel:.2e}, bound "
+              f"{mean_bound:.2e}; JAX's nudged runs "
+              f"{[round(float(m), 5) for m in np.mean(spread[:, late], 1)]})")
+        if mean_rel > mean_bound:
+            bad.append(f"mean of steps {per_step + 1}-{len(want)}")
+    if len(got) != len(want) or bad:
+        raise AssertionError(f"{name}: steps {bad} off JAX's record")
+
+
+def sd_spread(rec):
+    """JAX's StarDist runs from its init nudged by one ulp, runs x steps:
+    every parameter up, then up or down by a seeded random sign."""
+    return np.vstack([rec["sd_losses_ulp"][None], rec["sd_losses_nudged"]])
+
+
+def planted_faults(dev, root, cfg, trainer_kw, img, lab, rec, steps):
+    """The record check's power: the same StarDist steps from JAX's init
+    with a fault planted in the conv Function's backward (``PLANTED``:
+    one of its gradients zeroed, in every 3x3x3 layer or in those with a
+    given c_in), each of which the check must reject.  Prints the first
+    step beyond its bound and whether the late steps' mean alone rejects
+    it.  The Function is restored after each run."""
+    import torch
+    from t3dct_torch.models import layers
+    from t3dct_torch.models.train_stardist import TrainStarDist3D
+    from t3dct_torch.ops.hopper_conv import Conv3x3x3BiasReLU
+    from t3dct_torch.utils.convert import load_npz
+
+    def zeroed(slot, c_in):
+        class Faulty(Conv3x3x3BiasReLU):
+            @staticmethod
+            def backward(ctx, g):
+                grads = list(Conv3x3x3BiasReLU.backward(ctx, g))
+                if grads[slot] is not None and (
+                        c_in is None or ctx.saved_tensors[1].shape[3] == c_in):
+                    grads[slot] = torch.zeros_like(grads[slot])
+                return tuple(grads)
+        return Faulty
+
+    for i, (name, slot, c_in) in enumerate(PLANTED):
+        layers.Conv3x3x3BiasReLU = zeroed(slot, c_in)
+        try:
+            tr = TrainStarDist3D(cfg, basedir=root / f"sd_fault{i}",
+                                 params=load_npz(TRAIN_ASSETS / "sd_init.npz"),
+                                 device=dev, **trainer_kw)
+            losses = tr.train([img], [lab], epochs=steps, steps_per_epoch=1,
+                              verbose=False)
+        finally:
+            layers.Conv3x3x3BiasReLU = Conv3x3x3BiasReLU
+        dep = loss_departures(losses, rec["sd_losses"], LOSS_PER_STEP,
+                              sd_spread(rec))
+        mean_rel, mean_bound = dep["late"]
+        print(f"[train record] planted fault, {name}: rel diff per step "
+              f"{fmt_rel(dep['rel'])}; steps beyond their bound "
+              f"{dep['bad']}; late mean rel {mean_rel:.2e} (bound "
+              f"{mean_bound:.2e}: "
+              f"{'rejects' if mean_rel > mean_bound else 'passes'} it)")
+        if not dep["bad"] and mean_rel <= mean_bound:
+            raise AssertionError(f"the record check passes a trainer with "
+                                 f"{name}")
+
+
+def vol1_training_data():
+    """Vol 1 of the bench scene normalized as ``get_trained_model`` does,
+    its labels, and the raw volume."""
+    from t3dct_torch.io.imageio import percentile_normalize
+    from t3dct_torch.utils.synthetic import make_recording
+    vols, _, lab1 = make_recording(1, N_CELLS, (Z, Y, X))
+    return percentile_normalize(vols[0].astype(np.float32)), lab1, vols[0]
+
+
+def ffn_cloud_file(path, coords_xyz):
+    """A vol-1 cloud in the pipeline frame times the voxel size, as
+    ``bench.py``'s ``train_ffn`` writes it for the trainer."""
+    np.savetxt(path, coords_xyz.astype(np.float32)
+               * np.asarray(VOXEL_SIZE, np.float32))
+    return str(path)
+
+
+def phase_train_records(dev, root, cfg, trainer_kw, ffn_seed, steps):
+    """Part 2 of phase 14: the card's first ``steps`` steps of each
+    trainer from JAX's initial parameters and seed, against JAX's record;
+    the conv's launches in one step's forward and backward."""
+    import torch
+    from t3dct_torch.models.train_ffn import DataGeneratorFFN, TrainFFN
+    from t3dct_torch.models.train_stardist import TrainStarDist3D
+    from t3dct_torch.utils.convert import load_npz
+    rec = np.load(TRAIN_ASSETS / "jax_train_record.npz")
+    img, lab, _ = vol1_training_data()
+    sd_init = load_npz(TRAIN_ASSETS / "sd_init.npz")
+    tr = TrainStarDist3D(cfg, basedir=root / "sd_record", params=sd_init,
+                         device=dev, **trainer_kw)
+    losses, launches = counted(lambda: tr.train(
+        [img], [lab], epochs=steps, steps_per_epoch=1, verbose=False))
+    hold_losses("StarDist", losses, rec["sd_losses"], LOSS_PER_STEP,
+                sd_spread(rec))
+    planted_faults(dev, root, cfg, trainer_kw, img, lab, rec, steps)
+    # one more step, split: the forward's launches, then the backward's
+    x, pg, dg = tr.sample_batch([img], [lab])
+    loss, fwd = counted(lambda: tr.loss(tr.params, x, pg, dg))
+    _, bwd = counted(lambda: torch.autograd.grad(loss,
+                                                 tr.optimizer.params))
+    per_step = {k: (fwd[k], bwd[k]) for k in ("conv3x3x3_wgmma",
+                                              "conv3x3x3_direct")}
+    print(f"[train record] conv launches per step (forward, backward dX): "
+          f"{per_step}; over the {steps} record steps {launches}")
+    for k, (f, b) in per_step.items():
+        if launches[k] != steps * (f + b):
+            raise AssertionError(f"{k}: {launches[k]} launches in {steps} "
+                                 f"steps, want {f} + {b} a step")
+    if per_step["conv3x3x3_wgmma"][1] <= 0:
+        raise AssertionError("the backward launched no conv kernel")
+    with np.load(ASSETS / "jax_record.npz") as bench_rec:
+        cloud = ffn_cloud_file(root / "pts.txt", bench_rec["seg_coords_1"])
+    ffn_init = load_npz(TRAIN_ASSETS / "ffn_init.npz")
+    tf = TrainFFN("ffn", points1_path=cloud, basedir=root / "ffn_record",
+                  seed=ffn_seed, params=(ffn_init["0"], ffn_init["1"]),
+                  device=dev)
+    # the cloud is on the voxel lattice: its kNN ties are decided by the
+    # normalization's last bit, so the steps are held on JAX's normalized
+    # cloud and the card's own normalization is held to it
+    off = float(np.abs(tf.points_t1 - rec["ffn_points_t1"]).max())
+    print(f"[train record] FFN: the card's normalized cloud off JAX's by "
+          f"max {off:.2e}")
+    if off > 1e-6:
+        raise AssertionError(f"FFN normalization off JAX's by {off}")
+    tf.points_generator = DataGeneratorFFN(rec["ffn_points_t1"],
+                                           seed=ffn_seed, device=dev)
+    hold_losses("FFN", tf.train(num_epochs=steps, iteration=0,
+                                verbose=False), rec["ffn_losses"])
+    return per_step
+
+
+def step_breakdown(dev, root, cfg, trainer_kw, img, lab, n=20, warm=3):
+    """ms per StarDist step by stage, each ended by a sync: patches on the
+    host and their upload, GT, forward + loss, backward, Adam."""
+    import torch
+    from t3dct_torch.models.train_stardist import TrainStarDist3D
+    from t3dct_torch.utils.convert import load_npz
+    tr = TrainStarDist3D(cfg, basedir=root / "sd_breakdown",
+                         params=load_npz(TRAIN_ASSETS / "sd_init.npz"),
+                         device=dev, **trainer_kw)
+    stages = {k: [] for k in ("data", "gt", "forward", "backward", "adam")}
+    for i in range(warm + n):
+        marks = [time.perf_counter()]
+
+        def mark():
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+        pairs = [tr._sample_patch([img], [lab]) for _ in range(tr.batch_size)]
+        xb = torch.from_numpy(np.stack([np.ascontiguousarray(a)
+                                        for a, _ in pairs])).to(dev)
+        yb = torch.from_numpy(np.stack([np.ascontiguousarray(b)
+                                        for _, b in pairs])).to(dev)
+        mark()
+        pg, dg = tr.make_gt(yb)
+        mark()
+        loss = tr.loss(tr.params, xb, pg, dg)
+        mark()
+        grads = torch.autograd.grad(loss, tr.optimizer.params)
+        mark()
+        tr.optimizer.step(grads)
+        mark()
+        if i >= warm:
+            for k, a, b in zip(stages, marks, marks[1:]):
+                stages[k].append((b - a) * 1e3)
+    out = {k: float(np.mean(v)) for k, v in stages.items()}
+    out["step"] = sum(out.values())
+    return out
+
+
+def phase_train_recipe(dev, smi, root, pattern, centers, cfg, trainer_kw,
+                       ffn_seed, per_step):
+    """Part 3 of phase 14: the whole recipe on the card from JAX's inits
+    (16 x 30 StarDist steps, 600 FFN iterations on the trained model's
+    vol-1 cloud), saved with ``StarDist3D.save`` and ``save_pytree``, then
+    ``segment_and_track(handoff="device")`` over phase 11's recording with
+    these weights, beside JAX's trained weights' figures.  ``per_step``:
+    the conv's launches a step (forward, backward) from part 2.  Returns
+    the training's launches (the path ``train``) and its times."""
+    import torch
+    from t3dct_torch.config import TrackingConfig
+    from t3dct_torch.engine.metrics import instance_matching
+    from t3dct_torch.engine.pipeline import segment_and_track
+    from t3dct_torch.engine.stardist import StarDist3D
+    from t3dct_torch.io.imageio import transport_encode
+    from t3dct_torch.models.train_ffn import TrainFFN
+    from t3dct_torch.models.train_stardist import TrainStarDist3D
+    from t3dct_torch.utils.convert import load_npz
+    img, lab, raw = vol1_training_data()
+    parts = step_breakdown(dev, root, cfg, trainer_kw, img, lab)
+    print(f"[train] {smi}: ms per StarDist step by stage (mean of 20, "
+          f"each synced): " + ", ".join(f"{k} {v:.2f}" for k, v in
+                                         parts.items()))
+    tr = TrainStarDist3D(cfg, basedir=root / "sd_train",
+                         params=load_npz(TRAIN_ASSETS / "sd_init.npz"),
+                         device=dev, **trainer_kw)
+    t0 = time.perf_counter()
+    losses, launches = counted(lambda: tr.train(
+        [img], [lab], epochs=SD_EPOCHS, steps_per_epoch=SD_STEPS,
+        verbose=False))
+    sd_s = time.perf_counter() - t0
+    n_steps = SD_EPOCHS * SD_STEPS
+    print(f"[train] StarDist {SD_EPOCHS} x {SD_STEPS} steps: {sd_s:.2f} s, "
+          f"{sd_s / n_steps * 1e3:.2f} ms per step (data, GT, forward, "
+          f"backward, Adam; save included); epoch losses "
+          f"{[round(v, 4) for v in losses]}; launches {launches}")
+    model = StarDist3D.load(root / "sd_train" / "stardist", device=dev)
+    model.max_candidates, model.render_box = 256, (9, 33, 33)
+    jax_model = StarDist3D.load(ASSETS / "sd_model", device=dev)
+    jax_model.max_candidates, jax_model.render_box = 256, (9, 33, 33)
+    x, mi, ma = transport_encode(raw, "u16")
+    matched = {}
+    for name, m in (("card", model), ("JAX", jax_model)):
+        with torch.no_grad():
+            kept, probs, _, points, _, labels = m.predict_instances_device(
+                torch.from_numpy(x.astype(np.int32)).to(dev), (mi, ma))
+        res = instance_matching(lab, labels.cpu().numpy())
+        matched[name] = (int(kept.sum()), res)
+        print(f"[train] {name}-trained model at t = 1: {int(kept.sum())} "
+              f"cells kept, {res['tp']} of {int(lab.max())} GT cells "
+              f"matched at IoU 0.5 (precision {res['precision']:.4f}, "
+              f"recall {res['recall']:.4f}, mean IoU "
+              f"{res['mean_matched_iou']:.4f})")
+    # the FFN on the card-trained model's vol-1 cloud, as bench.py trains
+    # its FFN on its trained model's seg/coords000001.npy
+    (labels_t1, details), _ = model.finalize_instances(
+        [a.cpu().numpy() if a is not None else None for a in
+         model.predict_instances_device(torch.from_numpy(
+             x.astype(np.int32)).to(dev), (mi, ma), return_labels=False)])
+    cloud = ffn_cloud_file(root / "train_pts.txt",
+                           details["points"][:, [1, 2, 0]])
+    ffn_init = load_npz(TRAIN_ASSETS / "ffn_init.npz")
+    tf = TrainFFN("ffn", points1_path=cloud, basedir=root / "ffn_train",
+                  seed=ffn_seed, params=(ffn_init["0"], ffn_init["1"]),
+                  device=dev)
+    t0 = time.perf_counter()
+    ffn_loss = tf.train(num_epochs=1, iteration=FFN_ITERS, verbose=False)
+    ffn_s = time.perf_counter() - t0
+    print(f"[train] FFN {FFN_ITERS + 1} iterations: {ffn_s:.2f} s, "
+          f"{ffn_s / (FFN_ITERS + 1) * 1e3:.2f} ms per iteration "
+          f"(synthesis, features, step; per-epoch save included); loss "
+          f"{ffn_loss[0]:.4f}")
+    results = root / "results_trained"
+    coords, run_launches = counted(lambda: segment_and_track(
+        pattern, model, results, str(root / "results" / "manual_vol1" /
+                                     "*.tif"),
+        root / "ffn_train" / "ffn.npz", VOXEL_SIZE, 10, (1, BENCH_VOLS),
+        TrackingConfig(beta=3.0, lambda_=3.0), verbose=False,
+        handoff="device", device=dev))
+    from t3dct_torch.engine.metrics import tracking_id_metrics
+    got = tracking_id_metrics(coords, centers, VOXEL_SIZE, BENCH_VOLS)
+    want = json.loads(str(np.load(ASSETS / "jax_record.npz")["metrics"]))
+    n1 = np.load(results / "seg" / "coords000001.npy").shape[0]
+    print(f"[train] card-trained weights through segment_and_track: "
+          f"{n1} cells at t = 1; strict recall {got['strict_recall']}, "
+          f"accuracy over every t {got['strict_accuracy_all_t']}, identity "
+          f"switches {got['id_switches']} (JAX-trained weights, its "
+          f"record: {want}); launches {run_launches}")
+    bad = []
+    if n1 < N_CELLS // 2:
+        bad.append(f"{n1} cells at t = 1 (bench.py's bar {N_CELLS // 2})")
+    if matched["card"][1]["tp"] < MIN_MATCHED:
+        bad.append(f"{matched['card'][1]['tp']} GT cells matched")
+    if got["strict_recall"] < MIN_RECALL:
+        bad.append(f"strict recall {got['strict_recall']}")
+    if got["id_switches"] > MAX_SWITCHES:
+        bad.append(f"{got['id_switches']} identity switches")
+    if bad:
+        raise AssertionError(f"card-trained model: {bad}")
+    for k, (f, b) in per_step.items():
+        if launches[k] != n_steps * (f + b):
+            raise AssertionError(f"training launches {launches}, want "
+                                 f"{f} + {b} of {k} a step")
+    return launches, dict(sd_step_ms=sd_s / n_steps * 1e3,
+                          ffn_iter_ms=ffn_s / (FFN_ITERS + 1) * 1e3,
+                          **{f"step_{k}_ms": v for k, v in parts.items()})
+
+
 def phase_probe(dev):
     from t3dct_torch.ops import ladder
     from t3dct_torch.scripts import probe_conv_fast
@@ -1241,13 +1796,21 @@ def main() -> int:
         bench, scene = phase_bench_scene(dev, smi, Path(tmp))
         disk = phase_bench_disk(dev, smi, Path(tmp), *scene)
         ens = phase_bench_ensemble(dev, smi, Path(tmp), *scene)
+        cfg, trainer_kw, ffn_seed, steps = train_recipe()
+        grads = phase_train_grads(dev, cfg)
+        per_step = phase_train_records(dev, Path(tmp), cfg, trainer_kw,
+                                       ffn_seed, steps)
+        train, train_times = phase_train_recipe(
+            dev, smi, Path(tmp), *scene, cfg, trainer_kw, ffn_seed,
+            per_step)
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
 
     def counts(name):
         by_path = {"v1.0": launches[name], "legacy": leg[name],
                    "probe": probe_launches[name], "bench": bench[name],
-                   "bench_disk": disk[name], "bench_ensemble": ens[name]}
+                   "bench_disk": disk[name], "bench_ensemble": ens[name],
+                   "train": train[name]}
         return dict(launches=sum(by_path.values()),
                     launches_by_path=by_path)
 
@@ -1255,7 +1818,10 @@ def main() -> int:
         dict(name="conv3x3x3_wgmma", route="cuda",
              source="3deecelltracker_tpu_torch/csrc/conv3x3x3_wgmma.cu",
              replaces="3deecelltracker_tpu/ops/pallas_conv.py:89",
-             **counts("conv3x3x3_wgmma"), **conv["wgmma"]),
+             **counts("conv3x3x3_wgmma"), **conv["wgmma"],
+             **{f"train_{k}_ms" if k != "max_rel_err" else
+                "train_grad_max_rel_err": v for k, v in grads.items()},
+             **train_times),
         dict(name="conv3x3x3_direct", route="cuda",
              source="3deecelltracker_tpu_torch/csrc/conv3x3x3.cu",
              replaces="3deecelltracker_tpu/ops/pallas_conv.py:89",

@@ -583,3 +583,97 @@ def test_two_threads_count_every_flood(dev):
     assert hopper_flood.flood_slices.launches == n0 + 2 * per_thread
     assert hopper_flood.flood_slices.rounds == r0 + 2 * per_thread * \
         solo_rounds
+
+
+# ---- the conv's gradient (training) -----------------------------------------
+
+def _grad_rel(got, want):
+    """Relative error in the norm."""
+    return float((got - want).norm() / want.norm().clamp_min(1e-30))
+
+
+@pytest.mark.parametrize("shape,relu", [
+    ((2, 6, 20, 18, 32, 64), True), ((2, 6, 20, 18, 96, 32), True),
+    ((1, 4, 12, 10, 1, 32), True), ((2, 5, 9, 11, 12, 8), False),
+    ((2, 3, 8, 8, 64, 128), True)])
+def test_conv_function_gradients_match_plain(dev, shape, relu):
+    """The autograd Function on the card: a result with a ``grad_fn``,
+    dX on the kernels (the launch counters rise in the backward; none for
+    the c_in = 1 stem, whose input needs no gradient), and dX, dW, db
+    within 1e-4 of autograd through the plain version under the same ReLU
+    mask, in the norm."""
+    b_, z, y, x, ci, co = shape
+    g = torch.Generator().manual_seed(ci + co)
+    xin = torch.randn((b_, z, y, x, ci), generator=g).to(dev)
+    w = (torch.randn((3, 3, 3, ci, co), generator=g)
+         / (27 * ci) ** 0.5).to(dev)
+    b = torch.randn((co,), generator=g).to(dev)
+    go = torch.randn((b_, z, y, x, co), generator=g).to(dev)
+    needs_x = ci > 1
+    leaves = [xin.clone().requires_grad_(needs_x),
+              w.clone().requires_grad_(True), b.clone().requires_grad_(True)]
+    from t3dct_torch.models import layers as L
+    y_ = L.conv3d({"w": leaves[1], "b": leaves[2]}, leaves[0], relu=relu)
+    assert y_.grad_fn is not None
+    n0 = _counts()
+    grads = torch.autograd.grad(y_, [t for t in leaves if t.requires_grad],
+                                go)
+    torch.cuda.synchronize()
+    n1 = _counts()
+    assert sum(n1) - sum(n0) == (1 if needs_x else 0)
+    ref = [t.clone().requires_grad_(t.requires_grad) for t in leaves]
+    yr = hopper_conv.conv3x3x3_bias_relu_plain(*ref, relu=False)
+    _held(y_.detach(), torch.relu(yr.detach()) if relu else yr.detach())
+    # under the Function's own ReLU mask: where y is a few ulp from 0 the
+    # kernel's and cuDNN's sums may fall on either side of it
+    if relu:
+        yr = yr * (y_ > 0).detach()
+    want = torch.autograd.grad(yr, [t for t in ref if t.requires_grad], go)
+    for a, r in zip(grads, want):
+        assert _grad_rel(a, r) <= 1e-4
+
+
+def test_conv_weight_update_is_not_stale(dev):
+    """Two training steps: the second forward packs the updated weights
+    (the Adam update bumps ``w._version``, the pack cache's key) and
+    equals the plain conv of the new weights, not of the old."""
+    from t3dct_torch.models import layers as L
+    from t3dct_torch.utils.optim import Adam
+    g = torch.Generator().manual_seed(7)
+    xin = torch.randn((1, 4, 16, 16, 32), generator=g).to(dev)
+    w = (torch.randn((3, 3, 3, 32, 32), generator=g) / 30).to(dev)
+    w.requires_grad_(True)
+    b = torch.zeros(32, device=dev, requires_grad=True)
+    adam = Adam([w, b], 1e-1)
+    for step in range(2):
+        w_now = w.detach().clone()
+        y_ = L.conv3d({"w": w, "b": b}, xin, relu=False)
+        want = hopper_conv.conv3x3x3_bias_relu_plain(
+            xin, w_now, b.detach(), relu=False)
+        torch.cuda.synchronize()
+        _held(y_.detach(), want)
+        if step:
+            assert float((y_.detach() - first).abs().max()) > 1e-3
+        first = y_.detach().clone()
+        adam.step(torch.autograd.grad(y_.square().sum(), [w, b]))
+
+
+def test_conv_backward_packs_the_flipped_weights_uncached(dev,
+                                                          monkeypatch):
+    """The backward's flipped weights, fresh each step, are packed without
+    a cache entry: the cache holds the forward's weights only.  dW refuses
+    to run with cuDNN's TF32 on."""
+    from t3dct_torch.models import layers as L
+    monkeypatch.setattr(hopper_conv, "_packed", {})
+    g = torch.Generator().manual_seed(8)
+    xin = torch.randn((1, 4, 16, 16, 32), generator=g).to(dev)
+    xin.requires_grad_(True)
+    w = (torch.randn((3, 3, 3, 32, 64), generator=g) / 30).to(dev)
+    w.requires_grad_(True)
+    b = torch.zeros(64, device=dev, requires_grad=True)
+    y_ = L.conv3d({"w": w, "b": b}, xin, relu=True)
+    torch.autograd.grad(y_.sum(), [xin, w, b])
+    assert [k[0] for k in hopper_conv._packed] == [id(w)]
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    with pytest.raises(RuntimeError, match="TF32"):
+        hopper_conv.conv3x3x3_weight_grad(xin.detach(), y_.detach())

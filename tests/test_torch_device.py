@@ -22,6 +22,8 @@ from t3dct_torch.engine.stardist import StarDist3D, load_stardist_model
 from t3dct_torch.engine.transformer import CoordsToImageTransformer
 from t3dct_torch.models import ffn, layers
 from t3dct_torch.models.stardist3d import StarDist3DNet
+from t3dct_torch.models.train_ffn import DataGeneratorFFN, TrainFFN
+from t3dct_torch.models.train_stardist import TrainStarDist3D
 from t3dct_torch.models.unet3d import UNet3D
 from t3dct_torch.scripts import probe_conv_fast
 from t3dct_torch.utils import convert
@@ -72,6 +74,11 @@ ENTRY_POINTS = {
     "get_activities": lambda tmp: get_activities(
         str(tmp / "r_t%04i_z%04i.tif"), str(tmp / "l_t%04i_z%04i.tif"), 1,
         1),
+    "TrainStarDist3D": lambda tmp: TrainStarDist3D(StarDistConfig(),
+                                                   basedir=tmp),
+    "TrainFFN": lambda tmp: TrainFFN("m", points1_path=str(tmp / "p.txt"),
+                                     basedir=tmp),
+    "DataGeneratorFFN": lambda tmp: DataGeneratorFFN(np.zeros((25, 3))),
 }
 
 HELPERS = {
