@@ -40,6 +40,7 @@ Entry points:
 import sys as _sys
 
 from . import config, coordinates  # noqa: F401
+from .coordinates import Coordinates  # noqa: F401
 from .engine import analyses, correction, legacy, metrics  # noqa: F401
 from .engine import pipeline, segmentation, stardist  # noqa: F401
 from .engine import tracker, transformer  # noqa: F401

@@ -358,37 +358,51 @@ void lzw_encode(const uint8_t* src, size_t n, std::vector<uint8_t>* out) {
     out->push_back(uint8_t(acc << (8 - acc_bits)));
 }
 
-// shared writer core: single-strip grayscale TIFF, optional LZW
-int write_tiff(const char* path, const uint16_t* data, int width,
-               int height, int bits, int compression) {
+// shared writer core: n_pages same-shaped single-strip grayscale pages,
+// optional LZW, as one TIFF (n_pages = 1: the recording's slice files).
+// Layout: header, then per page its strip and its IFD, each IFD pointing
+// at the next.
+int write_pages(const char* path, const uint16_t* data, int n_pages,
+                int width, int height, int bits, int compression) {
   if (bits != 8 && bits != 16) return 6;
   if (compression != 1 && compression != 5) return 5;
+  if (n_pages < 1) return 7;
   size_t bpp = bits / 8;
   size_t n_px = size_t(width) * height;
   size_t raw_bytes = n_px * bpp;
-  std::vector<uint8_t> px(raw_bytes);
-  if (bits == 8) {
-    for (size_t i = 0; i < n_px; ++i) px[i] = uint8_t(data[i]);
-  } else {
-    std::memcpy(px.data(), data, raw_bytes);
+  std::vector<std::vector<uint8_t>> payloads(n_pages);
+  for (int k = 0; k < n_pages; ++k) {
+    const uint16_t* page = data + n_px * k;
+    std::vector<uint8_t> px(raw_bytes);
+    if (bits == 8) {
+      for (size_t i = 0; i < n_px; ++i) px[i] = uint8_t(page[i]);
+    } else {
+      std::memcpy(px.data(), page, raw_bytes);
+    }
+    if (compression == 5) {
+      payloads[k].reserve(raw_bytes / 2);
+      lzw_encode(px.data(), raw_bytes, &payloads[k]);
+    } else {
+      payloads[k] = std::move(px);
+    }
   }
-  std::vector<uint8_t> enc;
-  const std::vector<uint8_t>* payload = &px;
-  if (compression == 5) {
-    enc.reserve(raw_bytes / 2);
-    lzw_encode(px.data(), raw_bytes, &enc);
-    payload = &enc;
+  const uint16_t n_entries = 8;
+  const uint32_t ifd_bytes = 2 + 12 * n_entries + 4;
+  std::vector<uint32_t> data_off(n_pages), ifd_off(n_pages);
+  uint64_t pos = 8;
+  for (int k = 0; k < n_pages; ++k) {
+    data_off[k] = uint32_t(pos);
+    pos += payloads[k].size();
+    if (pos & 1) ++pos;
+    ifd_off[k] = uint32_t(pos);
+    pos += ifd_bytes;
   }
+  if (pos > 0xFFFFFFFFull) return 8;
   FILE* f = std::fopen(path, "wb");
   if (!f) return 1;
-  uint32_t data_off = 8;
-  uint32_t ifd_off = data_off + uint32_t(payload->size());
-  if (ifd_off & 1) ++ifd_off;
   uint8_t header[8] = {'I', 'I', 42, 0};
-  std::memcpy(header + 4, &ifd_off, 4);
+  std::memcpy(header + 4, &ifd_off[0], 4);
   std::fwrite(header, 1, 8, f);
-  std::fwrite(payload->data(), 1, payload->size(), f);
-  if ((data_off + payload->size()) & 1) std::fputc(0, f);
   auto entry = [&](uint16_t tag, uint16_t type, uint32_t count,
                    uint32_t value) {
     std::fwrite(&tag, 2, 1, f);
@@ -396,20 +410,29 @@ int write_tiff(const char* path, const uint16_t* data, int width,
     std::fwrite(&count, 4, 1, f);
     std::fwrite(&value, 4, 1, f);
   };
-  uint16_t n_entries = 8;
-  std::fwrite(&n_entries, 2, 1, f);
-  entry(256, 3, 1, width);                     // ImageWidth
-  entry(257, 3, 1, height);                    // ImageLength
-  entry(258, 3, 1, bits);                      // BitsPerSample
-  entry(259, 3, 1, compression);               // Compression
-  entry(262, 3, 1, 1);                         // Photometric: BlackIsZero
-  entry(273, 4, 1, data_off);                  // StripOffsets
-  entry(278, 3, 1, height);                    // RowsPerStrip
-  entry(279, 4, 1, uint32_t(payload->size())); // StripByteCounts
-  uint32_t next = 0;
-  std::fwrite(&next, 4, 1, f);
+  for (int k = 0; k < n_pages; ++k) {
+    const std::vector<uint8_t>& payload = payloads[k];
+    std::fwrite(payload.data(), 1, payload.size(), f);
+    if ((data_off[k] + payload.size()) & 1) std::fputc(0, f);
+    std::fwrite(&n_entries, 2, 1, f);
+    entry(256, 3, 1, width);                    // ImageWidth
+    entry(257, 3, 1, height);                   // ImageLength
+    entry(258, 3, 1, bits);                     // BitsPerSample
+    entry(259, 3, 1, compression);              // Compression
+    entry(262, 3, 1, 1);                        // Photometric: BlackIsZero
+    entry(273, 4, 1, data_off[k]);              // StripOffsets
+    entry(278, 3, 1, height);                   // RowsPerStrip
+    entry(279, 4, 1, uint32_t(payload.size())); // StripByteCounts
+    uint32_t next = k + 1 < n_pages ? ifd_off[k + 1] : 0;
+    std::fwrite(&next, 4, 1, f);
+  }
   std::fclose(f);
   return 0;
+}
+
+int write_tiff(const char* path, const uint16_t* data, int width,
+               int height, int bits, int compression) {
+  return write_pages(path, data, 1, width, height, bits, compression);
 }
 
 }  // namespace
@@ -506,6 +529,15 @@ int t3dct_tiff_read_volume(const char** paths, int n, uint16_t* out,
   for (int s : status)
     if (s) return s;
   return 0;
+}
+
+// write n_pages same-shaped grayscale pages (bits 8 or 16; compression
+// 1=none, 5=LZW) as one multi-page TIFF; data is n_pages * width * height
+// uint16 values
+int t3dct_tiff_write_pages(const char* path, const uint16_t* data,
+                           int n_pages, int width, int height, int bits,
+                           int compression) {
+  return write_pages(path, data, n_pages, width, height, bits, compression);
 }
 
 // write an LZW-compressed grayscale TIFF (bits 8 or 16)

@@ -42,7 +42,8 @@ def mean_excluding_bottom(raw: torch.Tensor, labels: torch.Tensor,
 
 def get_activities(raw_path: str, tracked_labels_path: str,
                    volume_num: int, layer_num: int,
-                   discard_ratio: float = 0.1, device=None) -> np.ndarray:
+                   discard_ratio: float = 0.1, *,
+                   device=None) -> np.ndarray:
     """(volume_num, cells) activities from per-(t, z) TIFF patterns of the
     raw recording and the tracked labels (analyses.py:15-99); the cells
     are vol 1's labels, and a cell absent from a volume reads 0.0, as in

@@ -173,7 +173,7 @@ def segment_and_track_arrays(volumes: Sequence[np.ndarray],
     dev = select_device(device)
     stage = timer.stage if timer is not None else (
         lambda name: contextlib.nullcontext())
-    transformer = CoordsToImageTransformer(voxel_size, dev)
+    transformer = CoordsToImageTransformer(None, voxel_size, device=dev)
     transformer.load_segmentation_array(manual_vol1_xyz)
     transformer.interpolate(interpolation_factor)
     coord_vol1 = transformer.coord_vol1
@@ -301,7 +301,8 @@ def segment_and_track(images_path: str, model: StarDist3D,
                       timer=None,
                       handoff: str = "disk",
                       mesh=None,
-                      transport: str = "u16",
+                      data_axis: str = "data",
+                      transport: str = "u16", *,
                       device=None) -> Dict[int, np.ndarray]:
     """Segment and track a TIFF recording into a results tree, the two
     stages at once (JAX ``segment_and_track``).
@@ -340,16 +341,16 @@ def segment_and_track(images_path: str, model: StarDist3D,
     ``device``: the card by default (``"cpu"`` to run on the CPU); the
     model must be on it.
 
-    Not ported yet, each raising: ``mesh`` and ``transport="u8"``
-    (ROADMAP.md A.5), ``save_figures=True`` (A.9), HDF5 recordings
-    (A.2)."""
+    Not ported yet, each raising: ``mesh``, ``data_axis`` and
+    ``transport="u8"`` (ROADMAP.md A.5), ``save_figures=True`` (A.9), HDF5
+    recordings (A.2)."""
     if handoff not in ("disk", "device"):
         raise ValueError(f"handoff must be 'disk' or 'device', got "
                          f"{handoff!r}")
-    if mesh is not None:
+    if mesh is not None or data_axis != "data":
         raise NotImplementedError(
-            "mesh= (segmentation over several cards) is not ported yet "
-            "(ROADMAP.md A.5)")
+            "mesh= / data_axis= (segmentation over several cards) is not "
+            "ported yet (ROADMAP.md A.5)")
     if save_figures:
         raise NotImplementedError(
             "save_figures=True (the matching figures) is not ported yet "
@@ -462,7 +463,8 @@ def _segment_and_track_device(images_path, model, results_dir,
                               miss_frame, verbose, stage, transport, dev
                               ) -> Dict[int, np.ndarray]:
     t_min, t_max = t_range
-    transformer = CoordsToImageTransformer(voxel_size, dev, results_dir)
+    transformer = CoordsToImageTransformer(results_dir, voxel_size,
+                                           device=dev)
     transformer.load_segmentation(manual_vol1_glob)
     with stage("interpolate_vol1"):
         transformer.interpolate(interpolation_factor, t_start=t_min)
@@ -577,7 +579,7 @@ def track_timelapse(results_dir: Union[str, Path],
                     verbose: bool = True,
                     timer=None,
                     mesh=None,
-                    volume_ready=None,
+                    volume_ready=None, *,
                     device=None) -> Dict[int, np.ndarray]:
     """Track every volume of ``t_range`` from the ``seg/`` artifacts that
     ``engine.stardist.predict_and_save`` wrote and the proofed vol-1 labels
@@ -632,7 +634,8 @@ def _track_timelapse(results_dir, manual_vol1_glob, ffn_weights, voxel_size,
                      miss_frame, images_path, verbose, stage, volume_ready,
                      dev) -> Dict[int, np.ndarray]:
     t_min, t_max = t_range
-    transformer = CoordsToImageTransformer(voxel_size, dev, results_dir)
+    transformer = CoordsToImageTransformer(results_dir, voxel_size,
+                                           device=dev)
     transformer.load_segmentation(manual_vol1_glob)
     with stage("interpolate_vol1"):
         transformer.interpolate(interpolation_factor, t_start=t_min)

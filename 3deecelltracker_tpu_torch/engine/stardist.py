@@ -1,8 +1,10 @@
-"""StarDist3D instance program, the segmentation step of the v1.0
-workflow and the training data helpers (counterpart of
-``3deecelltracker_tpu/engine/stardist.py``: ``save`` :82, :173-217,
-:292-327, ``load_stardist_model`` :779, ``predict_and_save`` :833-1083,
-``fill_label_holes``, ``load_training_images``, ``configure`` and
+"""StarDist3D: the per-volume API, the instance program, tiled
+prediction, the segmentation step of the v1.0 workflow and the training
+data helpers (counterpart of ``3deecelltracker_tpu/engine/stardist.py``:
+``StarDist3D`` :37-405, its tiled path :408-777, ``load_stardist_model``
+:779, ``predict_and_save`` :833-1083, ``fill_label_holes``,
+``load_training_images``, ``save_arrays_to_folder``,
+``save_auto_seg_vol1``, ``print_dict``, ``configure`` and
 ``calculate_extents`` :1085-1229).
 
 One call per volume: normalize the raw volume on the device with the
@@ -24,6 +26,7 @@ import json
 import queue
 import threading
 from pathlib import Path
+import warnings
 from typing import Callable, Dict, List, Optional, Set, Tuple, Union
 
 import numpy as np
@@ -36,27 +39,53 @@ from ..io.imageio import (check_recording, check_transport, get_t_range,
                           load_2d_slices_at_time, save_volume_slices,
                           transport_encode)
 from ..io.prefetch import VolumePrefetcher, ready_event, to_host, upload_async
-from ..models.stardist3d import StarDist3DNet, sparse_candidates
+from ..models.stardist3d import (StarDist3DNet, neighborhood_max_3x3x3,
+                                 sparse_candidates)
 from ..ops.nms import greedy_nms, overlap_matrix, render_polyhedra_labels
 from ..ops.rays import rays_golden_spiral
+from ..ops.tiling import TilePlan, pad_for_tiles, plan_tiles
 from ..utils.checkpoint import save_pytree
 from ..utils.convert import load_npz, stardist_params_from_numpy
-from ..utils.device import select_device
+from ..utils.device import select_device, upload_raw
 
 
 class StarDist3D:
-    """StarDist3D model (arch ``"tpu"``) with its per-volume instance
-    program.  ``params``: the network's ``{layer: {"w", "b"}}`` tensors
-    (``utils.convert`` for JAX weights, ``StarDist3DNet.init`` for a seeded
-    random init)."""
+    """StarDist3D model (arch ``"tpu"``) with the reference's per-volume
+    API (:meth:`predict_instances`, :meth:`predict`,
+    :meth:`predict_sparse`), tiled prediction for volumes too large for one
+    pass (:meth:`predict_instances_tiled`) and the device programs the
+    drivers call (:meth:`predict_instances_device`,
+    :meth:`predict_instances_tiled_device`).
 
-    def __init__(self, config: StarDistConfig, params,
+    ``params``: the network's ``{layer: {"w", "b"}}`` tensors
+    (``utils.convert`` carries JAX weights across); None initializes them
+    with ``StarDist3DNet.init`` from ``rng``, a ``torch.Generator`` or an
+    int seed (default 0).  A seed gives other weights than JAX's
+    ``PRNGKey`` of the same number: the two generators differ.
+    ``arch="keras"`` is not ported yet (ROADMAP.md A.8).
+    ``lmax_prefilter``: only 3x3x3 prob local maxima become NMS candidates
+    (``models.stardist3d.sparse_candidates``).  ``device``: the card by
+    default."""
+
+    def __init__(self, config: StarDistConfig, params=None, rng=None,
                  max_candidates: int = 1024,
                  render_box: Tuple[int, int, int] = (33, 65, 65),
+                 arch: str = "tpu", lmax_prefilter: bool = True, *,
                  device=None):
+        if arch == "keras":
+            raise NotImplementedError(
+                "arch='keras' (the reference's Keras topology) is not "
+                "ported yet (ROADMAP.md A.8)")
+        if arch != "tpu":
+            raise ValueError(f"arch must be 'tpu' or 'keras', got {arch!r}")
         self.config = config
+        self.arch = arch
         self.device = select_device(device)
         self.net = StarDist3DNet(config)
+        if params is None:
+            gen = rng if isinstance(rng, torch.Generator) else \
+                torch.Generator().manual_seed(0 if rng is None else int(rng))
+            params = self.net.init(gen, self.device)
         self.params = {name: {k: v.to(self.device, torch.float32)
                               .contiguous() for k, v in layer.items()}
                        for name, layer in params.items()}
@@ -64,11 +93,21 @@ class StarDist3D:
             config.n_rays, config.anisotropy)).to(self.device)
         self.max_candidates = int(max_candidates)
         self.render_box = tuple(int(b) for b in render_box)
+        self.lmax_prefilter = bool(lmax_prefilter)
         self.thresholds = dict(prob=config.prob_thresh,
                                nms=config.nms_thresh)
 
+    @property
+    def _thresholds(self) -> Dict[str, float]:
+        """``thresholds`` under the JAX package's name."""
+        return self.thresholds
+
+    @_thresholds.setter
+    def _thresholds(self, value: Dict[str, float]) -> None:
+        self.thresholds = value
+
     @staticmethod
-    def load(model_dir: Union[str, Path], device=None) -> "StarDist3D":
+    def load(model_dir: Union[str, Path], *, device=None) -> "StarDist3D":
         """Read a JAX-package model folder (``config.json`` +
         ``weights.npz`` [+ ``thresholds.json``]) with numpy alone."""
         model_dir = Path(model_dir)
@@ -76,7 +115,8 @@ class StarDist3D:
             raw = json.load(fh)
         arch = raw.pop("arch", "tpu")
         if arch != "tpu":
-            raise NotImplementedError(f"arch {arch!r}: the port has 'tpu'")
+            raise NotImplementedError(
+                f"arch {arch!r}: the port has 'tpu' (ROADMAP.md A.8)")
         for key in ("grid", "anisotropy", "unet_pool", "unet_kernel_size",
                     "train_patch_size"):
             if raw.get(key) is not None:
@@ -103,30 +143,125 @@ class StarDist3D:
         with open(model_dir / "thresholds.json", "w") as fh:
             json.dump(self.thresholds, fh)
 
+    # ---- helpers -----------------------------------------------------------
+    def _volume(self, x) -> torch.Tensor:
+        """A (z, y, x) volume (array or tensor, any dtype) on this model's
+        device; uint16 arrays widen there (``utils.device.upload_raw``)."""
+        return upload_raw(x if isinstance(x, torch.Tensor) else
+                          np.asarray(x), self.device)
+
+    def _normalize(self, x_raw: torch.Tensor,
+                   norm_minmax: Tuple[float, float]) -> torch.Tensor:
+        """csbdeep's formula on the device in float32, with the host's
+        1/99.8 percentiles (``(0, 1)`` leaves a normalized volume as it
+        is)."""
+        dev = self.device
+        mi = torch.tensor(norm_minmax[0], dtype=torch.float32, device=dev)
+        ma = torch.tensor(norm_minmax[1], dtype=torch.float32, device=dev)
+        return (x_raw.to(dev).to(torch.float32) - mi) / (ma - mi + 1e-20)
+
+    def _grid_shape(self, shape) -> Tuple[int, int, int]:
+        return tuple(-(-int(s) // g) for s, g in zip(shape,
+                                                     self.config.grid))
+
+    def _candidates(self, prob_g: torch.Tensor, dist_g: torch.Tensor,
+                    shape, prob_thresh: float):
+        """``sparse_candidates`` of a :meth:`forward_grid` output, with
+        ``valid`` cleared outside a volume of ``shape``
+        (``resizer.filter_points``: the ``div_by`` pad margin holds none):
+        ``(probs, dists, points, valid)``."""
+        probs, dists, points, valid = sparse_candidates(
+            prob_g, dist_g, self.config.grid, prob_thresh,
+            max_candidates=self.max_candidates,
+            lmax_prefilter=self.lmax_prefilter)
+        valid = valid & ((points[:, 0] < shape[0])
+                         & (points[:, 1] < shape[1])
+                         & (points[:, 2] < shape[2]))
+        return probs, dists, points, valid
+
+    # ---- the per-volume API (stardist3dcustom.py:152) ----------------------
+    def predict_sparse(self, x, prob_thresh: Optional[float] = None):
+        """``(probs (K,), dists (K, n_rays), points (K, 3) zyx, valid (K,),
+        prob_map)`` on the device for a normalized (z, y, x) volume
+        (``_predict_sparse_generator``, stardist3dcustom.py:168-261).
+        ``prob_map`` is at grid resolution with the ``div_by`` padding
+        cropped; ``valid`` excludes candidates in the pad margin."""
+        if prob_thresh is None:
+            prob_thresh = self.thresholds["prob"]
+        xv = self._volume(x).to(torch.float32)
+        prob_g, dist_g = self.forward_grid(xv)
+        gz, gy, gx = self._grid_shape(xv.shape)
+        return (*self._candidates(prob_g, dist_g, xv.shape, prob_thresh),
+                prob_g[:gz, :gy, :gx])
+
+    def predict(self, x) -> Tuple[np.ndarray, np.ndarray]:
+        """Dense outputs of a normalized (z, y, x) volume at grid
+        resolution, the ``div_by`` padding cropped: ``(prob (gz, gy, gx),
+        dist (gz, gy, gx, n_rays))`` as host arrays (the ``sparse=False``
+        branch of stardist3dcustom.py:116-126)."""
+        xv = self._volume(x).to(torch.float32)
+        prob_g, dist_g = self.forward_grid(xv)
+        gz, gy, gx = self._grid_shape(xv.shape)
+        return (prob_g[:gz, :gy, :gx].cpu().numpy(),
+                dist_g[:gz, :gy, :gx].cpu().numpy())
+
+    def predict_instances(self, x, prob_thresh: Optional[float] = None,
+                          nms_thresh: Optional[float] = None,
+                          return_labels: bool = True, sparse: bool = True,
+                          return_predict: bool = False):
+        """``((labels, details), prob_map)`` of a normalized (z, y, x)
+        volume (reference ``StarDist3DCustom.predict_instances``,
+        stardist3dcustom.py:152), through :meth:`predict_instances_device`
+        and :meth:`finalize_instances`; ``prob_map`` is the grid map in
+        float16 steps, as the instance program ships it.
+
+        ``sparse=False`` also runs :meth:`predict` and returns its float32
+        prob map instead; the instances are the same.
+        ``return_predict=True`` implies ``sparse=False`` (with the
+        reference's warning) and returns ``((labels, details), (prob,
+        dist), prob)``, the documented intent of stardist3dcustom.py:75-84
+        (its own dense branch raises on a tuple of the wrong length)."""
+        if return_predict and sparse:
+            warnings.warn(
+                "Setting sparse to False because return_predict is True")
+            sparse = False
+        instances, prob_map = self.finalize_instances(to_host(
+            self.predict_instances_device(
+                self._volume(x), (0.0, 1.0), return_labels,
+                prob_thresh=prob_thresh, nms_thresh=nms_thresh),
+            None, None))
+        if sparse:
+            return instances, prob_map
+        prob, dist = self.predict(x)
+        if return_predict:
+            return instances, (prob, dist), prob
+        return instances, prob
+
+    # ---- the instance program ---------------------------------------------
     def predict_instances_device(self, x_raw: torch.Tensor,
                                  norm_minmax: Tuple[float, float],
-                                 return_labels: bool = True):
+                                 return_labels: bool = True, *,
+                                 prob_thresh: Optional[float] = None,
+                                 nms_thresh: Optional[float] = None):
         """The instance program on one raw (z, y, x) volume (any dtype),
         normalized on the device with ``norm_minmax``, the host's 1/99.8
-        percentiles, by csbdeep's formula.
+        percentiles, by csbdeep's formula.  The thresholds default to
+        ``thresholds``.
 
         Returns ``(kept, probs, dists, points, prob_map, labels)`` on the
         device: kept (K,) bool, probs (K,), dists (K, n_rays), points (K, 3)
         int32 zyx, the grid-resolution prob map as float16 (as the JAX
         program ships it), and int32 (z, y, x) labels or None."""
-        cfg = self.config
-        dev = self.device
         orig_shape = tuple(int(s) for s in x_raw.shape)
-        gshape = tuple(-(-s // g) for s, g in zip(orig_shape, cfg.grid))
-        mi = torch.tensor(norm_minmax[0], dtype=torch.float32, device=dev)
-        ma = torch.tensor(norm_minmax[1], dtype=torch.float32, device=dev)
-        x = (x_raw.to(dev).to(torch.float32) - mi) / (ma - mi + 1e-20)
-        prob_g, dist_g = self.forward_grid(x)
-        prob_map = prob_g[:gshape[0], :gshape[1], :gshape[2]].to(
-            torch.float16)
+        gz, gy, gx = self._grid_shape(orig_shape)
+        prob_g, dist_g = self.forward_grid(self._normalize(x_raw,
+                                                           norm_minmax))
+        prob_map = prob_g[:gz, :gy, :gx].to(torch.float16)
         kept, probs, dists, points, labels = self.instances_from_grid(
-            prob_g, dist_g, orig_shape, self.thresholds["prob"],
-            self.thresholds["nms"], return_labels)
+            prob_g, dist_g, orig_shape,
+            self.thresholds["prob"] if prob_thresh is None else prob_thresh,
+            self.thresholds["nms"] if nms_thresh is None else nms_thresh,
+            return_labels)
         return kept, probs, dists, points, prob_map, labels
 
     def forward_grid(self, x: torch.Tensor
@@ -149,12 +284,17 @@ class StarDist3D:
         render of one volume of shape ``orig_shape`` from its
         :meth:`forward_grid` output, at the given thresholds: ``(kept,
         probs, dists, points, labels)`` on the device."""
-        probs, dists, points, valid = sparse_candidates(
-            prob_g, dist_g, self.config.grid, prob_thresh,
-            max_candidates=self.max_candidates)
-        valid = (valid & (points[:, 0] < orig_shape[0])
-                 & (points[:, 1] < orig_shape[1])
-                 & (points[:, 2] < orig_shape[2]))
+        probs, dists, points, valid = self._candidates(
+            prob_g, dist_g, orig_shape, prob_thresh)
+        kept, labels = self._nms_render(probs, dists, points, valid,
+                                        orig_shape, nms_thresh,
+                                        return_labels)
+        return kept, probs, dists, points, labels
+
+    def _nms_render(self, probs, dists, points, valid, shape, nms_thresh,
+                    return_labels):
+        """Overlaps, greedy NMS and (when asked) the label render of a
+        volume of ``shape``: ``(kept, labels or None)``."""
         centers = points.to(torch.float32)
         overlaps = overlap_matrix(centers, dists, self.rays, valid,
                                   prob=probs)
@@ -162,9 +302,9 @@ class StarDist3D:
         labels = None
         if return_labels:
             labels = render_polyhedra_labels(
-                centers, dists, self.rays, probs, kept, orig_shape,
+                centers, dists, self.rays, probs, kept, shape,
                 self.render_box)
-        return kept, probs, dists, points, labels
+        return kept, labels
 
     def finalize_instances(self, fetched):
         """Host selection from one call's outputs as numpy arrays,
@@ -184,9 +324,212 @@ class StarDist3D:
         }
         return (labels, details), np.asarray(prob_map, np.float32)
 
+    # ---- tiled prediction (JAX engine/stardist.py:408-709) -----------------
+    def predict_instances_tiled(self, x, tile_shape=(None, 256, 256),
+                                shrink=None,
+                                prob_thresh: Optional[float] = None,
+                                nms_thresh: Optional[float] = None,
+                                tile_candidates: int = 256,
+                                return_labels: bool = True,
+                                norm_minmax: Tuple[float, float] = (0., 1.),
+                                tile_batch: int = 8):
+        """Tile-and-stitch instance prediction of a (z, y, x) volume too
+        large for one backbone pass (the reference raises for tiled sparse
+        prediction, stardist3dcustom.py:188).
+
+        The volume is normalized with ``norm_minmax`` and reflect-padded on
+        the device, and covered by overlapping tiles whose ``shrink``
+        margin defaults to the network's receptive field
+        (``StarDist3DNet.receptive_field``, rounded up to ``div_by``), so
+        the backbone's outputs in every tile centre equal the whole-volume
+        pass's.  Candidates come from the tile centres only (they partition
+        the volume), with the whole-volume border rule in global grid
+        coordinates, ``tile_candidates`` per tile; then the
+        ``max_candidates`` most probable go through a global NMS and
+        render.  Within the receptive field of the volume's faces results
+        may differ from the whole-volume pass (other padding context).
+
+        ``tile_shape``: per-axis tile size, rounded down to ``div_by``;
+        None (or a size that covers the axis) leaves an axis whole.
+        ``tile_batch`` tiles go through the backbone as one batch.
+        Returns ``((labels, details), prob_map)`` like
+        :meth:`predict_instances`, the prob map in float32."""
+        return self.finalize_instances(to_host(
+            self.predict_instances_tiled_device(
+                self._volume(x), norm_minmax, tile_shape=tile_shape,
+                shrink=shrink, tile_candidates=tile_candidates,
+                return_labels=return_labels, tile_batch=tile_batch,
+                prob_thresh=prob_thresh, nms_thresh=nms_thresh),
+            None, None))
+
+    def plan_tiling(self, vol: Tuple[int, int, int], tile_shape,
+                    shrink=None) -> TilePlan:
+        """The tile plan of a volume of shape ``vol``: each tiled axis's
+        shrink is ``shrink`` (default: the receptive field) rounded up to
+        ``div_by`` so that tiles sit on the whole volume's pooling grid,
+        its tile ``tile_shape`` rounded down to ``div_by``; an axis whose
+        tile is None or covers it is one tile of the volume padded to
+        ``div_by``.  Raises ``ValueError`` for a tile no wider than twice
+        its shrink."""
+        div = self.net.div_by
+        rf = self.net.receptive_field()
+        if shrink is None:
+            shrink = rf
+        tiles, shr = [], []
+        for ax in range(3):
+            t, v, d = tile_shape[ax], int(vol[ax]), div[ax]
+            s = -(-int(shrink[ax]) // d) * d
+            if t is None or int(t) - 2 * s >= v:
+                tiles.append(-(-v // d) * d)
+                shr.append(0)
+            else:
+                t = (int(t) // d) * d
+                if t - 2 * s <= 0:
+                    raise ValueError(
+                        f"tile {t} too small for shrink {s} on axis {ax} "
+                        f"(receptive field {rf})")
+                tiles.append(t)
+                shr.append(s)
+        return plan_tiles(vol, tiles, shr)
+
+    def predict_instances_tiled_device(
+            self, x_raw: torch.Tensor, norm_minmax: Tuple[float, float],
+            tile_shape=(None, 256, 256), shrink=None,
+            tile_candidates: int = 256, return_labels: bool = True,
+            tile_batch: int = 8, prob_thresh: Optional[float] = None,
+            nms_thresh: Optional[float] = None):
+        """The tiled instance program on one raw (z, y, x) volume (any
+        dtype) on the device, with :meth:`predict_instances_device`'s
+        outputs, the prob map in float32 (as JAX's tiled path writes it).
+
+        The volume is normalized and reflect-padded once on the device
+        (``ops.tiling.pad_for_tiles``, numpy's reflection at any pad
+        width); each batch of ``tile_batch`` tiles is cut from it into one
+        contiguous (B, z, y, x, 1) tensor and goes through the backbone in
+        one call, so each conv layer is one kernel launch over B tiles.
+        The last batch is filled with copies of its last tile, whose
+        outputs are dropped."""
+        if prob_thresh is None:
+            prob_thresh = self.thresholds["prob"]
+        if nms_thresh is None:
+            nms_thresh = self.thresholds["nms"]
+        vol = tuple(int(s) for s in x_raw.shape)
+        plan = self.plan_tiling(vol, tile_shape, shrink)
+        grid = tuple(self.config.grid)
+        gshape = self._grid_shape(vol)
+        c_g = tuple(c // g for c, g in zip(plan.center_shape, grid))
+        xn = pad_for_tiles(self._normalize(x_raw, norm_minmax), plan)
+        prob_map = torch.zeros(gshape, dtype=torch.float32,
+                               device=self.device)
+        origins = [tuple(int(v) for v in o) for o in plan.origins]
+        batch = max(1, min(int(tile_batch), len(origins)))
+        parts = []
+        for start in range(0, len(origins), batch):
+            chunk = origins[start:start + batch]
+            n_real = len(chunk)
+            chunk = chunk + [chunk[-1]] * (batch - n_real)
+            prob_c, top_p, dists, points, valid = self._tile_batch(
+                xn, chunk, plan, vol, tile_candidates, prob_thresh)
+            for i, o in enumerate(chunk[:n_real]):
+                og = [v // g for v, g in zip(o, grid)]
+                ext = [min(c, gs - v) for c, gs, v in zip(c_g, gshape, og)]
+                if all(e > 0 for e in ext):
+                    prob_map[og[0]:og[0] + ext[0], og[1]:og[1] + ext[1],
+                             og[2]:og[2] + ext[2]] = \
+                        prob_c[i, :ext[0], :ext[1], :ext[2]]
+            parts.append((top_p[:n_real], dists[:n_real], points[:n_real],
+                          valid[:n_real]))
+        probs, dists, points, valid = (
+            torch.cat([p[i] for p in parts]).flatten(0, 1)
+            for i in range(4))
+        # the global merge: a stable sort by prob (ties keep tile order,
+        # as numpy's stable argsort does in JAX), cut to the budget
+        order = torch.sort(torch.where(valid, probs, -torch.inf),
+                           descending=True, stable=True
+                           ).indices[:self.max_candidates]
+        probs, dists, points, valid = (probs[order], dists[order],
+                                       points[order], valid[order])
+        kept, labels = self._nms_render(probs, dists, points, valid, vol,
+                                        nms_thresh, return_labels)
+        return kept, probs, dists, points, prob_map, labels
+
+    def _tile_batch(self, xn: torch.Tensor, chunk, plan: TilePlan,
+                    vol: Tuple[int, int, int], k_tile: int,
+                    prob_thresh: float):
+        """One backbone call over the tiles at padded origins ``chunk``,
+        then per tile: the centre crop of prob and dist, the 3x3x3 peak
+        test on the uncropped tile grid, the border and range masks in
+        global grid coordinates and a top-``k_tile`` of the centre
+        (``_make_tile_fn``, JAX engine/stardist.py:408-462).  Returns
+        ``(prob_c (B, cz, cy, cx), probs (B, k), dists (B, k, n_rays),
+        points (B, k, 3) int32 zyx, valid (B, k))``."""
+        cfg, dev = self.config, self.device
+        grid, n_rays = tuple(cfg.grid), cfg.n_rays
+        tz, ty, tx = plan.tile_shape
+        xb = torch.stack([xn[o0:o0 + tz, o1:o1 + ty, o2:o2 + tx]
+                          for o0, o1, o2 in chunk])[..., None]
+        prob_g, dist_g = self.net.apply(self.params, xb)
+        prob_g = prob_g[..., 0]
+        s_g = [s // g for s, g in zip(plan.shrink, grid)]
+        c_g = [c // g for c, g in zip(plan.center_shape, grid)]
+        crop = (slice(None),) + tuple(slice(s, s + c)
+                                      for s, c in zip(s_g, c_g))
+        prob_c = prob_g[crop]
+        og = torch.tensor([[v // g for v, g in zip(o, grid)]
+                           for o in chunk], dtype=torch.int64, device=dev)
+        zz = og[:, 0, None, None, None] + torch.arange(
+            c_g[0], device=dev)[None, :, None, None]
+        yy = og[:, 1, None, None, None] + torch.arange(
+            c_g[1], device=dev)[None, None, :, None]
+        xx = og[:, 2, None, None, None] + torch.arange(
+            c_g[2], device=dev)[None, None, None, :]
+        # the whole-volume path's border rule, on its padded grid
+        b = 2
+        gdim = [(-(-v // d) * d) // g
+                for v, d, g in zip(vol, self.net.div_by, grid)]
+        keep = ((zz >= b) & (zz < gdim[0] - b) & (yy >= b)
+                & (yy < gdim[1] - b) & (xx >= b) & (xx < gdim[2] - b)
+                & (zz * grid[0] < vol[0]) & (yy * grid[1] < vol[1])
+                & (xx * grid[2] < vol[2]))
+        if self.lmax_prefilter:
+            keep = keep & (prob_c >= neighborhood_max_3x3x3(prob_g)[crop])
+        n_b = len(chunk)
+        masked = torch.where(keep, prob_c, -torch.inf).reshape(n_b, -1)
+        k = min(int(k_tile), masked.shape[1])
+        top_p, idx = torch.sort(masked, dim=1, descending=True, stable=True)
+        top_p, idx = top_p[:, :k], idx[:, :k]
+        valid = top_p > prob_thresh
+        dist_c = dist_g[crop].reshape(n_b, -1, n_rays)
+        dists = torch.clamp_min(torch.gather(
+            dist_c, 1, idx[..., None].expand(n_b, k, n_rays)), 1e-3)
+        cy, cx = c_g[1], c_g[2]
+        points = torch.stack(
+            [og[:, 0, None] + idx // (cy * cx),
+             og[:, 1, None] + (idx // cx) % cy,
+             og[:, 2, None] + idx % cx], dim=-1) * torch.tensor(
+                 grid, dtype=torch.int64, device=dev)
+        return (prob_c, torch.where(valid, top_p, 0.0), dists,
+                points.to(torch.int32), valid)
+
+    def predict_instances_sharded(self, x, mesh=None,
+                                  tile_shape=(None, 256, 256), shrink=None,
+                                  prob_thresh: Optional[float] = None,
+                                  nms_thresh: Optional[float] = None,
+                                  tile_candidates: int = 256,
+                                  return_labels: bool = True,
+                                  norm_minmax: Tuple[float, float] = (0.,
+                                                                      1.)):
+        """Tiles fanned out over several cards: not ported yet
+        (ROADMAP.md A.5); :meth:`predict_instances_tiled` runs the same
+        tiles on one card."""
+        raise NotImplementedError(
+            "predict_instances_sharded (tiles over several cards) is not "
+            "ported yet (ROADMAP.md A.5); predict_instances_tiled runs "
+            "them on one card")
+
 
 def load_stardist_model(model_name: str = "stardist",
-                        basedir: str = "stardist_models",
+                        basedir: str = "stardist_models", *,
                         device=None) -> StarDist3D:
     """``stardistwrapper.load_stardist_model`` (:39-43): the model folder
     ``basedir/model_name`` in the JAX package's format (``config.json`` +
@@ -265,9 +608,8 @@ class SegArtifactSaver:
         self.tree.save_seg_coords(t, details["points"][:, [1, 2, 0]])
         self.tree.save_seg_prob(t, prob_map.transpose((1, 2, 0)))
         if t == self.labels_t and labels is not None:
-            save_volume_slices(labels.transpose((1, 2, 0)),
-                               self.results_folder / "auto_vol1",
-                               "auto_vol1_z%04i.tif")
+            save_auto_seg_vol1(labels.transpose((1, 2, 0)),
+                               self.results_folder)
         if self.progress_cb is not None:
             self.progress_cb(t)
         with self._cond:
@@ -300,8 +642,12 @@ def predict_and_save(images_path: str, model: StarDist3D,
                      volumes=None,
                      progress_cb: Optional[Callable[[int], None]] = None,
                      tile_shape=None,
+                     tile_candidates: int = 256,
+                     tile_batch: int = 8,
+                     shrink=None,
                      should_stop: Optional[Callable[[], bool]] = None,
                      mesh=None,
+                     data_axis: str = "data",
                      transport: str = "u16") -> None:
     """Segment every volume of a TIFF recording into ``results_folder/seg/``
     (``stardistwrapper.predict_and_save`` :75-111): ``seg/coords*.npy``, the
@@ -317,6 +663,12 @@ def predict_and_save(images_path: str, model: StarDist3D,
     per volume; the sweep ends when it turns true.  A recording whose
     images end early stops with JAX's warning; a write failure raises.
 
+    ``tile_shape``: when set (e.g. ``(None, 256, 256)``), each volume is
+    segmented by :meth:`StarDist3D.predict_instances_tiled_device`, tile
+    by tile, for volumes too large for one backbone pass;
+    ``tile_candidates``, ``tile_batch`` and ``shrink`` pass through to it,
+    and its prob maps are float32.
+
     Pipelined as in JAX: two prefetch workers decode the TIFFs, take the
     exact percentiles and start the upload on a side stream; one seg call
     per volume runs on the caller's current stream (``batch_size`` is
@@ -324,17 +676,20 @@ def predict_and_save(images_path: str, model: StarDist3D,
     two saver threads copy the results back on the side stream and write
     them.  ``model.device`` is the device.
 
-    Not ported yet, each raising: ``tile_shape`` (ROADMAP.md A.6; its
-    ``tile_candidates``, ``tile_batch`` and ``shrink`` come with it),
-    ``mesh`` and ``transport="u8"`` (A.5), HDF5 recordings (A.2)."""
-    if tile_shape is not None:
-        raise NotImplementedError(
-            "tile_shape= (the tiled StarDist sweep) is not ported yet "
-            "(ROADMAP.md A.6)")
+    Not ported yet, each raising: ``mesh``, ``data_axis`` and
+    ``transport="u8"`` (ROADMAP.md A.5; ``mesh`` with ``tile_shape``
+    raises JAX's ``ValueError``), HDF5 recordings (A.2)."""
     if mesh is not None:
+        if tile_shape is not None:
+            raise ValueError(
+                "mesh= and tile_shape= are mutually exclusive; shard "
+                "tiles of huge volumes via predict_instances_sharded")
         raise NotImplementedError(
             "mesh= (segmentation over several cards) is not ported yet "
             "(ROADMAP.md A.5)")
+    if data_axis != "data":
+        raise NotImplementedError(
+            "data_axis= (a mesh axis) is not ported yet (ROADMAP.md A.5)")
     check_transport(transport)
     check_recording(images_path)
     tree = ResultsTree(results_folder)
@@ -349,6 +704,15 @@ def predict_and_save(images_path: str, model: StarDist3D,
         x = load_2d_slices_at_time(images_path, t=t, do_normalize=False)
         x, mi, ma = transport_encode(x, transport)
         return upload_async(x, dev, side), mi, ma
+
+    def _segment(x, mi, ma, return_labels):
+        if tile_shape is None:
+            return model.predict_instances_device(
+                x, norm_minmax=(mi, ma), return_labels=return_labels)
+        return model.predict_instances_tiled_device(
+            x, (mi, ma), tile_shape=tile_shape, shrink=shrink,
+            tile_candidates=tile_candidates, return_labels=return_labels,
+            tile_batch=tile_batch)
 
     loader = VolumePrefetcher(_load_raw, work, depth=prefetch_depth,
                               workers=2)
@@ -368,9 +732,7 @@ def predict_and_save(images_path: str, model: StarDist3D,
                 print(f"Warning: segmentation stopped; images at "
                       f"t={done_t + 1} cannot be loaded!")
                 break
-            saver.put(t, model.predict_instances_device(
-                upload.wait(), norm_minmax=(mi, ma),
-                return_labels=(t == t_min)))
+            saver.put(t, _segment(upload.wait(), mi, ma, t == t_min))
             done_t = t
             if saver.errors:
                 break
@@ -380,6 +742,31 @@ def predict_and_save(images_path: str, model: StarDist3D,
     if saver.errors:
         raise saver.errors[0]
     print(f"All images from t={work[0]} to t={done_t} have been segmented")
+
+
+def save_arrays_to_folder(arrays: List[np.ndarray],
+                          folder_path: Union[str, Path]) -> None:
+    """Save arrays as ``coords%04i.npy`` (1-based) into ``folder_path``
+    (``stardistwrapper.save_arrays_to_folder`` :149-165)."""
+    path = Path(folder_path)
+    path.mkdir(parents=True, exist_ok=True)
+    for i, arr in enumerate(arrays):
+        np.save(path / f"coords{i + 1:04d}.npy", arr)
+
+
+def save_auto_seg_vol1(labels_xyz: np.ndarray,
+                       results_folder: Union[str, Path]) -> None:
+    """Write the vol-1 auto segmentation as per-z TIFFs in
+    ``results_folder/auto_vol1/`` (``stardistwrapper.save_auto_seg_vol1``
+    :140-146); labels in the pipeline's (x, y, z) frame."""
+    save_volume_slices(labels_xyz, Path(results_folder) / "auto_vol1",
+                       "auto_vol1_z%04i.tif")
+
+
+def print_dict(my_dict: dict) -> None:
+    """``stardistwrapper.print_dict`` (:284-286)."""
+    for key, value in my_dict.items():
+        print(f"{key}: {value}")
 
 
 UP_LIMIT = 400000  # stardistwrapper.py:32

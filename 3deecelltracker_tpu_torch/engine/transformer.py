@@ -2,7 +2,8 @@
 correction against a probability map (counterpart of
 ``3deecelltracker_tpu/engine/transformer.py``: ``upsample_prob_pipeline``,
 ``load_segmentation`` :73, ``load_segmentation_array``, ``interpolate``
-:135-200, ``get_cells_on_boundary`` :227, ``load_prob_map`` :235,
+:135-200, ``move_cells`` and ``move_cells_in_3d_image`` :201-216,
+``get_cells_on_boundary`` :227, ``load_prob_map`` :235,
 ``accurate_correction`` :244-281 and ``save_tracking_results``).
 
 The array half builds the atlas from labels in memory.  Given a results
@@ -14,7 +15,7 @@ from __future__ import annotations
 
 from glob import glob
 from pathlib import Path
-from typing import Optional, Tuple, Union
+from typing import Optional, Set, Tuple, Union
 
 import numpy as np
 import torch
@@ -22,10 +23,11 @@ import torch
 from ..coordinates import Coordinates
 from ..io.artifacts import ResultsTree
 from ..io.imageio import imread_stack
+from ..models.stardist3d import upsample_prob_map
 from ..ops.connected import label_components_values
 from ..ops.segment_reduce import center_of_mass, find_objects_bounds
 from ..ops.subregions import (SubregionAtlas, build_subregion_atlas,
-                              move_cells_sampled)
+                              move_cells_full, move_cells_sampled)
 from ..ops.watershed import recalculate_cell_boundaries
 from ..utils.device import select_device
 from ..viz import save_merged_labels
@@ -39,11 +41,8 @@ def upsample_prob_pipeline(prob_grid_xyz: torch.Tensor,
                            out_shape: Tuple[int, int, int]) -> torch.Tensor:
     """Grid-resolution (x, y, z) prob map -> full resolution: repeat axis
     0 by grid[1], axis 1 by grid[2], axis 2 by grid[0], then crop."""
-    out = prob_grid_xyz
-    for axis, g in enumerate((grid[1], grid[2], grid[0])):
-        if g > 1:
-            out = torch.repeat_interleave(out, int(g), dim=axis)
-    return out[:out_shape[0], :out_shape[1], :out_shape[2]]
+    return upsample_prob_map(prob_grid_xyz, (grid[1], grid[2], grid[0]),
+                             out_shape)
 
 
 def _relabel_sequential_np(labels: np.ndarray) -> np.ndarray:
@@ -63,12 +62,13 @@ def _box_shape(labels: torch.Tensor, n_cells: int) -> Tuple[int, int, int]:
 
 
 class CoordsToImageTransformer:
-    """Twin of the JAX transformer for the main path.  ``results_folder``:
-    the results tree that :meth:`interpolate` and
-    :meth:`save_tracking_results` write (None: arrays only)."""
+    """Twin of the JAX transformer, with its argument order.
+    ``results_folder``: the results tree that :meth:`interpolate` and
+    :meth:`save_tracking_results` write (None: arrays only).  ``device``:
+    the card by default."""
 
-    def __init__(self, voxel_size, device=None,
-                 results_folder: Union[str, Path, None] = None):
+    def __init__(self, results_folder: Union[str, Path, None], voxel_size,
+                 *, device=None):
         self.voxel_size = tuple(float(v) for v in np.asarray(voxel_size))
         self.device = select_device(device)
         self.tree = (ResultsTree(results_folder)
@@ -145,12 +145,45 @@ class CoordsToImageTransformer:
                 self.coord_vol1.real.cpu().numpy(),
                 self.auto_corrected_segmentation, t_start)
 
-    def get_cells_on_boundary(self, coordinates_real, ensemble: bool,
+    # ---- label synthesis (coord_image_transformer.py:269-369) --------------
+    def move_cells(self, movements_nx3: Optional[np.ndarray] = None,
+                   cells_missed: Optional[Set[int]] = None,
+                   full_resolution: bool = False
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The vol-1 cells of the atlas moved by ``movements_nx3`` (interp
+        frame, None: not moved), without the 1-based labels in
+        ``cells_missed``: ``(labels, overlap count)`` on the device, on
+        the original z slices or, with ``full_resolution``, on the whole
+        interpolated canvas (``ops.subregions.move_cells_full``)."""
+        include = self._include_mask(cells_missed)
+        fn = move_cells_full if full_resolution else move_cells_sampled
+        mv = None if movements_nx3 is None else torch.as_tensor(
+            np.asarray(movements_nx3), dtype=torch.int32).to(self.device)
+        return fn(self.atlas, mv, include)
+
+    def move_cells_in_3d_image(self,
+                               movements_nx3: Optional[np.ndarray] = None,
+                               cells_missed: Optional[Set[int]] = None
+                               ) -> np.ndarray:
+        """:meth:`move_cells` on the original z slices, with the cell
+        boundaries recalculated where cells overlap: (x, y, z) labels."""
+        labels, overlap = self.move_cells(movements_nx3, cells_missed)
+        return recalculate_cell_boundaries(
+            labels, overlap, sampling_xy=self.voxel_size[:2]).cpu().numpy()
+
+    def _include_mask(self, cells_missed) -> torch.Tensor:
+        include = np.ones(self.atlas.n_cells, bool)
+        for label in cells_missed or ():
+            if 1 <= label <= self.atlas.n_cells:
+                include[label - 1] = False
+        return torch.from_numpy(include).to(self.device)
+
+    def get_cells_on_boundary(self, coordinates_real_nx3, ensemble: bool,
                               boundary_xy: int = BOUNDARY_XY) -> np.ndarray:
         """1-based labels of the cells at the image boundary
         (``coord_image_transformer.py:371-385``)."""
         mask = get_cells_on_boundary(
-            torch.as_tensor(coordinates_real, dtype=torch.float32),
+            torch.as_tensor(coordinates_real_nx3, dtype=torch.float32),
             self.proofed_segmentation.shape, self.voxel_size,
             ensemble=ensemble, boundary_xy=boundary_xy)
         return np.where(mask.cpu().numpy())[0] + 1
@@ -202,19 +235,30 @@ class CoordsToImageTransformer:
             labels = labels.cpu().numpy()
         return corrected, labels
 
-    def save_tracking_results(self, coords_real: np.ndarray,
-                              labels_xyz: np.ndarray, t2: int,
-                              images_path: Optional[str] = None) -> None:
+    def save_tracking_results(self, coords,
+                              corrected_labels_image: np.ndarray, t2: int,
+                              images_path: Optional[str] = None,
+                              tracker=None, t1: Optional[int] = None) -> None:
         """Volume ``t2``'s tracked coordinates (``coords_real/``, real
-        units) and labels (``labels/``, uint8 when vol 1 has at most 255
-        cells, else uint16, LZW); given the recording, also the labels
-        over the raw volume (``viz.save_merged_labels``), which, as in the
-        JAX package, never stops tracking when it fails."""
-        self.tree.save_coords_real(t2, np.asarray(coords_real))
-        self.tree.save_tracked_labels(labels_xyz, t2, self.use_8_bit)
+        units; ``coords`` a :class:`Coordinates` or an (n, 3) real array)
+        and labels (``labels/``, uint8 when vol 1 has at most 255 cells,
+        else uint16, LZW); given the recording, also the labels over the
+        raw volume (``viz.save_merged_labels``), which, as in the JAX
+        package, never stops tracking when it fails.  ``tracker`` and
+        ``t1`` (the matching figure) are not ported yet (ROADMAP.md A.9)."""
+        if tracker is not None and t1 is not None:
+            raise NotImplementedError(
+                "the matching figure (tracker=, t1=) is not ported yet "
+                "(ROADMAP.md A.9)")
+        if isinstance(coords, Coordinates):
+            coords = coords.real.cpu().numpy()
+        self.tree.save_coords_real(t2, np.asarray(coords))
+        self.tree.save_tracked_labels(corrected_labels_image, t2,
+                                      self.use_8_bit)
         if images_path is not None:
             try:
-                save_merged_labels(self.tree.root, labels_xyz, images_path,
-                                   t2, self.interpolation_factor)
+                save_merged_labels(self.tree.root, corrected_labels_image,
+                                   images_path, t2,
+                                   self.interpolation_factor)
             except Exception as e:      # a figure, not a result
                 print(f"merged-label figure skipped: {e!r}")

@@ -1,6 +1,6 @@
 """TIFF recordings in, label TIFFs out (counterpart of
 ``3deecelltracker_tpu/io/imageio.py``: ``imread`` :31, ``imread_volume`` :44,
-``imread_stack`` :98,
+``imwrite_volume`` :63, ``imread_stack`` :98,
 ``fast_percentiles`` :119, ``transport_encode`` :204,
 ``percentile_normalize`` :227, ``load_2d_slices_at_time`` :255,
 ``get_t_range`` :285, ``read_image_ts`` :302, ``save_label_slices`` :310,
@@ -57,6 +57,21 @@ def imread_volume(path) -> np.ndarray:
     _require_tiff(path)
     vol = tiff.tiff_read_pages(path)
     return vol[0] if vol.shape[0] == 1 else vol
+
+
+def imwrite_volume(path: str, vol: np.ndarray,
+                   compression: str = None) -> None:
+    """Write a (z, h, w) uint8 or uint16 volume (or one 2-D slice) as one
+    multi-page TIFF that :func:`imread_volume` reads (the tifffile
+    ``imwrite`` role, e.g. for StarDist training volumes).
+    ``compression``: None or ``"tiff_lzw"``."""
+    if compression not in (None, "tiff_lzw"):
+        raise ValueError(f"compression must be None or 'tiff_lzw', got "
+                         f"{compression!r}")
+    _require_tiff(path)
+    vol = np.asarray(vol)
+    tiff.tiff_write_pages(path, vol[None] if vol.ndim == 2 else vol,
+                          lzw=compression == "tiff_lzw")
 
 
 def imread_stack(paths: List) -> np.ndarray:

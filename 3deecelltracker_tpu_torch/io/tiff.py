@@ -1,9 +1,11 @@
 """ctypes bindings for the port's TIFF codec (``csrc/tiff_codec.cc``, the
-JAX package's ``native/tiff_codec.cc`` carried over unchanged).
+JAX package's ``native/tiff_codec.cc`` with a multi-page reader and
+writer added).
 
 The codec reads and writes the recording contract (single-page grayscale
 TIFFs, 8/16-bit, uncompressed or LZW), decodes or encodes a whole z-stack
-on a thread pool, reads multi-page volumes (training data), and computes the exact 65536-bin histogram behind
+on a thread pool, reads and writes multi-page volumes (training data),
+and computes the exact 65536-bin histogram behind
 ``io.imageio.fast_percentiles``.  It is a host library: the card's machine
 has no PIL, so nothing here falls back to one, and a failed build or a
 failed call raises.
@@ -55,6 +57,9 @@ _SIGNATURES = {
     "t3dct_tiff_pages": [ctypes.c_char_p, _INTP, _INTP, _INTP, _INTP],
     "t3dct_tiff_read_pages": [ctypes.c_char_p, _U16P, ctypes.c_int,
                               ctypes.c_int, ctypes.c_int],
+    "t3dct_tiff_write_pages": [ctypes.c_char_p, _U16P, ctypes.c_int,
+                               ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                               ctypes.c_int],
     "t3dct_hist_u16": [_U16P, ctypes.c_longlong,
                        ctypes.POINTER(ctypes.c_uint64)],
 }
@@ -208,6 +213,19 @@ def tiff_write_volume(paths: List, vol: np.ndarray, lzw: bool = True
     _check(load().t3dct_tiff_write_volume(
         _paths(paths), len(paths), _u16(buf), vol.shape[2], vol.shape[1],
         bits, 5 if lzw else 1, 0), f"writing the stack {paths[0]}")
+
+
+def tiff_write_pages(path, vol: np.ndarray, lzw: bool = False) -> None:
+    """Write a (n, h, w) uint8/uint16 stack as one multi-page TIFF (the
+    pages :func:`tiff_read_pages` reads)."""
+    if vol.ndim != 3 or vol.shape[0] < 1:
+        raise ValueError(f"a multi-page TIFF takes (n, h, w), got "
+                         f"{vol.shape}")
+    bits = _bits(vol)
+    buf = np.ascontiguousarray(vol, np.uint16)
+    _check(load().t3dct_tiff_write_pages(
+        str(path).encode(), _u16(buf), vol.shape[0], vol.shape[2],
+        vol.shape[1], bits, 5 if lzw else 1), f"writing {path}")
 
 
 def hist_u16(x: np.ndarray) -> np.ndarray:

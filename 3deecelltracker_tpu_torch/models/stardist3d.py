@@ -1,10 +1,11 @@
 """StarDist3D network, arch ``"tpu"``, and the sparse candidate gather.
 
-Counterpart of ``3deecelltracker_tpu/models/stardist3d.py`` (:152-199 and
-:340-416): grid max-pool before the stem, a depth-``unet_n_depth`` U-Net of
-3x3x3 conv+ReLU layers, a 3x3x3 feature conv and 1x1x1 prob/dist heads at
-grid resolution.  Layout (b, z, y, x, c); params are a flat dict keyed like
-the JAX pytree (``"stem"``, ``"down0_0"``, ...), each ``{"w", "b"}``.
+Counterpart of ``3deecelltracker_tpu/models/stardist3d.py`` (:152-199,
+:244-290 and :340-427): grid max-pool before the stem, a
+depth-``unet_n_depth`` U-Net of 3x3x3 conv+ReLU layers, a 3x3x3 feature
+conv and 1x1x1 prob/dist heads at grid resolution.  Layout (b, z, y, x,
+c); params are a flat dict keyed like the JAX pytree (``"stem"``,
+``"down0_0"``, ...), each ``{"w", "b"}``.
 """
 
 from __future__ import annotations
@@ -100,6 +101,46 @@ class StarDist3DNet:
         return tuple(g * p ** cfg.unet_n_depth
                      for g, p in zip(cfg.grid, cfg.unet_pool))
 
+    def receptive_field(self) -> Tuple[int, int, int]:
+        """Per-axis receptive-field radius of the (prob, dist) outputs in
+        input voxels (JAX ``StarDist3DNet.receptive_field``, arch
+        ``"tpu"``): an output voxel depends only on inputs within it, so
+        tiles with a shrink margin at least this wide reproduce the
+        whole-volume outputs in their centres.  A conv of kernel k at jump
+        j widens the radius by (k // 2) * j; a p-pool adds (p - 1) * j and
+        multiplies the jump; a nearest upsample divides it and adds
+        (p - 1) fine voxels of alignment slack."""
+        cfg = self.config
+        k = tuple(cfg.unet_kernel_size)
+        ncv = cfg.unet_n_conv_per_depth
+        j, r = [1, 1, 1], [0, 0, 0]
+
+        def convs(n):
+            for ax in range(3):
+                r[ax] += n * (k[ax] // 2) * j[ax]
+
+        def pool(p):
+            for ax in range(3):
+                r[ax] += (p[ax] - 1) * j[ax]
+                j[ax] *= p[ax]
+
+        def upsample(p):
+            for ax in range(3):
+                j[ax] //= p[ax]
+                r[ax] += (p[ax] - 1) * j[ax]
+
+        pool(cfg.grid)                    # the grid max-pool before the stem
+        convs(1)                          # stem
+        for _ in range(cfg.unet_n_depth):
+            convs(ncv)
+            pool(cfg.unet_pool)
+        convs(ncv)                        # bottom
+        for _ in range(cfg.unet_n_depth):
+            upsample(cfg.unet_pool)
+            convs(ncv)
+        convs(1)                          # features
+        return tuple(int(v) for v in r)
+
 
 def with_intensity_path(params: Params, config: StarDistConfig) -> Params:
     """Copy of ``params`` with a pass-through path added: all weights are
@@ -132,11 +173,17 @@ def with_intensity_path(params: Params, config: StarDistConfig) -> Params:
     return out
 
 
+def neighborhood_max_3x3x3(prob: torch.Tensor) -> torch.Tensor:
+    """3x3x3 max filter with truncated edge neighbourhoods, over the last
+    three axes of ``prob`` (leading axes are a batch)."""
+    flat = prob.reshape((-1, 1) + tuple(prob.shape[-3:]))
+    return F.max_pool3d(flat, kernel_size=3, stride=1,
+                        padding=1).reshape(prob.shape)
+
+
 def local_maxima_3x3x3(prob: torch.Tensor) -> torch.Tensor:
     """Voxels equal to their 3x3x3 neighbourhood max (edges truncated)."""
-    neigh = F.max_pool3d(prob[None, None], kernel_size=3, stride=1,
-                         padding=1)[0, 0]
-    return prob >= neigh
+    return prob >= neighborhood_max_3x3x3(prob)
 
 
 def stable_topk_desc(values: torch.Tensor, k: int
@@ -149,11 +196,13 @@ def stable_topk_desc(values: torch.Tensor, k: int
 
 def sparse_candidates(prob: torch.Tensor, dist: torch.Tensor,
                       grid: Tuple[int, int, int], prob_thresh: float,
-                      max_candidates: int = 512, border: int = 2):
-    """Fixed-size top-k candidates above ``prob_thresh`` among the 3x3x3
-    prob local maxima (the JAX twin's ``lmax_prefilter=True``, the only
-    setting the main path uses).  prob (gz, gy, gx); dist (gz, gy, gx,
-    n_rays).  Returns
+                      max_candidates: int = 512, border: int = 2,
+                      lmax_prefilter: bool = True):
+    """Fixed-size top-k candidates above ``prob_thresh`` outside a
+    ``border`` of grid voxels, with ``lmax_prefilter`` among the 3x3x3 prob
+    local maxima only (one candidate per prob peak; False: every voxel, the
+    letter of stardist's candidate set, budget permitting).  prob (gz, gy,
+    gx); dist (gz, gy, gx, n_rays).  Returns
     (probs (K,), dists (K, n_rays), points (K, 3) int32 zyx, valid (K,))."""
     gz, gy, gx = prob.shape
     b = border
@@ -163,7 +212,8 @@ def sparse_candidates(prob: torch.Tensor, dist: torch.Tensor,
     xx = torch.arange(gx, device=dev)[None, None, :]
     interior = ((zz >= b) & (zz < gz - b) & (yy >= b) & (yy < gy - b)
                 & (xx >= b) & (xx < gx - b))
-    interior = interior & local_maxima_3x3x3(prob)
+    if lmax_prefilter:
+        interior = interior & local_maxima_3x3x3(prob)
     masked = torch.where(interior, prob, -torch.inf).reshape(-1)
     k = min(max_candidates, masked.numel())
     top_p, top_idx = stable_topk_desc(masked, k)
@@ -176,3 +226,11 @@ def sparse_candidates(prob: torch.Tensor, dist: torch.Tensor,
     points = pts * torch.tensor(grid, dtype=torch.int32, device=dev)
     dists = torch.clamp_min(dist.reshape(-1, dist.shape[-1])[top_idx], 1e-3)
     return torch.where(valid, top_p, 0.0), dists, points, valid
+
+
+def upsample_prob_map(prob: torch.Tensor, grid: Tuple[int, int, int],
+                      out_shape: Tuple[int, int, int]) -> torch.Tensor:
+    """The grid-resolution (z, y, x) prob map repeated by ``grid`` and
+    cropped to ``out_shape`` (stardist's ``resizer.after``)."""
+    out = L.upsample3d(prob[None, ..., None], grid)[0, ..., 0]
+    return out[:out_shape[0], :out_shape[1], :out_shape[2]]

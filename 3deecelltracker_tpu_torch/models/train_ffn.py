@@ -136,13 +136,13 @@ def _leaves(tree) -> List[torch.Tensor]:
 class TrainFFN:
     """Reference ``TrainFFN`` (ffn.py:148-222).
 
-    ``params``: optional initial ``(params, bn_state)`` trees of arrays or
-    tensors (e.g. JAX's ``FFN().init`` through ``utils.convert``);
-    otherwise ``models.ffn.init_ffn`` from ``generator`` (default: a
-    ``torch.Generator`` seeded with ``seed``).  ``seed`` also seeds the
-    synthesis, as in JAX.  ``device``: the card unless ``"cpu"`` is
-    passed.  Data-parallel training over several cards (JAX's ``mesh=``)
-    is not ported yet (ROADMAP.md A.5)."""
+    The parameters start from ``models.ffn.init_ffn`` with a
+    ``torch.Generator`` seeded with ``seed`` (other numbers than JAX's
+    init); :meth:`start_from` replaces them, e.g. with JAX's ``FFN().init``
+    through ``utils.convert``.  ``seed`` also seeds the synthesis, as in
+    JAX.  ``device``: the card unless ``"cpu"`` is passed.  Data-parallel
+    training over several cards (JAX's ``mesh=`` and ``data_axis=``) is not
+    ported yet (ROADMAP.md A.5) and raises."""
 
     def __init__(self, model_name: str,
                  points1_path: Optional[str] = None,
@@ -150,9 +150,12 @@ class TrainFFN:
                  voxel_size=(1, 1, 1),
                  basedir: Union[str, Path] = "./ffn_models",
                  learning_rate: float = 1e-3, seed: int = 0,
-                 config=None, params=None,
-                 generator: Optional[torch.Generator] = None,
+                 config=None, mesh=None, data_axis: str = "data", *,
                  device=None):
+        if mesh is not None or data_axis != "data":
+            raise NotImplementedError(
+                "mesh= / data_axis= (data-parallel training over several "
+                "cards) is not ported yet (ROADMAP.md A.5)")
         self.device = select_device(device)
         if config is not None:
             learning_rate = config.learning_rate
@@ -161,12 +164,10 @@ class TrainFFN:
         (self.path_model / "weights").mkdir(exist_ok=True, parents=True)
         self.model_name = model_name
         self.current_epoch = 1
-        if params is None:
-            if generator is None:
-                generator = torch.Generator().manual_seed(seed)
-            params = init_ffn(generator, self.device)
-        self.params = fresh_tensors(params[0], self.device, True)
-        self.bn_state = fresh_tensors(params[1], self.device, False)
+        params, bn_state = init_ffn(torch.Generator().manual_seed(seed),
+                                    self.device)
+        self.params = fresh_tensors(params, self.device, True)
+        self.bn_state = fresh_tensors(bn_state, self.device, False)
         self.optimizer = Adam(_leaves(self.params), learning_rate)
 
         if points1_path is not None:
@@ -192,6 +193,16 @@ class TrainFFN:
         self.points_t1 = norm.numpy()
         self.points_generator = DataGeneratorFFN(
             self.points_t1, seed=seed, config=config, device=self.device)
+
+    def start_from(self, params) -> None:
+        """Train from ``params``, the ``(params, bn_state)`` trees of
+        arrays or tensors, with a fresh optimizer state, as setting them on
+        JAX's trainer before its first step does.  The seeded init and the
+        Adam state that ``__init__`` built are dropped."""
+        self.params = fresh_tensors(params[0], self.device, True)
+        self.bn_state = fresh_tensors(params[1], self.device, False)
+        self.optimizer = Adam(_leaves(self.params),
+                              self.optimizer.learning_rate)
 
     def train_step(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
         """One step on a batch: train-mode forward (the batchnorms' running

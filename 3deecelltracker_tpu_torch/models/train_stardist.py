@@ -70,13 +70,13 @@ class TrainStarDist3D:
     arguments and defaults (see its docstring for ``batch_size``,
     ``background_reg``, ``foreground_prob`` and ``prob_fg_weight``).
 
-    ``params``: optional initial parameters (``{layer: {"w", "b"}}`` of
-    arrays or tensors, e.g. JAX's ``StarDist3DNet.init`` through
-    ``utils.convert``); otherwise ``StarDist3DNet.init`` from
-    ``generator`` (default: a ``torch.Generator`` seeded with ``seed``).
-    ``seed`` also seeds the patch sampler, as in JAX.  ``device``: the
-    card unless ``"cpu"`` is passed.  Data-parallel training over several
-    cards (JAX's ``mesh=``) is not ported yet (ROADMAP.md A.5)."""
+    The parameters start from ``StarDist3DNet.init`` with a
+    ``torch.Generator`` seeded with ``seed`` (other numbers than JAX's
+    init); :meth:`start_from` replaces them, e.g. with JAX's init through
+    ``utils.convert``.  ``seed`` also seeds the patch sampler, as in JAX.
+    ``device``: the card unless ``"cpu"`` is passed.  Data-parallel
+    training over several cards (JAX's ``mesh=`` and ``data_axis=``) is
+    not ported yet (ROADMAP.md A.5) and raises."""
 
     def __init__(self, config: StarDistConfig,
                  basedir: Union[str, Path] = "stardist_models",
@@ -88,17 +88,17 @@ class TrainStarDist3D:
                  prob_fg_weight: float = 1.0,
                  background_reg: float = 1e-4,
                  foreground_prob: float = 0.9,
-                 params=None,
-                 generator: Optional[torch.Generator] = None,
-                 device=None):
+                 mesh=None, data_axis: str = "data", *, device=None):
+        if mesh is not None or data_axis != "data":
+            raise NotImplementedError(
+                "mesh= / data_axis= (data-parallel training over several "
+                "cards) is not ported yet (ROADMAP.md A.5)")
         self.device = select_device(device)
         self.config = config
         self.net = StarDist3DNet(config)
-        if params is None:
-            if generator is None:
-                generator = torch.Generator().manual_seed(seed)
-            params = self.net.init(generator, self.device)
-        self.params = fresh_tensors(params, self.device, True)
+        self.params = fresh_tensors(
+            self.net.init(torch.Generator().manual_seed(seed), self.device),
+            self.device, True)
         self.optimizer = Adam([v for _, v in
                                leaves_with_paths(self.params)],
                               learning_rate)
@@ -114,6 +114,16 @@ class TrainStarDist3D:
         self.rng = np.random.RandomState(seed)
         self.batch_size = int(batch_size)
         self.val_losses: List[float] = []
+
+    def start_from(self, params) -> None:
+        """Train from ``params`` (``{layer: {"w", "b"}}`` of arrays or
+        tensors) with a fresh optimizer state, as setting ``params`` on
+        JAX's trainer before its first step does.  The seeded init and the
+        Adam state that ``__init__`` built are dropped."""
+        self.params = fresh_tensors(params, self.device, True)
+        self.optimizer = Adam([v for _, v in
+                               leaves_with_paths(self.params)],
+                              self.optimizer.learning_rate)
 
     # ---- GT -------------------------------------------------------------
     def make_gt(self, labels: torch.Tensor

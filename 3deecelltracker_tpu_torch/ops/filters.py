@@ -1,7 +1,8 @@
 """Box means and separable gaussian blur (counterpart of
 ``3deecelltracker_tpu/ops/filters.py``: ``box_sum``, ``box_mean``,
-``gaussian_filter``), with zero padding only: the mode the LCN, the
-subregion atlas and the legacy watersheds use."""
+``uniform_filter``, ``gaussian_filter``).  The box filters take scipy's
+``"reflect"`` edges besides zero padding, the mode the LCN, the subregion
+atlas and the legacy watersheds use; the gaussian blur pads with zeros."""
 
 from __future__ import annotations
 
@@ -16,15 +17,19 @@ import torch.nn.functional as F
 TRUNCATE = 4.0   # kernel radius in sigmas, scipy's default
 
 
-def box_sum(x: torch.Tensor, size: Sequence[int]) -> torch.Tensor:
-    """Sliding-window sum with a centred ``size`` window per axis, zero
-    padding (scipy ``convolve`` with an all-ones kernel; even sizes take the
-    extra element on the right): a cumulative sum per axis and the
-    difference of two of its entries, as in the JAX package.  The sums run
+def box_sum(x: torch.Tensor, size: Sequence[int],
+            mode: str = "zero") -> torch.Tensor:
+    """Sliding-window sum with a centred ``size`` window per axis (scipy
+    ``convolve`` with an all-ones kernel; even sizes take the extra element
+    on the right), past the edges ``mode``: ``"zero"``, or scipy's
+    ``"reflect"`` (the edge value repeated).  A cumulative sum per axis and
+    the difference of two of its entries, as in the JAX package.  The sums run
     in float64 and round once to float32 at the end: the JAX twin's float32
     running sum is sequential on the CPU, a CUDA scan sums in another order,
     and float64 keeps both within JAX's own float32 error of the exact
     window sum."""
+    if mode not in ("zero", "reflect"):
+        raise ValueError(f"unknown padding mode {mode!r}")
     out = x.to(torch.float64)
     for axis, k in enumerate(size):
         k = int(k)
@@ -32,6 +37,11 @@ def box_sum(x: torch.Tensor, size: Sequence[int]) -> torch.Tensor:
             continue
         lo, hi = (k - 1) // 2, k // 2
         n = out.shape[axis]
+        if mode == "reflect":       # numpy's "symmetric"; zeros below
+            idx = np.pad(np.arange(n), (lo, hi), mode="symmetric")
+            out = torch.index_select(out, axis,
+                                     torch.from_numpy(idx).to(out.device))
+            lo = hi = 0
         pad = [0, 0] * out.dim()
         pad[2 * (out.dim() - 1 - axis):2 * (out.dim() - axis)] = [lo + 1, hi]
         # one extra leading zero: csum[i + k] - csum[i] is the window at i
@@ -40,12 +50,19 @@ def box_sum(x: torch.Tensor, size: Sequence[int]) -> torch.Tensor:
     return out.to(torch.float32)
 
 
-def box_mean(x: torch.Tensor, size: Sequence[int]) -> torch.Tensor:
+def box_mean(x: torch.Tensor, size: Sequence[int],
+             mode: str = "zero") -> torch.Tensor:
     """``box_sum`` over the window volume (a true float32 division: a
     python-scalar divisor may become a reciprocal multiply on the card)."""
     vol = torch.tensor(float(math.prod(int(k) for k in size)),
                        dtype=torch.float32, device=x.device)
-    return box_sum(x, size) / vol
+    return box_sum(x, size, mode) / vol
+
+
+def uniform_filter(x: torch.Tensor, size: Sequence[int],
+                   mode: str = "reflect") -> torch.Tensor:
+    """Mean filter (``scipy.ndimage.uniform_filter`` semantics)."""
+    return box_mean(x, size, mode)
 
 
 def gaussian_kernel_1d(sigma: float) -> np.ndarray:

@@ -43,6 +43,11 @@ import torch.nn.functional as F
 
 from ..utils import cuda_build
 
+# Both kernels index x, w and y with 64-bit offsets, so no batch that fits
+# the card's memory overflows them; their limits are the grid's: the
+# tensor-core kernel takes at most GRID_Z_MAX z-planes (raises) and
+# GRID_Z_MAX volumes x N tiles a launch (split below), the direct kernel
+# at most 2^31 - 1 blocks (its .cu refuses more, and the wrapper raises)
 GRID_Z_MAX = 65535    # CUDA's limit on gridDim.y and gridDim.z
 # csrc/conv3x3x3.cu: its output tiles (channels), the widths of its pixel
 # tile, and the blocks per SM its grid aims for (two resident, two waves)

@@ -1,8 +1,9 @@
-"""Greedy match peeling (counterpart of
+"""Greedy match peeling and the similarity normalizers (counterpart of
 ``3deecelltracker_tpu/ops/matching.py``: ``_peel_loop``, ``simple_match``,
-``legacy_init_match``).  ``_peel_loop`` and ``simple_match`` also take a
-leading member axis, (E, m, n) matrices with (E, n) / (E, m) masks, and
-peel each member as it is alone.
+``legacy_init_match``, ``non_max_suppression_normalize``,
+``softmax_normalize``, ``row_wise_normalize``).  ``_peel_loop`` and
+``simple_match`` also take a leading member axis, (E, m, n) matrices with
+(E, n) / (E, m) masks, and peel each member as it is alone.
 """
 
 from __future__ import annotations
@@ -97,3 +98,29 @@ def legacy_init_match(corr: torch.Tensor, threshold: float = 0.5,
                        torch.div(one, n))
     out = torch.where(pairs, 0.9, base.expand(corr.shape))
     return torch.where(valid, out, 0.0).to(torch.float32)
+
+
+def non_max_suppression_normalize(similarity: torch.Tensor,
+                                  threshold: float = 0.5) -> torch.Tensor:
+    """``trackerlite.non_max_suppression_normalize`` (:393-406): 0.9 for
+    the peeled pairs, the rest of a matched row 0.1 / (n - 1), an
+    unmatched row 1 / n."""
+    pairs, _ = _peel_loop(similarity, threshold)
+    n = similarity.shape[1]
+    matched_row = torch.any(pairs, dim=1, keepdim=True)
+    base = torch.where(matched_row, 0.1 / (n - 1), 1.0 / n).to(
+        torch.float32)
+    return torch.where(pairs, torch.tensor(0.9, dtype=torch.float32,
+                                           device=similarity.device),
+                       base.expand(similarity.shape))
+
+
+def softmax_normalize(similarity: torch.Tensor) -> torch.Tensor:
+    """``trackerlite.softmax_normalize`` (:385-386): a softmax per row."""
+    return torch.softmax(similarity, dim=1)
+
+
+def row_wise_normalize(similarity: torch.Tensor) -> torch.Tensor:
+    """``trackerlite.row_wise_normalize`` (:389-390): each row over its
+    sum."""
+    return similarity / torch.sum(similarity, dim=1, keepdim=True)

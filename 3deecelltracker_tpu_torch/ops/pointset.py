@@ -1,7 +1,9 @@
 """Point-set normalisation (counterpart of
-``3deecelltracker_tpu/ops/pointset.py``): centre at the mean, scale by 3x
-the std of the first-principal-component projection.  A leading member
-axis ((E, n, 3) points) normalizes each member on its own."""
+``3deecelltracker_tpu/ops/pointset.py``: ``normalize_points``,
+``apply_normalization``, ``invert_normalization``): centre at the mean,
+scale by 3x the std of the first-principal-component projection.  A
+leading member axis ((E, n, 3) points) normalizes each member on its
+own."""
 
 from __future__ import annotations
 
@@ -34,3 +36,15 @@ def normalize_points(points: torch.Tensor,
     scale = 3.0 * std
     return ((points - mean[..., None, :]) / scale[..., None, None],
             (mean, scale))
+
+
+def apply_normalization(points: torch.Tensor, mean: torch.Tensor,
+                        scale: torch.Tensor) -> torch.Tensor:
+    """``points`` in the frame of a :func:`normalize_points` result."""
+    return (points - mean) / scale
+
+
+def invert_normalization(points: torch.Tensor, mean: torch.Tensor,
+                         scale: torch.Tensor) -> torch.Tensor:
+    """Normalized ``points`` back in the original frame."""
+    return points * scale + mean

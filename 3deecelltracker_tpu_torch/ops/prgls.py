@@ -1,6 +1,7 @@
 """PR-GLS non-rigid registration by EM (counterpart of
-``3deecelltracker_tpu/ops/prgls.py``: ``prgls_with_two_ref`` with
-``m_step_refine=0`` only, and the legacy v0.4 ``pr_gls_quick``).
+``3deecelltracker_tpu/ops/prgls.py``: ``prgls_with_two_ref`` and its
+single-reference ``prgls_quick``, with ``m_step_refine=0`` only, and the
+legacy v0.4 ``pr_gls_quick``).
 
 Motion T(X) = X + C G with the gaussian Gram matrix G; the M-step solves
 (G diag(P1) + max(lambda sigma^2, floor) I) C^T = (Y^T P - X^T diag(P1))^T.
@@ -165,6 +166,19 @@ def prgls_with_two_ref(init_match: torch.Tensor, ptrs_tgt: torch.Tensor,
 
     c_final = m_step(post, pred_ref, sigma_sq)
     return PrglsResult(pred_tracked, pred_ref, post, it, c_final)
+
+
+def prgls_quick(init_match: torch.Tensor, ptrs_tgt: torch.Tensor,
+                tracked_ref: torch.Tensor, beta: float = 3.0,
+                lambda_: float = 3.0, max_iteration: int = 2000,
+                tgt_mask: Optional[torch.Tensor] = None,
+                ref_mask: Optional[torch.Tensor] = None) -> PrglsResult:
+    """``trackerlite.prgls_quick`` (:262-306): the single-reference EM, the
+    motion field fit on ``tracked_ref`` and applied to it."""
+    return prgls_with_two_ref(init_match, ptrs_tgt, tracked_ref,
+                              tracked_ref, beta=beta, lambda_=lambda_,
+                              max_iteration=max_iteration,
+                              tgt_mask=tgt_mask, ref_mask=ref_mask)
 
 
 class LegacyPrglsResult(NamedTuple):

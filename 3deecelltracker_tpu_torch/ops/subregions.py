@@ -1,6 +1,6 @@
 """Cell subregion atlas and label synthesis (counterpart of
 ``3deecelltracker_tpu/ops/subregions.py``: ``SubregionAtlas``,
-``build_subregion_atlas``, ``move_cells_sampled``).
+``build_subregion_atlas``, ``move_cells_full``, ``move_cells_sampled``).
 
 Every cell gets one fixed-size box, zero outside its true bbox; boxes are
 z-repeated by the interpolation factor, gaussian-blurred and thresholded at
@@ -165,3 +165,35 @@ def move_cells_sampled(atlas: SubregionAtlas,
     cl, cm = _paste_scatter(canvas_shape, planes, pos, include)
     return (cl[pad[0]:pad[0] + x, pad[1]:pad[1] + y, pad[2]:pad[2] + z],
             cm[pad[0]:pad[0] + x, pad[1]:pad[1] + y, pad[2]:pad[2] + z])
+
+
+def move_cells_full(atlas: SubregionAtlas,
+                    movements: Optional[torch.Tensor] = None,
+                    include: Optional[torch.Tensor] = None
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The reference's ``move_cells`` on the whole interpolated canvas
+    (x, y, z * f): every included cell pasted at origin + movement
+    (``movements`` (n, 3) int, interp frame; ``include`` (n,) bool, False
+    for a missed cell), a cell pushed past the padded canvas clamped into
+    it.  Returns (labels, overlap count); overlapping voxels hold the sum
+    of ids."""
+    dev = atlas.boxes.device
+    n = atlas.n_cells
+    if movements is None:
+        movements = torch.zeros((n, 3), dtype=torch.int32, device=dev)
+    if include is None:
+        include = torch.ones((n,), dtype=torch.bool, device=dev)
+    include = include & atlas.valid
+    f = atlas.interpolation_factor
+    x, y, z = atlas.image_shape
+    full_shape = (x, y, z * f)
+    pad = atlas.box_shape
+    canvas_shape = tuple(s + 2 * p for s, p in zip(full_shape, pad))
+    pos = atlas.origins + movements.to(torch.int32) + torch.tensor(
+        pad, dtype=torch.int32, device=dev)
+    hi = torch.tensor([c - b for c, b in zip(canvas_shape, atlas.box_shape)],
+                      dtype=torch.int32, device=dev)
+    pos = torch.minimum(torch.clamp_min(pos, 0), hi)
+    cl, cm = _paste_scatter(canvas_shape, atlas.boxes, pos, include)
+    sl = tuple(slice(p, p + s) for p, s in zip(pad, full_shape))
+    return cl[sl], cm[sl]

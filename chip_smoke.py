@@ -107,7 +107,35 @@ Phases (any failure raises and the script exits non-zero):
    JAX-trained weights'; ms per StarDist step (and by stage) and per FFN
    iteration.  Every counter is reset before the training and read after
    it (the path ``train``): each step launches the conv kernels the
-   forward and the backward's dX take, and nothing else.
+   forward and the backward's dX take, and nothing else;
+15. the per-volume API (path ``api``): ``predict_instances`` (sparse,
+   dense, ``return_predict``) and ``predict`` with the trained weights on
+   vol 1 of phase 11's recording, bit-equal to ``predict_instances_device``
+   + ``finalize_instances`` and to ``forward_grid``'s crop;
+16. tiled StarDist over the bench scene (path ``tiled``):
+   ``predict_and_save(tile_shape=(None, 256, None))`` over phase 11's
+   TIFFs with the trained weights (4 tiles a volume, one batched backbone
+   call), then ``track_timelapse``, held to ``jax_record_tiled.npz`` with
+   phase 11's bounds; the kept cells beyond the receptive field of the y
+   faces must all be phase 11's; prints seg and track ms per volume, conv
+   launches per volume, and one batched backbone call beside its bound and
+   the whole-volume backbone; every conv layer of the backbone at the
+   sweep's tile batch (4 x (24, 128, 84) on the grid) against the plain
+   version;
+17. zebrafish scale (path ``zebrafish``): ``examples/segment_large_volume.
+   py``'s config with a seeded init on its (64, 512, 512) volume, 49 tiles
+   of (None, 192, 192): the tiled prob map against the whole-volume pass
+   beyond the receptive field (``TILED_INTERIOR_ATOL``), ``tile_batch`` 8
+   against 1 bit for bit, and ``scripts.segment_large_volume.main`` with
+   the example's settings (seconds per volume, launches, peak memory
+   beside the whole-volume program's; random weights keep no instance
+   there, so the same sweep is also timed at the threshold of the batch
+   check, with instances for its NMS and render); every conv layer of the
+   backbone at the tile batches' shapes (8 and 1 x (32, 48, 48) on the
+   grid) and the whole volume's ((32, 128, 128)) against the plain
+   version; each tiled run's direct conv launches once per tile batch.
+   The whole-volume pass is no tiled run: its launches are printed and
+   kept out of the path's count.
 
 Every kernel's entry in the kernels line carries its bound: the least time
 the card could take, the larger of its bytes (inputs read once, the output
@@ -132,7 +160,12 @@ training times (``sd_step_ms``, ``ffn_iter_ms``, ``step_*_ms``).
 The second-to-last line is ``{"kernels": [...]}``, the last line
 ``{"ok": true, "device": {...}}``.  Phases 6-9 use seeded random weights,
 so the tracking accuracy they print is not a measure of the system;
-phases 11-13 use the trained weights, phase 14 weights it trains.
+phases 11-13, 15 and 16 use the trained weights, phase 14 weights it
+trains, phase 17 a seeded init.  The conv's entry also carries phase 16's
+and 17's readings (``tiled_*``, ``whole_backbone_*``, ``zebrafish_*``);
+both conv entries' ``max_abs_err`` is the largest over every shape held
+against the plain version, phases 16 and 17's included
+(``tiled_max_abs_err``, ``zebrafish_max_abs_err``).
 """
 
 from __future__ import annotations
@@ -321,25 +354,32 @@ def phase_build():
                     for ci, co in ((32, 32), (32, 128), (8, 16))))
 
 
-def conv_row(xin, w, b, relu):
-    """One layer: the routed kernel's error against the plain version, and
-    times of the routed kernel, the plain version and cuDNN."""
+def conv_err(xin, w, b, relu):
+    """One layer through the router against the plain version: ``(kernel,
+    max_abs_err, tol)``, the tolerance ``CONV_RTOL`` of the plain output's
+    largest magnitude plus ``CONV_ATOL``."""
     import torch
     from t3dct_torch.ops import hopper_conv
-    from t3dct_torch.utils.roofline import (conv_bound, conv_flop,
-                                            conv_tc_bound, library_conv)
-    reps, warmup = (5, 1) if xin.dim() == 5 else (10, 2)
     got = hopper_conv.conv3x3x3_bias_relu(xin, w, b, relu)
     ref = hopper_conv.conv3x3x3_bias_relu_plain(xin, w, b, relu)
     torch.cuda.synchronize()
     err = float((got - ref).abs().max())
     tol = CONV_RTOL * float(ref.abs().max()) + CONV_ATOL
-    del got, ref
+    return hopper_conv.route(xin.shape[-1], w.shape[-1]), err, tol
+
+
+def conv_row(xin, w, b, relu):
+    """One layer: the routed kernel's error against the plain version, and
+    times of the routed kernel, the plain version and cuDNN."""
+    from t3dct_torch.ops import hopper_conv
+    from t3dct_torch.utils.roofline import (conv_bound, conv_flop,
+                                            conv_tc_bound, library_conv)
+    reps, warmup = (5, 1) if xin.dim() == 5 else (10, 2)
+    kernel, err, tol = conv_err(xin, w, b, relu)
     ms = cuda_ms(functools.partial(hopper_conv.conv3x3x3_bias_relu, xin, w,
                                    b, relu), reps, warmup)
     return dict(
-        kernel=hopper_conv.route(xin.shape[-1], w.shape[-1]), err=err,
-        tol=tol, ms=ms,
+        kernel=kernel, err=err, tol=tol, ms=ms,
         plain_ms=cuda_ms(lambda: hopper_conv.conv3x3x3_bias_relu_plain(
             xin, w, b, relu), reps, warmup),
         library_ms=cuda_ms(lambda: library_conv(xin, w, b), reps, warmup),
@@ -871,21 +911,21 @@ def kept_difference(t, got_zyx, want_zyx, cands, model):
     return out
 
 
-def trained_model(dev, cands):
+def trained_model(dev, cands, method="predict_instances_device"):
     """The committed StarDist model with ``bench_composition``'s settings;
-    each seg call's candidates are appended to ``cands`` (for the kept
-    cells' margins)."""
+    the candidates of each call of its seg program ``method`` are appended
+    to ``cands`` (for the kept cells' margins)."""
     from t3dct_torch.engine.stardist import StarDist3D
     model = StarDist3D.load(ASSETS / "sd_model", device=dev)
     model.max_candidates, model.render_box = 256, (9, 33, 33)
-    seg = model.predict_instances_device
+    seg = getattr(model, method)
 
     def keep_candidates(*args, **kwargs):
         out = seg(*args, **kwargs)
         cands.append(out[:4])
         return out
 
-    model.predict_instances_device = keep_candidates
+    setattr(model, method, keep_candidates)
     return model
 
 
@@ -1239,6 +1279,14 @@ def train_recipe():
             recipe["steps"])
 
 
+def jax_init_trainer(trainer):
+    """``trainer`` (a ``TrainStarDist3D``) started from JAX's initial
+    parameters of the recipe."""
+    from t3dct_torch.utils.convert import load_npz
+    trainer.start_from(load_npz(TRAIN_ASSETS / "sd_init.npz"))
+    return trainer
+
+
 def train_conv_layers(cfg):
     """Every 3x3x3 layer of ``cfg``'s network at the recipe's patch batch
     after the grid pool: {(b, z, y, x, c_in, c_out): count}."""
@@ -1470,9 +1518,9 @@ def planted_faults(dev, root, cfg, trainer_kw, img, lab, rec, steps):
     for i, (name, slot, c_in) in enumerate(PLANTED):
         layers.Conv3x3x3BiasReLU = zeroed(slot, c_in)
         try:
-            tr = TrainStarDist3D(cfg, basedir=root / f"sd_fault{i}",
-                                 params=load_npz(TRAIN_ASSETS / "sd_init.npz"),
-                                 device=dev, **trainer_kw)
+            tr = jax_init_trainer(TrainStarDist3D(
+                cfg, basedir=root / f"sd_fault{i}", device=dev,
+                **trainer_kw))
             losses = tr.train([img], [lab], epochs=steps, steps_per_epoch=1,
                               verbose=False)
         finally:
@@ -1518,8 +1566,9 @@ def phase_train_records(dev, root, cfg, trainer_kw, ffn_seed, steps):
     rec = np.load(TRAIN_ASSETS / "jax_train_record.npz")
     img, lab, _ = vol1_training_data()
     sd_init = load_npz(TRAIN_ASSETS / "sd_init.npz")
-    tr = TrainStarDist3D(cfg, basedir=root / "sd_record", params=sd_init,
-                         device=dev, **trainer_kw)
+    tr = TrainStarDist3D(cfg, basedir=root / "sd_record", device=dev,
+                         **trainer_kw)
+    tr.start_from(sd_init)
     losses, launches = counted(lambda: tr.train(
         [img], [lab], epochs=steps, steps_per_epoch=1, verbose=False))
     hold_losses("StarDist", losses, rec["sd_losses"], LOSS_PER_STEP,
@@ -1544,8 +1593,8 @@ def phase_train_records(dev, root, cfg, trainer_kw, ffn_seed, steps):
         cloud = ffn_cloud_file(root / "pts.txt", bench_rec["seg_coords_1"])
     ffn_init = load_npz(TRAIN_ASSETS / "ffn_init.npz")
     tf = TrainFFN("ffn", points1_path=cloud, basedir=root / "ffn_record",
-                  seed=ffn_seed, params=(ffn_init["0"], ffn_init["1"]),
-                  device=dev)
+                  seed=ffn_seed, device=dev)
+    tf.start_from((ffn_init["0"], ffn_init["1"]))
     # the cloud is on the voxel lattice: its kNN ties are decided by the
     # normalization's last bit, so the steps are held on JAX's normalized
     # cloud and the card's own normalization is held to it
@@ -1567,9 +1616,8 @@ def step_breakdown(dev, root, cfg, trainer_kw, img, lab, n=20, warm=3):
     import torch
     from t3dct_torch.models.train_stardist import TrainStarDist3D
     from t3dct_torch.utils.convert import load_npz
-    tr = TrainStarDist3D(cfg, basedir=root / "sd_breakdown",
-                         params=load_npz(TRAIN_ASSETS / "sd_init.npz"),
-                         device=dev, **trainer_kw)
+    tr = jax_init_trainer(TrainStarDist3D(
+        cfg, basedir=root / "sd_breakdown", device=dev, **trainer_kw))
     stages = {k: [] for k in ("data", "gt", "forward", "backward", "adam")}
     for i in range(warm + n):
         marks = [time.perf_counter()]
@@ -1622,9 +1670,8 @@ def phase_train_recipe(dev, smi, root, pattern, centers, cfg, trainer_kw,
     print(f"[train] {smi}: ms per StarDist step by stage (mean of 20, "
           f"each synced): " + ", ".join(f"{k} {v:.2f}" for k, v in
                                          parts.items()))
-    tr = TrainStarDist3D(cfg, basedir=root / "sd_train",
-                         params=load_npz(TRAIN_ASSETS / "sd_init.npz"),
-                         device=dev, **trainer_kw)
+    tr = jax_init_trainer(TrainStarDist3D(
+        cfg, basedir=root / "sd_train", device=dev, **trainer_kw))
     t0 = time.perf_counter()
     losses, launches = counted(lambda: tr.train(
         [img], [lab], epochs=SD_EPOCHS, steps_per_epoch=SD_STEPS,
@@ -1662,8 +1709,8 @@ def phase_train_recipe(dev, smi, root, pattern, centers, cfg, trainer_kw,
                            details["points"][:, [1, 2, 0]])
     ffn_init = load_npz(TRAIN_ASSETS / "ffn_init.npz")
     tf = TrainFFN("ffn", points1_path=cloud, basedir=root / "ffn_train",
-                  seed=ffn_seed, params=(ffn_init["0"], ffn_init["1"]),
-                  device=dev)
+                  seed=ffn_seed, device=dev)
+    tf.start_from((ffn_init["0"], ffn_init["1"]))
     t0 = time.perf_counter()
     ffn_loss = tf.train(num_epochs=1, iteration=FFN_ITERS, verbose=False)
     ffn_s = time.perf_counter() - t0
@@ -1705,6 +1752,446 @@ def phase_train_recipe(dev, smi, root, pattern, centers, cfg, trainer_kw,
     return launches, dict(sd_step_ms=sd_s / n_steps * 1e3,
                           ffn_iter_ms=ffn_s / (FFN_ITERS + 1) * 1e3,
                           **{f"step_{k}_ms": v for k, v in parts.items()})
+
+
+# phase 16: the bench scene through the tiled recording driver, held to
+# JAX's record of the same tiled run; y (401) is cut into tiles of 256
+# with the bench network's receptive-field shrink (57 -> 64), z and x whole
+TILED_RECORD = ASSETS / "jax_record_tiled.npz"
+BENCH_TILE = (None, 256, None)
+BENCH_RF_Y = 57
+# phase 17: examples/segment_large_volume.py's volume, config and tiles;
+# with its receptive field (25, 51, 51) the default shrink is 56, so tiles
+# of 192 have 80-voxel centres: 7 x 7 tiles
+ZEBRAFISH = (64, 512, 512)
+ZEBRAFISH_TILE = (None, 192, 192)
+# the tiled centres against the whole-volume pass (JAX's own test's bound,
+# tests/test_stardist_tiled.py:39-64)
+TILED_INTERIOR_ATOL = 1e-6
+
+
+def tile_batches(model, shape, tile_shape, tile_batch=8, shrink=None):
+    """Backbone calls of one tiled sweep of a ``shape`` volume."""
+    n = len(model.plan_tiling(shape, tile_shape, shrink).origins)
+    return -(-n // max(1, min(tile_batch, n)))
+
+
+def backbone_layers(model, batch, grid_shape):
+    """``(name, input shape, c_out)`` of every 3x3x3 layer of ``model``'s
+    backbone on a ``batch`` of volumes whose grid-resolution shape is
+    ``grid_shape``: level l of the U-Net runs on it pooled l times."""
+    cfg = model.config
+    depth, pool = cfg.unet_n_depth, cfg.unet_pool
+    out = []
+    for name, ci, co, kernel in model.net.conv_plan():
+        if tuple(kernel) != (3, 3, 3):
+            continue
+        if name.startswith("down"):
+            level = int(name[4:].split("_")[0])
+        elif name.startswith("up"):
+            level = int(name[2:].split("_")[0])
+        else:
+            level = depth if name.startswith("bottom") else 0
+        shape = tuple(g // p ** level for g, p in zip(grid_shape, pool))
+        out.append((name, (batch,) + shape + (ci,), co))
+    return out
+
+
+def backbone_bound(model, batch, grid_shape):
+    """The three-pass TF32 bound (ms) of ``backbone_layers``."""
+    import torch
+    from t3dct_torch.utils.roofline import conv_tc_bound
+    meta = dict(device="meta", dtype=torch.float32)
+    return sum(conv_tc_bound(torch.empty(shape, **meta),
+                             torch.empty((3, 3, 3, shape[-1], co), **meta),
+                             torch.empty((co,), **meta))[0]
+               for _, shape, co in backbone_layers(model, batch, grid_shape))
+
+
+def check_backbone_convs(tag, dev, model, batch, grid_shape, errs):
+    """Every 3x3x3 layer of ``backbone_layers`` through the router with
+    ``model``'s own weights on a seeded ReLU'd input, against the plain
+    version within ``CONV_RTOL`` / ``CONV_ATOL``; raises on a miss and
+    keeps each kernel's largest error in ``errs``.  These launches are no
+    path's: call it outside ``counted``."""
+    import torch
+    gen = torch.Generator().manual_seed(0)
+    worst = {}
+    for name, shape, co in backbone_layers(model, batch, grid_shape):
+        xin = torch.relu(torch.randn(shape, generator=gen)).to(dev)
+        p = model.params[name]
+        kernel, err, tol = conv_err(xin, p["w"], p["b"], True)
+        del xin
+        if not err <= tol:
+            raise AssertionError(f"{tag} conv {name} {shape} -> {co}: "
+                                 f"{kernel} error {err} > {tol}")
+        errs[kernel] = max(errs.get(kernel, 0.0), err)
+        worst[kernel] = max(worst.get(kernel, (0.0, 0.0)), (err, tol))
+    print(f"[{tag}] conv against the plain version, every 3x3x3 layer of "
+          f"the backbone on {batch} x {tuple(grid_shape)}: " + ", ".join(
+              f"{k} max_abs_err {e:.3e} (its tol {t:.3e})"
+              for k, (e, t) in sorted(worst.items())))
+
+
+def phase_volume_api(dev, smi, pattern):
+    """Phase 15: the reference's per-volume API with the trained weights on
+    vol 1 of phase 11's recording: ``predict_instances`` (sparse, dense,
+    ``return_predict``) against ``predict_instances_device`` +
+    ``finalize_instances`` on the same normalized volume (kept points,
+    probs and labels exactly), and ``predict`` against ``forward_grid``'s
+    crop (exactly)."""
+    import warnings
+    import torch
+    from t3dct_torch.engine.stardist import StarDist3D
+    from t3dct_torch.io.imageio import (load_2d_slices_at_time,
+                                        transport_encode)
+    from t3dct_torch.io.prefetch import to_host
+    from t3dct_torch.utils.device import upload_raw
+    model = StarDist3D.load(ASSETS / "sd_model", device=dev)
+    model.max_candidates, model.render_box = 256, (9, 33, 33)
+    raw, mi, ma = transport_encode(
+        load_2d_slices_at_time(pattern, 1, do_normalize=False), "u16")
+    x_raw = upload_raw(raw, dev)
+    want_inst, want_prob = model.finalize_instances(to_host(
+        model.predict_instances_device(x_raw, (mi, ma), True), None, None))
+    mi_t, ma_t = (torch.tensor(v, dtype=torch.float32, device=dev)
+                  for v in (mi, ma))
+    x = (x_raw.to(torch.float32) - mi_t) / (ma_t - mi_t + 1e-20)
+
+    def run():
+        sparse = model.predict_instances(x)
+        dense = model.predict_instances(x, sparse=False)
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            full = model.predict_instances(x, return_predict=True)
+        prob, dist = model.predict(x)
+        return sparse, dense, full, (prob, dist), caught
+
+    t0 = time.perf_counter()
+    (sparse, dense, full, (prob, dist), caught), launches = counted(run)
+    wall = time.perf_counter() - t0
+    bad = []
+    (w_lab, w_det) = want_inst
+    for name, (lab, det) in (("sparse", sparse[0]), ("dense", dense[0]),
+                             ("return_predict", full[0])):
+        for key in ("points", "prob"):
+            if not np.array_equal(det[key], w_det[key]):
+                bad.append(f"{name} {key}")
+        if not np.array_equal(lab, w_lab):
+            bad.append(f"{name} labels")
+    if not np.array_equal(sparse[1], want_prob):
+        bad.append("sparse prob map")
+    prob_g, dist_g = model.forward_grid(x)
+    gz, gy, gx = (-(-s // g) for s, g in zip(raw.shape, model.config.grid))
+    if prob.shape != (gz, gy, gx) or dist.shape != (gz, gy, gx,
+                                                    model.config.n_rays):
+        bad.append(f"predict shapes {prob.shape} {dist.shape}")
+    elif not (np.array_equal(prob, prob_g[:gz, :gy, :gx].cpu().numpy())
+              and np.array_equal(dist,
+                                 dist_g[:gz, :gy, :gx].cpu().numpy())):
+        bad.append("predict against forward_grid")
+    if not (np.array_equal(dense[1], prob) and full[1][0] is full[2]
+            and np.array_equal(full[2], prob)):
+        bad.append("dense prob maps")
+    if not any("Setting sparse to False" in str(w.message) for w in caught):
+        bad.append("return_predict's warning")
+    print(f"[api] {smi}: predict_instances (sparse, dense, return_predict) "
+          f"and predict on vol 1 {raw.shape}: {len(w_det['points'])} cells "
+          f"kept as by predict_instances_device; predict {prob.shape} "
+          f"{dist.shape}; {wall:.2f} s for the four calls; launches "
+          f"{launches}")
+    if bad:
+        raise AssertionError(f"per-volume API: {bad}")
+    # backbone passes: sparse 1, dense and return_predict 2 each, predict 1
+    check_conv_launches("api", launches, 6, stem_count(
+        [(ci, co, n) for *_, ci, co, n in CONV_LAYERS]))
+    return launches
+
+
+def phase_tiled_bench(dev, smi, root, pattern, centers):
+    """Phase 16: ``predict_and_save(tile_shape=BENCH_TILE)`` over phase
+    11's 21 TIFF volumes with the trained weights, then ``track_timelapse``
+    in single mode, held to ``jax_record_tiled.npz`` with phase 11's
+    bounds (kept cells by ``kept_difference``, the first volume's labels
+    at ``LABELS_EQUAL``, tracked coordinates, strict recall and switches
+    equal).  The kept cells farther than the receptive field from the y
+    faces must all be phase 11's whole-volume ones.  Times one batched
+    backbone call over the scene's tiles beside its bound and the
+    whole-volume backbone, and holds every conv layer at the sweep's tile
+    batch against the plain version.  Returns the launches, the times and
+    each conv kernel's largest error there."""
+    import shutil
+    import torch
+    from t3dct_torch.config import TrackingConfig
+    from t3dct_torch.engine.pipeline import track_timelapse
+    from t3dct_torch.engine.stardist import predict_and_save
+    from t3dct_torch.io.artifacts import ResultsTree
+    from t3dct_torch.io.imageio import imread_stack
+    from t3dct_torch.ops.tiling import pad_for_tiles
+    from t3dct_torch.utils.timing import CudaStageTimer
+    record = np.load(TILED_RECORD)
+    recipe = json.loads(str(record["recipe"]))
+    results = root / "results_tiled"
+    shutil.copytree(root / "results" / "manual_vol1",
+                    results / "manual_vol1")
+    cands = []
+    model = trained_model(dev, cands, "predict_instances_tiled_device")
+    timer = CudaStageTimer()
+    walls = {}
+
+    def run():
+        t0 = time.perf_counter()
+        predict_and_save(pattern, model, results,
+                         tile_shape=tuple(recipe["tile_shape"]),
+                         tile_candidates=recipe["tile_candidates"],
+                         tile_batch=recipe["tile_batch"],
+                         shrink=recipe["shrink"])
+        torch.cuda.synchronize()
+        walls["seg"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        coords = track_timelapse(
+            results, str(results / "manual_vol1" / "*.tif"),
+            ASSETS / "ffn.npz", VOXEL_SIZE, 10, (1, BENCH_VOLS), grid=GRID,
+            config=TrackingConfig(beta=3.0, lambda_=3.0), verbose=False,
+            timer=timer, device=dev)
+        walls["track"] = time.perf_counter() - t0
+        return coords
+
+    coords, launches = counted(run)
+    batches = tile_batches(model, (Z, Y, X), BENCH_TILE,
+                           recipe["tile_batch"])
+    print(f"[tiled] launches {launches}; {batches} tile batch(es) of "
+          f"{len(model.plan_tiling((Z, Y, X), BENCH_TILE).origins)} tiles "
+          f"per volume")
+    check_conv_launches("tiled", launches, BENCH_VOLS * batches, stem_count(
+        [(ci, co, n) for *_, ci, co, n in CONV_LAYERS]))
+    if launches["conv3x3x3_wgmma"] != wgmma_count(BENCH_VOLS * batches):
+        raise AssertionError(f"tiled: {launches['conv3x3x3_wgmma']} wgmma "
+                             f"launches, want "
+                             f"{wgmma_count(BENCH_VOLS * batches)}")
+    check_flood_launches("tiled", launches, BENCH_VOLS - 1)
+    bad, _, _ = hold_to_record("tiled", record, results, coords, centers,
+                               cands, model)
+    lab1 = imread_stack(sorted((results / "auto_vol1").glob("*.tif"))
+                        ).transpose(1, 2, 0)
+    same = float((lab1 == record["auto_vol1"]).mean())
+    print(f"[tiled] first volume's auto_vol1 labels equal JAX's tiled "
+          f"record's: {same:.5f}")
+    if lab1.dtype != record["auto_vol1"].dtype or same < LABELS_EQUAL:
+        bad.append(f"auto_vol1 labels {same}")
+    # beyond the receptive field of the y faces, the tiled cells are the
+    # whole-volume ones (phase 11's seg/)
+    mine, whole = ResultsTree(results), ResultsTree(root / "results")
+    n_same = n_all = 0
+    for t in range(1, BENCH_VOLS + 1):
+        a, b = ({tuple(p) for p in tree.load_seg_coords(t)
+                 if BENCH_RF_Y < p[0] < Y - 1 - BENCH_RF_Y}
+                for tree in (mine, whole))
+        n_same += len(a & b)
+        n_all += len(a | b)
+    share = n_same / max(n_all, 1)
+    print(f"[tiled] kept cells more than {BENCH_RF_Y} voxels from the y "
+          f"faces equal to phase 11's whole-volume seg/: {n_same} of "
+          f"{n_all} ({100 * share:.2f}%)")
+    if share != 1.0:
+        bad.append(f"interior cells {n_same}/{n_all}")
+
+    # one batched backbone call over vol 1's tiles, its bound, and the
+    # whole-volume backbone, on the same volume
+    from t3dct_torch.io.imageio import load_2d_slices_at_time
+    from t3dct_torch.utils.device import upload_raw
+    raw = load_2d_slices_at_time(pattern, 1, do_normalize=False)
+    x = upload_raw(raw, dev).to(torch.float32)
+    x = (x - x.mean()) / x.std()
+    plan = model.plan_tiling((Z, Y, X), BENCH_TILE)
+    xp = pad_for_tiles(x, plan)
+    tz, ty, tx = plan.tile_shape
+    xb = torch.stack([xp[o0:o0 + tz, o1:o1 + ty, o2:o2 + tx]
+                      for o0, o1, o2 in plan.origins.tolist()])[..., None]
+    with torch.no_grad():
+        t_tiles = cuda_ms(lambda: model.net.apply(model.params, xb), 5, 1)
+        t_whole = cuda_ms(lambda: model.forward_grid(x), 5, 1)
+    grid_tile = tuple(t // g for t, g in zip(plan.tile_shape, GRID))
+    bound_tiles = backbone_bound(model, len(plan.origins), grid_tile)
+    pads = tuple(-(-s // d) * d for s, d in zip((Z, Y, X), model.net.div_by))
+    bound_whole = backbone_bound(model, 1, tuple(
+        s // g for s, g in zip(pads, GRID)))
+    n_vols = BENCH_VOLS
+    print(f"[tiled] {smi}: seg {1e3 * walls['seg'] / n_vols:.2f} ms per "
+          f"volume (the whole predict_and_save, TIFF decode and seg/ writes "
+          f"included), track {1e3 * walls['track'] / (n_vols - 1):.2f} ms "
+          f"per tracked volume (track_timelapse; its track stage "
+          f"{np.mean(timer.times['track']):.2f}); conv launches per volume: "
+          f"wgmma {launches['conv3x3x3_wgmma'] / n_vols:.0f}, direct "
+          f"{launches['conv3x3x3_direct'] / n_vols:.0f}")
+    # the conv kernels at the shapes the sweep gave them, against the
+    # plain version
+    errs = {}
+    check_backbone_convs("tiled", dev, model,
+                         min(recipe["tile_batch"], len(plan.origins)),
+                         grid_tile, errs)
+    print(f"[tiled] {smi}: backbone on the {len(plan.origins)} tiles "
+          f"{plan.tile_shape} of a volume, one batch: {t_tiles:.3f} ms "
+          f"(three-pass TF32 bound {bound_tiles:.3f} ms, "
+          f"{bound_tiles / t_tiles:.1%} of it); whole-volume backbone "
+          f"{t_whole:.3f} ms (bound {bound_whole:.3f} ms)")
+    if bad:
+        raise AssertionError(f"tiled bench scene: {bad}")
+    return launches, dict(tiled_seg_ms_per_vol=1e3 * walls["seg"] / n_vols,
+                          tiled_track_ms_per_vol=1e3 * walls["track"]
+                          / (n_vols - 1),
+                          tiled_backbone_ms=t_tiles,
+                          tiled_backbone_bound_ms=bound_tiles,
+                          whole_backbone_ms=t_whole,
+                          whole_backbone_bound_ms=bound_whole), errs
+
+
+def phase_zebrafish(dev, smi):
+    """Phase 17: ``examples/segment_large_volume.py``'s config (seeded
+    random init) on its (64, 512, 512) ``default_rng(0)`` volume:
+    (1) with the receptive-field shrink the tiled prob map equals the
+    whole-volume ``forward_grid`` beyond the receptive field of every tiled
+    face, within ``TILED_INTERIOR_ATOL``; (2) ``tile_batch=8`` equals
+    ``tile_batch=1`` bit for bit (prob map, points, probs, labels), at the
+    threshold that keeps the top 1% of the grid inside the candidates'
+    border (random weights give no prob near the config's 0.8); (3) the
+    example's own settings through ``scripts.segment_large_volume.main``,
+    its seconds per volume, launches and peak memory beside the
+    whole-volume pass's, and the same sweep timed at (2)'s threshold, so
+    that its NMS and render have instances to work on; (4) every conv
+    layer at the shapes of the tile batches and of the whole volume
+    against the plain version.  Each tiled run's direct conv launches once
+    per tile batch.  The launches returned are the tiled runs' alone."""
+    import torch
+    from t3dct_torch.config import StarDistConfig
+    from t3dct_torch.engine.stardist import StarDist3D
+    from t3dct_torch.scripts import segment_large_volume as script
+    from t3dct_torch.utils.device import upload_raw
+    model = StarDist3D(StarDistConfig(**script.CONFIG), max_candidates=512,
+                       render_box=(9, 17, 17), device=dev)
+    x = np.random.default_rng(0).random(ZEBRAFISH, np.float32)
+    total = {}
+
+    def tiled(label, batches, **kw):
+        out, launches = counted(lambda: model.predict_instances_tiled(
+            x, tile_shape=ZEBRAFISH_TILE, **kw))
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        if launches["conv3x3x3_wgmma"] <= 0 or \
+                launches["conv3x3x3_direct"] != batches:
+            raise AssertionError(f"zebrafish {label}: launches {launches}, "
+                                 f"want wgmma > 0 and direct == {batches}")
+        return out
+
+    n_tiles = len(model.plan_tiling(ZEBRAFISH, ZEBRAFISH_TILE).origins)
+    b8 = tiled("tile_batch=8", -(-n_tiles // 8), tile_batch=8)
+    # random weights keep every prob below the config's 0.8: the batch
+    # check takes the threshold that keeps the top 1% of the grid inside
+    # the candidates' border (its faces hold the largest values)
+    thr = float(np.quantile(b8[1][2:-2, 2:-2, 2:-2], 0.99))
+    c8 = tiled("tile_batch=8", -(-n_tiles // 8), tile_batch=8,
+               prob_thresh=thr)
+    c1 = tiled("tile_batch=1", n_tiles, tile_batch=1, prob_thresh=thr)
+    (whole_prob, _), whole_launches = counted(lambda: model.forward_grid(
+        upload_raw(x, dev)))
+    gz, gy, gx = (-(-s // g) for s, g in zip(ZEBRAFISH, model.config.grid))
+    whole_prob = whole_prob[:gz, :gy, :gx].cpu().numpy()
+    m = -(-model.net.receptive_field()[1] // model.config.grid[1])
+    diff = np.abs(b8[1][:, m:-m, m:-m] - whole_prob[:, m:-m, m:-m])
+    print(f"[zebrafish] {n_tiles} tiles of {ZEBRAFISH_TILE} (receptive "
+          f"field {model.net.receptive_field()}): tiled prob map against "
+          f"the whole-volume pass beyond {m} grid voxels of the tiled faces: "
+          f"max {diff.max():.3e} ({int((diff > 0).sum())} of {diff.size} "
+          f"voxels not bit-equal); the whole-volume pass (no tiled run, "
+          f"not in the path's launches): wgmma "
+          f"{whole_launches['conv3x3x3_wgmma']}, direct "
+          f"{whole_launches['conv3x3x3_direct']}")
+    bad = []
+    if not diff.max() <= TILED_INTERIOR_ATOL:
+        bad.append(f"interior prob map {diff.max()}")
+    same = (np.array_equal(c8[1], c1[1])
+            and np.array_equal(c8[0][1]["points"], c1[0][1]["points"])
+            and np.array_equal(c8[0][1]["prob"], c1[0][1]["prob"])
+            and np.array_equal(c8[0][0], c1[0][0]))
+    n_inst = len(c8[0][1]["points"])
+    print(f"[zebrafish] tile_batch=8 against tile_batch=1 at prob_thresh "
+          f"{thr:.6f}: prob map, points, probs and labels "
+          f"{'bit-equal' if same else 'DIFFER'} ({n_inst} instances; "
+          f"{len(b8[0][1]['points'])} at the config's "
+          f"{model.thresholds['prob']})")
+    if not same or n_inst == 0:
+        bad.append(f"tile_batch 8 against 1 ({n_inst} instances)")
+
+    # the example's own settings, through the script
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    out, launches = counted(lambda: script.main(["--repeat", "2"]))
+    peak_tiled = torch.cuda.max_memory_allocated(dev) - base
+    for k, v in launches.items():
+        total[k] = total.get(k, 0) + v
+    batches = 2 * tile_batches(model, ZEBRAFISH, ZEBRAFISH_TILE,
+                               shrink=script.TILED["shrink"])
+    if launches["conv3x3x3_wgmma"] <= 0 or \
+            launches["conv3x3x3_direct"] != batches:
+        bad.append(f"script launches {launches}, want direct {batches}")
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    (_, det_whole), _ = model.predict_instances(x)
+    peak_whole = torch.cuda.max_memory_allocated(dev) - base
+    # the same sweep at (2)'s threshold: instances for its NMS and render
+    walls_thr = []
+
+    def sweep_thr():
+        for _ in range(2):
+            t0 = time.perf_counter()
+            res = model.predict_instances_tiled(
+                x, tile_shape=ZEBRAFISH_TILE, prob_thresh=thr,
+                **script.TILED)
+            walls_thr.append(time.perf_counter() - t0)
+        return res
+
+    res_thr, launches_thr = counted(sweep_thr)
+    for k, v in launches_thr.items():
+        total[k] = total.get(k, 0) + v
+    if launches_thr["conv3x3x3_direct"] != batches:
+        bad.append(f"sweep at {thr} launches {launches_thr}, want direct "
+                   f"{batches}")
+    n_thr = len(res_thr[0][1]["points"])
+    first, warm = out["seconds"]
+    print(f"[zebrafish] {smi}: scripts/segment_large_volume.py "
+          f"({script.TILED}): {out['instances']} instances (random weights: "
+          f"no prob reaches the config's {model.thresholds['prob']}, so "
+          f"these seconds hold no NMS or render work), "
+          f"{first:.3f} s first call, {warm:.3f} s warm per volume; the "
+          f"same sweep at prob_thresh {thr:.6f}: {n_thr} instances, "
+          f"{walls_thr[0]:.3f} s, then {walls_thr[1]:.3f} s; conv "
+          f"launches per call wgmma {launches['conv3x3x3_wgmma'] // 2}, "
+          f"direct {launches['conv3x3x3_direct'] // 2}; peak memory "
+          f"{peak_tiled / 2**20:.1f} MiB tiled, {peak_whole / 2**20:.1f} MiB "
+          f"the whole-volume instance program ({len(det_whole['points'])} "
+          f"instances)")
+    if n_thr == 0:
+        bad.append(f"no instances at {thr}")
+    # the conv kernels at the shapes of (1)-(3)'s tile batches and of the
+    # whole-volume pass, against the plain version
+    errs = {}
+    grid_tile = tuple(t // g for t, g in zip(
+        model.plan_tiling(ZEBRAFISH, ZEBRAFISH_TILE).tile_shape,
+        model.config.grid))
+    for batch in sorted({min(8, n_tiles), 1}):
+        check_backbone_convs("zebrafish", dev, model, batch, grid_tile, errs)
+    check_backbone_convs("zebrafish", dev, model, 1, tuple(
+        -(-s // d) * d // g for s, d, g in zip(
+            ZEBRAFISH, model.net.div_by, model.config.grid)), errs)
+    if bad:
+        raise AssertionError(f"zebrafish: {bad}")
+    return total, dict(zebrafish_first_s=first, zebrafish_warm_s=warm,
+                       zebrafish_thr_instances=n_thr,
+                       zebrafish_thr_first_s=walls_thr[0],
+                       zebrafish_thr_warm_s=walls_thr[1],
+                       zebrafish_interior_max_abs_err=float(diff.max()),
+                       zebrafish_peak_tiled_mib=peak_tiled / 2**20,
+                       zebrafish_peak_whole_mib=peak_whole / 2**20), errs
 
 
 def phase_probe(dev):
@@ -1803,6 +2290,10 @@ def main() -> int:
         train, train_times = phase_train_recipe(
             dev, smi, Path(tmp), *scene, cfg, trainer_kw, ffn_seed,
             per_step)
+        api = phase_volume_api(dev, smi, scene[0])
+        tiled, tiled_times, tiled_errs = phase_tiled_bench(
+            dev, smi, Path(tmp), *scene)
+        zebra, zebra_times, zebra_errs = phase_zebrafish(dev, smi)
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
 
@@ -1810,9 +2301,17 @@ def main() -> int:
         by_path = {"v1.0": launches[name], "legacy": leg[name],
                    "probe": probe_launches[name], "bench": bench[name],
                    "bench_disk": disk[name], "bench_ensemble": ens[name],
-                   "train": train[name]}
+                   "train": train[name], "api": api[name],
+                   "tiled": tiled[name], "zebrafish": zebra[name]}
         return dict(launches=sum(by_path.values()),
                     launches_by_path=by_path)
+
+    # each conv kernel's max_abs_err is its largest over every shape held
+    # against the plain version; the tiled paths' own ride along
+    for name, acc in conv.items():
+        for path, errs in (("tiled", tiled_errs), ("zebrafish", zebra_errs)):
+            acc[f"{path}_max_abs_err"] = errs[name]
+            acc["max_abs_err"] = max(acc["max_abs_err"], errs[name])
 
     kernels = [
         dict(name="conv3x3x3_wgmma", route="cuda",
@@ -1821,7 +2320,7 @@ def main() -> int:
              **counts("conv3x3x3_wgmma"), **conv["wgmma"],
              **{f"train_{k}_ms" if k != "max_rel_err" else
                 "train_grad_max_rel_err": v for k, v in grads.items()},
-             **train_times),
+             **train_times, **tiled_times, **zebra_times),
         dict(name="conv3x3x3_direct", route="cuda",
              source="3deecelltracker_tpu_torch/csrc/conv3x3x3.cu",
              replaces="3deecelltracker_tpu/ops/pallas_conv.py:89",
@@ -1834,7 +2333,8 @@ def main() -> int:
                              "legacy": leg["flood_rounds"],
                              "bench": bench["flood_rounds"],
                              "bench_disk": disk["flood_rounds"],
-                             "bench_ensemble": ens["flood_rounds"]}),
+                             "bench_ensemble": ens["flood_rounds"],
+                             "tiled": tiled["flood_rounds"]}),
         dict(name="cc_label", route="cuda",
              source="3deecelltracker_tpu_torch/csrc/cc.cu",
              replaces="3deecelltracker_tpu/ops/pallas_kernels.py:92",

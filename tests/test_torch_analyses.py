@@ -252,7 +252,7 @@ def transformers(tmp_path_factory):
     jt = JTransformer(root, VOXEL_SIZE)
     jt.load_segmentation_array(lab)
     jt.interpolate(INTERP)
-    tt = CoordsToImageTransformer(VOXEL_SIZE, "cpu", root)
+    tt = CoordsToImageTransformer(root, VOXEL_SIZE, device="cpu")
     tt.load_segmentation_array(lab)
     tt.atlas = _atlas_to_torch(jt.atlas)
     tt.coord_vol1 = Coordinates.from_raw(np.array(jt.coord_vol1.raw_f32),

@@ -14,12 +14,15 @@ Regenerate the record (JAX, on the CPU) with
 The ensemble record is JAX's two-step workflow of the examples over the
 same scene and weights: ``predict_and_save``, then ``track_timelapse`` in
 ensemble mode (``ENSEMBLE``), then ``TrackerLite.activities``; regenerate
-it with ``--write-ensemble``.
+it with ``--write-ensemble``.  The tiled record is the same two steps in
+single mode with ``predict_and_save(tile_shape=TILE_SHAPE)``, each volume
+cut into tiles along y (``predict_instances_tiled``); regenerate it with
+``--write-tiled``.
 
 The tier-1 tests hold the port's loaders to JAX's on the assets and check
 the records; the ``slow`` tests re-derive the record with JAX and run the
 port on the CPU over the whole scene against each record, with the bounds
-of ``chip_smoke.py``'s phases 11 and 13."""
+of ``chip_smoke.py``'s phases 11, 13 and 16."""
 
 import json
 import sys
@@ -52,6 +55,7 @@ from t3dct_torch.utils.synthetic import make_recording  # noqa: E402
 ASSETS = REPO / "3deecelltracker_tpu_torch" / "assets" / "bench"
 RECORD = ASSETS / "jax_record.npz"
 ENSEMBLE_RECORD = ASSETS / "jax_record_ensemble.npz"
+TILED_RECORD = ASSETS / "jax_record_tiled.npz"
 N_VOLS = 21
 SHAPE = (24, 401, 168)
 VOXEL_SIZE = (1.0, 1.0, 9.2)
@@ -183,6 +187,61 @@ def write_ensemble_record(out: Path, work: Path) -> dict:
                             render_box=RENDER_BOX,
                             discard_ratio=ACTIVITY_DISCARD)),
                         activities=np.asarray(activities, np.float64),
+                        **arrays)
+    return metrics
+
+
+# the tiled record's recipe: JAX's two-step workflow in single mode with
+# the tiled segmentation; y (401) is cut into tiles of 256 with the bench
+# network's receptive-field shrink, z and x stay whole
+TILE_SHAPE = (None, 256, None)
+TILED = dict(tile_shape=TILE_SHAPE, tile_candidates=256, tile_batch=8,
+             shrink=None)
+
+
+def write_tiled_record(out: Path, work: Path) -> dict:
+    """JAX's v1.0 two-step workflow over the bench scene with the
+    committed weights and the tiled segmentation:
+    ``predict_and_save(**TILED)``, then ``track_timelapse`` in single mode
+    with ``bench_composition``'s settings.  Writes each volume's kept
+    ``seg/`` coordinates and tracked coordinates, the first volume's
+    ``auto_vol1`` labels (as (y, x, z)), the metrics and the recipe to
+    ``out``; returns the metrics."""
+    from t3dct.config import TrackingConfig
+    from t3dct.engine.pipeline import track_timelapse
+    from t3dct.engine.stardist import predict_and_save
+    from t3dct.io.imageio import imread_stack
+    with jax_script(REPO / "bench.py", "jax_bench", work / "xla") as bench:
+        raw = work / "raw"
+        raw.mkdir(parents=True)
+        images_path, centers, lab1 = bench.make_recording(raw)
+        results = work / "results"
+        bench._save_manual_vol1(results, lab1)
+        t0 = time.perf_counter()
+        predict_and_save(images_path, jax_model(), results, **TILED)
+        seg_wall = time.perf_counter() - t0
+        coords = track_timelapse(
+            results, str(results / "manual_vol1" / "*.tif"),
+            jax_ffn_weights(), voxel_size=VOXEL_SIZE,
+            interpolation_factor=10, t_range=(1, N_VOLS), grid=(1, 2, 2),
+            config=TrackingConfig(beta=3.0, lambda_=3.0), verbose=False)
+        wall = time.perf_counter() - t0
+        metrics = bench.tracking_id_metrics(coords, centers)
+    metrics.update(cpu_wall_s=wall, cpu_seg_wall_s=seg_wall)
+    arrays = {}
+    for t in range(1, N_VOLS + 1):
+        arrays[f"seg_coords_{t}"] = np.load(results / "seg" /
+                                            f"coords{t:06d}.npy")
+        arrays[f"coords_{t}"] = np.asarray(coords[t], np.float32)
+    arrays["auto_vol1"] = imread_stack(sorted(
+        (results / "auto_vol1").glob("*.tif"))).transpose(1, 2, 0)
+    np.savez_compressed(out, metrics=json.dumps(metrics),
+                        recipe=json.dumps(dict(
+                            TILED, voxel_size=VOXEL_SIZE,
+                            interpolation_factor=10, t_range=(1, N_VOLS),
+                            beta=3.0, lambda_=3.0,
+                            max_candidates=MAX_CANDIDATES,
+                            render_box=RENDER_BOX)),
                         **arrays)
     return metrics
 
@@ -324,6 +383,49 @@ def test_ensemble_record_holds_its_recipe(ensemble_record, record):
                for t in range(2, N_VOLS + 1))
 
 
+@pytest.fixture(scope="module")
+def tiled_record():
+    with np.load(TILED_RECORD) as data:
+        return {k: data[k] for k in data.files}
+
+
+def test_tiled_record_holds_its_recipe(tiled_record, record):
+    """JAX's two-step run with the tiled segmentation: the recipe it
+    states, each volume's kept cells and tracked coordinates, the first
+    volume's ``auto_vol1`` labels (uint8, one id per kept cell) and the
+    metrics, within the labels budget.  Away from the y faces (farther
+    than the bench network's receptive field, 57 voxels) its kept cells
+    are the whole-volume record's."""
+    rec = tiled_record
+    assert TILED_RECORD.stat().st_size < LABELS_BUDGET
+    recipe = json.loads(str(rec["recipe"]))
+    assert tuple(recipe["tile_shape"]) == TILE_SHAPE
+    for key in ("tile_candidates", "tile_batch", "shrink"):
+        assert recipe[key] == TILED[key], key
+    assert tuple(recipe["voxel_size"]) == VOXEL_SIZE
+    assert recipe["interpolation_factor"] == 10
+    assert (recipe["beta"], recipe["lambda_"]) == (3.0, 3.0)
+    assert recipe["max_candidates"] == MAX_CANDIDATES
+    assert tuple(recipe["render_box"]) == RENDER_BOX
+    metrics = json.loads(str(rec["metrics"]))
+    assert set(metrics) >= {"gate", "strict_recall", "id_switches",
+                            "cpu_wall_s", "cpu_seg_wall_s"}
+    n1 = rec["coords_1"].shape[0]
+    for t in range(1, N_VOLS + 1):
+        seg = rec[f"seg_coords_{t}"]
+        assert seg.ndim == 2 and seg.shape[1] == 3 and seg.dtype == np.int32
+        assert 0 < len(seg) <= MAX_CANDIDATES
+        assert rec[f"coords_{t}"].shape == (n1, 3)
+        assert np.isfinite(rec[f"coords_{t}"]).all()
+        inner = [{tuple(p) for p in s if 57 < p[0] < SHAPE[1] - 1 - 57}
+                 for s in (seg, record[f"seg_coords_{t}"])]
+        assert inner[0] == inner[1], t
+    lab = rec["auto_vol1"]
+    assert lab.shape == (SHAPE[1], SHAPE[2], SHAPE[0])
+    assert lab.dtype == np.uint8
+    assert len(np.unique(lab)) - 1 == len(rec["seg_coords_1"])
+
+
 def test_port_scene_is_the_bench_scene(tmp_path):
     """``utils.synthetic.make_recording`` gives the volumes, labels and
     centres that ``bench.make_recording`` writes (first two volumes)."""
@@ -405,6 +507,33 @@ def test_port_on_cpu_matches_record(record, tmp_path):
 
 
 @pytest.mark.slow
+def test_port_tiled_on_cpu_matches_record(tiled_record, tmp_path):
+    """The port's two-step workflow with the tiled segmentation on the CPU
+    over the whole bench scene, held to JAX's tiled record with phase
+    11's bounds, and its first volume's ``auto_vol1`` labels exactly."""
+    sys.path.insert(0, str(REPO))
+    import chip_smoke
+    from t3dct_torch.config import TrackingConfig
+    from t3dct_torch.engine.pipeline import track_timelapse
+    from t3dct_torch.engine.stardist import predict_and_save
+    from t3dct_torch.io.imageio import imread_stack
+    pattern, centers = chip_smoke.write_bench_scene(tmp_path)
+    model = StarDist3D.load(ASSETS / "sd_model", device="cpu")
+    model.max_candidates, model.render_box = MAX_CANDIDATES, RENDER_BOX
+    results = tmp_path / "results"
+    predict_and_save(pattern, model, results, **TILED)
+    coords = track_timelapse(
+        results, str(results / "manual_vol1" / "*.tif"), ASSETS / "ffn.npz",
+        VOXEL_SIZE, 10, (1, N_VOLS), grid=(1, 2, 2),
+        config=TrackingConfig(beta=3.0, lambda_=3.0), verbose=False,
+        device="cpu")
+    hold_to_record(tiled_record, results, coords, centers)
+    lab = imread_stack(sorted((results / "auto_vol1").glob("*.tif")))
+    np.testing.assert_array_equal(lab.transpose(1, 2, 0),
+                                  tiled_record["auto_vol1"])
+
+
+@pytest.mark.slow
 def test_port_ensemble_on_cpu_matches_record(ensemble_record, tmp_path):
     """The port's two-step workflow on the CPU over the whole bench scene,
     ensemble mode, held to JAX's ensemble record with phase 13's bounds,
@@ -444,14 +573,21 @@ if __name__ == "__main__":
                     help="run JAX's two-step workflow in ensemble mode "
                          "over the bench scene and write "
                          "assets/bench/jax_record_ensemble.npz")
+    ap.add_argument("--write-tiled", action="store_true",
+                    help="run JAX's two-step workflow with the tiled "
+                         "segmentation over the bench scene and write "
+                         "assets/bench/jax_record_tiled.npz")
     args = ap.parse_args()
-    if not (args.write or args.write_ensemble):
-        ap.error("nothing to do without --write or --write-ensemble")
+    if not (args.write or args.write_ensemble or args.write_tiled):
+        ap.error("nothing to do without --write, --write-ensemble or "
+                 "--write-tiled")
     os.environ.setdefault("JAX_PLATFORMS", "cpu")
     jax.config.update("jax_platforms", "cpu")
     for flag, path, writer in ((args.write, RECORD, write_record),
                                (args.write_ensemble, ENSEMBLE_RECORD,
-                                write_ensemble_record)):
+                                write_ensemble_record),
+                               (args.write_tiled, TILED_RECORD,
+                                write_tiled_record)):
         if flag:
             with tempfile.TemporaryDirectory() as tmp:
                 m = writer(path, Path(tmp))

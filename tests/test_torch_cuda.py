@@ -144,6 +144,23 @@ def test_wgmma_kernel_batch_of_five(dev, shape):
             xin[i], w, b, relu=False))
 
 
+@pytest.mark.parametrize("shape", [(24, 32, 84, 32, 32), (6, 8, 21, 128,
+                                                         128),
+                                   (32, 12, 12, 8, 16), (24, 32, 84, 1, 32),
+                                   (32, 48, 48, 1, 8)])
+def test_tile_batch_equals_single_tiles(dev, shape):
+    """A batch of 8 tiles (the tiled StarDist path's backbone call) in one
+    launch equals 8 single-tile launches bit for bit, on both kernels (the
+    direct kernel's z-segments are planned by batch size)."""
+    xin, w, b = (t.to(dev) for t in _conv_case(shape, 13, (8,)))
+    got = hopper_conv.conv3x3x3_bias_relu(xin, w, b, relu=True)
+    singles = torch.stack([hopper_conv.conv3x3x3_bias_relu(
+        xin[i].contiguous(), w, b, relu=True) for i in range(8)])
+    torch.cuda.synchronize()
+    assert torch.equal(got, singles)
+    _held(got, hopper_conv.conv3x3x3_bias_relu_plain(xin, w, b, relu=True))
+
+
 def test_wgmma_kernel_raises_without_fallback(dev):
     """A misaligned input or widths off the rule raise on the card; nothing
     is launched and no other kernel takes the call."""

@@ -64,7 +64,7 @@ ENTRY_POINTS = {
     "UNetSegmenter": lambda tmp: UNetSegmenter(
         UNet3D(), {}, {}, SegmentationConfig(), SHAPE),
     "CoordsToImageTransformer":
-        lambda tmp: CoordsToImageTransformer((1.0, 1.0, 1.0)),
+        lambda tmp: CoordsToImageTransformer(None, (1.0, 1.0, 1.0)),
     "load_stardist_model": _load_stardist_model,
     "segment_and_track": lambda tmp: segment_and_track(
         str(tmp / "r_t%03i_z*.tif"), None, tmp, str(tmp / "m/*.tif"), None,
@@ -136,5 +136,5 @@ def test_explicit_cpu_runs_without_a_card(no_card):
     g = torch.Generator().manual_seed(0)
     p = layers.init_conv3d((3, 3, 3), 2, 3, g, "cpu")
     assert p["w"].device.type == "cpu" and p["b"].device.type == "cpu"
-    t = CoordsToImageTransformer((1.0, 1.0, 1.0), device="cpu")
+    t = CoordsToImageTransformer(None, (1.0, 1.0, 1.0), device="cpu")
     assert t.device == torch.device("cpu")

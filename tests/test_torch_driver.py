@@ -235,8 +235,9 @@ def test_driver_raises_past_max_cells(scene, models, tmp_path, extra):
     artifact of that volume is written; the pad itself is taken."""
     _, pattern, _, lab = scene
     _, tm, _, tffn = models
-    model = _PastPad(tm.config, tm.params, tm.max_candidates,
-                     tm.render_box, device="cpu")
+    model = _PastPad(tm.config, tm.params,
+                     max_candidates=tm.max_candidates,
+                     render_box=tm.render_box, device="cpu")
     model.n_kept = 64 + extra
     run = lambda: run_port(pattern, tmp_path / "port", lab,  # noqa: E731
                            model, tffn, t_range=(1, 2))

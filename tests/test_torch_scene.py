@@ -100,9 +100,13 @@ def ffn_pair():
 
 
 def test_import_hygiene_no_jax():
-    """A fresh ``import t3dct_torch`` (every submodule) leaves jax out."""
-    code = ("import sys; sys.path.insert(0, %r); import t3dct_torch; "
-            "import t3dct_torch.engine.pipeline; "
+    """A fresh ``import t3dct_torch`` and of every module of the package
+    (scripts included) leaves jax out."""
+    code = ("import sys, importlib, pkgutil; sys.path.insert(0, %r); "
+            "import t3dct_torch; "
+            "[importlib.import_module(m.name) for m in "
+            "pkgutil.walk_packages(t3dct_torch.__path__, "
+            "'3deecelltracker_tpu_torch.')]; "
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', '3deecelltracker_tpu.', 't3dct.')) "
             "or m in ('t3dct', '3deecelltracker_tpu')); "

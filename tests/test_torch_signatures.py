@@ -1,0 +1,108 @@
+"""Every public v1.0 entry point of the JAX package binds to its twin in
+the port with the same signature: the same parameter names in the same
+order, of the same kinds, with the same defaults where they are plain
+values.  The port may add one keyword-only parameter, ``device``.  A JAX
+argument the port has not ported yet is accepted and raises
+``NotImplementedError`` naming its ``ROADMAP.md`` item (held by the tests
+of each module).
+
+Entry points: the names the v1.0 examples and the JAX package's docstring
+call (``examples/*.py`` but the legacy ``use_unet_legacy.py``, whose
+``engine.legacy.Tracker`` is ``ROADMAP.md`` A.4)."""
+
+import importlib
+import inspect
+import sys
+from pathlib import Path
+
+import pytest
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+
+import t3dct  # noqa: E402,F401
+import t3dct_torch  # noqa: E402,F401
+
+ENTRY_POINTS = [
+    ("engine.stardist", name) for name in (
+        "StarDist3D.__init__", "StarDist3D.load", "StarDist3D.save",
+        "StarDist3D.predict", "StarDist3D.predict_sparse",
+        "StarDist3D.predict_instances", "StarDist3D.predict_instances_tiled",
+        "StarDist3D.predict_instances_sharded", "load_stardist_model",
+        "predict_and_save", "save_arrays_to_folder", "save_auto_seg_vol1",
+        "print_dict", "load_training_images", "configure",
+        "calculate_extents", "fill_label_holes")
+] + [
+    ("engine.pipeline", "segment_and_track"),
+    ("engine.pipeline", "track_timelapse"),
+] + [
+    ("engine.transformer", "CoordsToImageTransformer." + name)
+    for name in ("__init__", "load_segmentation", "load_segmentation_array",
+                 "interpolate", "move_cells", "move_cells_in_3d_image",
+                 "get_cells_on_boundary", "load_prob_map",
+                 "accurate_correction", "save_tracking_results")
+] + [
+    ("engine.tracker", "TrackerLite." + name)
+    for name in ("__init__", "predict_cell_positions",
+                 "predict_cell_positions_ensemble", "match_by_ffn",
+                 "activities")
+] + [
+    ("engine.tracker", "get_volumes_list"),
+    ("engine.tracker", "evenly_distributed_volumes"),
+    ("engine.metrics", "optimize_thresholds"),
+    ("engine.analyses", "get_activities"),
+    ("models.train_stardist", "TrainStarDist3D.__init__"),
+    ("models.train_stardist", "TrainStarDist3D.train"),
+    ("models.train_ffn", "TrainFFN.__init__"),
+    ("models.train_ffn", "TrainFFN.train"),
+] + [
+    ("coordinates", "Coordinates." + name)
+    for name in ("from_raw", "from_real", "from_interp", "make",
+                 "with_raw")
+] + [
+    ("io.imageio", name)
+    for name in ("load_2d_slices_at_time", "get_t_range",
+                 "save_label_slices", "imread_volume", "imwrite_volume")
+]
+
+PLAIN = (type(None), bool, int, float, str, tuple)
+
+
+def _resolve(package, module, qualname):
+    obj = importlib.import_module(f"{package}.{module}")
+    for part in qualname.split("."):
+        obj = getattr(obj, part)
+    return obj
+
+
+def _params(fn):
+    return list(inspect.signature(fn).parameters.values())
+
+
+@pytest.mark.parametrize("module,qualname", ENTRY_POINTS,
+                         ids=[f"{m}.{q}" for m, q in ENTRY_POINTS])
+def test_port_signature_binds_jax(module, qualname):
+    want = _params(_resolve("t3dct", module, qualname))
+    got = _params(_resolve("t3dct_torch", module, qualname))
+    extra = got[len(want):]
+    assert [p.name for p in got[:len(want)]] == [p.name for p in want]
+    assert [p.name for p in extra] in ([], ["device"])
+    for p in extra:
+        assert p.kind is inspect.Parameter.KEYWORD_ONLY
+        assert p.default is None
+    for w, g in zip(want, got):
+        assert g.kind == w.kind, w.name
+        assert (g.default is inspect.Parameter.empty) == \
+            (w.default is inspect.Parameter.empty), w.name
+        if isinstance(w.default, PLAIN):
+            assert g.default == w.default, w.name
+
+
+def test_entry_points_cover_the_examples():
+    """Every StarDist / workflow name a v1.0 example imports is bound
+    above."""
+    bound = {q.split(".")[0] for _, q in ENTRY_POINTS}
+    for name in ("StarDist3D", "predict_and_save", "load_stardist_model",
+                 "track_timelapse", "TrackerLite", "TrainStarDist3D",
+                 "TrainFFN", "Coordinates", "configure",
+                 "load_training_images", "get_t_range", "save_label_slices"):
+        assert name in bound, name

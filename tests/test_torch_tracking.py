@@ -56,7 +56,7 @@ def scene(tmp_path_factory):
     jt = JTransformer(tmp_path_factory.mktemp("res"), VOXEL_SIZE)
     jt.load_segmentation_array(lab)
     jt.interpolate(INTERP)
-    tt = CoordsToImageTransformer(VOXEL_SIZE, device="cpu")
+    tt = CoordsToImageTransformer(None, VOXEL_SIZE, device="cpu")
     tt.load_segmentation_array(lab)
     tt.interpolate(INTERP)
     return dict(centers=centers, jt=jt, tt=tt, ffn=ffn_pair())

@@ -76,7 +76,8 @@ def trainers(tmp_path, points_file, **kw):
                    basedir=tmp_path / "jax", **kw)
     init = jax.tree_util.tree_map(np.asarray, (jt.params, jt.bn_state))
     tt = TrainFFN("m", points1_path=str(points_file),
-                  basedir=tmp_path / "port", params=init, device="cpu", **kw)
+                  basedir=tmp_path / "port", device="cpu", **kw)
+    tt.start_from(init)
     return jt, tt
 
 

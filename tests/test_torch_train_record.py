@@ -226,9 +226,11 @@ def test_initial_parameters_are_jax_inits(tmp_path):
 
 def port_stardist(tmp_path):
     tree = load_npz(SD_INIT)
-    return TrainStarDist3D(StarDistConfig(**SD_CONFIG),
-                           basedir=tmp_path / "sd", params=tree,
-                           device="cpu", **SD_TRAINER)
+    trainer = TrainStarDist3D(StarDistConfig(**SD_CONFIG),
+                              basedir=tmp_path / "sd", device="cpu",
+                              **SD_TRAINER)
+    trainer.start_from(tree)
+    return trainer
 
 
 def loss_bound(step, record=None):
@@ -261,8 +263,8 @@ def test_port_ffn_steps_match_record(record, tmp_path):
     within 1e-6 of JAX's."""
     tree = load_npz(FFN_INIT)
     tf = TrainFFN("ffn", points1_path=str(ffn_points(tmp_path / "p.txt")),
-                  basedir=tmp_path / "ffn", seed=FFN_SEED,
-                  params=(tree["0"], tree["1"]), device="cpu")
+                  basedir=tmp_path / "ffn", seed=FFN_SEED, device="cpu")
+    tf.start_from((tree["0"], tree["1"]))
     np.testing.assert_allclose(tf.points_t1, record["ffn_points_t1"],
                                rtol=0, atol=1e-6)
     tf.points_generator = DataGeneratorFFN(record["ffn_points_t1"],

@@ -76,7 +76,8 @@ def trainers(tmp_path, **kw):
                   max_dist=6, **kw)
     init = jax.tree_util.tree_map(np.asarray, jt.params)
     tt = TrainStarDist3D(StarDistConfig(**CFG), basedir=tmp_path / "port",
-                         max_dist=6, params=init, device="cpu", **kw)
+                         max_dist=6, device="cpu", **kw)
+    tt.start_from(init)
     return jt, tt
 
 

@@ -204,12 +204,14 @@ def test_predict_and_save_write_failure_raises(scene, models, tmp_path,
 
 
 @pytest.mark.parametrize("kwargs,match", [
-    (dict(tile_shape=(None, 32, 32)), "A.6"),
+    (dict(tile_shape=(None, 32, 32), data_axis="tiles"), "A.5"),
     (dict(mesh=object()), "A.5"),
     (dict(transport="u8"), "A.5"),
 ], ids=["tiles", "mesh", "u8"])
 def test_predict_and_save_raises_for_what_is_not_ported(tmp_path, kwargs,
                                                         match):
+    """The tiled sweep is ported (``tests/test_torch_tiled.py``); over a
+    mesh axis it is not."""
     with pytest.raises(NotImplementedError, match=match):
         predict_and_save(str(tmp_path / "r_t%03i_z*.tif"), None,
                          tmp_path / "res", **kwargs)
@@ -455,8 +457,8 @@ def test_disk_tracking_failure_cancels_segmenter(scene, models, tmp_path):
     of sweeping all seven volumes."""
     _, pattern, _, _ = scene
     _, tm, _, tffn = models
-    model = _Slow(tm.config, tm.params, tm.max_candidates, tm.render_box,
-                  device="cpu")
+    model = _Slow(tm.config, tm.params, max_candidates=tm.max_candidates,
+                  render_box=tm.render_box, device="cpu")
     with pytest.raises(FileNotFoundError, match="No image in"):
         segment_and_track(pattern, model, tmp_path,
                           str(tmp_path / "none" / "*.tif"), tffn,
@@ -476,8 +478,8 @@ def test_disk_segmenter_error_surfaces(scene, models, tmp_path):
     tracking stops with "segmentation failed" caused by it."""
     _, pattern, _, lab = scene
     _, tm, _, tffn = models
-    model = _Broken(tm.config, tm.params, tm.max_candidates, tm.render_box,
-                    device="cpu")
+    model = _Broken(tm.config, tm.params, max_candidates=tm.max_candidates,
+                    render_box=tm.render_box, device="cpu")
     with pytest.raises(RuntimeError, match="segmentation failed") as err:
         segment_and_track(pattern, model, tmp_path,
                           manual_vol1(tmp_path, lab), tffn, VOXEL_SIZE,
