@@ -1,8 +1,8 @@
 """PyTorch + CUDA port of 3DeeCellTracker-TPU for NVIDIA Hopper (H100):
 the v1.0 StarDist workflow (segment a TIFF recording into a results tree,
 track it in single or ensemble mode, read activities), its two trainers
-(StarDist3D and the FFN matcher), the legacy v0.4 U-Net path on arrays,
-and the conv probe.
+(StarDist3D and the FFN matcher), the legacy v0.4 U-Net workflow and its
+trainer, and the conv probe.
 
 It sits beside the JAX package ``3deecelltracker_tpu``, which stays the
 reference: every module here mirrors a module there, keeps its array
@@ -29,7 +29,9 @@ Entry points:
 - ``engine.pipeline.segment_and_track``: both steps at once over a TIFF
   recording, ``handoff="disk"`` (default) or ``"device"``;
 - ``engine.pipeline.segment_and_track_arrays`` (v1.0 on arrays);
-- ``engine.legacy.legacy_segment_and_track_arrays`` (v0.4 U-Net);
+- ``engine.legacy.Tracker``, the v0.4 U-Net workflow of a folder (as
+  ``scripts.use_unet_legacy`` runs it; ``models.train_unet`` retrains the
+  U-Net), and ``legacy_segment_and_track_arrays`` on arrays;
 - training: ``models.train_stardist.TrainStarDist3D`` (with
   ``engine.stardist.load_training_images`` / ``configure`` and
   ``engine.metrics.optimize_thresholds``) and ``models.train_ffn.TrainFFN``,
@@ -46,7 +48,8 @@ from .engine import pipeline, segmentation, stardist  # noqa: F401
 from .engine import tracker, transformer  # noqa: F401
 from .io import artifacts, imageio, prefetch, tiff  # noqa: F401
 from .models import ffn, layers, stardist3d, synthesize  # noqa: F401
-from .models import train_ffn, train_stardist, unet3d  # noqa: F401
+from .models import train_ffn, train_stardist, train_unet  # noqa: F401
+from .models import unet3d  # noqa: F401
 from .ops import (connected, edt, filters, hopper_cc,  # noqa: F401
                   hopper_conv, hopper_flood, knn, ladder, lcn, matching,
                   neighborhood, nms, numerics, peaks, pointset, prgls, rays,

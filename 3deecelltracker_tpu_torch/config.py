@@ -10,6 +10,16 @@ from typing import Tuple
 
 
 @dataclasses.dataclass(frozen=True)
+class LcnConfig:
+    """Local contrast normalization (reference ``preprocess.py:85-188``);
+    ``padding`` 'zero' is the published GPU path's (Conv3D 'same'),
+    'reflect' the CPU path's."""
+    noise_level: float = 5.0
+    filter_size: Tuple[int, int, int] = (27, 27, 1)
+    padding: str = "zero"  # 'zero' | 'reflect'
+
+
+@dataclasses.dataclass(frozen=True)
 class SegmentationConfig:
     """U-Net + watershed segmentation (reference ``tracker.py:854-887``)."""
     noise_level: float = 5.0
@@ -58,6 +68,18 @@ class StarDistConfig:
     prob_thresh: float = 0.5
     nms_thresh: float = 0.3
     backbone: str = "unet"
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainUnetConfig:
+    """U-Net trainer (reference ``unet3d.py:346-601``)."""
+    batch_size: int = 8
+    steps_per_epoch: int = 60
+    learning_rate: float = 1e-3
+    rotation_range: float = 90.0
+    shift_range: float = 0.2
+    shear_range: float = 0.2
+    horizontal_flip: bool = True
 
 
 @dataclasses.dataclass(frozen=True)

@@ -7,15 +7,19 @@ the U-Net in one forward, stitch; then the per-z 2-D watershed, the 3-D
 watershed with size filtering, sequential relabelling and centres of mass.
 Everything stays on the device; the host reads the probability maximum, the
 adaptive ``min_size``/``cell_num`` and the cell count.  The U-Net computes in
-float32 (the JAX default is bfloat16); the on-disk ``unet_cache`` is not
-part of this array-level port.
+float32 (the JAX default is bfloat16).  The probabilities may go through
+the reference's on-disk cache (``unet_cache/t%06i.npy``, tracker.py:652-669)
+in JAX's format: float16 ``.npy`` read back as float32, so a cache written
+by either package loads in the other.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple, Tuple
+from pathlib import Path
+from typing import NamedTuple, Optional, Tuple, Union
 
+import numpy as np
 import torch
 
 from ..config import SegmentationConfig
@@ -65,9 +69,21 @@ class UNetSegmenter:
         probs = self.model.apply(self.params, self.state, tiles[..., None])
         return stitch_tiles(probs[..., 0], self.plan)
 
-    def predict_cellregions(self, image_raw) -> torch.Tensor:
-        """U-Net probabilities (x, y, z) of a raw volume."""
-        return self._predict_impl(upload_raw(image_raw, self.device))
+    def predict_cellregions(self, image_raw,
+                            cache_path: Optional[Union[str, Path]] = None
+                            ) -> torch.Tensor:
+        """U-Net probabilities (x, y, z) of a raw volume.  With
+        ``cache_path``: read from it when the file exists (float16 as
+        float32), else computed and written there as float16; the computed
+        probabilities are returned unrounded, as JAX returns them."""
+        if cache_path is not None and Path(cache_path).exists():
+            return torch.from_numpy(np.load(cache_path).astype(
+                np.float32)).to(self.device)
+        probs = self._predict_impl(upload_raw(image_raw, self.device))
+        if cache_path is not None:
+            Path(cache_path).parent.mkdir(parents=True, exist_ok=True)
+            np.save(str(cache_path), probs.cpu().numpy().astype(np.float16))
+        return probs
 
     # ---- stage 2: watershed (tracker.py:671-684) ----------------------------
     def _watershed_impl(self, image_cell_bg: torch.Tensor, method: str):
@@ -86,14 +102,17 @@ class UNetSegmenter:
         return seg, com, min_size, cell_num
 
     # ---- full per-volume segmentation (tracker.py:605-650) ------------------
-    def segment(self, image_raw, method: str = "min_size") -> SegResult:
+    def segment(self, image_raw, method: str = "min_size",
+                cache_path: Optional[Union[str, Path]] = None) -> SegResult:
+        """Segment one raw (x, y, z) volume; ``cache_path``: the U-Net
+        cache file of this volume (:meth:`predict_cellregions`)."""
         if method == "cell_num" and not self.config.cell_num:
             raise ValueError(
                 "method='cell_num' requires a positive cell_num — "
                 "segment volume 1 with method='min_size' first (it learns "
                 "cell_num, tracker.py:682-683) or set it in the config")
         raw = upload_raw(image_raw, self.device)
-        probs = self._predict_impl(raw)
+        probs = self.predict_cellregions(raw, cache_path)
         if float(torch.max(probs)) <= 0.5:
             raise ValueError(
                 "No cell was detected by 3D U-Net! Try to reduce the "

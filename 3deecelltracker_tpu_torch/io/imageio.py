@@ -2,7 +2,8 @@
 ``3deecelltracker_tpu/io/imageio.py``: ``imread`` :31, ``imread_volume`` :44,
 ``imwrite_volume`` :63, ``imread_stack`` :98,
 ``fast_percentiles`` :119, ``transport_encode`` :204,
-``percentile_normalize`` :227, ``load_2d_slices_at_time`` :255,
+``percentile_normalize`` :227, ``load_image`` :246,
+``load_2d_slices_at_time`` :255,
 ``get_t_range`` :285, ``read_image_ts`` :302, ``save_label_slices`` :310,
 ``save_volume_slices`` :334).
 
@@ -153,6 +154,15 @@ def percentile_normalize(x: np.ndarray, pmin: float = 1.0,
     x = x.astype(np.float32, copy=False)
     mi, ma = np.percentile(x, pmin), np.percentile(x, pmax)
     return (x - mi) / (ma - mi + eps)
+
+
+def load_image(folder_path: str) -> np.ndarray:
+    """A volume from a folder of 2-D TIFF slices, every file in sorted
+    name order one z, in the (x, y, z) frame (``preprocess.py:59-82``; the
+    proofed ``manual_vol1/`` labels, a U-Net training folder)."""
+    files = sorted(os.path.join(folder_path, f)
+                   for f in os.listdir(folder_path))
+    return imread_stack(files).transpose(1, 2, 0)
 
 
 def load_2d_slices_at_time(images_path: str, t: int,

@@ -19,6 +19,9 @@ from . import layers as L
 
 N_FEATURES = 61
 HIDDEN = 512
+# the largest (E, m, n, hidden) pair tensor scored in one batch; a legacy
+# ensemble (20 members padded to 512 cells) runs member by member
+MAX_PAIR_ELEMENTS = 1 << 30
 
 Params = Dict[str, Any]
 
@@ -108,7 +111,8 @@ def ffn_pair_scores(params: Params, state: Params,
     """(m_tgt, n_ref) scores of all pairs: the trunk runs once per set and
     the combine layer splits into ref/tgt halves (eval-mode BN is
     affine).  With a leading member axis ((E, n, 61) features), (E, m, n)
-    scores, each member's as it is alone."""
+    scores, each member's as it is alone; a batch whose pair tensor would
+    pass ``MAX_PAIR_ELEMENTS`` runs member by member."""
     def trunk(f):
         return L.leaky_relu(L.batchnorm(params["feat_bn"], state["feat_bn"],
                                         L.dense(params["feat"], f)))
@@ -124,7 +128,15 @@ def ffn_pair_scores(params: Params, state: Params,
     shift = bn_p["bias"] - bn_s["mean"] * inv
     w_pred = params["pred"]["w"][:, 0]
     b_pred = params["pred"]["b"][0]
-    z = zt[..., :, None, :] + zr[..., None, :, :]         # (m, n, hidden)
-    h = L.leaky_relu(z * inv + shift)
-    logits = torch.einsum("...mnc,c->...mn", h, w_pred) + b_pred
-    return torch.sigmoid(logits)
+
+    def scores(zt, zr):
+        z = zt[..., :, None, :] + zr[..., None, :, :]     # (m, n, hidden)
+        h = L.leaky_relu(z * inv + shift)
+        logits = torch.einsum("...mnc,c->...mn", h, w_pred) + b_pred
+        return torch.sigmoid(logits)
+
+    if zr.dim() == 3 and zr.shape[0] * zt.shape[-2] * zr[0].numel() > \
+            MAX_PAIR_ELEMENTS:
+        return torch.stack([scores(zt[i] if zt.dim() == 3 else zt, zr[i])
+                            for i in range(zr.shape[0])])
+    return scores(zt, zr)

@@ -81,15 +81,23 @@ class UNet3D:
                                                generator, device)}
         return params, state
 
-    def apply(self, params: Params, state: State,
-              x: torch.Tensor) -> torch.Tensor:
-        """Eval-mode forward: x (b, x, y, z, c) -> sigmoid probabilities
-        (b, x, y, z, 1), float32 throughout."""
+    def apply(self, params: Params, state: State, x: torch.Tensor,
+              train: bool = False):
+        """Forward: x (b, x, y, z, c) -> sigmoid probabilities (b, x, y, z,
+        1), float32 throughout.  Eval mode (BatchNorm from the running
+        statistics) returns the probabilities; ``train=True`` (BatchNorm
+        from the batch, running statistics moved as JAX's ``layers.
+        batchnorm`` moves them) returns ``(probs, new_state)``."""
         act = L.leaky_relu if self.activation == "leaky_relu" else torch.relu
+        new_state: State = {}
 
         def block(name, h):
             h = act(L.conv3d(params[name]["conv"], h))
-            return L.batchnorm(params[name]["bn"], state[name], h)
+            if not train:
+                return L.batchnorm(params[name]["bn"], state[name], h)
+            h, new_state[name] = L.batchnorm(params[name]["bn"],
+                                             state[name], h, train=True)
+            return h
 
         skips = []
         h = x
@@ -103,7 +111,27 @@ class UNet3D:
             h = torch.cat([h, skips[len(self.up_filters) - 1 - i]], dim=-1)
         for i in range(len(self.head_filters)):
             h = block(f"head{i}", h)
-        return torch.sigmoid(L.conv3d(params["out"]["conv"], h))
+        probs = torch.sigmoid(L.conv3d(params["out"]["conv"], h))
+        return (probs, new_state) if train else probs
+
+    def receptive_radius(self) -> Tuple[int, int, int]:
+        """Per-axis receptive radius of :meth:`apply` (JAX
+        ``models/unet3d.py:117-137``): an output voxel farther than this
+        from a region's boundary is unaffected by anything beyond it.  Two
+        3^3 convs per down level (+1 each at that level's stride), its pool
+        window (+(pool - 1) * stride), two convs per up level before its
+        upsample, and the full-resolution head convs."""
+        n_levels = len(self.down_filters)
+        radii = []
+        for d in range(3):
+            p = self.pool[d]
+            r = 0
+            for lvl in range(n_levels):
+                r += 2 * p ** lvl + (p - 1) * p ** lvl
+            for i in range(len(self.up_filters)):
+                r += 2 * p ** (n_levels - i)
+            radii.append(r + len(self.head_filters))
+        return tuple(radii)
 
 
 def unet3_a() -> UNet3D:

@@ -1,7 +1,7 @@
 """Local contrast normalization (counterpart of
 ``3deecelltracker_tpu/ops/lcn.py``: ``lcn``, ``_lcn_impl``,
-``normalize_image``), zero padding: the reference GPU path and the legacy
-U-Net segmenter's setting."""
+``normalize_image``, ``normalize_label``), zero padding: the reference GPU
+path and the legacy U-Net segmenter's setting."""
 
 from __future__ import annotations
 
@@ -49,3 +49,9 @@ def normalize_image(image: torch.Tensor, noise_level: float,
     x = image.to(torch.float32)
     med = median_midpoint(x.reshape(-1)[::median_stride])
     return lcn(torch.clamp_min(x - med, 0.0), noise_level, filter_size)
+
+
+def normalize_label(label_img: torch.Tensor) -> torch.Tensor:
+    """Binarize a cell/non-cell annotation: int32 ``label > 0``
+    (``preprocess.py:191-205``)."""
+    return (label_img > 0).to(torch.int32)

@@ -1,8 +1,8 @@
 """Greedy match peeling and the similarity normalizers (counterpart of
 ``3deecelltracker_tpu/ops/matching.py``: ``_peel_loop``, ``simple_match``,
 ``legacy_init_match``, ``non_max_suppression_normalize``,
-``softmax_normalize``, ``row_wise_normalize``).  ``_peel_loop`` and
-``simple_match`` also take a leading member axis, (E, m, n) matrices with
+``softmax_normalize``, ``row_wise_normalize``).  ``_peel_loop``,
+``simple_match`` and ``legacy_init_match`` also take a leading member axis, (E, m, n) matrices with
 (E, n) / (E, m) masks, and peel each member as it is alone.
 """
 
@@ -81,19 +81,22 @@ def legacy_init_match(corr: torch.Tensor, threshold: float = 0.5,
     """The prior of the legacy ``pr_gls_quick`` (track.py:58-70): peel at
     ``threshold``; unmatched rows stay uniform 1/n, matched rows become
     0.1/(n-1) except 0.9 at the matched column.  n is the valid ref count;
-    padded pairs get zero and can never be matched."""
-    m, n_static = corr.shape
+    padded pairs get zero and can never be matched.  With a leading member
+    axis ((E, m, n) scores, (E, n) ref masks; the target mask (m,) or
+    (E, m)) each member's prior is its own."""
+    *lead, m, n_static = corr.shape
     dev = corr.device
     if ref_mask is None:
-        ref_mask = torch.ones((n_static,), dtype=torch.bool, device=dev)
+        ref_mask = torch.ones((*lead, n_static), dtype=torch.bool,
+                              device=dev)
     if tgt_mask is None:
         tgt_mask = torch.ones((m,), dtype=torch.bool, device=dev)
-    valid = tgt_mask[:, None] & ref_mask[None, :]
+    valid = tgt_mask[..., :, None] & ref_mask[..., None, :]
     pairs, _ = _peel_loop(torch.where(valid, corr, 0.0), threshold)
-    n = torch.sum(ref_mask.to(torch.float32))
+    n = torch.sum(ref_mask.to(torch.float32), dim=-1)[..., None, None]
     one = torch.tensor(1.0, dtype=torch.float32, device=dev)
     # true f32 divisions, as XLA does them (see simple_match)
-    matched_row = torch.any(pairs, dim=1, keepdim=True)
+    matched_row = torch.any(pairs, dim=-1, keepdim=True)
     base = torch.where(matched_row, torch.div(one * 0.1, n - 1.0),
                        torch.div(one, n))
     out = torch.where(pairs, 0.9, base.expand(corr.shape))

@@ -196,16 +196,25 @@ def legacy_posterior(init_match: torch.Tensor, dist_sq: torch.Tensor,
     gamma (2 pi sigma^2)^1.5 / ((1 - gamma) vol).  A row whose denominator
     is exactly 0 -- every likelihood underflowed while gamma rounded to 0,
     which float32 reaches on a full-size recording -- gets 0, the limit
-    for gamma -> 0+; the JAX twin's 0/0 = NaN there poisons the M-step."""
+    for gamma -> 0+; the JAX twin's 0/0 = NaN there poisons the M-step.
+    ``sigma_sq`` and ``gamma`` broadcast against the (..., m, n) matrices
+    (0-d, or (E, 1, 1) with a member axis)."""
     two_pi = torch.tensor(2.0 * math.pi, dtype=torch.float32,
                           device=dist_sq.device)
-    p1 = init_match * torch.exp(-torch.where(valid, dist_sq, 0.0)
-                                / (2.0 * sigma_sq))
-    p1 = torch.where(valid, p1, 0.0)
-    denom = torch.sum(p1, dim=1) + gamma * (two_pi * sigma_sq) ** 1.5 \
-        / ((1.0 - gamma) * vol)
-    return torch.where(valid & (denom != 0)[:, None], p1 / denom[:, None],
-                       0.0)
+    lik = torch.exp(-torch.where(valid, dist_sq, 0.0) / (2.0 * sigma_sq))
+    # XLA's exp (the JAX twin's, on the CPU as on the TPU) gives 0 where
+    # the result would be subnormal, torch's the subnormal: with gamma
+    # near 0 such a row would take a whole posterior here and none there
+    lik = torch.where(lik < torch.finfo(torch.float32).tiny, 0.0, lik)
+    p1 = torch.where(valid, init_match * lik, 0.0)
+    denom = torch.sum(p1, dim=-1, keepdim=True) + gamma * (
+        two_pi * sigma_sq) ** 1.5 / ((1.0 - gamma) * vol)
+    return torch.where(valid & (denom != 0), p1 / denom, 0.0)
+
+
+def _sum2(x: torch.Tensor) -> torch.Tensor:
+    """Sum over the last two axes, kept as (..., 1, 1)."""
+    return torch.sum(x, dim=(-2, -1), keepdim=True)
 
 
 def pr_gls_quick(x_ref: torch.Tensor, y_tgt: torch.Tensor,
@@ -227,50 +236,56 @@ def pr_gls_quick(x_ref: torch.Tensor, y_tgt: torch.Tensor,
     is ``legacy_init_match`` of ``corr``.  ``beta`` and ``lambda_`` may be
     float32 0-d tensors (the fused fit passes them so).
     Padded points (parked far, masks False) take no part: the counts n, m
-    are the valid ones, padded refs get zero coefficients."""
+    are the valid ones, padded refs get zero coefficients.  A leading
+    member axis on ``x_ref`` ((E, n, 3), with (E, n) ``ref_mask`` and
+    (E, m, n) ``corr``) fits every member to the one target set at once,
+    each as it is alone."""
     f32 = torch.float32
     dev = x_ref.device
-    n_static, m_static = x_ref.shape[0], y_tgt.shape[0]
+    *lead, n_static, _ = x_ref.shape
+    m_static = y_tgt.shape[0]
     if ref_mask is None:
-        ref_mask = torch.ones((n_static,), dtype=torch.bool, device=dev)
+        ref_mask = torch.ones((*lead, n_static), dtype=torch.bool,
+                              device=dev)
     if tgt_mask is None:
         tgt_mask = torch.ones((m_static,), dtype=torch.bool, device=dev)
     beta = torch.as_tensor(beta, dtype=f32, device=dev)
     lambda_ = torch.as_tensor(lambda_, dtype=f32, device=dev)
-    valid = tgt_mask[:, None] & ref_mask[None, :]
-    n = torch.sum(ref_mask.to(f32))
+    valid = tgt_mask[:, None] & ref_mask[..., None, :]
+    n = torch.sum(ref_mask.to(f32), dim=-1)[..., None, None]
     m = torch.sum(tgt_mask.to(f32))
     init_match = legacy_init_match(corr, threshold=0.5, ref_mask=ref_mask,
                                    tgt_mask=tgt_mask)
     gram = gaussian_gram(x_ref, x_ref, beta * beta)
-    gram = torch.where(ref_mask[:, None] & ref_mask[None, :], gram, 0.0)
-    sigma_sq = torch.sum(torch.where(valid.T, pairwise_sq_dists(x_ref, y_tgt),
-                                     0.0)) / (3.0 * n * m)
+    gram = torch.where(ref_mask[..., :, None] & ref_mask[..., None, :], gram,
+                       0.0)
+    sigma_sq = _sum2(torch.where(valid.mT, pairwise_sq_dists(x_ref, y_tgt),
+                                 0.0)) / (3.0 * n * m)
     eye = torch.eye(n_static, dtype=f32, device=dev)
     vol_t = torch.tensor(vol, dtype=f32, device=dev)
-    x_ref_t = x_ref.to(f32).T
+    x_ref_t = x_ref.to(f32).mT
     t_x = x_ref.to(f32)
     gamma = torch.tensor(0.1, dtype=f32, device=dev)
-    post = torch.zeros((m_static, n_static), dtype=f32, device=dev)
-    c = torch.zeros((3, n_static), dtype=f32, device=dev)
+    post = torch.zeros((*lead, m_static, n_static), dtype=f32, device=dev)
+    c = torch.zeros((*lead, 3, n_static), dtype=f32, device=dev)
     failed = torch.zeros((), dtype=torch.bool, device=dev)
     # the reference iterates range(1, max_iteration)
     for _ in range(1, max_iteration):
         post = legacy_posterior(init_match, pairwise_sq_dists(y_tgt, t_x),
                                 valid, sigma_sq, gamma, vol_t)
-        diag_p = torch.sum(post, dim=0)                          # (n,)
-        a = gram * diag_p[None, :] + lambda_ * sigma_sq * eye
-        b = y_tgt.T @ post - x_ref_t * diag_p[None, :]
+        diag_p = torch.sum(post, dim=-2)                       # (..., n)
+        a = gram * diag_p[..., None, :] + lambda_ * sigma_sq * eye
+        b = y_tgt.T @ post - x_ref_t * diag_p[..., None, :]
         # solve_ex: no host sync per iteration; its info is collected
-        c, info = torch.linalg.solve_ex(a.T, b.T)
-        c = c.T                                                  # (3, n)
-        failed = failed | (info != 0) | ~torch.isfinite(c).all()
-        c = torch.where(ref_mask[None, :], c, 0.0)
-        t_x = (x_ref_t + c @ gram).T
-        m_p = torch.sum(post)
+        c, info = torch.linalg.solve_ex(a.mT, b.mT)
+        c = c.mT                                               # (..., 3, n)
+        failed = failed | (info != 0).any() | ~torch.isfinite(c).all()
+        c = torch.where(ref_mask[..., None, :], c, 0.0)
+        t_x = (x_ref_t + c @ gram).mT
+        m_p = _sum2(post)
         gamma = 1.0 - m_p / m
         dist_sq2 = pairwise_sq_dists(y_tgt, t_x)
         sigma_sq = torch.clamp_min(
-            torch.sum(post * torch.where(valid, dist_sq2, 0.0))
-            / (3.0 * m_p), 1.0)
+            _sum2(post * torch.where(valid, dist_sq2, 0.0)) / (3.0 * m_p),
+            1.0)
     return LegacyPrglsResult(post, t_x, c, failed)

@@ -5,7 +5,11 @@
 Every cell gets one fixed-size box, zero outside its true bbox; boxes are
 z-repeated by the interpolation factor, gaussian-blurred and thresholded at
 the cell's occupancy percentile.  Moving cells pastes only the box planes
-that land on the original z slices, all cells in one scatter-add.
+that land on the original z slices, all cells in one scatter: a sum of ids
+where cells overlap (``overlap_mode="add"``, the default) or the reference's
+id-order last write (``"last"``), with cells pushed past the canvas clamped
+into it (``out_of_range="clip"``) or dropped as the reference drops them
+(``"drop"``).
 """
 
 from __future__ import annotations
@@ -103,10 +107,49 @@ def build_subregion_atlas(label_image: torch.Tensor, n_cells: int,
                           tuple(int(s) for s in label_image.shape))
 
 
+def _box_extents(boxes: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per cell and axis, the tight start offset and width of its box's
+    occupied voxels (the reference's ``region_xyz_min`` relative to the
+    box origin and ``region_width``, track.py:520-534); (0, 0) for an
+    empty box."""
+    starts, widths = [], []
+    for other in ((2, 3), (1, 3), (1, 2)):
+        line = torch.any(torch.any(boxes, dim=other[1]), dim=other[0])
+        length = line.shape[1]
+        idx = torch.arange(length, device=boxes.device)[None, :]
+        first = torch.min(torch.where(line, idx, length), dim=1).values
+        last1 = torch.max(torch.where(line, idx + 1, 0), dim=1).values
+        nonempty = last1 > 0
+        starts.append(torch.where(nonempty, first, 0))
+        widths.append(torch.where(nonempty, last1 - first, 0))
+    return (torch.stack(starts, dim=1).to(torch.int32),
+            torch.stack(widths, dim=1).to(torch.int32))
+
+
+def _reference_in_bounds(atlas: SubregionAtlas, movements: torch.Tensor,
+                         full_shape) -> torch.Tensor:
+    """Which moved cells the reference's paste keeps (tracker.py:1370-1376):
+    a cell whose tight extent leaves the canvas padded by the largest cell
+    width is skipped, per axis ``-pad <= min + move`` and ``min + move +
+    width <= size + pad``, in the full interpolated frame."""
+    starts, w = _box_extents(atlas.boxes)
+    pad = torch.max(torch.where(atlas.valid[:, None], w, 0), dim=0).values
+    base = atlas.origins + starts + movements.to(torch.int32)
+    lim = torch.tensor(full_shape, dtype=torch.int32,
+                       device=base.device)[None, :] + pad[None, :]
+    return torch.all((base >= -pad[None, :]) & (base + w <= lim), dim=1)
+
+
 def _paste_scatter(canvas_shape, boxes: torch.Tensor,
-                   positions: torch.Tensor, include: torch.Tensor):
-    """Scatter-add every cell's box at its position: (labels holding the
-    SUM of ids where cells overlap, overlap count) int32 canvases."""
+                   positions: torch.Tensor, include: torch.Tensor,
+                   overlap_mode: str = "add"):
+    """Scatter every cell's box at its position: (labels, overlap count)
+    int32 canvases.  ``overlap_mode="add"``: labels hold the SUM of ids
+    where cells overlap; ``"last"``: the id pasted last in ascending id
+    order, i.e. the largest (a scatter-max)."""
+    if overlap_mode not in ("add", "last"):
+        raise ValueError(f"overlap_mode {overlap_mode!r}")
     dev = boxes.device
     n, bx, by, bz = boxes.shape
     cx, cy, cz = canvas_shape
@@ -120,8 +163,12 @@ def _paste_scatter(canvas_shape, boxes: torch.Tensor,
     vals_i = (boxes & include[:, None, None, None]).to(torch.int32)
     cell_ids = torch.arange(1, n + 1, dtype=torch.int32,
                             device=dev)[:, None, None, None]
+    ids = (vals_i * cell_ids).reshape(-1)
     labels = torch.zeros((cx * cy * cz,), dtype=torch.int32, device=dev)
-    labels.index_add_(0, flat_idx, (vals_i * cell_ids).reshape(-1))
+    if overlap_mode == "last":
+        labels.scatter_reduce_(0, flat_idx, ids, "amax")
+    else:
+        labels.index_add_(0, flat_idx, ids)
     overlap = torch.zeros((cx * cy * cz,), dtype=torch.int32, device=dev)
     overlap.index_add_(0, flat_idx, vals_i.reshape(-1))
     return labels.reshape(canvas_shape), overlap.reshape(canvas_shape)
@@ -129,12 +176,19 @@ def _paste_scatter(canvas_shape, boxes: torch.Tensor,
 
 def move_cells_sampled(atlas: SubregionAtlas,
                        movements: Optional[torch.Tensor] = None,
-                       include: Optional[torch.Tensor] = None
+                       include: Optional[torch.Tensor] = None,
+                       overlap_mode: str = "add",
+                       out_of_range: str = "clip"
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Paste every included cell at origin + movement (interp frame) and
     sample the original z slices ``f//2, f//2 + f, ...``.  Returns
     (labels, overlap count) of shape (x, y, z); overlapping voxels hold the
-    sum of ids (callers zero them where overlap > 1)."""
+    sum of ids, or with ``overlap_mode="last"`` the largest (callers zero
+    them where overlap > 1).  ``out_of_range="drop"`` skips the cells the
+    reference's paste skips (bounds in the full interpolated frame);
+    ``"clip"`` clamps them into the canvas."""
+    if out_of_range not in ("clip", "drop"):
+        raise ValueError(f"out_of_range {out_of_range!r}")
     dev = atlas.boxes.device
     n = atlas.n_cells
     if movements is None:
@@ -151,6 +205,9 @@ def move_cells_sampled(atlas: SubregionAtlas,
     canvas_shape = (x + 2 * pad[0], y + 2 * pad[1], z + 2 * pad[2])
 
     pos_interp = atlas.origins + movements.to(torch.int32)
+    if out_of_range == "drop":
+        include = include & _reference_in_bounds(atlas, movements,
+                                                 (x, y, z * f))
     boxes_r = atlas.boxes.reshape(n, bx, by, bz, f)
     z0 = pos_interp[:, 2]
     r = torch.remainder(off - z0, f)
@@ -162,7 +219,8 @@ def move_cells_sampled(atlas: SubregionAtlas,
     hi = torch.tensor([canvas_shape[0] - bx, canvas_shape[1] - by,
                        canvas_shape[2] - bz], dtype=torch.int32, device=dev)
     pos = torch.minimum(torch.clamp_min(pos, 0), hi)
-    cl, cm = _paste_scatter(canvas_shape, planes, pos, include)
+    cl, cm = _paste_scatter(canvas_shape, planes, pos, include,
+                            overlap_mode)
     return (cl[pad[0]:pad[0] + x, pad[1]:pad[1] + y, pad[2]:pad[2] + z],
             cm[pad[0]:pad[0] + x, pad[1]:pad[1] + y, pad[2]:pad[2] + z])
 

@@ -1,6 +1,6 @@
 """Tile-and-stitch sliding-window inference (counterpart of
 ``3deecelltracker_tpu/ops/tiling.py``: ``plan_tiles``, ``pad_for_tiles``,
-``extract_tiles``, ``stitch_tiles``).
+``extract_tiles``, ``stitch_tiles``, ``tiled_apply``).
 
 Reflect-pad the volume by ``shrink``, cut overlapping tiles whose centres
 (``tile - 2 * shrink``) partition the padded interior, run the network on
@@ -12,7 +12,7 @@ arithmetic.
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Sequence, Tuple
+from typing import Callable, NamedTuple, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -88,3 +88,23 @@ def stitch_tiles(tile_outputs: torch.Tensor, plan: TilePlan) -> torch.Tensor:
     full = grid.permute(0, 3, 1, 4, 2, 5).reshape(nx * cx, ny * cy, nz * cz)
     vx, vy, vz = plan.vol_shape
     return full[:vx, :vy, :vz]
+
+
+def tiled_apply(model_fn: Callable[[torch.Tensor], torch.Tensor],
+                img: torch.Tensor, tile_shape: Sequence[int],
+                shrink: Sequence[int], tile_batch: int = 0) -> torch.Tensor:
+    """``model_fn`` ((b, x, y, z) -> (b, x, y, z)) over a 3-D volume with
+    the tile-and-stitch of ``unet3_prediction``.  ``tile_batch`` > 0 runs
+    the tiles in chunks of that many (the last one zero-padded to full
+    size, as JAX's ``lax.map`` over chunks), bounding peak memory; 0 runs
+    them as one batch."""
+    plan = plan_tiles(img.shape, tile_shape, shrink)
+    tiles = extract_tiles(pad_for_tiles(img, plan), plan)
+    n = tiles.shape[0]
+    if tile_batch and tile_batch < n:
+        pad = tiles.new_zeros(((-n) % tile_batch,) + tuple(tiles.shape[1:]))
+        chunks = torch.cat([tiles, pad]).split(tile_batch)
+        outs = torch.cat([model_fn(c) for c in chunks])[:n]
+    else:
+        outs = model_fn(tiles)
+    return stitch_tiles(outs, plan)

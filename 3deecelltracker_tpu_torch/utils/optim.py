@@ -28,7 +28,10 @@ from __future__ import annotations
 
 from typing import List, Sequence
 
+import numpy as np
 import torch
+
+from .checkpoint import leaves_with_paths
 
 
 class Adam:
@@ -61,3 +64,40 @@ class Adam:
             nu.copy_((1 - self.b2) * (g * g) + self.b2 * nu)
             u = (mu / bc1) / (torch.sqrt(nu / bc2) + self.eps)
             p.add_(-self.learning_rate * u)
+
+
+def update_norms(params, params0) -> np.ndarray:
+    """``|theta - theta_0|`` of every parameter leaf (in ``save_pytree``'s
+    order), float64: how far training has moved each tensor.  ``params``
+    and ``params0`` are trees of tensors or arrays of one structure."""
+    def arr(v):
+        if isinstance(v, torch.Tensor):
+            return v.detach().cpu().double().numpy()
+        return np.asarray(v, np.float64)
+    return np.array([np.linalg.norm(arr(a) - arr(b)) for (_, a), (_, b) in
+                     zip(leaves_with_paths(params),
+                         leaves_with_paths(params0))])
+
+
+def update_norms_start(tree):
+    """A detached copy of a tree of tensors (the reference point of
+    :func:`update_norms`)."""
+    if isinstance(tree, dict):
+        return {k: update_norms_start(v) for k, v in tree.items()}
+    return tree.detach().clone()
+
+
+def record_update_norms(trainer) -> List[np.ndarray]:
+    """Wrap ``trainer.train_step`` so that each step appends the update
+    norms of ``trainer.params`` from where they stood at this call
+    (:func:`update_norms`) to the returned list."""
+    start = update_norms_start(trainer.params)
+    step = trainer.train_step
+    norms: List[np.ndarray] = []
+
+    def train_step(*args, **kwargs):
+        out = step(*args, **kwargs)
+        norms.append(update_norms(trainer.params, start))
+        return out
+    trainer.train_step = train_step
+    return norms

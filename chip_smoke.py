@@ -5,7 +5,9 @@
 Phases (any failure raises and the script exits non-zero):
 
 1. device: a CUDA device must be present; prints the card's name and power
-   limit as ``nvidia-smi`` reports them, and the torch/CUDA versions;
+   limit as ``nvidia-smi`` reports them, the torch/CUDA versions, and
+   whether ``h5py`` and ``matplotlib`` import (the card halves of
+   ``ROADMAP.md`` A.2 and A.9);
 2. build: compiles the five hand-written kernel sources from
    ``3deecelltracker_tpu_torch/csrc/`` (with their shared header) with
    ``nvcc``, one each, all at once (into the package's ``_build/``), and
@@ -135,7 +137,37 @@ Phases (any failure raises and the script exits non-zero):
    grid) and the whole volume's ((32, 128, 128)) against the plain
    version; each tiled run's direct conv launches once per tile batch.
    The whole-volume pass is no tiled run: its launches are printed and
-   kept out of the path's count.
+   kept out of the path's count;
+18. the legacy folder workflow, trained (path ``legacy_folder``): the
+   bench scene's 21 volumes as ``raw_t%04i_z%04i.tif`` slices with the
+   ground truth in ``manual_vol1/`` and, in ``models/``, U-Net a trained by
+   JAX's ``TrainingUNet3D`` and the bench FFN
+   (``3deecelltracker_tpu_torch/assets/legacy/``); the
+   ``examples/use_unet_legacy.py`` flow through the folder ``Tracker``
+   (``load_unet``, ``load_ffn``, ``segment_vol1``, ``load_manual_seg``,
+   ``interpolate_seg``, ``cal_subregions``, ``initiate_tracking``,
+   ``track(2)``, ``save_coordinates``) from an empty U-Net cache, held to
+   ``jax_legacy_record.npz`` (``hold_legacy_to_record``: cells per volume,
+   ``auto_vol1`` and labels, coordinates by median and the identity gate,
+   recall, switches; the GT cells matched at t = 1 printed), every counter
+   reset before and read after (the ``wgmma`` conv, one stem per volume,
+   the flood and cc); seg and track ms per volume and the wall per volume;
+19. the same folder with ``ensemble=20`` (path ``legacy_ensemble``), its
+   U-Net cache cleared, held to ``jax_legacy_record_ensemble.npz`` with
+   the same counters;
+20. retraining (path ``retrain``): the conv Function's gradients at every
+   3x3x3 layer of U-Net a's training batch (8 x (160, 160, 16) and its
+   pooled levels, no ReLU) against float64 autograd; the first 30 steps of
+   ``retrain_unet`` on JAX's batches (``jax_unet_train_record.npz``: its
+   patch starts and affine draws), losses per step and the mean update
+   norm of every leaf held to the record, the dW-zeroed fault rejected;
+   ``scripts/use_unet_legacy.py --retrain 2`` in a fresh folder (min_size
+   20: the bench cells are smaller than the example's 100); ms per
+   step with the forward's, dX's and dW's per step beside their bounds;
+21. U-Net variants b and c: every 3x3x3 layer shape of a bench volume's
+   tile batch against the plain version, and vol 1's segmentation through
+   ``Tracker(unet_variant=...)`` with seeded weights on the card, and on a
+   crop on the card against the CPU.
 
 Every kernel's entry in the kernels line carries its bound: the least time
 the card could take, the larger of its bytes (inputs read once, the output
@@ -165,7 +197,10 @@ trains, phase 17 a seeded init.  The conv's entry also carries phase 16's
 and 17's readings (``tiled_*``, ``whole_backbone_*``, ``zebrafish_*``);
 both conv entries' ``max_abs_err`` is the largest over every shape held
 against the plain version, phases 16 and 17's included
-(``tiled_max_abs_err``, ``zebrafish_max_abs_err``).
+(``tiled_max_abs_err``, ``zebrafish_max_abs_err``, and phase 21's
+``variants_max_abs_err``), and phases 18-20's readings (``legacy_*``,
+``legacy_ensemble_*``, ``unet_step_ms``, ``unet_train_*``).  Phases 18-19
+use the JAX-trained U-Net, phase 20 retrains it, phase 21 seeded weights.
 """
 
 from __future__ import annotations
@@ -312,6 +347,12 @@ def phase_device():
         timeout=60).stdout.strip().splitlines()[0]
     print(f"[device] torch {torch.__version__} cuda {torch.version.cuda} "
           f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
+    # whether the machine could run the card halves of ROADMAP.md A.2
+    # (HDF5 recordings) and A.9 (figures)
+    import importlib.util
+    print("[device] packages: " + ", ".join(
+        f"{m} {'imports' if importlib.util.find_spec(m) else 'missing'}"
+        for m in ("h5py", "matplotlib")))
     return smi
 
 
@@ -1309,15 +1350,16 @@ def train_conv_layers(cfg):
     return layers
 
 
-def phase_train_grads(dev, cfg):
-    """Part 1 of phase 14: the conv Function's dX, dW and db against
-    autograd through the plain version in float64 (under the Function's
-    own ReLU mask) at every layer shape of the
-    recipe's network (the c_in = 1 stem without dX: its input is the
-    image), within ``GRAD_RTOL`` in the norm; per layer the forward's
-    kernel time, dX's kernel time (with the flipped weights' packing) and
-    cuDNN's for the same conv, dW's library time, each with its bound.
-    Returns the sums per training step."""
+def phase_train_grads(dev, layers, relu=True, tag="train grad"):
+    """Part 1 of phase 14 (and of phase 20): the conv Function's dX, dW and
+    db against autograd through the plain version in float64 (under the
+    Function's own ReLU mask, with ``relu``) at every layer shape of
+    ``layers`` ({(b, z, y, x, c_in, c_out): count}, a training step's
+    3x3x3 layers; the c_in = 1 stem without dX: its input is the image),
+    within ``GRAD_RTOL`` in the norm; per layer the forward's kernel time,
+    dX's kernel time (with the flipped weights' packing) and cuDNN's for
+    the same conv, dW's library time, each with its bound.  Returns the
+    sums per training step."""
     import torch
     from t3dct_torch.models.layers import glorot_uniform
     from t3dct_torch.ops import hopper_conv as hc
@@ -1335,7 +1377,7 @@ def phase_train_grads(dev, cfg):
             return conv_tc_bound(xin, w, b)[0]
         return conv_bound(xin, w, b)[0]
 
-    for (*shape, ci, co), n in train_conv_layers(cfg).items():
+    for (*shape, ci, co), n in layers.items():
         xin = torch.relu(torch.randn(tuple(shape) + (ci,), generator=gen)
                          ).to(dev)
         w = glorot_uniform((3, 3, 3, ci, co), 27 * ci, 27 * co, gen, dev)
@@ -1345,7 +1387,7 @@ def phase_train_grads(dev, cfg):
         leaves = [xin.clone().requires_grad_(not stem),
                   w.clone().requires_grad_(True),
                   b.clone().requires_grad_(True)]
-        y = hc.Conv3x3x3BiasReLU.apply(*leaves, True)
+        y = hc.Conv3x3x3BiasReLU.apply(*leaves, relu)
         if y.grad_fn is None:
             raise AssertionError("the conv Function's result has no grad_fn")
         got = torch.autograd.grad(y, [t for t in leaves if t.requires_grad],
@@ -1355,19 +1397,20 @@ def phase_train_grads(dev, cfg):
         # the Function's ReLU mask: where |y| is a few ulp from 0 the
         # kernel's and cuDNN's sums fall on either side, and each such
         # voxel moves a gradient by its whole g
-        mask = (y > 0).detach()
+        mask = (y > 0).detach() if relu else torch.ones_like(y, dtype=bool)
         ref = [t.detach().double().requires_grad_(t.requires_grad)
                for t in leaves]
         want = torch.autograd.grad(
             hc.conv3x3x3_bias_relu_plain(*ref, False) * mask,
             [t for t in ref if t.requires_grad], go.double())
+        del ref
         flips = int(((hc.conv3x3x3_bias_relu_plain(xin, w, b, True) > 0)
-                     != mask).sum())
+                     != mask).sum()) if relu else 0
         torch.cuda.synchronize()
         errs = [float((a.double() - r).norm() / r.norm().clamp_min(1e-30))
                 for a, r in zip(got, want)]
         worst = max(worst, max(errs))
-        gm = (go * (y > 0)).detach().contiguous()
+        gm = (go * mask).detach().contiguous()
         wt = hc.flipped_weights(w)
         zeros = torch.zeros(ci, device=dev)
         fwd = cuda_ms(lambda: hc.conv3x3x3_bias_relu(xin, w, b, True), 5, 1)
@@ -1389,7 +1432,7 @@ def phase_train_grads(dev, cfg):
                     gm, wt, zeros, False), 5, 1))
         for key, v in row.items():
             add(key, v, n)
-        print(f"[train grad] {'x'.join(map(str, shape))} {ci}->{co} x{n}: "
+        print(f"[{tag}] {'x'.join(map(str, shape))} {ci}->{co} x{n}: "
               f"rel err (dX, dW, db / dW, db) "
               f"{', '.join(f'{e:.2e}' for e in errs)} ({flips} of "
               f"{y.numel()} ReLU mask voxels differ from cuDNN's); forward "
@@ -1402,7 +1445,7 @@ def phase_train_grads(dev, cfg):
         if max(errs) > GRAD_RTOL:
             raise AssertionError(f"conv gradient {shape} {ci}->{co}: "
                                  f"{errs} > {GRAD_RTOL}")
-    print(f"[train grad] per step: forward {sums['fwd']:.3f} ms (least "
+    print(f"[{tag}] per step: forward {sums['fwd']:.3f} ms (least "
           f"{sums['fwd_bound']:.3f}), dX {sums['dx']:.3f} ms "
           f"({sums['dx_flip_pack']:.3f} with the flips' packing; least "
           f"{sums['dx_bound']:.3f}, cuDNN {sums['dx_library']:.3f}), dW "
@@ -1485,6 +1528,48 @@ def hold_losses(name, got, want, per_step=None, spread=None):
         raise AssertionError(f"{name}: steps {bad} off JAX's record")
 
 
+def late_norm_departures(got, want, spread, first=LOSS_PER_STEP):
+    """The training record's update-norm statistic.  Per parameter leaf,
+    the mean of ``|theta_t - theta_0|`` over steps ``first + 1``.. of
+    ``got`` (steps, leaves) against ``want``'s, relative; their root mean
+    square over the leaves is the run's departure, bounded by
+    ``LOSS_SPREAD_FACTOR`` times the largest departure of JAX's nudged runs
+    ``spread`` (runs, steps, leaves), at least ``LOSS_LATER_TOL``.  A leaf
+    that does not train is 100% off, and one such leaf of the StarDist
+    net's 28 moves the departure by 0.19.  Returns (per-leaf departures,
+    the run's departure, its bound)."""
+    late = slice(first, None)
+    w = np.asarray(want)[late].mean(0)
+
+    def rel(run):
+        return np.abs(np.asarray(run)[late].mean(0) - w) / w
+
+    def rms(run):
+        return float(np.sqrt(np.mean(rel(run) ** 2)))
+    bound = max(LOSS_LATER_TOL,
+                LOSS_SPREAD_FACTOR * max(rms(r) for r in spread))
+    return rel(got), rms(got), bound
+
+
+def hold_update_norms(name, got, want, spread, leaves, first=LOSS_PER_STEP):
+    """:func:`late_norm_departures`, printed; raises beyond the bound."""
+    rel, dep, bound = late_norm_departures(got, want, spread, first)
+    print(f"[train record] {name}: update norms |theta_t - theta_0| over "
+          f"steps {first + 1}-{len(want)}, mean per leaf: departure (rms "
+          f"over {len(rel)} leaves) {dep:.3e}, bound {bound:.3e}; largest "
+          f"leaf {leaves[int(rel.argmax())]} {rel.max():.2e}")
+    if len(got) != len(want) or dep > bound:
+        raise AssertionError(f"{name}: update norms off JAX's record "
+                             f"({dep} > {bound})")
+
+
+def sd_norm_spread(rec):
+    """JAX's StarDist runs nudged by one ulp, their update norms: (runs,
+    steps, leaves)."""
+    return np.concatenate([rec["sd_update_norms_ulp"][None],
+                           rec["sd_update_norms_nudged"]])
+
+
 def sd_spread(rec):
     """JAX's StarDist runs from its init nudged by one ulp, runs x steps:
     every parameter up, then up or down by a seeded random sign."""
@@ -1502,7 +1587,7 @@ def planted_faults(dev, root, cfg, trainer_kw, img, lab, rec, steps):
     from t3dct_torch.models import layers
     from t3dct_torch.models.train_stardist import TrainStarDist3D
     from t3dct_torch.ops.hopper_conv import Conv3x3x3BiasReLU
-    from t3dct_torch.utils.convert import load_npz
+    from t3dct_torch.utils.optim import record_update_norms
 
     def zeroed(slot, c_in):
         class Faulty(Conv3x3x3BiasReLU):
@@ -1521,6 +1606,7 @@ def planted_faults(dev, root, cfg, trainer_kw, img, lab, rec, steps):
             tr = jax_init_trainer(TrainStarDist3D(
                 cfg, basedir=root / f"sd_fault{i}", device=dev,
                 **trainer_kw))
+            norms = record_update_norms(tr)
             losses = tr.train([img], [lab], epochs=steps, steps_per_epoch=1,
                               verbose=False)
         finally:
@@ -1528,14 +1614,23 @@ def planted_faults(dev, root, cfg, trainer_kw, img, lab, rec, steps):
         dep = loss_departures(losses, rec["sd_losses"], LOSS_PER_STEP,
                               sd_spread(rec))
         mean_rel, mean_bound = dep["late"]
+        _, late_dep, late_bound = late_norm_departures(
+            norms, rec["sd_update_norms"], sd_norm_spread(rec))
+        late_bad = late_dep > late_bound
         print(f"[train record] planted fault, {name}: rel diff per step "
               f"{fmt_rel(dep['rel'])}; steps beyond their bound "
               f"{dep['bad']}; late mean rel {mean_rel:.2e} (bound "
               f"{mean_bound:.2e}: "
-              f"{'rejects' if mean_rel > mean_bound else 'passes'} it)")
-        if not dep["bad"] and mean_rel <= mean_bound:
+              f"{'rejects' if mean_rel > mean_bound else 'passes'} it); "
+              f"steps {LOSS_PER_STEP + 1}-{steps} update norms: departure "
+              f"{late_dep:.3e} (bound {late_bound:.3e}: "
+              f"{'rejects' if late_bad else 'passes'} it)")
+        if not dep["bad"] and mean_rel <= mean_bound and not late_bad:
             raise AssertionError(f"the record check passes a trainer with "
                                  f"{name}")
+        if slot == 1 and c_in is None and not late_bad:
+            raise AssertionError(f"the late steps' update norms pass a "
+                                 f"trainer with {name}")
 
 
 def vol1_training_data():
@@ -1563,16 +1658,21 @@ def phase_train_records(dev, root, cfg, trainer_kw, ffn_seed, steps):
     from t3dct_torch.models.train_ffn import DataGeneratorFFN, TrainFFN
     from t3dct_torch.models.train_stardist import TrainStarDist3D
     from t3dct_torch.utils.convert import load_npz
+    from t3dct_torch.utils.optim import record_update_norms
     rec = np.load(TRAIN_ASSETS / "jax_train_record.npz")
     img, lab, _ = vol1_training_data()
     sd_init = load_npz(TRAIN_ASSETS / "sd_init.npz")
     tr = TrainStarDist3D(cfg, basedir=root / "sd_record", device=dev,
                          **trainer_kw)
     tr.start_from(sd_init)
+    norms = record_update_norms(tr)
     losses, launches = counted(lambda: tr.train(
         [img], [lab], epochs=steps, steps_per_epoch=1, verbose=False))
     hold_losses("StarDist", losses, rec["sd_losses"], LOSS_PER_STEP,
                 sd_spread(rec))
+    hold_update_norms("StarDist", norms, rec["sd_update_norms"],
+                      sd_norm_spread(rec),
+                      json.loads(str(rec["sd_update_leaves"])))
     planted_faults(dev, root, cfg, trainer_kw, img, lab, rec, steps)
     # one more step, split: the forward's launches, then the backward's
     x, pg, dg = tr.sample_batch([img], [lab])
@@ -2254,6 +2354,415 @@ def phase_probe(dev):
     return res, launches
 
 
+# phases 18-21: the legacy v0.4 workflow as examples/use_unet_legacy.py
+# runs it, with U-Net a trained by JAX (assets/legacy/), held to JAX's
+# records of the same runs (tests/test_torch_legacy_record.py)
+LEGACY_ASSETS = ROOT / "3deecelltracker_tpu_torch" / "assets" / "legacy"
+LEG_EXAMPLE = dict(z_xy_ratio=9.2, z_scaling=10, noise_level=200.0,
+                   min_size=100, beta_tk=300.0, lambda_tk=0.1, maxiter_tk=20)
+LEG_IMAGE = "raw_t%04i_z%04i.tif"
+LEG_ENSEMBLE = 20
+# the bounds on a legacy run against JAX's record, fixed before the card's
+# first run of phases 18-19 at twice the departure of the port's CPU run of
+# phase 18 from it (tests/test_torch_legacy_record.py::
+# test_port_on_cpu_matches_records): one volume's cell count off by one,
+# tracked coordinates up to 2.114 real units off by the median of a volume
+# (9.826 at most, under the identity gate), labels 99.414% equal, strict
+# recall 0.8867 against 0.8533, 18 identity switches against 25.  The
+# legacy EM's outlier share gamma = 1 - m_p / m cancels to ~1e-9 once the
+# fit explains every target, and its sign, set by rounding, decides whether
+# outlier rows leave the fit (gamma > 0, JAX's run) or gamma stays <= 0
+# (ROADMAP.md C.9): on JAX's own inputs the two fits part by 0.2-0.7 real
+# units (median) in 5 of 8 bench volumes tried, and the tracked cells carry
+# that on.  auto_vol1 is held as phase 11's labels (LABELS_EQUAL).
+LEG_CELLS_OFF = 2
+LEG_COORD_MEDIAN = 4.25
+LEG_LABELS_EQUAL = 0.988
+LEG_RECALL_OFF = 0.067
+LEG_SWITCHES_OFF = 14
+# phase 20: U-Net a's training batch (TrainingUNet3D's batch of 8 tiles)
+UNET_TRAIN_BATCH = 8
+# phase 20's --retrain run: the bench scene's cells hold 66-77 voxels, all
+# below the example's min_size of 100, which leaves no cell once the
+# retrained net outlines them (the JAX-trained one marks blobs of 100 to
+# 15000 voxels)
+LEG_RETRAIN_MIN_SIZE = 20
+
+
+def write_legacy_folder(root, n_vols=BENCH_VOLS):
+    """The example's folder for the bench scene: ``data/`` the raw
+    (x, y, z) volumes as ``raw_t%04i_z%04i.tif`` slices, ``manual_vol1/``
+    the ground truth, ``models/`` the trained U-Net and the bench FFN.
+    Returns the folder and the true centres."""
+    import shutil
+    from t3dct_torch.io.imageio import save_label_slices
+    from t3dct_torch.utils.synthetic import make_recording
+    vols, centers, lab1 = make_recording(n_vols, N_CELLS, (Z, Y, X))
+    for t, v in enumerate(vols, start=1):
+        save_label_slices(v.transpose(1, 2, 0), root / "data", LEG_IMAGE, t,
+                          use_8_bit=False, compression=None)
+    save_label_slices(lab1.transpose(1, 2, 0), root / "manual_vol1",
+                      "manual_t%04i_z%04i.tif", 1, use_8_bit=False,
+                      compression=None)
+    (root / "models").mkdir(parents=True, exist_ok=True)
+    shutil.copy(LEGACY_ASSETS / "unet3_a.npz", root / "models")
+    shutil.copy(ASSETS / "ffn.npz", root / "models")
+    return root, centers
+
+
+def legacy_tracker(dev, folder, n_vols=BENCH_VOLS, siz=(Y, X, Z), **kw):
+    from t3dct_torch.engine.legacy import Tracker
+    return Tracker(volume_num=n_vols, siz_xyz=siz, **LEG_EXAMPLE,
+                   folder_path=str(folder), image_name=LEG_IMAGE,
+                   unet_model_file="unet3_a.npz", ffn_model_file="ffn.npz",
+                   max_cells=LEG_MAX_CELLS, device=dev, **kw)
+
+
+def timed_legacy_example(tracker, timer):
+    """The example's flow after proofreading, from an empty U-Net cache,
+    each volume's segmentation (stage ``seg``) and tracking (``track``)
+    timed."""
+    seg, track = tracker._segment_array, tracker._track_volume
+
+    def timed_seg(*args, **kwargs):
+        with timer.stage("seg"):
+            return seg(*args, **kwargs)
+
+    def timed_track(*args, **kwargs):
+        with timer.stage("track"):
+            return track(*args, **kwargs)
+    tracker._segment_array, tracker._track_volume = timed_seg, timed_track
+    with timer.stage("call"):
+        tracker.load_unet()
+        tracker.set_segmentation(del_cache=True)
+        tracker.load_ffn()
+        tracker.segment_vol1()
+        tracker.load_manual_seg()
+        tracker.interpolate_seg()
+        tracker.cal_subregions()
+        tracker.initiate_tracking()
+        tracker.track(from_volume=2)
+        tracker.save_coordinates()
+    return tracker
+
+
+def hold_legacy_to_record(path, record, tracker, centers):
+    """A legacy run against JAX's record: cells found per volume (at most
+    ``LEG_CELLS_OFF`` volumes off, by one), tracked coordinates within
+    ``LEG_COORD_MEDIAN`` per volume and every cell within the record's
+    identity gate, ``auto_vol1`` ``LABELS_EQUAL`` and the tracked labels
+    ``LEG_LABELS_EQUAL`` per volume, strict recall within
+    ``LEG_RECALL_OFF`` and identity switches within ``LEG_SWITCHES_OFF``
+    of the record's; the GT cells that ``auto_vol1`` matches at IoU 0.5
+    printed beside the record's.  Returns what failed and this run's
+    metrics."""
+    from t3dct_torch.engine.metrics import (instance_matching,
+                                            tracking_id_metrics)
+    from t3dct_torch.io.imageio import imread_stack
+    want = json.loads(str(record["metrics"]))
+    h = tracker.history
+    cells = np.array([len(c) for c in h.r_segmented_coordinates])
+    off = np.abs(cells - record["cells"])
+    bad = []
+    print(f"[{path}] cells found per volume (card; JAX): {cells.tolist()}; "
+          f"{record['cells'].tolist()}")
+    if off.max() > 1 or (off > 0).sum() > LEG_CELLS_OFF:
+        bad.append(f"cells {cells.tolist()}")
+
+    def labels(folder, name):
+        files = sorted(Path(folder).glob(name))
+        return imread_stack(files).transpose(1, 2, 0)
+    auto = labels(tracker.paths.auto_segmentation_vol1, "auto_R_t0001_z*")
+    same = float((auto == record["auto_vol1"]).mean())
+    print(f"[{path}] auto_vol1 equal to the record's: {same:.6f}")
+    if same < LABELS_EQUAL:
+        bad.append("auto_vol1")
+    coords = {t: c for t, c in enumerate(h.r_tracked_coordinates, start=1)}
+    for t in range(1, BENCH_VOLS + 1):
+        d = np.linalg.norm(coords[t] - record[f"coords_{t}"], axis=1)
+        lab = labels(tracker.paths.track_results,
+                     "track_results_t%06i_z*.tif" % t)
+        eq = float((lab == record[f"labels_{t}"]).mean())
+        print(f"[{path}] t={t}: coords off JAX's record by median "
+              f"{np.median(d):.3e}, max {d.max():.3e} real units (cell "
+              f"{int(d.argmax())}), {int((d > 0.5).sum())} beyond 0.5; "
+              f"labels equal {eq:.5f}")
+        if not np.isfinite(coords[t]).all() or \
+                np.median(d) > LEG_COORD_MEDIAN or d.max() > want["gate"]:
+            bad.append(f"t={t} coords")
+        if eq < LEG_LABELS_EQUAL:
+            bad.append(f"t={t} labels")
+    got = tracking_id_metrics(coords, centers, VOXEL_SIZE, BENCH_VOLS)
+    got["matched_t1"] = instance_matching(
+        labels(tracker.paths.manual_segmentation_vol1, "*.tif"), auto,
+        0.5)["tp"]
+    print(f"[{path}] strict recall {got['strict_recall']}, accuracy over "
+          f"every t {got['strict_accuracy_all_t']}, identity switches "
+          f"{got['id_switches']}, GT cells matched at IoU 0.5 at t = 1 "
+          f"{got['matched_t1']} (JAX's record: {want})")
+    bad += [f"{k} {got[k]}" for k, tol in (("strict_recall", LEG_RECALL_OFF),
+                                          ("id_switches", LEG_SWITCHES_OFF))
+            if abs(got[k] - want[k]) > tol]
+    return bad, got
+
+
+def phase_legacy_folder(dev, smi, folder, centers, ensemble=False):
+    """Phase 18 (single mode, path ``legacy_folder``) and 19 (``ensemble=
+    20``, path ``legacy_ensemble``, the same folder afterwards): the
+    example's flow through the folder ``Tracker`` with the trained U-Net,
+    held to ``jax_legacy_record.npz`` / ``jax_legacy_record_ensemble.npz``
+    (``hold_legacy_to_record``).  Every counter reset before the run and
+    read after: the ``wgmma`` conv, the direct stem (one per volume), the
+    flood and cc must each have run.  Prints seg and track ms per volume
+    and the wall per volume of the whole call."""
+    from t3dct_torch.utils.timing import CudaStageTimer
+    path = "legacy_ensemble" if ensemble else "legacy_folder"
+    record = np.load(LEGACY_ASSETS / ("jax_legacy_record_ensemble.npz"
+                                      if ensemble else
+                                      "jax_legacy_record.npz"))
+    kw = dict(ensemble=LEG_ENSEMBLE) if ensemble else {}
+    timer = CudaStageTimer()
+    tracker, launches = counted(lambda: timed_legacy_example(
+        legacy_tracker(dev, folder, **kw), timer))
+    print(f"[{path}] launches {launches}")
+    check_conv_launches(path, launches, BENCH_VOLS, stem_count(
+        [(ci, co, n) for (*_, ci, co), n
+         in unet_conv_layers(tracker.unet_model).items()]))
+    check_flood_launches(path, launches, BENCH_VOLS)
+    if launches["cc_label"] <= 0:
+        raise AssertionError(f"{path}: cc was not launched: {launches}")
+    bad, _ = hold_legacy_to_record(path, record, tracker, centers)
+    seg, track = timer.times["seg"], timer.times["track"]
+    print(f"[{path}] {smi}: wall {timer.times['call'][0] / BENCH_VOLS:.2f} "
+          f"ms per volume for the whole call (TIFF reads and writes, cache, "
+          f"vol-1 interpolation included); seg {np.mean(seg):.2f} ms per "
+          f"volume {[round(v, 1) for v in seg]}; track {np.mean(track):.2f}"
+          f" ms per volume {[round(v, 1) for v in track]}")
+    if bad:
+        raise AssertionError(f"{path}: off JAX's record: {bad}")
+    return launches, dict(
+        seg_ms=float(np.mean(seg)), track_ms=float(np.mean(track)),
+        wall_ms=timer.times["call"][0] / BENCH_VOLS)
+
+
+def unet_train_layers(spec, batch=UNET_TRAIN_BATCH):
+    """Every 3x3x3 layer of ``spec`` on a training batch of ``batch``
+    tiles: {(b, x, y, z, c_in, c_out): count}."""
+    return {(batch,) + k: n for k, n in unet_conv_layers(spec).items()}
+
+
+def sync(dev):
+    import torch
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def replay_unet_record(dev, folder, rec, zero_dw=False):
+    """The first steps of ``retrain_unet`` on ``dev`` from the trained
+    weights in ``folder`` (``write_legacy_folder``), on JAX's batches: the
+    record's affine draws replace the trainer's, and its patch starts must
+    be the ones ``np.random.RandomState(1)`` gives here.  ``zero_dw``
+    plants every 3x3x3 dW zeroed.  Returns the losses, the update norms
+    (steps, leaves) and ms per step."""
+    import torch
+    from t3dct_torch.models import layers as L
+    from t3dct_torch.ops.hopper_conv import Conv3x3x3BiasReLU
+    from t3dct_torch.utils.optim import record_update_norms
+    tracker = legacy_tracker(dev, folder)
+    tracker.load_unet()
+    tracker.load_manual_seg()
+    trainer = tracker._unet_trainer()
+    draws = [[(torch.from_numpy(m), torch.from_numpy(o))
+              for m, o in zip(ms, offs)]
+             for ms, offs in zip(rec["affine_m"], rec["affine_offset"])]
+    trainer._draw_affines = lambda b, hw: draws.pop(0)
+    norms = record_update_norms(trainer)
+    rng_np = np.random.RandomState(1)
+    losses, starts, times = [], [], []
+
+    class NoWeightGrad(Conv3x3x3BiasReLU):
+        @staticmethod
+        def backward(ctx, g):
+            dx, dw, db, none = Conv3x3x3BiasReLU.backward(ctx, g)
+            return dx, torch.zeros_like(dw), db, none
+    if zero_dw:
+        L.Conv3x3x3BiasReLU = NoWeightGrad
+    try:
+        for _ in range(len(rec["losses"])):
+            state = rng_np.get_state()
+            n = trainer.train_subimage.shape[0]
+            starts.append(rng_np.randint(0, max(n - trainer.batch_size, 1)))
+            rng_np.set_state(state)
+            sync(dev)
+            t0 = time.perf_counter()
+            loss = trainer.train_step(*trainer._train_batch(rng_np))
+            sync(dev)
+            times.append(1e3 * (time.perf_counter() - t0))
+            losses.append(float(loss))
+    finally:
+        L.Conv3x3x3BiasReLU = Conv3x3x3BiasReLU
+    if starts != rec["starts"].tolist():
+        raise AssertionError(f"retrain: patch starts {starts}, JAX's "
+                             f"{rec['starts'].tolist()}")
+    return losses, np.asarray(norms), times
+
+
+def phase_retrain(dev, smi, root):
+    """Phase 20 (path ``retrain``): U-Net a's training on the card.  (1)
+    the conv Function's gradients at every 3x3x3 layer of its training
+    batch, 8 x (160, 160, 16) and its pooled levels, without the ReLU
+    (``phase_train_grads``); (2) the first 30 steps of ``retrain_unet``
+    from the trained weights on JAX's batches (its patch starts and affine
+    draws, ``jax_unet_train_record.npz``), each step's loss held as phase
+    14 holds StarDist's through step ``LOSS_PER_STEP``, and the mean update
+    norm of every leaf over steps 1-30 within twice JAX's one-ulp spread
+    (at least ``LOSS_LATER_TOL``); the same steps with every dW zeroed must
+    fail that; (3) the example with ``--retrain 2`` in a fresh folder
+    (``--min-size LEG_RETRAIN_MIN_SIZE``):
+    validation losses, checkpoints at each improvement,
+    ``select_unet_weights`` of the best, then tracking with the chosen
+    weights.  Returns the 30 steps' launches and the readings."""
+    from t3dct_torch.models.unet3d import unet3_a
+    from t3dct_torch.scripts import use_unet_legacy
+    grads = phase_train_grads(dev, unet_train_layers(unet3_a()), relu=False,
+                              tag="retrain grad")
+    rec = np.load(LEGACY_ASSETS / "jax_unet_train_record.npz")
+    leaves = json.loads(str(rec["leaves"]))
+    folder, _ = write_legacy_folder(root / "retrain", n_vols=1)
+
+    (losses, norms, times), launches = counted(
+        lambda: replay_unet_record(dev, folder, rec))
+    spread = rec["update_norms_nudged"]
+    hold_losses("U-Net retrain", losses, rec["losses"], len(rec["losses"]),
+                rec["losses_nudged"])
+    hold_update_norms("U-Net retrain", norms, rec["update_norms"], spread,
+                      leaves, first=0)
+    _, faulty, _ = replay_unet_record(dev, folder, rec, zero_dw=True)
+    _, fault_dep, fault_bound = late_norm_departures(
+        faulty, rec["update_norms"], spread, first=0)
+    print(f"[retrain] planted fault, every dW zeroed: update-norm departure "
+          f"{fault_dep:.3e} (bound {fault_bound:.3e})")
+    if fault_dep <= fault_bound:
+        raise AssertionError("the update norms pass a U-Net trainer with "
+                             "every dW zeroed")
+    step_ms = float(np.mean(times[3:]))
+    print(f"[retrain] {smi}: {step_ms:.2f} ms per step (mean of steps "
+          f"4-30; every step {[round(v, 1) for v in times]}); per step forward "
+          f"{grads['fwd']:.3f} ms, dX {grads['dx']:.3f} ms (least "
+          f"{grads['dx_bound']:.3f}), dW (library) {grads['dw']:.3f} ms "
+          f"(least {grads['dw_bound']:.3f}); launches over 30 steps "
+          f"{launches}")
+    # the example's second phase with --retrain 2 in a fresh folder
+    from t3dct_torch.engine.metrics import tracking_id_metrics
+    ex, centers = write_legacy_folder(root / "retrain_example")
+    t0 = time.perf_counter()
+    tracker = use_unet_legacy.main([
+        "--folder", str(ex), "--volume-num", str(BENCH_VOLS), "--siz-xyz",
+        str(Y), str(X), str(Z), "--min-size", str(LEG_RETRAIN_MIN_SIZE),
+        "--unet-model", "unet3_a.npz", "--ffn-model", "ffn.npz",
+        "--skip-segmentation", "--retrain", "2", "--device", str(dev)])
+    wall = time.perf_counter() - t0
+    val = tracker.val_losses
+    best = int(np.argmin(val))
+    ckpts = sorted(p.name for p in Path(tracker.paths.unet_weights).glob(
+        "unet_weights_retrain_step*.npz"))
+    want = [f"unet_weights_retrain_step{i}.npz" for i in range(1, len(val))
+            if val[i] < min(val[:i])]
+    coords = tracker.history.r_tracked_coordinates
+    acc = tracking_id_metrics(dict(enumerate(coords, start=1)), centers,
+                              VOXEL_SIZE, BENCH_VOLS)
+    print(f"[retrain] example --retrain 2 --min-size {LEG_RETRAIN_MIN_SIZE}:"
+          f" {wall:.1f} s; val losses {[round(v, 5) for v in val]}, "
+          f"checkpoints {ckpts}, chose step {best}; {len(coords)} volumes "
+          f"tracked, {len(coords[0])} cells; cells found per volume "
+          f"{[len(c) for c in tracker.history.r_segmented_coordinates]}; "
+          f"strict recall {acc['strict_recall']}, identity switches "
+          f"{acc['id_switches']}")
+    if ckpts != want or len(coords) != BENCH_VOLS or \
+            not all(np.isfinite(c).all() for c in coords) or \
+            (Path(tracker.paths.unet_weights) /
+             "unet3_retrained.npz").is_file() != (best > 0):
+        raise AssertionError("retrain example: checkpoints or tracking")
+    return launches, dict(unet_step_ms=step_ms,
+                          unet_train_fwd_ms=grads["fwd"],
+                          unet_train_dx_ms=grads["dx"],
+                          unet_train_dx_bound_ms=grads["dx_bound"],
+                          unet_train_dw_ms=grads["dw"],
+                          unet_train_dw_bound_ms=grads["dw_bound"],
+                          unet_train_grad_max_rel_err=grads["max_rel_err"])
+
+
+def phase_variants(dev, smi, root, folder, errs):
+    """Phase 21: U-Net variants b and c.  Every 3x3x3 layer shape of one
+    bench volume's tile batch against the plain version (seeded weights,
+    ``conv_err``); then vol 1's segmentation through ``Tracker(
+    unet_variant=...)`` with seeded intensity-path weights, on the card
+    (timed) and, on a (64, 48, 24) crop of it, on the card against the
+    CPU: the same cells, labels ``LABELS_EQUAL``.  Keeps each
+    kernel's largest error in ``errs``."""
+    import torch
+    from t3dct_torch.models.layers import glorot_uniform
+    from t3dct_torch.models.unet3d import get_unet, with_intensity_path
+    from t3dct_torch.ops.tiling import plan_tiles
+    from t3dct_torch.io.imageio import read_image_ts, save_label_slices
+    gen = torch.Generator().manual_seed(21)
+    vol1 = read_image_ts(1, str(folder / "data" / LEG_IMAGE), (1, Z + 1))
+    crop = vol1[:64, :48]
+    save_label_slices(crop, root / "crop" / "data", LEG_IMAGE, 1,
+                      use_8_bit=False, compression=None)
+    for variant in "bc":
+        spec = get_unet(variant)
+        n_tiles = len(plan_tiles((Y, X, Z), spec.tile_shape,
+                                 (24, 24, 2)).origins)
+        worst = {}
+        for (*shape, ci, co), n in unet_conv_layers(spec).items():
+            xin = torch.relu(torch.randn((n_tiles,) + tuple(shape) + (ci,),
+                                         generator=gen)).to(dev)
+            w = glorot_uniform((3, 3, 3, ci, co), 27 * ci, 27 * co, gen, dev)
+            b = (torch.randn((co,), generator=gen) * 0.1).to(dev)
+            kernel, err, tol = conv_err(xin, w, b, False)
+            del xin
+            if not err <= tol:
+                raise AssertionError(f"variant {variant} conv {shape} "
+                                     f"{ci}->{co}: {kernel} {err} > {tol}")
+            errs[kernel] = max(errs.get(kernel, 0.0), err)
+            worst[kernel] = max(worst.get(kernel, (0.0, 0.0)), (err, tol))
+        print(f"[variants] {variant}: every 3x3x3 layer on {n_tiles} tiles "
+              f"of {spec.tile_shape} against the plain version: " +
+              ", ".join(f"{k} max_abs_err {e:.3e} (tol {t:.3e})"
+                        for k, (e, t) in sorted(worst.items())))
+        params, state = spec.init(torch.Generator().manual_seed(0),
+                                  device="cpu")
+        params = with_intensity_path(params, spec, threshold=LEG_THRESHOLD)
+        out = {}
+        for d, where, siz in ((dev, folder, (Y, X, Z)),
+                              (dev, root / "crop", crop.shape),
+                              (torch.device("cpu"), root / "crop",
+                               crop.shape)):
+            tracker = legacy_tracker(d, where, siz=siz, unet_variant=variant)
+            tracker.load_unet_arrays(spec, params, state)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            seg = tracker._segment_array(tracker._read_volume(1))
+            torch.cuda.synchronize()
+            ms = 1e3 * (time.perf_counter() - t0)
+            out[(d.type, siz)] = (seg, ms)
+        (full, ms), = [v for (k, siz), v in out.items() if siz == (Y, X, Z)]
+        card, _ = out[("cuda", crop.shape)]
+        cpu, cpu_ms = out[("cpu", crop.shape)]
+        same = float((card.segmentation_auto.cpu() ==
+                      cpu.segmentation_auto).float().mean())
+        print(f"[variants] {variant} {smi}: vol 1 seg {ms:.1f} ms on the "
+              f"card, {len(full.r_coordinates_segment)} cells; crop "
+              f"{crop.shape}: card {len(card.r_coordinates_segment)} cells, "
+              f"CPU {len(cpu.r_coordinates_segment)} ({cpu_ms:.0f} ms), "
+              f"labels equal {same:.5f}, probabilities off by max "
+              f"{float((card.image_cell_bg.cpu() - cpu.image_cell_bg).abs().max()):.2e}")
+        if len(card.r_coordinates_segment) != \
+                len(cpu.r_coordinates_segment) or same < LABELS_EQUAL:
+            raise AssertionError(f"variant {variant}: card and CPU disagree")
+
+
 def main() -> int:
     if not (ROOT / "3deecelltracker_tpu_torch").is_dir():
         print("chip_smoke.py must run from a checkout of the repository",
@@ -2284,7 +2793,7 @@ def main() -> int:
         disk = phase_bench_disk(dev, smi, Path(tmp), *scene)
         ens = phase_bench_ensemble(dev, smi, Path(tmp), *scene)
         cfg, trainer_kw, ffn_seed, steps = train_recipe()
-        grads = phase_train_grads(dev, cfg)
+        grads = phase_train_grads(dev, train_conv_layers(cfg))
         per_step = phase_train_records(dev, Path(tmp), cfg, trainer_kw,
                                        ffn_seed, steps)
         train, train_times = phase_train_recipe(
@@ -2294,6 +2803,18 @@ def main() -> int:
         tiled, tiled_times, tiled_errs = phase_tiled_bench(
             dev, smi, Path(tmp), *scene)
         zebra, zebra_times, zebra_errs = phase_zebrafish(dev, smi)
+        t0 = time.perf_counter()
+        leg_folder = write_legacy_folder(Path(tmp) / "legacy")
+        print(f"[legacy_folder] scene: {BENCH_VOLS} volumes of {(Y, X, Z)} "
+              f"(x, y, z) uint16 as {LEG_IMAGE} slices: "
+              f"{time.perf_counter() - t0:.1f} s")
+        leg_single, leg_single_times = phase_legacy_folder(dev, smi,
+                                                           *leg_folder)
+        leg_ens, leg_ens_times = phase_legacy_folder(dev, smi, *leg_folder,
+                                                     ensemble=True)
+        retrain, retrain_times = phase_retrain(dev, smi, Path(tmp))
+        variant_errs = {}
+        phase_variants(dev, smi, Path(tmp), leg_folder[0], variant_errs)
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
 
@@ -2302,14 +2823,18 @@ def main() -> int:
                    "probe": probe_launches[name], "bench": bench[name],
                    "bench_disk": disk[name], "bench_ensemble": ens[name],
                    "train": train[name], "api": api[name],
-                   "tiled": tiled[name], "zebrafish": zebra[name]}
+                   "tiled": tiled[name], "zebrafish": zebra[name],
+                   "legacy_folder": leg_single[name],
+                   "legacy_ensemble": leg_ens[name],
+                   "retrain": retrain[name]}
         return dict(launches=sum(by_path.values()),
                     launches_by_path=by_path)
 
     # each conv kernel's max_abs_err is its largest over every shape held
     # against the plain version; the tiled paths' own ride along
     for name, acc in conv.items():
-        for path, errs in (("tiled", tiled_errs), ("zebrafish", zebra_errs)):
+        for path, errs in (("tiled", tiled_errs), ("zebrafish", zebra_errs),
+                           ("variants", variant_errs)):
             acc[f"{path}_max_abs_err"] = errs[name]
             acc["max_abs_err"] = max(acc["max_abs_err"], errs[name])
 
@@ -2320,7 +2845,10 @@ def main() -> int:
              **counts("conv3x3x3_wgmma"), **conv["wgmma"],
              **{f"train_{k}_ms" if k != "max_rel_err" else
                 "train_grad_max_rel_err": v for k, v in grads.items()},
-             **train_times, **tiled_times, **zebra_times),
+             **train_times, **tiled_times, **zebra_times, **retrain_times,
+             **{f"legacy_{k}": v for k, v in leg_single_times.items()},
+             **{f"legacy_ensemble_{k}": v
+                for k, v in leg_ens_times.items()}),
         dict(name="conv3x3x3_direct", route="cuda",
              source="3deecelltracker_tpu_torch/csrc/conv3x3x3.cu",
              replaces="3deecelltracker_tpu/ops/pallas_conv.py:89",
@@ -2334,7 +2862,9 @@ def main() -> int:
                              "bench": bench["flood_rounds"],
                              "bench_disk": disk["flood_rounds"],
                              "bench_ensemble": ens["flood_rounds"],
-                             "tiled": tiled["flood_rounds"]}),
+                             "tiled": tiled["flood_rounds"],
+                             "legacy_folder": leg_single["flood_rounds"],
+                             "legacy_ensemble": leg_ens["flood_rounds"]}),
         dict(name="cc_label", route="cuda",
              source="3deecelltracker_tpu_torch/csrc/cc.cu",
              replaces="3deecelltracker_tpu/ops/pallas_kernels.py:92",

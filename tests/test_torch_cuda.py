@@ -694,3 +694,99 @@ def test_conv_backward_packs_the_flipped_weights_uncached(dev,
     monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
     with pytest.raises(RuntimeError, match="TF32"):
         hopper_conv.conv3x3x3_weight_grad(xin.detach(), y_.detach())
+
+
+def test_reference_paste_on_the_card_equals_cpu(dev):
+    """The legacy ``paste_mode="reference"`` paste (id-order last write
+    wins, cells leaving the canvas dropped) on the card: exactly the
+    CPU's, for movements that overlap cells and push one off the
+    canvas."""
+    from t3dct_torch.ops.subregions import (build_subregion_atlas,
+                                            move_cells_sampled)
+    lab = np.zeros((40, 36, 6), np.int32)
+    for i, (x, y) in enumerate([(8, 8), (14, 10), (30, 20), (20, 28)]):
+        lab[x - 4:x + 4, y - 4:y + 4, 1:5] = i + 1
+    atlas = build_subregion_atlas(torch.from_numpy(lab), 4, (9, 9, 5),
+                                  interpolation_factor=3)
+    card = type(atlas)(atlas.boxes.to(dev), atlas.origins.to(dev),
+                       atlas.valid.to(dev), atlas.interpolation_factor,
+                       atlas.image_shape)
+    mv = torch.tensor([[3, 1, 0], [-2, 0, 2], [-40, 0, 0], [0, -6, 1]],
+                      dtype=torch.int32)
+    for kw in (dict(overlap_mode="last", out_of_range="drop"), {}):
+        want = move_cells_sampled(atlas, mv, **kw)
+        got = move_cells_sampled(card, mv.to(dev), **kw)
+        for g, w in zip(got, want):
+            assert torch.equal(g.cpu(), w)
+
+
+def test_legacy_members_on_the_card_match_solo_and_cpu(dev):
+    """The legacy ensemble's batched fit (``legacy_fit_members``, three
+    members padded to the point sets' static size) on the card: each
+    member within the f32 EM's noise of its solo fit on the card and of
+    the CPU's batched fit."""
+    from t3dct_torch.engine.legacy import (legacy_fit_and_predict,
+                                           legacy_fit_members)
+    from t3dct_torch.models.ffn import feature_distance_ffn
+    params, state = feature_distance_ffn(torch.Generator().manual_seed(1),
+                                         "cpu")
+    rng = np.random.RandomState(0)
+    pad, n, m = 40, 24, 26
+    base = rng.uniform(0, 60, (n, 3)).astype(np.float32)
+    tgt = np.full((pad, 3), 1e6, np.float32)
+    tgt[:m] = np.concatenate([base + [1.0, -0.5, 0.3],
+                              rng.uniform(0, 60, (m - n, 3))])
+    inter = np.full((3, pad, 3), 1e6, np.float32)
+    for e in range(3):
+        inter[e, :n] = base + rng.randn(n, 3) * 0.3
+    masks = np.zeros((3, pad), bool)
+    masks[:, :n] = True
+    tracked = np.stack([base * 1.01] * 3)
+    host = [torch.from_numpy(a) for a in (inter, masks, tgt,
+                                          np.arange(pad) < m, tracked)]
+    card = [a.to(dev) for a in host]
+    pc = {k: {s: w.to(dev) for s, w in v.items()} for k, v in params.items()}
+    sc = {k: {s: w.to(dev) for s, w in v.items()} for k, v in state.items()}
+    got = legacy_fit_members(pc, sc, card[0], card[1], card[2], card[3],
+                             card[4], 40.0, 0.1, max_iteration=8)
+    want = legacy_fit_members(params, state, *host[:4], host[4], 40.0, 0.1,
+                              max_iteration=8)
+    assert float((got.cpu() - want).abs().max()) <= EM_TOL
+    for e in range(3):
+        solo, _, _ = legacy_fit_and_predict(pc, sc, card[0][e], card[1][e],
+                                            card[2], card[3], card[4][e],
+                                            40.0, 0.1, max_iteration=8)
+        assert float((got[e] - solo).abs().max()) <= EM_TOL
+
+
+def test_unet_train_step_on_the_card_matches_cpu(dev, tmp_path):
+    """One ``TrainingUNet3D`` step of a small variant-a spec on one
+    augmented batch, on the card and on the CPU: the loss within 1e-4 and
+    the parameters within 1e-4 in the norm (a first Adam step moves a
+    weight by the sign of its gradient)."""
+    from t3dct_torch.models import train_unet as tu
+    from t3dct_torch.models.unet3d import UNet3D
+    from t3dct_torch.utils.checkpoint import leaves_with_paths
+    spec = UNet3D(variant="a", tile_shape=(24, 24, 8), pool=(2, 2, 1),
+                  down_filters=((8, 8), (8, 16)), up_filters=((16, 16),
+                                                              (8, 8)),
+                  head_filters=(8,))
+    img = np.random.RandomState(0).rand(48, 48, 8).astype(np.float32) * 300
+    lab = (img > 200).astype(np.int32)
+    out = {}
+    for d in (dev, torch.device("cpu")):
+        tr = tu.TrainingUNet3D(20.0, tmp_path / d.type, spec, batch_size=4,
+                               device=d)
+        tr.start_from(*spec.init(torch.Generator().manual_seed(3),
+                                 device="cpu"))
+        tr.load_dataset_arrays(img, lab, img, lab)
+        tr.preprocess()
+        tr._gen.manual_seed(7)
+        loss = tr.train_step(*tr._train_batch(np.random.RandomState(2)))
+        out[d.type] = float(loss), [v.detach().cpu() for _, v in
+                                    leaves_with_paths(tr.params)]
+    (lc, pc), (lh, ph) = out["cuda"], out["cpu"]
+    assert abs(lc - lh) <= 1e-4 * abs(lh)
+    diff = sum(float(((a - b) ** 2).sum()) for a, b in zip(pc, ph))
+    norm = sum(float((b ** 2).sum()) for b in ph)
+    assert diff ** 0.5 <= 1e-4 * norm ** 0.5

@@ -24,6 +24,7 @@ from t3dct_torch.models import ffn, layers
 from t3dct_torch.models.stardist3d import StarDist3DNet
 from t3dct_torch.models.train_ffn import DataGeneratorFFN, TrainFFN
 from t3dct_torch.models.train_stardist import TrainStarDist3D
+from t3dct_torch.models.train_unet import TrainingUNet3D
 from t3dct_torch.models.unet3d import UNet3D
 from t3dct_torch.scripts import probe_conv_fast
 from t3dct_torch.utils import convert
@@ -58,7 +59,9 @@ ENTRY_POINTS = {
             [np.zeros(SHAPE, np.float32)], (None, None, None), None,
             np.zeros(SHAPE, np.int32), SegmentationConfig()),
     "Tracker": lambda tmp: Tracker(1, SHAPE, 1.0, 1, 5.0, 10, 300.0, 0.1,
-                                   20),
+                                   20, str(tmp), "r_t%04i_z%04i.tif",
+                                   "u.npz", "f.npz"),
+    "TrainingUNet3D": lambda tmp: TrainingUNet3D(5.0, tmp, UNet3D()),
     "StarDist3D": lambda tmp: StarDist3D(StarDistConfig(), params={}),
     "StarDist3D.load": _stardist_load,
     "UNetSegmenter": lambda tmp: UNetSegmenter(

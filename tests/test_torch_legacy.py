@@ -275,6 +275,32 @@ def test_pr_gls_quick_matches(seed):
     assert np.abs(np.median(moved, axis=0) - [1.5, -1.0, 0.5]).max() < 0.5
 
 
+def test_legacy_posterior_flushes_subnormal_likelihoods_as_xla():
+    """XLA's exp gives 0 where the result would be subnormal; the E-step's
+    likelihoods do the same in the port.  Row 0's likelihoods fall in the
+    subnormal range and so does the outlier term (gamma 1e-38): keeping
+    the subnormals would give that row a whole posterior: the port gives
+    it JAX's zeros, and the other rows within 1e-6."""
+    from t3dct_torch.ops.prgls import legacy_posterior
+    rng = np.random.RandomState(0)
+    dist_sq = rng.uniform(0.0, 20.0, (4, 6)).astype(np.float32)
+    dist_sq[0] = [176.0, 178.0, 180.0, 182.0, 190.0, 195.0]
+    init = np.full((4, 6), 0.2, np.float32)
+    valid = np.ones((4, 6), bool)
+    sigma_sq, gamma, vol = (np.float32(v) for v in (1.0, 1e-38, 1e4))
+    lik = np.asarray(jnp.exp(-jnp.asarray(dist_sq) / (2.0 * sigma_sq)))
+    assert (lik[0] == 0).all() and \
+        (torch.exp(T(-dist_sq[0] / 2.0)) > 0).all()
+    p1 = init * lik
+    denom = p1.sum(1, keepdims=True) + gamma * (
+        np.float32(2 * np.pi) * sigma_sq) ** 1.5 / ((1 - gamma) * vol)
+    want = p1 / denom
+    got = legacy_posterior(T(init), T(dist_sq), T(valid), T(sigma_sq),
+                           T(gamma), T(vol)).numpy()
+    np.testing.assert_array_equal(got[0], np.zeros(6, np.float32))
+    np.testing.assert_allclose(got[1:], want[1:], rtol=1e-6)
+
+
 def test_legacy_fit_and_predict_matches():
     _, _, (ffn, jffn) = models()
     x, y, _, rm, tm_ = point_sets(3)
@@ -356,9 +382,10 @@ def test_float64_to_float16_is_numpys_cast():
     np.testing.assert_array_equal(float64_to_float16(T(x)).numpy(), want)
 
 
-def test_tracker_pads_and_refuses_too_many_cells():
+def test_tracker_pads_and_refuses_too_many_cells(tmp_path):
     tr = legacy.Tracker(3, SHAPE, Z_XY_RATIO, Z_SCALING, 20, 20, 50.0, 0.1,
-                        10, max_cells=4, device="cpu")
+                        10, str(tmp_path), "raw_t%03i_z%03i.tif", "u.npz",
+                        "f.npz", max_cells=4, device="cpu")
     pts, mask = tr._pad_pts(np.ones((3, 3)))
     assert pts.shape == (4, 3) and mask.tolist() == [True] * 3 + [False]
     assert float(pts[3, 0]) == legacy.PARK

@@ -116,13 +116,20 @@ def test_import_hygiene_no_jax():
     assert res.returncode == 0, res.stdout + res.stderr
 
 
-def test_alias_shares_modules():
+@pytest.mark.parametrize("name", ["ops.hopper_conv", "models.train_unet"])
+def test_alias_shares_modules(name):
     """``t3dct_torch.X`` and ``3deecelltracker_tpu_torch.X`` are one module,
-    so there is one set of launch counters."""
-    import importlib
-    a = importlib.import_module("t3dct_torch.ops.hopper_conv")
-    b = importlib.import_module("3deecelltracker_tpu_torch.ops.hopper_conv")
-    assert a is b
+    so there is one set of launch counters and a patch of a class reaches
+    the package's own users.  A fresh process imports the alias's dotted
+    name first, which makes a second module of any submodule the package
+    does not import itself."""
+    code = ("import importlib, sys; sys.path.insert(0, %r); "
+            "a = importlib.import_module('t3dct_torch.%s'); "
+            "b = importlib.import_module('3deecelltracker_tpu_torch.%s'); "
+            "sys.exit(0 if a is b else 1)" % (str(REPO), name, name))
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
 
 
 def test_recording_matches_bench_recipe():

@@ -1,14 +1,14 @@
-"""Every public v1.0 entry point of the JAX package binds to its twin in
-the port with the same signature: the same parameter names in the same
-order, of the same kinds, with the same defaults where they are plain
-values.  The port may add one keyword-only parameter, ``device``.  A JAX
-argument the port has not ported yet is accepted and raises
-``NotImplementedError`` naming its ``ROADMAP.md`` item (held by the tests
-of each module).
+"""Every public entry point of the JAX package binds to its twin in the
+port with the same signature: the same parameter names in the same order,
+of the same kinds, with the same defaults where they are plain values.
+The port may add one keyword-only parameter, ``device``.  A JAX argument
+the port has not ported yet is accepted and raises ``NotImplementedError``
+naming its ``ROADMAP.md`` item (held by the tests of each module).
 
-Entry points: the names the v1.0 examples and the JAX package's docstring
-call (``examples/*.py`` but the legacy ``use_unet_legacy.py``, whose
-``engine.legacy.Tracker`` is ``ROADMAP.md`` A.4)."""
+Entry points: the names the examples and the JAX package's docstring call
+(``examples/*.py``), the legacy ``engine.legacy.Tracker`` of
+``use_unet_legacy.py`` with every public method, its trainer
+``TrainingUNet3D`` and ``UNetSegmenter.segment``."""
 
 import importlib
 import inspect
@@ -21,6 +21,21 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 import t3dct  # noqa: E402,F401
 import t3dct_torch  # noqa: E402,F401
+
+# every public method of JAX's legacy Tracker, and of its U-Net trainer
+LEGACY_METHODS = (
+    "__init__", "set_segmentation", "set_tracking", "load_unet",
+    "load_unet_arrays", "load_ffn", "load_ffn_arrays",
+    "precompute_segmentation", "segment_vol1", "retrain_unet",
+    "select_unet_weights", "load_manual_seg", "interpolate_seg",
+    "cal_subregions", "initiate_tracking", "draw_prediction_grid",
+    "draw_correction", "draw_overlapping", "draw_segresult",
+    "draw_manual_seg1", "subplots_tracking", "match", "track",
+    "track_one_vol", "replay_track_animation", "save_coordinates")
+UNET_TRAINER_METHODS = (
+    "__init__", "load_dataset", "load_dataset_arrays", "preprocess",
+    "draw_dataset", "draw_norm_dataset", "draw_divided_train_data",
+    "draw_prediction", "validation_loss", "train", "select_weights")
 
 ENTRY_POINTS = [
     ("engine.stardist", name) for name in (
@@ -61,7 +76,22 @@ ENTRY_POINTS = [
 ] + [
     ("io.imageio", name)
     for name in ("load_2d_slices_at_time", "get_t_range",
-                 "save_label_slices", "imread_volume", "imwrite_volume")
+                 "save_label_slices", "imread_volume", "imwrite_volume",
+                 "load_image", "read_image_ts")
+] + [
+    ("engine.legacy", name) for name in (
+        "get_tracking_path", "get_reference_vols", "get_remote_vols",
+        "Paths.__init__", "Paths.make_folders")
+] + [
+    ("engine.legacy", "Tracker." + name)
+    for name in LEGACY_METHODS
+] + [
+    ("models.train_unet", "TrainingUNet3D." + name)
+    for name in UNET_TRAINER_METHODS
+] + [
+    ("models.train_unet", "divide_img"),
+    ("engine.segmentation", "UNetSegmenter.segment"),
+    ("engine.segmentation", "UNetSegmenter.predict_cellregions"),
 ]
 
 PLAIN = (type(None), bool, int, float, str, tuple)
@@ -106,3 +136,14 @@ def test_entry_points_cover_the_examples():
                  "TrainFFN", "Coordinates", "configure",
                  "load_training_images", "get_t_range", "save_label_slices"):
         assert name in bound, name
+
+
+@pytest.mark.parametrize("module,cls,names", [
+    ("engine.legacy", "Tracker", LEGACY_METHODS),
+    ("models.train_unet", "TrainingUNet3D", UNET_TRAINER_METHODS)])
+def test_legacy_methods_cover_jax(module, cls, names):
+    """The lists above are every public method of JAX's class."""
+    obj = _resolve("t3dct", module, cls)
+    public = {n for n in vars(obj) if callable(getattr(obj, n))
+              and not n.startswith("_")} | {"__init__"}
+    assert public == set(names)

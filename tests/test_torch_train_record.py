@@ -36,9 +36,25 @@ them (JAX, on the CPU, about 20 minutes) with
 
 or add only the random-sign runs to the record with ``--write-nudges``.
 
+Past step ``PER_STEP`` the loss trace cannot tell a broken trainer from a
+working one (with every 3x3x3 dW zeroed the port's trainer still lands
+inside JAX's loss spread), so the record also keeps, per step and per
+parameter leaf, the update norm ``|theta_t - theta_0|`` of JAX's run
+(``sd_update_norms``) and of each nudged run (``sd_update_norms_ulp``,
+``sd_update_norms_nudged``), leaves in ``save_pytree``'s order
+(``sd_update_leaves``).  Steps ``PER_STEP + 1``-30 are held by the mean
+update norm of each leaf over them, relative to JAX's: the root mean
+square over the 28 leaves must stay within ``SPREAD_FACTOR`` times the
+largest of JAX's nudged runs (at least ``LATER_TOL``).  A leaf that does
+not train is 100% off, which alone moves the statistic by 0.19; JAX's own
+runs depart by 0.016-0.024.
+
 The tier-1 tests check the records, hold the initial parameters to JAX's
-inits, and run the port's first StarDist step and first FFN steps on the
-CPU against the record; the ``slow`` test runs five StarDist steps."""
+inits, run the port's first StarDist step and first FFN steps on the CPU
+against the record, hold each of JAX's nudged runs to the others' update
+norm bound, and show the planted dW-zeroed fault rejected by it; the
+``slow`` tests run five StarDist steps, and all 30 against the late-step
+statistic."""
 
 import json
 import sys
@@ -64,7 +80,10 @@ from t3dct_torch.io.imageio import percentile_normalize  # noqa: E402
 from t3dct_torch.models.train_ffn import (  # noqa: E402
     DataGeneratorFFN, TrainFFN)
 from t3dct_torch.models.train_stardist import TrainStarDist3D  # noqa: E402
+from t3dct_torch.utils.checkpoint import leaves_with_paths  # noqa: E402
 from t3dct_torch.utils.convert import load_npz  # noqa: E402
+from t3dct_torch.utils.optim import (record_update_norms,  # noqa: E402
+                                     update_norms)
 from t3dct_torch.utils.synthetic import make_recording  # noqa: E402
 
 ASSETS = REPO / "3deecelltracker_tpu_torch" / "assets" / "train"
@@ -107,6 +126,22 @@ def ffn_points(path: Path) -> Path:
     return path
 
 
+def jax_update_norms(trainer) -> list:
+    """Wrap a JAX trainer's jitted step so that each step appends the
+    update norm of every parameter leaf from where it stood at this call
+    to the returned list (``utils.optim.update_norms``)."""
+    start = jax.tree_util.tree_map(np.asarray, trainer.params)
+    step = trainer._step
+    norms = []
+
+    def recorded(params, *args):
+        out = step(params, *args)
+        norms.append(update_norms(jax.device_get(out[0]), start))
+        return out
+    trainer._step = recorded
+    return norms
+
+
 def write_records(work: Path) -> dict:
     """JAX's initial parameters and its first ``STEPS`` steps of each
     trainer, into ``ASSETS``."""
@@ -115,11 +150,13 @@ def write_records(work: Path) -> dict:
     jt = JTrainStarDist3D(JStarDistConfig(**SD_CONFIG),
                           basedir=work / "sd", **SD_TRAINER)
     jsave(jt.params, SD_INIT)
+    leaves = [k for k, _ in leaves_with_paths(jt.params)]
+    norms = jax_update_norms(jt)
     sd_losses = jt.train([img], [lab], epochs=STEPS, steps_per_epoch=1,
                          verbose=False)
     # JAX's own sensitivity: the same run from its init nudged by one ulp
-    sd_losses_ulp = nudged_run(img, lab, work / "sd_ulp", None)
-    sd_losses_nudged = nudged_runs(img, lab, work)
+    sd_losses_ulp, norms_ulp = nudged_run(img, lab, work / "sd_ulp", None)
+    sd_losses_nudged, norms_nudged = nudged_runs(img, lab, work)
     jf = JTrainFFN("ffn", points1_path=str(ffn_points(work / "pts.txt")),
                    basedir=work / "ffn", seed=FFN_SEED)
     jsave((jf.params, jf.bn_state), FFN_INIT)
@@ -130,6 +167,10 @@ def write_records(work: Path) -> dict:
     np.savez(RECORD, sd_losses=np.asarray(sd_losses, np.float64),
              sd_losses_ulp=np.asarray(sd_losses_ulp, np.float64),
              sd_losses_nudged=sd_losses_nudged,
+             sd_update_norms=np.asarray(norms),
+             sd_update_norms_ulp=norms_ulp,
+             sd_update_norms_nudged=norms_nudged,
+             sd_update_leaves=json.dumps(leaves),
              ffn_losses=np.asarray(ffn_losses, np.float64),
              ffn_points_t1=points_t1.astype(np.float32),
              recipe=json.dumps(recipe))
@@ -138,10 +179,11 @@ def write_records(work: Path) -> dict:
                 ffn_losses=ffn_losses)
 
 
-def nudged_run(img, lab, work: Path, seed) -> list:
+def nudged_run(img, lab, work: Path, seed):
     """JAX's ``STEPS`` StarDist steps of the recipe from its init with
     every parameter moved by one ulp: up with ``seed=None``, else up or
-    down by a sign drawn from ``np.random.RandomState(seed)``."""
+    down by a sign drawn from ``np.random.RandomState(seed)``.  Returns the
+    losses and the update norms (steps, leaves)."""
     jn = JTrainStarDist3D(JStarDistConfig(**SD_CONFIG), basedir=work,
                           **SD_TRAINER)
     rng = None if seed is None else np.random.RandomState(seed)
@@ -153,26 +195,58 @@ def nudged_run(img, lab, work: Path, seed) -> list:
             np.float32(np.inf))
         return jax.numpy.asarray(np.nextafter(a, to).astype(np.float32))
     jn.params = jax.tree_util.tree_map(nudge, jn.params)
-    return jn.train([img], [lab], epochs=STEPS, steps_per_epoch=1,
-                    verbose=False)
+    norms = jax_update_norms(jn)
+    losses = jn.train([img], [lab], epochs=STEPS, steps_per_epoch=1,
+                      verbose=False)
+    return losses, np.asarray(norms)
 
 
-def nudged_runs(img, lab, work: Path) -> np.ndarray:
-    """(len(NUDGE_SEEDS), STEPS): JAX's losses under one-ulp nudges of
-    random sign, one run per seed."""
-    return np.asarray([nudged_run(img, lab, work / f"sd_nudge{s}", s)
-                       for s in NUDGE_SEEDS], np.float64)
+def nudged_runs(img, lab, work: Path):
+    """JAX's losses (len(NUDGE_SEEDS), STEPS) and update norms (runs,
+    STEPS, leaves) under one-ulp nudges of random sign, one run per
+    seed."""
+    runs = [nudged_run(img, lab, work / f"sd_nudge{s}", s)
+            for s in NUDGE_SEEDS]
+    return (np.asarray([r[0] for r in runs], np.float64),
+            np.stack([r[1] for r in runs]))
 
 
 def write_nudges(work: Path) -> dict:
-    """Add ``sd_losses_nudged`` to the committed record, the rest of it
+    """Redo the random-sign runs of the committed record, the rest of it
     unchanged."""
     img, lab = vol1()
     with np.load(RECORD) as data:
         rec = {k: data[k] for k in data.files}
-    rec["sd_losses_nudged"] = nudged_runs(img, lab, work)
+    rec["sd_losses_nudged"], rec["sd_update_norms_nudged"] = nudged_runs(
+        img, lab, work)
     np.savez(RECORD, **rec)
     return dict(sd_losses_nudged=rec["sd_losses_nudged"].tolist())
+
+
+def late_norm_departures(got, want, spread):
+    """The late-step statistic (``chip_smoke.py``'s): per parameter leaf,
+    the mean update norm over steps ``PER_STEP + 1``-30 of ``got`` (steps,
+    leaves) against ``want``'s, relative; their root mean square over the
+    leaves is the run's departure, bounded by ``SPREAD_FACTOR`` times the
+    largest departure of the runs in ``spread`` (runs, steps, leaves), at
+    least ``LATER_TOL``.  Returns (per-leaf departures, the departure, its
+    bound)."""
+    late = slice(PER_STEP, None)
+    w = np.asarray(want)[late].mean(0)
+
+    def rel(run):
+        return np.abs(np.asarray(run)[late].mean(0) - w) / w
+
+    def rms(run):
+        return float(np.sqrt(np.mean(rel(run) ** 2)))
+    bound = max(LATER_TOL, SPREAD_FACTOR * max(rms(r) for r in spread))
+    return rel(got), rms(got), bound
+
+
+def sd_norm_spread(record):
+    """JAX's nudged runs' update norms: (runs, steps, leaves)."""
+    return np.concatenate([record["sd_update_norms_ulp"][None],
+                           record["sd_update_norms_nudged"]])
 
 
 @pytest.fixture(scope="module")
@@ -196,6 +270,16 @@ def test_records_are_the_recipe(record):
         assert np.isfinite(record[key]).all()
     assert record["sd_losses_nudged"].shape == (len(NUDGE_SEEDS), STEPS)
     assert np.isfinite(record["sd_losses_nudged"]).all()
+    leaves = json.loads(str(record["sd_update_leaves"]))
+    with np.load(SD_INIT) as init:
+        assert leaves == sorted(init.files)
+    assert record["sd_update_norms"].shape == (STEPS, len(leaves))
+    assert sd_norm_spread(record).shape == (len(NUDGE_SEEDS) + 1, STEPS,
+                                            len(leaves))
+    # every leaf trains, and moves further as the steps go
+    assert (record["sd_update_norms"][PER_STEP:] > 0).all()
+    assert (record["sd_update_norms"][-1] > record["sd_update_norms"][0]
+            ).mean() > 0.9
     # a nudge does not move the first step's loss beyond its bound
     np.testing.assert_allclose(record["sd_losses_nudged"][:, 0],
                                record["sd_losses"][0], rtol=FIRST_TOL)
@@ -272,6 +356,77 @@ def test_port_ffn_steps_match_record(record, tmp_path):
     got = tf.train(num_epochs=STEPS, iteration=0, verbose=False)
     for i, (a, b) in enumerate(zip(got, record["ffn_losses"])):
         assert abs(a - b) <= loss_bound(i) * abs(b), i
+
+
+@pytest.mark.parametrize("run", range(len(NUDGE_SEEDS) + 1))
+def test_each_jax_run_holds_to_the_others_spread(record, run):
+    """The late-step statistic admits a run of JAX's own: each nudged run
+    against the record, bounded by the spread of the other runs."""
+    spread = sd_norm_spread(record)
+    others = np.delete(spread, run, axis=0)
+    _, dep, bound = late_norm_departures(spread[run],
+                                         record["sd_update_norms"], others)
+    assert dep <= bound
+
+
+def test_planted_dw_zeroed_fails_late_update_norms(record, tmp_path):
+    """The fault the loss cannot see past step 16: every 3x3x3 dW zeroed.
+    One port step with it planted leaves every 3x3x3 weight where it was
+    (Adam moves a weight only by its gradient's moments) and moves every
+    other leaf; a run whose 3x3x3 weights never move, its other leaves
+    moving exactly as JAX's record (the fault's best case), is rejected by
+    the late-step statistic, which JAX's own runs pass."""
+    from t3dct_torch.models import layers
+    from t3dct_torch.ops.hopper_conv import Conv3x3x3BiasReLU
+
+    class NoWeightGrad(Conv3x3x3BiasReLU):
+        @staticmethod
+        def backward(ctx, g):
+            dx, dw, db, *rest = Conv3x3x3BiasReLU.backward(ctx, g)
+            return (dx, torch.zeros_like(dw), db, *rest)
+
+    img, lab = vol1()
+    trainer = port_stardist(tmp_path)
+    norms = record_update_norms(trainer)
+    layers.Conv3x3x3BiasReLU = NoWeightGrad
+    try:
+        trainer.train([img], [lab], epochs=1, steps_per_epoch=1,
+                      verbose=False)
+    finally:
+        layers.Conv3x3x3BiasReLU = Conv3x3x3BiasReLU
+    leaves = json.loads(str(record["sd_update_leaves"]))
+    tree = load_npz(SD_INIT)
+
+    def conv3_weight(key):
+        layer, leaf = key.split("/")
+        return leaf == "w" and tree[layer]["w"].shape[:3] == (3, 3, 3)
+    conv_w = np.array([conv3_weight(k) for k in leaves])
+    assert conv_w.sum() > 10
+    assert (norms[0][conv_w] == 0).all() and (norms[0][~conv_w] > 0).all()
+    faulty = record["sd_update_norms"].copy()
+    faulty[:, conv_w] = 0.0
+    rel, dep, bound = late_norm_departures(faulty, record["sd_update_norms"],
+                                           sd_norm_spread(record))
+    assert (rel[conv_w] == 1.0).all() and dep > bound
+    # one untrained 3x3x3 weight alone is rejected too
+    one = record["sd_update_norms"].copy()
+    one[:, np.flatnonzero(conv_w)[0]] = 0.0
+    assert late_norm_departures(one, record["sd_update_norms"],
+                                sd_norm_spread(record))[1] > bound
+
+
+@pytest.mark.slow
+def test_port_stardist_steps_hold_late_update_norms(record, tmp_path):
+    """All 30 steps of the port's trainer on the CPU: steps 17-30 within
+    the late-step statistic's bound."""
+    img, lab = vol1()
+    trainer = port_stardist(tmp_path)
+    norms = record_update_norms(trainer)
+    trainer.train([img], [lab], epochs=STEPS, steps_per_epoch=1,
+                  verbose=False)
+    _, dep, bound = late_norm_departures(norms, record["sd_update_norms"],
+                                         sd_norm_spread(record))
+    assert dep <= bound, (dep, bound)
 
 
 @pytest.mark.slow
