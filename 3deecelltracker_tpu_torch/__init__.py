@@ -1,8 +1,10 @@
 """PyTorch + CUDA port of 3DeeCellTracker-TPU for NVIDIA Hopper (H100):
-the v1.0 StarDist workflow (segment a TIFF recording into a results tree,
-track it in single or ensemble mode, read activities), its two trainers
-(StarDist3D and the FFN matcher), the legacy v0.4 U-Net workflow and its
-trainer, and the conv probe.
+the v1.0 StarDist workflow (segment a TIFF or HDF5 recording into a
+results tree, track it in single or ensemble mode, read activities), its
+two trainers (StarDist3D and the FFN matcher), the legacy v0.4 U-Net
+workflow and its trainer, the reference's Keras checkpoints
+(``utils.keras_import``, ``StarDist3DNet(arch="keras")``) and the conv
+probe.
 
 It sits beside the JAX package ``3deecelltracker_tpu``, which stays the
 reference: every module here mirrors a module there, keeps its array
@@ -36,6 +38,11 @@ Entry points:
   ``engine.stardist.load_training_images`` / ``configure`` and
   ``engine.metrics.optimize_thresholds``) and ``models.train_ffn.TrainFFN``,
   as ``scripts.train_stardist`` and ``scripts.train_ffn`` run them;
+- the reference's files: ``engine.stardist.load_stardist_model`` on a
+  stardist Keras folder (``load_stardist_keras_dir``), the importers of
+  ``utils.keras_import``, HDF5 recordings (``io.imageio.
+  save_recording_h5``) and ``scripts.track_stardist_h5``; reading HDF5
+  needs ``h5py``;
 - ``scripts.probe_conv_fast.run`` (the conv probe).
 """
 
@@ -57,7 +64,7 @@ from .ops import (connected, edt, filters, hopper_cc,  # noqa: F401
                   watershed)
 from .parallel import ensemble  # noqa: F401
 from .utils import (checkpoint, convert, cuda_build, device,  # noqa: F401
-                    optim, roofline, synthetic, timing)
+                    keras_import, optim, roofline, synthetic, timing)
 
 __version__ = "0.1.0"
 

@@ -19,10 +19,12 @@ keeps it; volumes and the fits run on the device.
 ``paste_mode="reference"`` pastes cells as the reference does (id-order
 last write wins, cells that leave the canvas dropped), ``"scatter"`` (the
 default) sums overlapping ids and clamps.  ``retrain_unet`` retrains the
-U-Net on the proofed vol 1 (``models.train_unet``).  Not ported: Keras
-``.h5`` checkpoints (``ROADMAP.md`` A.8) and the figures (``draw_*``,
-``match``'s animation; A.9).  ``legacy_segment_and_track_arrays`` runs the
-single-mode workflow on arrays, writing nothing.
+U-Net on the proofed vol 1 (``models.train_unet``).  ``load_unet`` and
+``load_ffn`` take the reference's Keras ``.h5`` checkpoints
+(``utils.keras_import``; they need ``h5py``).  Not ported: the figures
+(``draw_*``, ``match``'s animation; ``ROADMAP.md`` A.9).
+``legacy_segment_and_track_arrays`` runs the single-mode workflow on
+arrays, writing nothing.
 """
 
 from __future__ import annotations
@@ -50,7 +52,9 @@ from ..ops.subregions import (SubregionAtlas, build_subregion_atlas,
 from ..ops.watershed import (find_boundaries_outer,
                              recalculate_cell_boundaries)
 from ..utils.checkpoint import load_pytree, save_pytree
+from ..utils.convert import ffn_from_numpy, unet_from_numpy
 from ..utils.device import select_device, to_device
+from ..utils.keras_import import import_ffn, import_unet3
 from .segmentation import SegResult, UNetSegmenter
 from .transformer import _box_shape, _relabel_sequential_np
 
@@ -60,8 +64,6 @@ BOUNDARY_XY = 6            # tracker.py:47
 K_POINTS = 20
 CHECK_EVERY = 4            # correction rounds between host loop checks
 PARK = 1e6                 # coordinate of padded points
-NOT_PORTED_H5 = ("Keras .h5 checkpoints are not ported yet (ROADMAP.md "
-                 "A.8); save the weights as .npz")
 NOT_PORTED_FIGURES = "figures are not ported yet (ROADMAP.md A.9)"
 
 
@@ -384,16 +386,22 @@ class Tracker:
                                     device=self.device)
 
     def load_unet(self):
-        """Load ``models/<unet_model_file>``, an ``.npz`` that JAX's or the
+        """Load ``models/<unet_model_file>``: an ``.npz`` that JAX's or the
         port's ``save_pytree`` wrote of ``(params, bn_state)`` (what
-        ``TrainingUNet3D`` saves), copy it to
+        ``TrainingUNet3D`` saves), or the reference's Keras ``.h5``
+        (``tracker.py:579`` load_model, ``:991`` load_weights) through
+        ``import_unet3(path, unet_variant)``; copy it to
         ``unet_weights/weights_initial.npz`` and build the segmenter."""
         path = os.path.join(self.paths.models, self.paths.unet_model_file)
         if path.endswith(".h5"):
-            raise NotImplementedError(NOT_PORTED_H5)
-        self.unet_model = get_unet(self.unet_variant)
-        self.unet_params, self.unet_bn_state = load_pytree(
-            self._unet_template(), path)
+            self.unet_model, params, state = import_unet3(
+                path, self.unet_variant)
+            self.unet_params, self.unet_bn_state = unet_from_numpy(
+                params, state, self.device)
+        else:
+            self.unet_model = get_unet(self.unet_variant)
+            self.unet_params, self.unet_bn_state = load_pytree(
+                self._unet_template(), path)
         save_pytree((self.unet_params, self.unet_bn_state),
                     os.path.join(self.paths.unet_weights,
                                  "weights_initial.npz"))
@@ -408,13 +416,18 @@ class Tracker:
         self._build_segmenter()
 
     def load_ffn(self):
-        """Load ``models/<ffn_model_file>``, an ``.npz`` of ``(params,
-        state)`` that JAX's or the port's ``save_pytree`` wrote."""
+        """Load ``models/<ffn_model_file>``: an ``.npz`` of ``(params,
+        state)`` that JAX's or the port's ``save_pytree`` wrote, or the
+        reference's Keras ``.h5`` (``tracker.py:1121``, ``ffn.py:211-220``)
+        through ``import_ffn``."""
         path = os.path.join(self.paths.models, self.paths.ffn_model_file)
         if path.endswith(".h5"):
-            raise NotImplementedError(NOT_PORTED_H5)
-        self.ffn_params, self.ffn_state = load_pytree(
-            init_ffn(torch.Generator().manual_seed(0), self.device), path)
+            self.ffn_params, self.ffn_state = ffn_from_numpy(
+                *import_ffn(path), self.device)
+        else:
+            self.ffn_params, self.ffn_state = load_pytree(
+                init_ffn(torch.Generator().manual_seed(0), self.device),
+                path)
         print("Loaded the FFN model")
 
     def load_ffn_arrays(self, params, state):

@@ -33,7 +33,7 @@ import torch
 
 from ..config import TrackingConfig
 from ..coordinates import Coordinates
-from ..io.imageio import (check_recording, check_transport,
+from ..io.imageio import (PathPattern, check_recording, check_transport,
                           fast_percentiles, load_2d_slices_at_time,
                           transport_encode)
 from ..io.prefetch import VolumePrefetcher, ready_event, to_host, upload_async
@@ -244,7 +244,7 @@ class _AsyncTrackSaver:
     N_WRITERS = 2
 
     def __init__(self, transformer: CoordsToImageTransformer,
-                 images_path: Optional[str],
+                 images_path: Optional[PathPattern],
                  stream: Optional["torch.cuda.Stream"],
                  seg_gate: Optional[SegArtifactSaver] = None):
         self.transformer = transformer
@@ -287,7 +287,7 @@ def _same_device(a: torch.device, b: torch.device) -> bool:
     return a.type == b.type and (a.index or 0) == (b.index or 0)
 
 
-def segment_and_track(images_path: str, model: StarDist3D,
+def segment_and_track(images_path, model: StarDist3D,
                       results_dir: Union[str, Path],
                       manual_vol1_glob: str,
                       ffn_weights,
@@ -304,11 +304,13 @@ def segment_and_track(images_path: str, model: StarDist3D,
                       data_axis: str = "data",
                       transport: str = "u16", *,
                       device=None) -> Dict[int, np.ndarray]:
-    """Segment and track a TIFF recording into a results tree, the two
+    """Segment and track a recording into a results tree, the two
     stages at once (JAX ``segment_and_track``).
 
     ``images_path``: the recording's slices as a pattern over t, e.g.
-    ``"raw/raw_t%03i_z*.tif"``; ``manual_vol1_glob``: the proofed vol-1
+    ``"raw/raw_t%03i_z*.tif"``, or an HDF5 recording ``{"h5_file",
+    "channel"[, "dset"]}`` (``io.imageio``; it needs ``h5py``);
+    ``manual_vol1_glob``: the proofed vol-1
     label slices (``"results/manual_vol1/*.tif"``); ``ffn_weights``: a
     ``.npz`` path or a (params, state) pair (``engine.tracker.TrackerLite``);
     ``t_range``: (first, last) volume.  Returns ``{t: (n, 3) real
@@ -342,8 +344,7 @@ def segment_and_track(images_path: str, model: StarDist3D,
     model must be on it.
 
     Not ported yet, each raising: ``mesh``, ``data_axis`` and
-    ``transport="u8"`` (ROADMAP.md A.5), ``save_figures=True`` (A.9), HDF5
-    recordings (A.2)."""
+    ``transport="u8"`` (ROADMAP.md A.5) and ``save_figures=True`` (A.9)."""
     if handoff not in ("disk", "device"):
         raise ValueError(f"handoff must be 'disk' or 'device', got "
                          f"{handoff!r}")
@@ -574,7 +575,7 @@ def track_timelapse(results_dir: Union[str, Path],
                     grid: Tuple[int, int, int] = (1, 1, 1),
                     config: TrackingConfig = TrackingConfig(),
                     miss_frame: Optional[List[int]] = None,
-                    images_path: Optional[str] = None,
+                    images_path: Optional[PathPattern] = None,
                     save_figures: bool = False,
                     verbose: bool = True,
                     timer=None,

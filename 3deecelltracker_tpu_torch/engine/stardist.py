@@ -47,10 +47,11 @@ from ..ops.tiling import TilePlan, pad_for_tiles, plan_tiles
 from ..utils.checkpoint import save_pytree
 from ..utils.convert import load_npz, stardist_params_from_numpy
 from ..utils.device import select_device, upload_raw
+from ..utils.keras_import import import_stardist3d, stardist_config_from_json
 
 
 class StarDist3D:
-    """StarDist3D model (arch ``"tpu"``) with the reference's per-volume
+    """StarDist3D model with the reference's per-volume
     API (:meth:`predict_instances`, :meth:`predict`,
     :meth:`predict_sparse`), tiled prediction for volumes too large for one
     pass (:meth:`predict_instances_tiled`) and the device programs the
@@ -62,7 +63,9 @@ class StarDist3D:
     with ``StarDist3DNet.init`` from ``rng``, a ``torch.Generator`` or an
     int seed (default 0).  A seed gives other weights than JAX's
     ``PRNGKey`` of the same number: the two generators differ.
-    ``arch="keras"`` is not ported yet (ROADMAP.md A.8).
+    ``arch``: ``"tpu"`` or ``"keras"``, the reference's Keras topology
+    (``models.stardist3d.StarDist3DNet``; :func:`load_stardist_keras_dir`
+    builds one from a reference model folder).
     ``lmax_prefilter``: only 3x3x3 prob local maxima become NMS candidates
     (``models.stardist3d.sparse_candidates``).  ``device``: the card by
     default."""
@@ -72,16 +75,10 @@ class StarDist3D:
                  render_box: Tuple[int, int, int] = (33, 65, 65),
                  arch: str = "tpu", lmax_prefilter: bool = True, *,
                  device=None):
-        if arch == "keras":
-            raise NotImplementedError(
-                "arch='keras' (the reference's Keras topology) is not "
-                "ported yet (ROADMAP.md A.8)")
-        if arch != "tpu":
-            raise ValueError(f"arch must be 'tpu' or 'keras', got {arch!r}")
+        self.net = StarDist3DNet(config, arch=arch)
         self.config = config
         self.arch = arch
         self.device = select_device(device)
-        self.net = StarDist3DNet(config)
         if params is None:
             gen = rng if isinstance(rng, torch.Generator) else \
                 torch.Generator().manual_seed(0 if rng is None else int(rng))
@@ -108,15 +105,13 @@ class StarDist3D:
 
     @staticmethod
     def load(model_dir: Union[str, Path], *, device=None) -> "StarDist3D":
-        """Read a JAX-package model folder (``config.json`` +
-        ``weights.npz`` [+ ``thresholds.json``]) with numpy alone."""
+        """Read a JAX-package model folder (``config.json`` with its
+        ``arch`` + ``weights.npz`` [+ ``thresholds.json``]) with numpy
+        alone."""
         model_dir = Path(model_dir)
         with open(model_dir / "config.json") as fh:
             raw = json.load(fh)
         arch = raw.pop("arch", "tpu")
-        if arch != "tpu":
-            raise NotImplementedError(
-                f"arch {arch!r}: the port has 'tpu' (ROADMAP.md A.8)")
         for key in ("grid", "anisotropy", "unet_pool", "unet_kernel_size",
                     "train_patch_size"):
             if raw.get(key) is not None:
@@ -124,7 +119,8 @@ class StarDist3D:
         dev = select_device(device)
         params = stardist_params_from_numpy(
             load_npz(model_dir / "weights.npz"), dev)
-        model = StarDist3D(StarDistConfig(**raw), params=params, device=dev)
+        model = StarDist3D(StarDistConfig(**raw), params=params, arch=arch,
+                           device=dev)
         if (model_dir / "thresholds.json").exists():
             with open(model_dir / "thresholds.json") as fh:
                 model.thresholds = json.load(fh)
@@ -137,7 +133,7 @@ class StarDist3D:
         model_dir = Path(model_dir)
         model_dir.mkdir(parents=True, exist_ok=True)
         save_pytree(self.params, model_dir / "weights.npz")
-        cfg = dict(dataclasses.asdict(self.config), arch="tpu")
+        cfg = dict(dataclasses.asdict(self.config), arch=self.arch)
         with open(model_dir / "config.json", "w") as fh:
             json.dump(cfg, fh, indent=2)
         with open(model_dir / "thresholds.json", "w") as fh:
@@ -532,18 +528,51 @@ def load_stardist_model(model_name: str = "stardist",
                         basedir: str = "stardist_models", *,
                         device=None) -> StarDist3D:
     """``stardistwrapper.load_stardist_model`` (:39-43): the model folder
-    ``basedir/model_name`` in the JAX package's format (``config.json`` +
-    ``weights.npz`` [+ ``thresholds.json``]).  A reference Keras folder
-    (``weights_*.h5``) is not ported yet (ROADMAP.md A.8) and raises.
-    ``device``: the card by default."""
+    ``basedir/model_name`` in either format, as JAX's takes them: the JAX
+    package's (``config.json`` + ``weights.npz`` [+ ``thresholds.json``],
+    read with numpy alone) or the reference's stardist-0.8 Keras folder
+    (:func:`load_stardist_keras_dir`, which needs ``h5py``).  ``device``:
+    the card by default."""
     model_dir = Path(basedir) / model_name
-    if not (model_dir / "weights.npz").exists():
-        raise NotImplementedError(
-            f"{model_dir} has no weights.npz: Keras model folders are not "
-            f"ported yet (ROADMAP.md A.8)")
-    model = StarDist3D.load(model_dir, device=device)
+    if (model_dir / "weights.npz").exists():
+        model = StarDist3D.load(model_dir, device=device)
+    else:
+        model = load_stardist_keras_dir(model_dir, device=device)
     print(f"Load pretrained stardist model '{model_name}' "
           f"from folder '{basedir}'")
+    return model
+
+
+def load_stardist_keras_dir(model_dir: Union[str, Path], *,
+                            device=None) -> StarDist3D:
+    """A reference stardist-0.8 Keras model folder
+    (``stardistwrapper.py:39-43``) as an ``arch="keras"`` model: the
+    Config3D ``config.json``, the first of ``weights_best.h5``,
+    ``weights_last.h5``, ``weights_now.h5`` (else the first ``*.h5`` by
+    name) and, when there, ``thresholds.json``.  Reading the ``.h5`` needs
+    ``h5py`` (``ImportError`` without it); ``StarDist3D.save`` of the
+    result writes a folder that loads without it."""
+    model_dir = Path(model_dir)
+    config = stardist_config_from_json(model_dir / "config.json")
+    weights = next((model_dir / name for name in (
+        "weights_best.h5", "weights_last.h5", "weights_now.h5")
+        if (model_dir / name).exists()), None)
+    if weights is None:
+        cands = sorted(model_dir.glob("*.h5"))
+        if not cands:
+            raise FileNotFoundError(f"no .h5 checkpoint in {model_dir}")
+        weights = cands[0]
+    dev = select_device(device)
+    params = stardist_params_from_numpy(import_stardist3d(weights, config),
+                                        dev)
+    model = StarDist3D(config, params=params, arch="keras", device=dev)
+    thresh_file = model_dir / "thresholds.json"
+    if thresh_file.exists():
+        with open(thresh_file) as fh:
+            raw = json.load(fh)
+        model.thresholds = dict(
+            prob=float(raw.get("prob", config.prob_thresh)),
+            nms=float(raw.get("nms", config.nms_thresh)))
     return model
 
 
@@ -635,7 +664,7 @@ class SegArtifactSaver:
                     self._cond.notify_all()
 
 
-def predict_and_save(images_path: str, model: StarDist3D,
+def predict_and_save(images_path, model: StarDist3D,
                      results_folder: Union[str, Path],
                      prefetch_depth: int = 2,
                      batch_size: int = 4,
@@ -649,13 +678,15 @@ def predict_and_save(images_path: str, model: StarDist3D,
                      mesh=None,
                      data_axis: str = "data",
                      transport: str = "u16") -> None:
-    """Segment every volume of a TIFF recording into ``results_folder/seg/``
+    """Segment every volume of a recording into ``results_folder/seg/``
     (``stardistwrapper.predict_and_save`` :75-111): ``seg/coords*.npy``, the
     kept centres in the pipeline's (x, y, z) frame, and ``seg/prob*.npy``,
     the grid-resolution probability map in (x, y, z) (float16 values, as
     the device ships them, stored in float32 as JAX stores them), and the
     recording's first volume rendered as ``auto_vol1/`` labels for the
-    user to proofread into ``manual_vol1/``.
+    user to proofread into ``manual_vol1/``.  ``images_path``: a TIFF
+    pattern over t, or an HDF5 recording ``{"h5_file", "channel"[,
+    "dset"]}`` (``io.imageio``; it needs ``h5py``).
 
     ``volumes``: the time points to segment (default: the recording).
     ``progress_cb``: ``cb(t)``, called on a saver thread once volume t's
@@ -669,7 +700,7 @@ def predict_and_save(images_path: str, model: StarDist3D,
     ``tile_candidates``, ``tile_batch`` and ``shrink`` pass through to it,
     and its prob maps are float32.
 
-    Pipelined as in JAX: two prefetch workers decode the TIFFs, take the
+    Pipelined as in JAX: two prefetch workers read the volumes, take the
     exact percentiles and start the upload on a side stream; one seg call
     per volume runs on the caller's current stream (``batch_size`` is
     accepted for JAX's signature: the card needs no dispatch batching);
@@ -678,7 +709,7 @@ def predict_and_save(images_path: str, model: StarDist3D,
 
     Not ported yet, each raising: ``mesh``, ``data_axis`` and
     ``transport="u8"`` (ROADMAP.md A.5; ``mesh`` with ``tile_shape``
-    raises JAX's ``ValueError``), HDF5 recordings (A.2)."""
+    raises JAX's ``ValueError``)."""
     if mesh is not None:
         if tile_shape is not None:
             raise ValueError(

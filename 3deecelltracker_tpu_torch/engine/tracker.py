@@ -32,6 +32,7 @@ from ..ops.segment_reduce import topq_mean_intensity
 from ..ops.trim import trim_mean
 from ..utils.convert import ffn_from_numpy, load_npz
 from ..utils.device import to_device
+from ..utils.keras_import import import_ffn
 
 BETA, LAMBDA, MAX_ITERATION = 3.0, 3.0, 2000   # trackerlite.py:29
 K_POINTS = 20                                  # trackerlite.py:30
@@ -119,7 +120,9 @@ class TrackerLite:
     ``trackerlite.py:33-68``).
 
     ``ffn_weights``: a ``save_pytree`` ``.npz`` of the FFN's (params,
-    state), as the JAX package writes it, or a (params, state) pair of
+    state), as the JAX package writes it, the reference's Keras ``.h5``
+    checkpoint (``utils.keras_import.import_ffn``; it needs ``h5py``), or
+    a (params, state) pair of
     dicts of arrays or tensors; either way they land on the device of
     ``proofed_coords_vol1``.  ``max_cells``: the static pad of the
     segmented point sets, ``ceil(1.5 n1 / 64) * 64`` for n1 vol-1 cells by
@@ -145,12 +148,13 @@ class TrackerLite:
         self.device = dev
         if isinstance(ffn_weights, (str, Path)):
             if str(ffn_weights).endswith(".h5"):
-                raise NotImplementedError(
-                    "Keras FFN checkpoints are not ported yet (ROADMAP.md "
-                    "A.8)")
-            tree = load_npz(ffn_weights)
-            self.ffn_params, self.ffn_state = ffn_from_numpy(
-                tree["0"], tree["1"], dev)
+                # the reference's Keras checkpoint (trackerlite.py:63)
+                params, state = import_ffn(ffn_weights)
+            else:
+                tree = load_npz(ffn_weights)
+                params, state = tree["0"], tree["1"]
+            self.ffn_params, self.ffn_state = ffn_from_numpy(params, state,
+                                                             dev)
         else:
             self.ffn_params, self.ffn_state = (to_device(w, dev)
                                                for w in ffn_weights)

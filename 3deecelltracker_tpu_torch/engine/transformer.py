@@ -22,7 +22,7 @@ import torch
 
 from ..coordinates import Coordinates
 from ..io.artifacts import ResultsTree
-from ..io.imageio import imread_stack
+from ..io.imageio import PathPattern, imread_stack
 from ..models.stardist3d import upsample_prob_map
 from ..ops.connected import label_components_values
 from ..ops.segment_reduce import center_of_mass, find_objects_bounds
@@ -237,7 +237,7 @@ class CoordsToImageTransformer:
 
     def save_tracking_results(self, coords,
                               corrected_labels_image: np.ndarray, t2: int,
-                              images_path: Optional[str] = None,
+                              images_path: Optional[PathPattern] = None,
                               tracker=None, t1: Optional[int] = None) -> None:
         """Volume ``t2``'s tracked coordinates (``coords_real/``, real
         units; ``coords`` a :class:`Coordinates` or an (n, 3) real array)

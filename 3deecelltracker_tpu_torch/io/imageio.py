@@ -1,18 +1,22 @@
-"""TIFF recordings in, label TIFFs out (counterpart of
+"""TIFF and HDF5 recordings in, label TIFFs out (counterpart of
 ``3deecelltracker_tpu/io/imageio.py``: ``imread`` :31, ``imread_volume`` :44,
-``imwrite_volume`` :63, ``imread_stack`` :98,
+``imwrite_volume`` :63, ``save_recording_h5`` :78, ``imread_stack`` :98,
 ``fast_percentiles`` :119, ``transport_encode`` :204,
 ``percentile_normalize`` :227, ``load_image`` :246,
 ``load_2d_slices_at_time`` :255,
 ``get_t_range`` :285, ``read_image_ts`` :302, ``save_label_slices`` :310,
 ``save_volume_slices`` :334).
 
-Only what the v1.0 workflow and its trainers use, and no PIL: every read
-and write goes through the port's codec (``io.tiff``), which raises where
-the JAX package would fall back to PIL.  The data contract is the JAX
-package's: per-(t, z) single-page grayscale TIFFs found by a
-``"...t%03i_z*.tif"`` glob, label volumes written per z in the (x, y, z)
-frame.
+Only what the v1.0 workflow and its trainers use, and no PIL: every TIFF
+read and write goes through the port's codec (``io.tiff``), which raises
+where the JAX package would fall back to PIL.  The data contract is the
+JAX package's: per-(t, z) single-page grayscale TIFFs found by a
+``"...t%03i_z*.tif"`` glob, or an HDF5 recording ``{"h5_file": path,
+"channel": c[, "dset": "default"]}`` holding one (T, C, Z, Y, X) dataset
+(``stardistwrapper.py:62-70``); label volumes are written per z in the
+(x, y, z) frame.  ``h5py`` is imported only by the functions that read or
+write HDF5, so the package imports without it; there they raise its
+``ImportError``.
 """
 
 from __future__ import annotations
@@ -21,22 +25,64 @@ import os
 import re
 from glob import glob
 from pathlib import Path
-from typing import List, Tuple, Union
+from typing import Dict, List, Tuple, Union
 
 import numpy as np
 
 from . import tiff
 
 _TIFF = (".tif", ".tiff")
+_HDF5 = (".h5", ".hdf5")
+
+PathPattern = Union[str, Dict]
 
 
-def check_recording(images_path) -> None:
+def check_recording(images_path: PathPattern) -> None:
     """Raise unless ``images_path`` is a recording the port reads: a TIFF
-    path pattern (HDF5 recordings are ROADMAP.md A.2)."""
-    if not isinstance(images_path, str):
-        raise NotImplementedError(
-            "the port reads TIFF recordings given as a path pattern; HDF5 "
-            "recordings are not ported yet (ROADMAP.md A.2)")
+    path pattern (a str), or an HDF5 recording (a dict naming an ``.h5`` /
+    ``.hdf5`` file, JAX's ``AssertionError`` otherwise; where ``h5py`` does
+    not import, its ``ImportError``, before the entry points write
+    anything).  Anything else raises JAX's ``ValueError``."""
+    if isinstance(images_path, str):
+        return
+    if isinstance(images_path, dict):
+        if os.path.splitext(images_path["h5_file"])[1] not in _HDF5:
+            raise AssertionError(
+                "Only TIFF sequences or HDF5 datasets are supported")
+        import_h5py()
+        return
+    raise ValueError("images_path should be a str (TIFF) or dict (HDF5)")
+
+
+def import_h5py():
+    """``h5py``, imported where HDF5 is read or written; without it the
+    ``ImportError`` names the package."""
+    try:
+        import h5py
+    except ImportError as e:
+        raise ImportError(
+            "HDF5 recordings and Keras .h5 checkpoints need h5py, which "
+            "does not import here") from e
+    return h5py
+
+
+def save_recording_h5(h5_file: str, volumes, dset: str = "default",
+                      n_channels: int = 1) -> None:
+    """Write a recording as the (T, C, Z, Y, X) HDF5 dataset that
+    :func:`load_2d_slices_at_time` and :func:`get_t_range` read, gzip level
+    1 in chunks of one volume (JAX ``save_recording_h5``; the reference
+    only reads this layout).  ``volumes``: an array or sequence of (z, y,
+    x) volumes, or (T, C, Z, Y, X) directly; ``n_channels`` is accepted
+    for JAX's signature, the channels come from the array."""
+    h5py = import_h5py()
+    arr = np.asarray(volumes)
+    if arr.ndim == 4:                     # (T, Z, Y, X): one channel
+        arr = arr[:, None]
+    if arr.ndim != 5:
+        raise ValueError(f"expected (T,[C,]Z,Y,X), got shape {arr.shape}")
+    with h5py.File(str(h5_file), "w") as f:
+        f.create_dataset(dset, data=arr, chunks=(1, 1) + arr.shape[2:],
+                         compression="gzip", compression_opts=1)
 
 
 def _require_tiff(path) -> None:
@@ -165,12 +211,18 @@ def load_image(folder_path: str) -> np.ndarray:
     return imread_stack(files).transpose(1, 2, 0)
 
 
-def load_2d_slices_at_time(images_path: str, t: int,
+def load_2d_slices_at_time(images_path: PathPattern, t: int,
                            do_normalize: bool = True) -> np.ndarray:
-    """Every 2-D slice of volume ``t`` as a (z, y, x) stack: the files
-    ``sorted(glob(images_path % t))``.  Raises ``FileNotFoundError`` when
-    there is none (the end of a recording)."""
+    """Every 2-D slice of volume ``t`` as a (z, y, x) stack: of a TIFF
+    pattern the files ``sorted(glob(images_path % t))``, which raises
+    ``FileNotFoundError`` when there is none (the end of a recording); of
+    an HDF5 recording ``f[dset][t - 1, channel]``."""
     check_recording(images_path)
+    if isinstance(images_path, dict):
+        with import_h5py().File(images_path["h5_file"], "r") as f:
+            dset = f[images_path.get("dset", "default")]
+            x = dset[t - 1, images_path["channel"], :, :, :]
+        return percentile_normalize(x) if do_normalize else x
     if os.path.splitext(images_path)[1] not in _TIFF:
         raise AssertionError(
             "Only TIFF sequences or HDF5 datasets are supported")
@@ -181,9 +233,13 @@ def load_2d_slices_at_time(images_path: str, t: int,
     return percentile_normalize(x) if do_normalize else x
 
 
-def get_t_range(images_path: str) -> Tuple[int, int]:
-    """(largest, smallest) time index of the files near the pattern."""
+def get_t_range(images_path: PathPattern) -> Tuple[int, int]:
+    """(largest, smallest) time index: of the files near a TIFF pattern,
+    or ``(T, 1)`` of an HDF5 recording of T volumes."""
     check_recording(images_path)
+    if isinstance(images_path, dict):
+        with import_h5py().File(images_path["h5_file"], "r") as f:
+            return f[images_path.get("dset", "default")].shape[0], 1
     p = Path(images_path)
     filenames = glob(str(p.parent / ("*t*" + p.suffix)))
     if not filenames:

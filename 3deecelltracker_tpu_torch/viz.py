@@ -78,7 +78,7 @@ def _blend(a: np.ndarray, b: np.ndarray) -> np.ndarray:
     return ((a.astype(np.uint16) + b) >> 1).astype(np.uint8)
 
 
-def save_merged_labels(root, labels_xyz: np.ndarray, images_path: str,
+def save_merged_labels(root, labels_xyz: np.ndarray, images_path,
                        t: int, interpolation_factor: int) -> None:
     """The labels of volume ``t`` over its raw volume, as x-y and x-z max
     projections (z stretched by ``interpolation_factor``), into

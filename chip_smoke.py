@@ -6,8 +6,9 @@ Phases (any failure raises and the script exits non-zero):
 
 1. device: a CUDA device must be present; prints the card's name and power
    limit as ``nvidia-smi`` reports them, the torch/CUDA versions, and
-   whether ``h5py`` and ``matplotlib`` import (the card halves of
-   ``ROADMAP.md`` A.2 and A.9);
+   whether ``h5py`` and ``matplotlib`` import; without ``h5py``, an HDF5
+   recording and a Keras ``.h5`` checkpoint must raise an ``ImportError``
+   that names it (``check_hdf5_raises``);
 2. build: compiles the five hand-written kernel sources from
    ``3deecelltracker_tpu_torch/csrc/`` (with their shared header) with
    ``nvcc``, one each, all at once (into the package's ``_build/``), and
@@ -167,7 +168,20 @@ Phases (any failure raises and the script exits non-zero):
 21. U-Net variants b and c: every 3x3x3 layer shape of a bench volume's
    tile batch against the plain version, and vol 1's segmentation through
    ``Tracker(unet_variant=...)`` with seeded weights on the card, and on a
-   crop on the card against the CPU.
+   crop on the card against the CPU;
+22. the reference's Keras topology (paths ``keras`` and ``keras_tiled``):
+   the committed seeded ``arch="keras"`` model (``assets/keras/sd_keras/``,
+   converted once from a reference stardist folder, loaded without
+   ``h5py``) at the bench config: every 3x3x3 layer at the bench volume's
+   shapes against the plain version, the full-resolution pre0_0 and
+   pre0_1 printed beside cuDNN and their bounds; volume 1's prob and dist
+   maps through the kernels against the network's plain version on the
+   card and against JAX's record (``jax_record_keras.npz``); then
+   ``segment_and_track(handoff="device")`` over phase 11's TIFFs, held to
+   that record with phase 11's rules (labels ``KERAS_LABELS_EQUAL``), seg
+   and track ms per volume; and ``predict_instances_tiled`` of volume 1
+   whose prob map equals the whole pass beyond the Keras receptive field
+   of the tiled faces.
 
 Every kernel's entry in the kernels line carries its bound: the least time
 the card could take, the larger of its bytes (inputs read once, the output
@@ -201,6 +215,9 @@ against the plain version, phases 16 and 17's included
 ``variants_max_abs_err``), and phases 18-20's readings (``legacy_*``,
 ``legacy_ensemble_*``, ``unet_step_ms``, ``unet_train_*``).  Phases 18-19
 use the JAX-trained U-Net, phase 20 retrains it, phase 21 seeded weights.
+Phase 22's readings ride on the conv entries (``keras_*``: per kernel its
+layers' sums, pre0_0's and pre0_1's times, the network's ms, seg and track
+ms per volume) and its launches under ``keras`` and ``keras_tiled``.
 """
 
 from __future__ import annotations
@@ -347,13 +364,39 @@ def phase_device():
         timeout=60).stdout.strip().splitlines()[0]
     print(f"[device] torch {torch.__version__} cuda {torch.version.cuda} "
           f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
-    # whether the machine could run the card halves of ROADMAP.md A.2
-    # (HDF5 recordings) and A.9 (figures)
+    # whether the machine reads HDF5 (recordings, Keras .h5 checkpoints)
+    # and draws figures (ROADMAP.md A.9)
     import importlib.util
     print("[device] packages: " + ", ".join(
         f"{m} {'imports' if importlib.util.find_spec(m) else 'missing'}"
         for m in ("h5py", "matplotlib")))
+    if importlib.util.find_spec("h5py") is None:
+        check_hdf5_raises()
     return smi
+
+
+def check_hdf5_raises():
+    """Without ``h5py`` an HDF5 recording and a Keras ``.h5`` checkpoint
+    raise an ``ImportError`` that names it (no second reader, no
+    fallback)."""
+    from t3dct_torch.io.imageio import get_t_range, load_2d_slices_at_time
+    from t3dct_torch.utils.keras_import import import_ffn, read_keras_h5
+    rec = {"h5_file": "recording.h5", "channel": 0}
+    calls = {"load_2d_slices_at_time": lambda: load_2d_slices_at_time(rec,
+                                                                      1),
+             "get_t_range": lambda: get_t_range(rec),
+             "read_keras_h5": lambda: read_keras_h5("weights_best.h5"),
+             "import_ffn": lambda: import_ffn("ffn.h5")}
+    for name, call in calls.items():
+        try:
+            call()
+        except ImportError as e:
+            if "h5py" not in str(e):
+                raise AssertionError(f"{name}: {e!r} does not name h5py")
+            continue
+        raise AssertionError(f"{name} ran without h5py")
+    print(f"[device] without h5py the HDF5 halves raise ImportError naming "
+          f"it: {', '.join(calls)}")
 
 
 def phase_build():
@@ -953,29 +996,36 @@ def kept_difference(t, got_zyx, want_zyx, cands, model):
 
 
 def trained_model(dev, cands, method="predict_instances_device"):
-    """The committed StarDist model with ``bench_composition``'s settings;
-    the candidates of each call of its seg program ``method`` are appended
-    to ``cands`` (for the kept cells' margins)."""
+    """The committed StarDist model with ``bench_composition``'s settings,
+    keeping its candidates in ``cands`` (``keep_candidates``)."""
     from t3dct_torch.engine.stardist import StarDist3D
     model = StarDist3D.load(ASSETS / "sd_model", device=dev)
+    return keep_candidates(model, cands, method)
+
+
+def keep_candidates(model, cands, method="predict_instances_device"):
+    """``model`` with ``bench_composition``'s settings; the candidates of
+    each call of its seg program ``method`` are appended to ``cands`` (for
+    the kept cells' margins)."""
     model.max_candidates, model.render_box = 256, (9, 33, 33)
     seg = getattr(model, method)
 
-    def keep_candidates(*args, **kwargs):
+    def kept(*args, **kwargs):
         out = seg(*args, **kwargs)
         cands.append(out[:4])
         return out
 
-    setattr(model, method, keep_candidates)
+    setattr(model, method, kept)
     return model
 
 
-def hold_to_record(path, record, results, coords, centers, cands, model):
+def hold_to_record(path, record, results, coords, centers, cands, model,
+                   labels_equal=LABELS_EQUAL):
     """The bench phases' checks of a run against a JAX record: kept cells
     exact per volume (one candidate within ``KEPT_MARGIN`` of a threshold
     may differ; without ``cands`` none may), tracked coordinates within
     ``COORD_MEDIAN`` per volume and every cell within the record's
-    identity gate, labels ``LABELS_EQUAL`` per recorded volume, strict
+    identity gate, labels ``labels_equal`` per recorded volume, strict
     recall and identity switches equal.  Prints a line per volume; returns
     (what failed, this run's metrics, the record's)."""
     from t3dct_torch.engine.metrics import tracking_id_metrics
@@ -1016,7 +1066,7 @@ def hold_to_record(path, record, results, coords, centers, cands, model):
                 "track_results_t%06i_z*.tif" % t))).transpose(1, 2, 0)
             same = float((lab == record[key]).mean())
             line += f"; labels equal {same:.5f}"
-            if lab.dtype != record[key].dtype or same < LABELS_EQUAL:
+            if lab.dtype != record[key].dtype or same < labels_equal:
                 bad.append(f"t={t} labels")
         print(line)
     # where a cell parts from JAX's by more than a voxel step: how far
@@ -1879,19 +1929,32 @@ def tile_batches(model, shape, tile_shape, tile_batch=8, shrink=None):
 def backbone_layers(model, batch, grid_shape):
     """``(name, input shape, c_out)`` of every 3x3x3 layer of ``model``'s
     backbone on a ``batch`` of volumes whose grid-resolution shape is
-    ``grid_shape``: level l of the U-Net runs on it pooled l times."""
+    ``grid_shape``: level l of the U-Net runs on it pooled l times (the
+    bottom / middle at ``unet_n_depth``); the Keras arch's pre-grid block
+    ``pre{s}_i`` runs on the full-resolution volume after its first s grid
+    pools."""
     cfg = model.config
     depth, pool = cfg.unet_n_depth, cfg.unet_pool
+    pre = []
+    if model.arch == "keras":
+        shape = [g * s for g, s in zip(grid_shape, cfg.grid)]
+        for p in model.net._keras_pools():
+            pre.append(tuple(shape))
+            shape = [a // b for a, b in zip(shape, p)]
     out = []
     for name, ci, co, kernel in model.net.conv_plan():
         if tuple(kernel) != (3, 3, 3):
+            continue
+        if name.startswith("pre"):
+            out.append((name, (batch,) + pre[int(name[3:].split("_")[0])]
+                        + (ci,), co))
             continue
         if name.startswith("down"):
             level = int(name[4:].split("_")[0])
         elif name.startswith("up"):
             level = int(name[2:].split("_")[0])
         else:
-            level = depth if name.startswith("bottom") else 0
+            level = depth if name.startswith(("bottom", "middle")) else 0
         shape = tuple(g // p ** level for g, p in zip(grid_shape, pool))
         out.append((name, (batch,) + shape + (ci,), co))
     return out
@@ -2763,6 +2826,250 @@ def phase_variants(dev, smi, root, folder, errs):
             raise AssertionError(f"variant {variant}: card and CPU disagree")
 
 
+# phase 22: the reference's Keras topology over the bench scene: the
+# committed seeded Keras model (assets/keras/sd_keras/, converted from a
+# reference stardist folder), held to JAX's record of the same run
+KERAS_ASSETS = ROOT / "3deecelltracker_tpu_torch" / "assets" / "keras"
+# labels equal per recorded volume
+KERAS_LABELS_EQUAL = 0.999
+# volume 1's maps through the kernels, and through the network's plain
+# version on the card, each against JAX's record: f32 summed in another
+# order (the bounds of JAX's own TensorFlow test,
+# tests/test_keras_import.py).  Two maps that each lie within these bounds
+# of the record lie within twice them of each other: the kernels' against
+# the plain version's.
+KERAS_PROB_ATOL, KERAS_DIST_ATOL = 1e-5, 1e-4
+# the tiled sweep of one volume: y cut in tiles, the receptive-field shrink
+KERAS_TILE = (None, 256, None)
+
+
+def plain_convs():
+    """A context in which every 3x3x3 conv of ``models.layers`` runs the
+    plain version (cuDNN with TF32 off) on the card: the whole network's
+    plain version, launching none of the port's kernels."""
+    import contextlib
+    from t3dct_torch.models import layers
+    from t3dct_torch.ops.hopper_conv import conv3x3x3_bias_relu_plain
+
+    class Plain:
+        @staticmethod
+        def apply(x, w, b, relu):
+            return conv3x3x3_bias_relu_plain(x, w, b, relu)
+
+    @contextlib.contextmanager
+    def ctx():
+        saved = layers.Conv3x3x3BiasReLU
+        layers.Conv3x3x3BiasReLU = Plain
+        try:
+            yield
+        finally:
+            layers.Conv3x3x3BiasReLU = saved
+
+    return ctx()
+
+
+def keras_layer_rows(dev, smi, model, grid_shape, errs):
+    """Every 3x3x3 layer of the Keras backbone at the bench volume's shapes
+    (its seeded weights, a seeded ReLU'd input) through the router: error
+    against the plain version, the kernel's time, cuDNN's, the plain
+    version's and the bounds; the full-resolution pre-grid layers printed
+    one by one.  Returns the sums per kernel (launches of no path)."""
+    import torch
+    gen = torch.Generator().manual_seed(22)
+    sums = {}
+    tc_total = lib_total = 0.0
+    for name, shape, co in backbone_layers(model, 1, grid_shape):
+        xin = torch.relu(torch.randn(shape[1:], generator=gen)).to(dev)
+        p = model.params[name]
+        r = conv_row(xin, p["w"], p["b"], relu=True)
+        del xin
+        if not r["err"] <= r["tol"]:
+            raise AssertionError(f"keras conv {name} {shape}: {r['kernel']}"
+                                 f" error {r['err']} > {r['tol']}")
+        errs[r["kernel"]] = max(errs.get(r["kernel"], 0.0), r["err"])
+        (t_b, by), (t_tc, by_tc) = r["bound"], r["tc_bound"]
+        own = t_tc if r["kernel"] == "wgmma" else t_b
+        acc = sums.setdefault(r["kernel"], dict(ms=0.0, plain_ms=0.0,
+                                                library_ms=0.0,
+                                                bound_ms=0.0))
+        for key, v in (("ms", r["ms"]), ("plain_ms", r["plain_ms"]),
+                       ("library_ms", r["library_ms"]), ("bound_ms", own)):
+            acc[key] += v
+        tc_total += t_tc
+        lib_total += r["library_ms"]
+        if name.startswith("pre"):
+            acc[f"{name}_ms"] = r["ms"]
+            acc[f"{name}_library_ms"] = r["library_ms"]
+            acc[f"{name}_bound_ms"] = own
+            acc[f"{name}_tc_bound_ms"] = t_tc
+        print(f"[keras] {name} {'x'.join(map(str, shape[1:-1]))} "
+              f"{shape[-1]}->{co}: {r['kernel']} {r['ms']:.3f} ms "
+              f"{r['tflops']:.1f} TFLOP/s, max_abs_err {r['err']:.3e} (tol "
+              f"{r['tol']:.3e}); cuDNN {r['library_ms']:.3f} ms, plain "
+              f"{r['plain_ms']:.3f} ms; least f32 {t_b:.4f} ms ({by}), "
+              f"three-pass TF32 {t_tc:.4f} ms ({by_tc})")
+    ms = sum(a["ms"] for a in sums.values())
+    print(f"[keras] {smi}: backbone layers per volume {ms:.3f} ms (wgmma "
+          f"{sums['wgmma']['ms']:.3f}, direct {sums['direct']['ms']:.3f}), "
+          f"cuDNN f32 over the same layers {lib_total:.3f} ms, three-pass "
+          f"TF32 bound {tc_total:.3f} ms; full resolution: pre0_0 "
+          f"{sums['direct']['pre0_0_ms']:.3f} ms (cuDNN "
+          f"{sums['direct']['pre0_0_library_ms']:.3f}, byte bound "
+          f"{sums['direct']['pre0_0_bound_ms']:.4f}), pre0_1 "
+          f"{sums['wgmma']['pre0_1_ms']:.3f} ms (cuDNN "
+          f"{sums['wgmma']['pre0_1_library_ms']:.3f}, three-pass TF32 "
+          f"bound {sums['wgmma']['pre0_1_bound_ms']:.3f})")
+    return sums, dict(keras_backbone_layers_ms=ms,
+                      keras_backbone_library_ms=lib_total,
+                      keras_backbone_tc_bound_ms=tc_total)
+
+
+def phase_keras(dev, smi, root, pattern, centers):
+    """Phase 22: the Keras topology (``StarDist3DNet(arch="keras")``, the
+    topology of every reference checkpoint) at the bench config, with the
+    committed seeded model (``assets/keras/sd_keras/``, loaded by
+    ``load_stardist_model`` without ``h5py``):
+    (1) every 3x3x3 layer at the bench volume's shapes, the
+    full-resolution pre0_0 (c_in = 1, the direct kernel) and pre0_1
+    included, against the plain version, with times beside cuDNN's and
+    the bounds; (2) volume 1's prob and dist maps through the kernels
+    against the whole network's plain version on the card and against
+    JAX's record (``jax_record_keras.npz``: the prob map, the dist at the
+    kept cells) within ``KERAS_PROB_ATOL`` / ``KERAS_DIST_ATOL``, and the
+    network's ms per volume; (3) ``segment_and_track(handoff="device")``
+    over phase 11's TIFFs (path ``keras``), held to the record with phase
+    11's rules and labels ``KERAS_LABELS_EQUAL``, seg and track ms per
+    volume; (4) ``predict_instances_tiled`` of volume 1 with
+    ``KERAS_TILE`` (path ``keras_tiled``): its prob map equals the whole
+    pass beyond the Keras receptive field of the tiled faces
+    (``TILED_INTERIOR_ATOL``)."""
+    import shutil
+    import torch
+    from t3dct_torch.config import TrackingConfig
+    from t3dct_torch.engine.pipeline import segment_and_track
+    from t3dct_torch.engine.stardist import load_stardist_model
+    from t3dct_torch.io.imageio import (fast_percentiles,
+                                        load_2d_slices_at_time)
+    from t3dct_torch.utils.device import upload_raw
+    from t3dct_torch.utils.timing import CudaStageTimer
+    record = np.load(KERAS_ASSETS / "jax_record_keras.npz")
+    cands = []
+    model = keep_candidates(load_stardist_model(
+        "sd_keras", str(KERAS_ASSETS), device=dev), cands)
+    if model.arch != "keras":
+        raise AssertionError(f"sd_keras loaded as arch {model.arch!r}")
+    div = model.net.div_by
+    padded = tuple(-(-s // d) * d for s, d in zip((Z, Y, X), div))
+    grid_shape = tuple(p // g for p, g in zip(padded, GRID))
+    print(f"[keras] {smi}: arch keras, receptive field "
+          f"{model.net.receptive_field()}, volume {(Z, Y, X)} padded to "
+          f"{padded}, grid {grid_shape}; plan " + ", ".join(
+              f"{n} {ci}->{co}" for n, ci, co, _ in model.net.conv_plan()))
+    errs = {}
+    sums, totals = keras_layer_rows(dev, smi, model, grid_shape, errs)
+
+    # (2) volume 1's maps
+    raw1 = load_2d_slices_at_time(pattern, 1, do_normalize=False)
+    mi, ma = (float(v) for v in fast_percentiles(raw1, (1.0, 99.8)))
+    x1 = model._normalize(upload_raw(raw1, dev), (mi, ma))
+    gz, gy, gx = model._grid_shape(x1.shape)
+    (prob_k, dist_k), fwd_launches = counted(lambda: model.forward_grid(x1))
+    with plain_convs():
+        prob_p, dist_p = model.forward_grid(x1)
+        plain_ms = cuda_ms(lambda: model.forward_grid(x1), reps=5)
+    net_ms = cuda_ms(lambda: model.forward_grid(x1), reps=5)
+    torch.cuda.synchronize()
+    prob_k, dist_k = prob_k[:gz, :gy, :gx], dist_k[:gz, :gy, :gx]
+    prob_p, dist_p = prob_p[:gz, :gy, :gx], dist_p[:gz, :gy, :gx]
+    pts = torch.from_numpy(record["dist_1_points"]).long().to(dev)
+    jax_prob = torch.from_numpy(record["prob_1"]).to(dev)
+    jax_dist = torch.from_numpy(record["dist_1"]).to(dev)
+    off = (prob_k - prob_p).abs()
+    at = np.unravel_index(int(off.argmax()), off.shape)
+    maps = dict(
+        prob_vs_jax=float((prob_k - jax_prob).abs().max()),
+        dist_vs_jax=float((dist_k[pts[:, 0], pts[:, 1], pts[:, 2]]
+                           - jax_dist).abs().max()),
+        plain_prob_vs_jax=float((prob_p - jax_prob).abs().max()),
+        plain_dist_vs_jax=float((dist_p[pts[:, 0], pts[:, 1], pts[:, 2]]
+                                 - jax_dist).abs().max()),
+        prob_vs_plain=float(off.max()),
+        dist_vs_plain=float((dist_k - dist_p).abs().max()))
+    del dist_p
+    print(f"[keras] {smi}: volume 1's maps through the kernels (launches "
+          f"{fwd_launches['conv3x3x3_wgmma']} wgmma, "
+          f"{fwd_launches['conv3x3x3_direct']} direct) against JAX's record: "
+          f"prob {maps['prob_vs_jax']:.3e}, dist at {len(pts)} kept cells "
+          f"{maps['dist_vs_jax']:.3e}; the plain version's against it: prob "
+          f"{maps['plain_prob_vs_jax']:.3e}, dist "
+          f"{maps['plain_dist_vs_jax']:.3e} (bounds {KERAS_PROB_ATOL:.0e} / "
+          f"{KERAS_DIST_ATOL:.0e}); the kernels' against the plain "
+          f"version's: prob {maps['prob_vs_plain']:.3e} (at {at}, prob "
+          f"{float(prob_p[at]):.6f}), dist {maps['dist_vs_plain']:.3e} "
+          f"(bounds twice those); the network {net_ms:.3f} ms per volume "
+          f"(plain version {plain_ms:.3f} ms), its layers "
+          f"{totals['keras_backbone_layers_ms']:.3f} ms, cuDNN's "
+          f"{totals['keras_backbone_library_ms']:.3f} ms, three-pass TF32 "
+          f"bound {totals['keras_backbone_tc_bound_ms']:.3f} ms")
+    bad = [f"{k} {v}" for k, v in maps.items() if not v <= (
+        (KERAS_PROB_ATOL if "prob" in k else KERAS_DIST_ATOL)
+        * (2 if k.endswith("plain") else 1))]
+
+    # (3) the bench scene through the entry point
+    results = root / "results_keras"
+    shutil.copytree(root / "results" / "manual_vol1",
+                    results / "manual_vol1")
+    timer = CudaStageTimer()
+    coords, launches = counted(lambda: segment_and_track(
+        pattern, model, results, str(results / "manual_vol1" / "*.tif"),
+        ASSETS / "ffn.npz", VOXEL_SIZE, 10, (1, BENCH_VOLS),
+        TrackingConfig(beta=3.0, lambda_=3.0), verbose=False,
+        timer=timer, handoff="device", device=dev))
+    print(f"[keras] launches {launches}")
+    plan = [(ci, co, 1) for _, ci, co, k in model.net.conv_plan()
+            if tuple(k) == (3, 3, 3)]
+    check_conv_launches("keras", launches, BENCH_VOLS, stem_count(plan))
+    check_flood_launches("keras", launches, BENCH_VOLS)
+    held, got_metrics, _ = hold_to_record(
+        "keras", record, results, coords, centers, cands, model,
+        labels_equal=KERAS_LABELS_EQUAL)
+    bad += held
+    seg_ms, track_ms = np.mean(timer.times["seg"]), \
+        np.mean(timer.times["track"])
+    wall = timer.times["call"][0] / BENCH_VOLS
+    print(f"[keras] {smi}: wall {wall:.2f} ms per volume for the whole "
+          f"call; seg {seg_ms:.2f} ms, track {track_ms:.2f} ms per volume")
+
+    # (4) the tiled sweep of volume 1 against the whole pass
+    (_, tiled_prob), tiled_launches = counted(
+        lambda: model.predict_instances_tiled(
+            upload_raw(raw1, dev), tile_shape=KERAS_TILE,
+            norm_minmax=(mi, ma)))
+    n_tiles = len(model.plan_tiling((Z, Y, X), KERAS_TILE).origins)
+    m = -(-model.net.receptive_field()[1] // GRID[1])
+    diff = np.abs(tiled_prob[:, m:-m] - prob_k.cpu().numpy()[:, m:-m])
+    print(f"[keras] tiled: {n_tiles} tiles of {KERAS_TILE}, launches "
+          f"{tiled_launches}; prob map against the whole pass beyond {m} "
+          f"grid voxels of the tiled faces: max {diff.max():.3e} "
+          f"({int((diff > 0).sum())} of {diff.size} voxels not bit-equal)")
+    if not diff.max() <= TILED_INTERIOR_ATOL:
+        bad.append(f"tiled interior prob map {diff.max()}")
+    if tiled_launches["conv3x3x3_wgmma"] <= 0 or \
+            tiled_launches["conv3x3x3_direct"] <= 0:
+        bad.append(f"tiled launches {tiled_launches}")
+    if bad:
+        raise AssertionError(f"keras phase: {bad}")
+    times = dict(totals, keras_network_ms=net_ms,
+                 keras_network_plain_ms=plain_ms,
+                 keras_seg_ms_per_vol=seg_ms,
+                 keras_track_ms_per_vol=track_ms,
+                 keras_wall_ms_per_vol=wall,
+                 keras_maps_max_abs_err=maps,
+                 keras_strict_recall=got_metrics["strict_recall"],
+                 keras_id_switches=got_metrics["id_switches"])
+    return launches, tiled_launches, sums, times, errs
+
+
 def main() -> int:
     if not (ROOT / "3deecelltracker_tpu_torch").is_dir():
         print("chip_smoke.py must run from a checkout of the repository",
@@ -2815,6 +3122,8 @@ def main() -> int:
         retrain, retrain_times = phase_retrain(dev, smi, Path(tmp))
         variant_errs = {}
         phase_variants(dev, smi, Path(tmp), leg_folder[0], variant_errs)
+        keras, keras_tiled, keras_sums, keras_times, keras_errs = \
+            phase_keras(dev, smi, Path(tmp), *scene)
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
 
@@ -2826,7 +3135,8 @@ def main() -> int:
                    "tiled": tiled[name], "zebrafish": zebra[name],
                    "legacy_folder": leg_single[name],
                    "legacy_ensemble": leg_ens[name],
-                   "retrain": retrain[name]}
+                   "retrain": retrain[name], "keras": keras[name],
+                   "keras_tiled": keras_tiled[name]}
         return dict(launches=sum(by_path.values()),
                     launches_by_path=by_path)
 
@@ -2834,9 +3144,12 @@ def main() -> int:
     # against the plain version; the tiled paths' own ride along
     for name, acc in conv.items():
         for path, errs in (("tiled", tiled_errs), ("zebrafish", zebra_errs),
-                           ("variants", variant_errs)):
+                           ("variants", variant_errs),
+                           ("keras", keras_errs)):
             acc[f"{path}_max_abs_err"] = errs[name]
             acc["max_abs_err"] = max(acc["max_abs_err"], errs[name])
+        # the Keras backbone's layers at the bench volume's shapes
+        acc.update({f"keras_{k}": v for k, v in keras_sums[name].items()})
 
     kernels = [
         dict(name="conv3x3x3_wgmma", route="cuda",
@@ -2848,7 +3161,7 @@ def main() -> int:
              **train_times, **tiled_times, **zebra_times, **retrain_times,
              **{f"legacy_{k}": v for k, v in leg_single_times.items()},
              **{f"legacy_ensemble_{k}": v
-                for k, v in leg_ens_times.items()}),
+                for k, v in leg_ens_times.items()}, **keras_times),
         dict(name="conv3x3x3_direct", route="cuda",
              source="3deecelltracker_tpu_torch/csrc/conv3x3x3.cu",
              replaces="3deecelltracker_tpu/ops/pallas_conv.py:89",
@@ -2864,7 +3177,9 @@ def main() -> int:
                              "bench_ensemble": ens["flood_rounds"],
                              "tiled": tiled["flood_rounds"],
                              "legacy_folder": leg_single["flood_rounds"],
-                             "legacy_ensemble": leg_ens["flood_rounds"]}),
+                             "legacy_ensemble": leg_ens["flood_rounds"],
+                             "keras": keras["flood_rounds"],
+                             "keras_tiled": keras_tiled["flood_rounds"]}),
         dict(name="cc_label", route="cuda",
              source="3deecelltracker_tpu_torch/csrc/cc.cu",
              replaces="3deecelltracker_tpu/ops/pallas_kernels.py:92",

@@ -307,8 +307,12 @@ def test_unet_cache_loads_in_the_other_package(tmp_path, writer):
 def test_load_unet_reads_a_jax_checkpoint(tmp_path):
     """``load_unet`` takes the ``(params, bn_state)`` ``.npz`` that JAX's
     ``save_pytree`` wrote (JAX's seeded init of ``unet3_a``): every leaf
-    exact, copied to ``unet_weights/weights_initial.npz``; ``.h5`` raises
-    and cites A.8."""
+    exact, copied to ``unet_weights/weights_initial.npz``; the same
+    weights as a Keras ``.h5`` load to the same leaves, and ``load_ffn``
+    takes a Keras FFN ``.h5`` (``tests/test_torch_keras.py`` holds both
+    against JAX's loaders); the figures raise and cite A.9."""
+    from t3dct_torch.utils.keras_import import _unet_block_specs
+    from test_torch_keras import ffn_layers, write_keras2_h5
     params, state = junet3_a().init(jax.random.PRNGKey(3))
     state = jax.tree_util.tree_map(lambda a: a + 0.25, state)
     tr = legacy.Tracker(**tracker_kwargs(2, tmp_path), device="cpu")
@@ -320,11 +324,30 @@ def test_load_unet_reads_a_jax_checkpoint(tmp_path):
             jax.tree_util.tree_leaves((params, state))):
         np.testing.assert_array_equal(got.numpy(), np.asarray(want))
     assert (Path(tr.paths.unet_weights) / "weights_initial.npz").is_file()
-    tr.paths.unet_model_file = tr.paths.ffn_model_file = "w.h5"
-    with pytest.raises(NotImplementedError, match="A.8"):
-        tr.load_unet()
-    with pytest.raises(NotImplementedError, match="A.8"):
-        tr.load_ffn()
+    layers = []
+    for i, (name, _, _) in enumerate(_unet_block_specs(get_unet("a"))):
+        conv = params[name]["conv"]
+        layers.append((f"conv3d_{i}", [
+            (f"conv3d_{i}/kernel:0", np.asarray(conv["w"])),
+            (f"conv3d_{i}/bias:0", np.asarray(conv["b"]))]))
+        if name != "out":
+            bn, st = params[name]["bn"], state[name]
+            layers.append((f"bn_{i}", [
+                (f"bn_{i}/{k}:0", np.asarray(v)) for k, v in (
+                    ("gamma", bn["scale"]), ("beta", bn["bias"]),
+                    ("moving_mean", st["mean"]),
+                    ("moving_variance", st["var"]))]))
+    write_keras2_h5(Path(tr.paths.models) / "w.h5", layers)
+    write_keras2_h5(Path(tr.paths.models) / "f.h5", ffn_layers(seed=6))
+    tr.paths.unet_model_file, tr.paths.ffn_model_file = "w.h5", "f.h5"
+    tr.load_unet()
+    assert tr.unet_model == get_unet("a")
+    for got, want in zip(jax.tree_util.tree_leaves(
+            (tr.unet_params, tr.unet_bn_state)),
+            jax.tree_util.tree_leaves((params, state))):
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    tr.load_ffn()
+    assert tr.ffn_params["comb"]["w"].shape == (1024, 512)
     with pytest.raises(NotImplementedError, match="A.9"):
         tr.draw_segresult()
 

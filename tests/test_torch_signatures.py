@@ -8,7 +8,8 @@ naming its ``ROADMAP.md`` item (held by the tests of each module).
 Entry points: the names the examples and the JAX package's docstring call
 (``examples/*.py``), the legacy ``engine.legacy.Tracker`` of
 ``use_unet_legacy.py`` with every public method, its trainer
-``TrainingUNet3D`` and ``UNetSegmenter.segment``."""
+``TrainingUNet3D`` and ``UNetSegmenter.segment``, and the Keras
+importers of ``utils.keras_import``."""
 
 import importlib
 import inspect
@@ -43,7 +44,7 @@ ENTRY_POINTS = [
         "StarDist3D.predict", "StarDist3D.predict_sparse",
         "StarDist3D.predict_instances", "StarDist3D.predict_instances_tiled",
         "StarDist3D.predict_instances_sharded", "load_stardist_model",
-        "predict_and_save", "save_arrays_to_folder", "save_auto_seg_vol1",
+        "load_stardist_keras_dir", "predict_and_save", "save_arrays_to_folder", "save_auto_seg_vol1",
         "print_dict", "load_training_images", "configure",
         "calculate_extents", "fill_label_holes")
 ] + [
@@ -77,7 +78,12 @@ ENTRY_POINTS = [
     ("io.imageio", name)
     for name in ("load_2d_slices_at_time", "get_t_range",
                  "save_label_slices", "imread_volume", "imwrite_volume",
-                 "load_image", "read_image_ts")
+                 "load_image", "read_image_ts", "save_recording_h5")
+] + [
+    ("utils.keras_import", name)
+    for name in ("read_keras_h5", "import_unet3", "import_ffn",
+                 "import_stardist3d", "stardist_config_from_json",
+                 "KerasGraph.__init__", "KerasGraph.from_h5")
 ] + [
     ("engine.legacy", name) for name in (
         "get_tracking_path", "get_reference_vols", "get_remote_vols",

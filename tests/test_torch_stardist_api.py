@@ -217,7 +217,8 @@ def test_thresholds_under_jax_name(models, tmp_path):
 def test_init_without_params():
     """``StarDist3D(config)`` initializes its own weights: the same seed
     (int or generator; default 0) gives the same weights, another seed
-    others; ``arch="keras"`` raises with its item."""
+    others; ``arch="keras"`` initializes the Keras plan's layers
+    (``tests/test_torch_keras.py``), another arch raises."""
     cfg = StarDistConfig(**CONFIGS["small"])
     a = StarDist3D(cfg, max_candidates=512, render_box=(9, 17, 17),
                    device="cpu")
@@ -234,8 +235,12 @@ def test_init_without_params():
     assert not np.array_equal(a.params["stem"]["w"].numpy(),
                               d.params["stem"]["w"].numpy())
     assert a.max_candidates == 512 and a.render_box == (9, 17, 17)
-    with pytest.raises(NotImplementedError, match="A.8"):
-        StarDist3D(cfg, arch="keras", device="cpu")
+    keras = StarDist3D(cfg, arch="keras", device="cpu")
+    assert keras.arch == keras.net.arch == "keras"
+    assert list(keras.params) == [n for n, *_ in keras.net.conv_plan()]
+    assert "pre0_0" in keras.params and "stem" not in keras.params
+    with pytest.raises(ValueError, match="arch"):
+        StarDist3D(cfg, arch="tf", device="cpu")
     x = np.random.RandomState(3).rand(8, 32, 32).astype(np.float32)
     (labels, details), prob = a.predict_instances(x)
     assert labels.shape == x.shape and prob.shape == (8, 16, 16)

@@ -21,6 +21,7 @@ the comparison holds the tracking alone."""
 
 import inspect
 import shutil
+import sys
 import threading
 from pathlib import Path
 
@@ -32,7 +33,7 @@ from t3dct.config import TrackingConfig as JTrackingConfig
 from t3dct.engine.pipeline import segment_and_track as j_segment_and_track
 from t3dct.engine.pipeline import track_timelapse as j_track_timelapse
 from t3dct.engine.stardist import predict_and_save as j_predict_and_save
-from t3dct_torch.config import TrackingConfig
+from t3dct_torch.config import StarDistConfig, TrackingConfig
 from t3dct_torch.engine import pipeline
 from t3dct_torch.engine.pipeline import segment_and_track, track_timelapse
 from t3dct_torch.engine.stardist import (StarDist3D, load_stardist_model,
@@ -218,20 +219,32 @@ def test_predict_and_save_raises_for_what_is_not_ported(tmp_path, kwargs,
     assert not (tmp_path / "res").exists()
 
 
-def test_predict_and_save_hdf5_raises(tmp_path, models):
+def test_predict_and_save_hdf5_raises(tmp_path, models, monkeypatch):
+    """Where ``h5py`` does not import (the card's machine), an HDF5
+    recording raises an ``ImportError`` that names it before anything is
+    written; a dict naming another file type raises JAX's
+    ``AssertionError``.  ``tests/test_torch_h5.py`` runs HDF5
+    recordings."""
     _, tm, _, _ = models
-    with pytest.raises(NotImplementedError, match="A.2"):
+    with pytest.raises(AssertionError, match="HDF5"):
+        predict_and_save({"h5_file": str(tmp_path / "r.tif"), "channel": 0},
+                         tm, tmp_path / "res")
+    monkeypatch.setitem(sys.modules, "h5py", None)
+    with pytest.raises(ImportError, match="h5py"):
         predict_and_save({"h5_file": str(tmp_path / "r.h5"), "channel": 0},
                          tm, tmp_path / "res")
     assert not (tmp_path / "res").exists()
 
 
 @pytest.mark.parametrize("handoff", ["disk", "device"])
-def test_segment_and_track_hdf5_raises(tmp_path, models, handoff):
-    """An HDF5 recording raises with its item before anything is read or
-    written, whichever the handoff."""
+def test_segment_and_track_hdf5_raises(tmp_path, models, handoff,
+                                       monkeypatch):
+    """Without ``h5py`` an HDF5 recording raises an ``ImportError`` that
+    names it before anything is read or written, whichever the
+    handoff."""
     _, tm, _, tffn = models
-    with pytest.raises(NotImplementedError, match="A.2"):
+    monkeypatch.setitem(sys.modules, "h5py", None)
+    with pytest.raises(ImportError, match="h5py"):
         segment_and_track({"h5_file": str(tmp_path / "r.h5"), "channel": 0},
                           tm, tmp_path / "res", str(tmp_path / "m/*.tif"),
                           tffn, VOXEL_SIZE, INTERP, (1, 2), handoff=handoff,
@@ -240,18 +253,26 @@ def test_segment_and_track_hdf5_raises(tmp_path, models, handoff):
 
 
 def test_load_stardist_model(tmp_path):
-    """The committed folder loads as ``StarDist3D.load`` loads it; a Keras
-    folder raises with its item."""
+    """The committed folder loads as ``StarDist3D.load`` loads it; a
+    reference Keras folder loads as an ``arch="keras"`` model with its
+    thresholds (``tests/test_torch_keras.py`` holds it against JAX)."""
+    from test_torch_keras import (SMALL, keras_stardist_params,
+                                  write_reference_folder)
     assets = REPO / "3deecelltracker_tpu_torch" / "assets" / "bench"
     model = load_stardist_model("sd_model", basedir=str(assets),
                                 device="cpu")
     ref = StarDist3D.load(assets / "sd_model", device="cpu")
     assert model.thresholds == ref.thresholds
     assert model.config == ref.config
-    (tmp_path / "keras").mkdir()
-    (tmp_path / "keras" / "weights_best.h5").write_bytes(b"")
-    with pytest.raises(NotImplementedError, match="A.8"):
-        load_stardist_model("keras", basedir=str(tmp_path), device="cpu")
+    assert model.arch == "tpu"
+    cfg = StarDistConfig(**SMALL["g122"])
+    write_reference_folder(tmp_path / "keras", cfg,
+                           keras_stardist_params(cfg),
+                           {"prob": 0.4, "nms": 0.2})
+    keras = load_stardist_model("keras", basedir=str(tmp_path),
+                                device="cpu")
+    assert keras.arch == "keras" and keras.config == cfg
+    assert keras.thresholds == {"prob": 0.4, "nms": 0.2}
 
 
 # ---- track_timelapse ----------------------------------------------------
