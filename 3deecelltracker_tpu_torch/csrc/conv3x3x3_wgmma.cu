@@ -50,9 +50,30 @@
 // packed in the same order.  The epilogue adds the bias, applies the ReLU
 // and stores channels-last, masked at the ragged y/x edge and past c_out.
 //
-// The building blocks (mbarriers, TMA, the hi/lo split, wgmma, the tensor-map
-// encoder) are in hopper_common.cuh, shared with csrc/ladder.cu's nine-view
-// conv.
+// The one-pass bf16 form (BF16 = true, entry point conv3x3x3_wgmma_bf16)
+// computes what the JAX package's layers.conv3d computes with
+// compute_dtype=bfloat16 (3deecelltracker_tpu/models/layers.py:50-60, XLA's
+// conv with bf16 operands and preferred_element_type=f32, no Pallas kernel):
+// conv(bf16(x), bf16(w)) with f32 products and sums, + b in f32, f32 out.
+// Each product of two bf16 values is exact in f32, so it equals an f32
+// conv of the rounded operands up to summation order.  What bounds it on an
+// H100: one pass at the 989 TFLOP/s bf16 peak puts U-Net a's 16 tiles at
+// ~0.57 ms a volume, below the ~1.2 ms its f32 activations take at
+// 3.35 TB/s: its bytes.  Same pipeline, ring and epilogue as the TF32
+// form; a stage is (16-channel chunk, z-tap): two 8-channel halo planes
+// (two TMA copies from the same tensor map; the second is skipped, and its
+// fragment columns zeroed, where c_in % 16 == 8 leaves half a chunk) and
+// the 9 taps' weights, rounded to bf16 (round to nearest even) and packed
+// by ops/hopper_conv.py in the k16 K-major core-matrix layout (column k is
+// channel k of the chunk).  The activations stay f32 in memory and in
+// shared memory, as JAX's layers hand them on; each thread rounds its A
+// fragment to bf16 in registers (cvt.rn.bf16x2.f32) and a tap is one k16
+// wgmma against the TF32 form's three k8 ones.  The bias is added in f32
+// in the epilogue, unrounded.
+//
+// The building blocks (mbarriers, TMA, the hi/lo split, wgmma, the bf16
+// pair conversion, the tensor-map encoder) are in hopper_common.cuh, shared
+// with csrc/ladder.cu's nine-view conv.
 
 #include "hopper_common.cuh"
 
@@ -62,44 +83,42 @@ constexpr int TX = 16;                   // output tile: x
 constexpr int TY = 8;                    // output tile: y (4 rows a warpgroup)
 constexpr int HX = TX + 2;
 constexpr int HY = TY + 2;
-constexpr int CK = 8;                    // channels per K step (k8)
+constexpr int CK = 8;                    // channels per halo plane (k8)
 constexpr int THREADS = 256;             // two warpgroups
 constexpr int HALO_FLOATS = HY * HX * CK;
 constexpr int HALO_BYTES = HALO_FLOATS * 4;      // 5760 = 45 x 128
 
-// packed weights of one stage: [tap 9][hi, lo][CK * NB] (ops/hopper_conv.py)
-template <int NB>
-__host__ __device__ constexpr int w_stage_floats() { return 9 * 2 * CK * NB; }
+// one form's pipeline: TF32 x3 (BF16 false) or bf16 (true) for N tile NB
+template <int NB, bool BF16>
+struct Form {
+  // channels per stage, and the 8-channel halo planes that hold them
+  static constexpr int CKS = BF16 ? 16 : CK;
+  static constexpr int HALOS = CKS / CK;
+  // packed weights of one stage, in bytes: TF32 [tap 9][hi, lo][CK * NB]
+  // f32, bf16 [tap 9][16 * NB] bf16 (ops/hopper_conv.py)
+  static constexpr int W_BYTES = BF16 ? 9 * CKS * NB * 2 : 9 * 2 * CK * NB * 4;
+  static constexpr int STAGES =
+      BF16 ? 4 : (NB >= 128 ? 2 : (NB >= 64 ? 3 : 4));
+  // narrow tiles fit two blocks on an SM (<= 128 registers a thread)
+  static constexpr int BLOCKS_PER_SM = NB <= 32 ? 2 : 1;
+  static constexpr int SMEM =
+      STAGES * (W_BYTES + HALOS * HALO_BYTES) + 2 * STAGES * 8;
+};
 
-template <int NB>
-__host__ __device__ constexpr int stages() {
-  return NB >= 128 ? 2 : (NB >= 64 ? 3 : 4);
-}
-
-// narrow tiles fit two blocks on an SM (<= 128 registers a thread)
-template <int NB>
-__host__ __device__ constexpr int blocks_per_sm() {
-  return NB <= 32 ? 2 : 1;
-}
-
-template <int NB>
-__host__ __device__ constexpr int smem_bytes() {
-  return stages<NB>() * (w_stage_floats<NB>() * 4 + HALO_BYTES) +
-         2 * stages<NB>() * 8;
-}
-
-template <int NB>
-__global__ void __launch_bounds__(THREADS, blocks_per_sm<NB>())
+template <int NB, bool BF16>
+__global__ void __launch_bounds__(THREADS, (Form<NB, BF16>::BLOCKS_PER_SM))
 conv_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
-                  const float* __restrict__ wp, const float* __restrict__ bias,
+                  const void* __restrict__ wp, const float* __restrict__ bias,
                   float* __restrict__ y, int Z, int Y, int X, int Cin,
                   int Cout, int tiles_x, int n_chunks, int relu) {
-  constexpr int S = stages<NB>();
-  constexpr int WF = w_stage_floats<NB>();
+  using F = Form<NB, BF16>;
+  constexpr int S = F::STAGES;
+  constexpr int WB = F::W_BYTES;
+  constexpr int HS = F::HALOS * HALO_FLOATS;     // halo floats of a stage
   extern __shared__ __align__(128) unsigned char smem[];
-  float* w_s = reinterpret_cast<float*>(smem);
-  float* h_s = w_s + S * WF;
-  uint64_t* full = reinterpret_cast<uint64_t*>(h_s + S * HALO_FLOATS);
+  unsigned char* w_s = smem;
+  float* h_s = reinterpret_cast<float*>(smem + S * WB);
+  uint64_t* full = reinterpret_cast<uint64_t*>(h_s + S * HS);
   uint64_t* empty = full + S;
 
   const int x0 = (blockIdx.x % tiles_x) * TX;
@@ -107,16 +126,24 @@ conv_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
   const int z = blockIdx.y;
   const int bz = blockIdx.z / n_chunks;
   const int nc = blockIdx.z % n_chunks;
-  const int n_iters = (Cin / CK) * 3;   // stage = (channel chunk, z-tap)
-  const float* src = wp + static_cast<int64_t>(nc) * n_iters * WF;
+  // stage = (channel chunk, z-tap)
+  const int n_iters = (Cin + F::CKS - 1) / F::CKS * 3;
+  const unsigned char* src =
+      static_cast<const unsigned char*>(wp) +
+      static_cast<int64_t>(nc) * n_iters * WB;
 
-  // thread 0 issues stage `it`'s two copies into buffer it % S
+  // thread 0 issues stage `it`'s copies into buffer it % S: its halo
+  // planes that hold channels (a chunk's second 8 are absent where c_in %
+  // 16 == 8) and its weights
   auto load = [&](int it) {
     const int s = it % S;
-    mbar_expect_tx(&full[s], WF * 4 + HALO_BYTES);
-    tma_halo(h_s + s * HALO_FLOATS, &xmap, &full[s], (it / 3) * CK, x0 - 1,
-             y0 - 1, z + it % 3 - 1, bz);
-    bulk_load(w_s + s * WF, src + static_cast<int64_t>(it) * WF, WF * 4,
+    const int c0 = (it / 3) * F::CKS;
+    const int halos = min(F::HALOS, (Cin - c0) / CK);
+    mbar_expect_tx(&full[s], WB + halos * HALO_BYTES);
+    for (int hf = 0; hf < halos; ++hf)
+      tma_halo(h_s + s * HS + hf * HALO_FLOATS, &xmap, &full[s],
+               c0 + hf * CK, x0 - 1, y0 - 1, z + it % 3 - 1, bz);
+    bulk_load(w_s + s * WB, src + static_cast<int64_t>(it) * WB, WB,
               &full[s]);
   };
   if (threadIdx.x == 0) {
@@ -144,31 +171,67 @@ conv_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
   for (int it = 0; it < n_iters; ++it) {
     const int s = it % S;
     mbar_wait(&full[s], (it / S) & 1);
-    const float* h = h_s + s * HALO_FLOATS;
-    // A fragments of the 9 taps: a[0] (pixel g, k t), a[1] (pixel g + 8,
-    // k t), a[2] (pixel g, k t + 4), a[3] (pixel g + 8, k t + 4); column k
-    // holds channel 2 (k % 4) + k / 4
-    uint32_t a_hi[9][4], a_lo[9][4];
+    const float* h = h_s + s * HS;
+    if constexpr (BF16) {
+      // A fragments of the 9 taps, rounded to bf16: a[0] (pixel g, k 2t,
+      // 2t + 1), a[1] (pixel g + 8, the same k), a[2] / a[3] the same
+      // pixels at k 2t + 8, 2t + 9; column k is channel k of the chunk,
+      // the second 8 from the second halo plane, zero when it is absent
+      const bool two = (it / 3) * F::CKS + CK < Cin;
+      uint32_t a[9][4];
 #pragma unroll
-    for (int tap = 0; tap < 9; ++tap) {
-      const float* p = h + ((row + tap / 3) * HX + g + tap % 3) * CK + 2 * t;
-      const float2 v0 = *reinterpret_cast<const float2*>(p);
-      const float2 v1 = *reinterpret_cast<const float2*>(p + 8 * CK);
-      split_tf32(v0.x, a_hi[tap][0], a_lo[tap][0]);
-      split_tf32(v1.x, a_hi[tap][1], a_lo[tap][1]);
-      split_tf32(v0.y, a_hi[tap][2], a_lo[tap][2]);
-      split_tf32(v1.y, a_hi[tap][3], a_lo[tap][3]);
-    }
-    const float* w = w_s + s * WF;
-    fence_acc(part);
-    wgmma_fence();
+      for (int tap = 0; tap < 9; ++tap) {
+        const float* p = h + ((row + tap / 3) * HX + g + tap % 3) * CK + 2 * t;
+        const float2 v0 = *reinterpret_cast<const float2*>(p);
+        const float2 v1 = *reinterpret_cast<const float2*>(p + 8 * CK);
+        a[tap][0] = bf16x2_rn(v0.x, v0.y);
+        a[tap][1] = bf16x2_rn(v1.x, v1.y);
+        a[tap][2] = 0u;
+        a[tap][3] = 0u;
+        if (two) {
+          const float2 v2 =
+              *reinterpret_cast<const float2*>(p + HALO_FLOATS);
+          const float2 v3 =
+              *reinterpret_cast<const float2*>(p + HALO_FLOATS + 8 * CK);
+          a[tap][2] = bf16x2_rn(v2.x, v2.y);
+          a[tap][3] = bf16x2_rn(v3.x, v3.y);
+        }
+      }
+      const unsigned char* w = w_s + s * WB;
+      fence_acc(part);
+      wgmma_fence();
 #pragma unroll
-    for (int tap = 0; tap < 9; ++tap) {
-      const uint64_t d_hi = b_desc(w + (2 * tap) * CK * NB);
-      const uint64_t d_lo = b_desc(w + (2 * tap + 1) * CK * NB);
-      wgmma_tf32(part, a_lo[tap], d_hi, tap > 0);
-      wgmma_tf32(part, a_hi[tap], d_lo, 1);
-      wgmma_tf32(part, a_hi[tap], d_hi, 1);
+      for (int tap = 0; tap < 9; ++tap)
+        wgmma_bf16(part, a[tap],
+                   b_desc(reinterpret_cast<const float*>(
+                       w + tap * F::CKS * NB * 2)),
+                   tap > 0);
+    } else {
+      // A fragments of the 9 taps: a[0] (pixel g, k t), a[1] (pixel g + 8,
+      // k t), a[2] (pixel g, k t + 4), a[3] (pixel g + 8, k t + 4); column
+      // k holds channel 2 (k % 4) + k / 4
+      uint32_t a_hi[9][4], a_lo[9][4];
+#pragma unroll
+      for (int tap = 0; tap < 9; ++tap) {
+        const float* p = h + ((row + tap / 3) * HX + g + tap % 3) * CK + 2 * t;
+        const float2 v0 = *reinterpret_cast<const float2*>(p);
+        const float2 v1 = *reinterpret_cast<const float2*>(p + 8 * CK);
+        split_tf32(v0.x, a_hi[tap][0], a_lo[tap][0]);
+        split_tf32(v1.x, a_hi[tap][1], a_lo[tap][1]);
+        split_tf32(v0.y, a_hi[tap][2], a_lo[tap][2]);
+        split_tf32(v1.y, a_hi[tap][3], a_lo[tap][3]);
+      }
+      const float* w = reinterpret_cast<const float*>(w_s + s * WB);
+      fence_acc(part);
+      wgmma_fence();
+#pragma unroll
+      for (int tap = 0; tap < 9; ++tap) {
+        const uint64_t d_hi = b_desc(w + (2 * tap) * CK * NB);
+        const uint64_t d_lo = b_desc(w + (2 * tap + 1) * CK * NB);
+        wgmma_tf32(part, a_lo[tap], d_hi, tap > 0);
+        wgmma_tf32(part, a_hi[tap], d_lo, 1);
+        wgmma_tf32(part, a_hi[tap], d_hi, 1);
+      }
     }
     wgmma_commit();
     wgmma_wait_all();
@@ -211,20 +274,62 @@ conv_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
 }
 
 
-template <int NB>
-int launch(const CUtensorMap& map, const float* wp, const float* b, float* y,
+template <int NB, bool BF16>
+int launch(const CUtensorMap& map, const void* wp, const float* b, float* y,
            int B, int Z, int Y, int X, int Cin, int Cout, int relu,
            cudaStream_t stream) {
+  constexpr int SMEM = Form<NB, BF16>::SMEM;
   const cudaError_t e = cudaFuncSetAttribute(
-      conv_wgmma_kernel<NB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem_bytes<NB>());
+      conv_wgmma_kernel<NB, BF16>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
   if (e != cudaSuccess) return static_cast<int>(e);
   const int tiles_x = (X + TX - 1) / TX;
   const int n_chunks = (Cout + NB - 1) / NB;
   dim3 grid(tiles_x * ((Y + TY - 1) / TY), Z, B * n_chunks);
-  conv_wgmma_kernel<NB><<<grid, THREADS, smem_bytes<NB>(), stream>>>(
+  conv_wgmma_kernel<NB, BF16><<<grid, THREADS, SMEM, stream>>>(
       map, wp, b, y, Z, Y, X, Cin, Cout, tiles_x, n_chunks, relu);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <bool BF16>
+int dispatch(const void* x, const void* wp, const void* b, void* y, int B,
+             int Z, int Y, int X, int Cin, int Cout, int nb, int relu,
+             const uint64_t* dims, const uint64_t* strides,
+             const uint32_t* box, void* stream) {
+  CUtensorMap map;
+  if (!encode_map_5d(&map, x, dims, strides, box)) return -1;
+  const float* bb = static_cast<const float*>(b);
+  float* out = static_cast<float*>(y);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (nb) {
+    case 8:
+      return launch<8, BF16>(map, wp, bb, out, B, Z, Y, X, Cin, Cout, relu, s);
+    case 16:
+      return launch<16, BF16>(map, wp, bb, out, B, Z, Y, X, Cin, Cout, relu,
+                              s);
+    case 32:
+      return launch<32, BF16>(map, wp, bb, out, B, Z, Y, X, Cin, Cout, relu,
+                              s);
+    case 64:
+      return launch<64, BF16>(map, wp, bb, out, B, Z, Y, X, Cin, Cout, relu,
+                              s);
+    case 128:
+      return launch<128, BF16>(map, wp, bb, out, B, Z, Y, X, Cin, Cout, relu,
+                               s);
+    default: return -2;
+  }
+}
+
+template <bool BF16>
+int smem_of(int nb) {
+  switch (nb) {
+    case 8: return Form<8, BF16>::SMEM;
+    case 16: return Form<16, BF16>::SMEM;
+    case 32: return Form<32, BF16>::SMEM;
+    case 64: return Form<64, BF16>::SMEM;
+    case 128: return Form<128, BF16>::SMEM;
+    default: return -2;
+  }
 }
 
 }  // namespace
@@ -242,32 +347,24 @@ extern "C" int conv3x3x3_wgmma_f32(const void* x, const void* wp,
                                    int relu, const uint64_t* dims,
                                    const uint64_t* strides,
                                    const uint32_t* box, void* stream) {
-  CUtensorMap map;
-  if (!encode_map_5d(&map, x, dims, strides, box)) return -1;
-  const float* w = static_cast<const float*>(wp);
-  const float* bb = static_cast<const float*>(b);
-  float* out = static_cast<float*>(y);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (nb) {
-    case 8: return launch<8>(map, w, bb, out, B, Z, Y, X, Cin, Cout, relu, s);
-    case 16: return launch<16>(map, w, bb, out, B, Z, Y, X, Cin, Cout, relu, s);
-    case 32: return launch<32>(map, w, bb, out, B, Z, Y, X, Cin, Cout, relu, s);
-    case 64: return launch<64>(map, w, bb, out, B, Z, Y, X, Cin, Cout, relu, s);
-    case 128:
-      return launch<128>(map, w, bb, out, B, Z, Y, X, Cin, Cout, relu, s);
-    default: return -2;
-  }
+  return dispatch<false>(x, wp, b, y, B, Z, Y, X, Cin, Cout, nb, relu, dims,
+                         strides, box, stream);
+}
+
+// The one-pass bf16 form, the same arguments but wp: the bf16 weights
+// packed in the k16 layout (ops/hopper_conv.py::pack_weights_bf16).
+extern "C" int conv3x3x3_wgmma_bf16(const void* x, const void* wp,
+                                    const void* b, void* y, int B, int Z,
+                                    int Y, int X, int Cin, int Cout, int nb,
+                                    int relu, const uint64_t* dims,
+                                    const uint64_t* strides,
+                                    const uint32_t* box, void* stream) {
+  return dispatch<true>(x, wp, b, y, B, Z, Y, X, Cin, Cout, nb, relu, dims,
+                        strides, box, stream);
 }
 
 // the dynamic shared memory a block of the N tile nb takes, in bytes (-2
-// for an unsupported nb)
-extern "C" int conv3x3x3_wgmma_smem_bytes(int nb) {
-  switch (nb) {
-    case 8: return smem_bytes<8>();
-    case 16: return smem_bytes<16>();
-    case 32: return smem_bytes<32>();
-    case 64: return smem_bytes<64>();
-    case 128: return smem_bytes<128>();
-    default: return -2;
-  }
+// for an unsupported nb), of the TF32 form (bf16 = 0) or the bf16 one
+extern "C" int conv3x3x3_wgmma_smem_bytes(int nb, int bf16) {
+  return bf16 ? smem_of<true>(nb) : smem_of<false>(nb);
 }

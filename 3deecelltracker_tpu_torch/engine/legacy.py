@@ -372,14 +372,21 @@ class Tracker:
 
     # ---- model loading ----------------------------------------------------
     def _build_segmenter(self):
+        """The segmenter JAX's ``Tracker`` builds (``engine/legacy.py:
+        346-353``): ``UNetSegmenter``'s default compute dtype, bfloat16."""
+        self.segmenter = self._new_segmenter()
+
+    def _new_segmenter(self, compute_dtype=torch.bfloat16) -> UNetSegmenter:
+        """A segmenter of the current U-Net and settings computing in
+        ``compute_dtype``."""
         cfg = SegmentationConfig(
             noise_level=self.noise_level, min_size=self.min_size,
             cell_num=self.cell_num, z_xy_ratio=self.z_xy_ratio,
             z_scaling=self.z_scaling, shrink=self.shrink)
-        self.segmenter = UNetSegmenter(
+        return UNetSegmenter(
             self.unet_model, self.unet_params, self.unet_bn_state, cfg,
             (self.x_siz, self.y_siz, self.z_siz), max_cells=self.max_cells,
-            device=self.device)
+            compute_dtype=compute_dtype, device=self.device)
 
     def _unet_template(self):
         return self.unet_model.init(torch.Generator().manual_seed(0),
@@ -410,10 +417,13 @@ class Tracker:
 
     def load_unet_arrays(self, model: UNet3D, params, bn_state):
         """In-memory variant for pipelines and tests."""
+        self._set_unet(model, params, bn_state)
+        self._build_segmenter()
+
+    def _set_unet(self, model: UNet3D, params, bn_state):
         self.unet_model = model
         self.unet_params = to_device(params, self.device)
         self.unet_bn_state = to_device(bn_state, self.device)
-        self._build_segmenter()
 
     def load_ffn(self):
         """Load ``models/<ffn_model_file>``: an ``.npz`` of ``(params,
@@ -911,7 +921,8 @@ def legacy_segment_and_track_arrays(
         manual_vol1_xyz: np.ndarray, config: SegmentationConfig,
         tracking: TrackingConfig = TrackingConfig(
             beta=300.0, lambda_=0.1, max_iteration=20),
-        max_cells: int = 512, device=None, timer=None) -> LegacyResult:
+        max_cells: int = 512, device=None, timer=None,
+        compute_dtype=torch.bfloat16) -> LegacyResult:
     """The legacy single-mode workflow on arrays (``examples/
     use_unet_legacy.py``: segment_vol1 -> load_manual_seg ->
     interpolate_seg -> initiate_tracking -> track), for raw (x, y, z)
@@ -922,7 +933,8 @@ def legacy_segment_and_track_arrays(
     ``tracking`` beta, lambda and the PR-GLS iterations.  ``timer``:
     optional object whose ``stage(name)`` is a context manager around each
     volume's "seg" (U-Net + watersheds) and "track" (fit, correction,
-    render and the label download) calls."""
+    render and the label download) calls.  ``compute_dtype``: the U-Net's,
+    bfloat16 as the ``Tracker`` builds it by default."""
     if tracking.ensemble:
         raise ValueError("legacy_segment_and_track_arrays supports single "
                          "mode only")
@@ -932,7 +944,8 @@ def legacy_segment_and_track_arrays(
     tracker = Tracker._on_arrays(len(volumes_xyz),
                                  tuple(volumes_xyz[0].shape), config,
                                  tracking, max_cells, device)
-    tracker.load_unet_arrays(model, params, state)
+    tracker._set_unet(model, params, state)
+    tracker.segmenter = tracker._new_segmenter(compute_dtype)
     tracker.load_ffn_arrays(*ffn_weights)
     with stage("seg"):
         tracker._segment_vol1(volumes_xyz[0])

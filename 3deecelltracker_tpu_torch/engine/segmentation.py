@@ -7,7 +7,11 @@ the U-Net in one forward, stitch; then the per-z 2-D watershed, the 3-D
 watershed with size filtering, sequential relabelling and centres of mass.
 Everything stays on the device; the host reads the probability maximum, the
 adaptive ``min_size``/``cell_num`` and the cell count.  The U-Net computes in
-float32 (the JAX default is bfloat16).  The probabilities may go through
+``compute_dtype``, bfloat16 by default as JAX's (``engine/segmentation.py:
+48``): bf16 conv operands, f32 products, sums and activations (``models.
+layers.conv3d``); ``torch.float32`` computes in f32 throughout.  The
+scale-out over several cards (``mesh``) is not ported (``ROADMAP.md``
+A.5).  The probabilities may go through
 the reference's on-disk cache (``unet_cache/t%06i.npy``, tracker.py:652-669)
 in JAX's format: float16 ``.npy`` read back as float32, so a cache written
 by either package loads in the other.
@@ -25,6 +29,7 @@ import torch
 from ..config import SegmentationConfig
 from ..models.unet3d import UNet3D
 from ..ops.connected import relabel_sequential
+from ..ops.hopper_conv import check_compute_dtype
 from ..ops.lcn import normalize_image
 from ..ops.segment_reduce import center_of_mass
 from ..ops.tiling import extract_tiles, pad_for_tiles, plan_tiles, stitch_tiles
@@ -50,7 +55,20 @@ class UNetSegmenter:
     def __init__(self, model: UNet3D, params, state,
                  config: SegmentationConfig,
                  vol_shape: Tuple[int, int, int], max_cells: int = 1024,
-                 device=None):
+                 compute_dtype=torch.bfloat16, mesh=None,
+                 mesh_mode: str = "tiles", spatial_axis: Optional[str] = None,
+                 halo: Optional[int] = None, *, device=None):
+        """JAX's constructor; ``mesh``, ``mesh_mode``, ``spatial_axis`` and
+        ``halo`` other than their defaults raise ``NotImplementedError``
+        (``ROADMAP.md`` A.5).  ``device=None`` is the card."""
+        if (mesh, mesh_mode, spatial_axis, halo) != (None, "tiles", None,
+                                                     None):
+            raise NotImplementedError(
+                "UNetSegmenter(mesh=, mesh_mode=, spatial_axis=, halo=): the "
+                "U-Net sweep over several cards is not ported yet "
+                "(ROADMAP.md A.5)")
+        check_compute_dtype(compute_dtype)
+        self.compute_dtype = compute_dtype
         self.device = select_device(device)
         self.model = model
         self.params = to_device(params, self.device)
@@ -66,7 +84,8 @@ class UNetSegmenter:
         norm = normalize_image(image_raw, self.config.noise_level,
                                median_stride=MEDIAN_STRIDE)
         tiles = extract_tiles(pad_for_tiles(norm, self.plan), self.plan)
-        probs = self.model.apply(self.params, self.state, tiles[..., None])
+        probs = self.model.apply(self.params, self.state, tiles[..., None],
+                                 compute_dtype=self.compute_dtype)
         return stitch_tiles(probs[..., 0], self.plan)
 
     def predict_cellregions(self, image_raw,

@@ -11,6 +11,11 @@ its two hand-written CUDA kernels (the tensor-core one for widths that are
 multiples of 8, the direct one for the c_in = 1 stems) with the bias and an
 optional ReLU fused, through ``ops.hopper_conv.Conv3x3x3BiasReLU``, whose
 input gradient runs on the same kernels; 1x1x1 convs are a plain matmul.
+``compute_dtype`` is JAX's (``models/layers.py:50-60``, ``:120-126``):
+float32 by default; ``torch.bfloat16`` rounds the input and the weights to
+bf16 (ties to even) and keeps the products, sums and output in f32, the
+bias added unrounded after; BatchNorm, activations, pools, upsampling and
+concatenation stay f32.
 """
 
 from __future__ import annotations
@@ -21,7 +26,8 @@ from typing import Dict, Optional, Sequence
 import torch
 import torch.nn.functional as F
 
-from ..ops.hopper_conv import Conv3x3x3BiasReLU
+from ..ops.hopper_conv import (Conv3x3x3BiasReLU, check_compute_dtype,
+                               round_bf16)
 from ..utils.device import select_device
 
 Params = Dict[str, torch.Tensor]
@@ -53,23 +59,27 @@ def init_conv3d(kernel: Sequence[int], c_in: int, c_out: int,
                                      device=device)}
 
 
-def conv3d(params: Params, x: torch.Tensor, relu: bool = False
-           ) -> torch.Tensor:
+def conv3d(params: Params, x: torch.Tensor, compute_dtype=torch.float32, *,
+           relu: bool = False) -> torch.Tensor:
     """SAME conv of (b, z, y, x, c_in) with DHWIO weights, + bias, with an
-    optional fused ReLU.  3x3x3 kernels run a CUDA kernel, one launch for
-    the whole batch (with a gradient under autograd); 1x1x1 kernels are a
-    matmul over channels."""
+    optional fused ReLU, in ``compute_dtype`` (module docstring).  3x3x3
+    kernels run a CUDA kernel, one launch for the whole batch (with a
+    gradient under autograd in float32); 1x1x1 kernels are a matmul over
+    channels."""
     w = params["w"]
     b = params.get("b")
     if b is None:
         b = torch.zeros((w.shape[-1],), dtype=torch.float32, device=w.device)
     k = tuple(w.shape[:3])
     if k == (1, 1, 1):
-        y = torch.matmul(x, w.reshape(w.shape[3], w.shape[4])) + b
+        w2 = w.reshape(w.shape[3], w.shape[4])
+        if check_compute_dtype(compute_dtype):
+            x, w2 = round_bf16(x), round_bf16(w2)
+        y = torch.matmul(x, w2) + b
         return torch.relu(y) if relu else y
     if k != (3, 3, 3):
         raise NotImplementedError(f"conv kernel {k}")
-    return Conv3x3x3BiasReLU.apply(x.contiguous(), w, b, relu)
+    return Conv3x3x3BiasReLU.apply(x.contiguous(), w, b, relu, compute_dtype)
 
 
 def batchnorm(params: Params, state: Params, x: torch.Tensor,
@@ -114,7 +124,12 @@ def upsample3d(x: torch.Tensor, size: Sequence[int]) -> torch.Tensor:
     return x
 
 
-def dense(params: Params, x: torch.Tensor) -> torch.Tensor:
-    y = torch.matmul(x, params["w"])
+def dense(params: Params, x: torch.Tensor,
+          compute_dtype=torch.float32) -> torch.Tensor:
+    """``x @ w (+ b)`` in ``compute_dtype`` (module docstring)."""
+    w = params["w"]
+    if check_compute_dtype(compute_dtype):
+        x, w = round_bf16(x), round_bf16(w)
+    y = torch.matmul(x, w)
     b: Optional[torch.Tensor] = params.get("b")
     return y + b if b is not None else y

@@ -133,17 +133,19 @@ class StarDist3DNet:
         return {name: L.init_conv3d(kernel, cin, cout, generator, device)
                 for name, cin, cout, kernel in self.conv_plan()}
 
-    def apply(self, params: Params, x: torch.Tensor
+    def apply(self, params: Params, x: torch.Tensor,
+              compute_dtype=torch.float32
               ) -> Tuple[torch.Tensor, torch.Tensor]:
         """x (b, z, y, x, c) -> (prob (b, z/g, y/g, x/g, 1),
         dist (b, ..., n_rays)).  Spatial dims must be divisible by
-        ``div_by``."""
+        ``div_by``.  Every conv computes in ``compute_dtype`` (JAX's
+        default float32; ``torch.bfloat16`` as ``layers.conv3d``)."""
         if self.arch == "keras":
-            return self._apply_keras(params, x)
+            return self._apply_keras(params, x, compute_dtype)
         cfg = self.config
 
         def conv(name, h):
-            return L.conv3d(params[name], h, relu=True)
+            return L.conv3d(params[name], h, compute_dtype, relu=True)
 
         h = x
         if any(g > 1 for g in cfg.grid):
@@ -163,9 +165,10 @@ class StarDist3DNet:
             h = torch.cat([h, skips[lvl]], dim=-1)
             for i in range(ncv):
                 h = conv(f"up{lvl}_{i}", h)
-        return self._heads(params, conv("features", h))
+        return self._heads(params, conv("features", h), compute_dtype)
 
-    def _apply_keras(self, params: Params, x: torch.Tensor
+    def _apply_keras(self, params: Params, x: torch.Tensor,
+                     compute_dtype=torch.float32
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
         """The Keras topology's forward (JAX ``_apply_keras``): pre-grid
         conv blocks and grid pools, down, middle, then upsample ->
@@ -174,7 +177,7 @@ class StarDist3DNet:
         cfg = self.config
 
         def conv(name, h):
-            return L.conv3d(params[name], h, relu=True)
+            return L.conv3d(params[name], h, compute_dtype, relu=True)
 
         ncv, depth = cfg.unet_n_conv_per_depth, cfg.unet_n_depth
         h = x
@@ -195,13 +198,15 @@ class StarDist3DNet:
             h = torch.cat([h, skips[n]], dim=-1)
             for i in range(ncv):
                 h = conv(f"up{n}_{i}", h)
-        return self._heads(params, conv("features", h))
+        return self._heads(params, conv("features", h), compute_dtype)
 
     @staticmethod
-    def _heads(params: Params, feat: torch.Tensor
+    def _heads(params: Params, feat: torch.Tensor,
+               compute_dtype=torch.float32
                ) -> Tuple[torch.Tensor, torch.Tensor]:
-        prob = torch.sigmoid(L.conv3d(params["prob_head"], feat))
-        return prob, L.conv3d(params["dist_head"], feat)
+        prob = torch.sigmoid(L.conv3d(params["prob_head"], feat,
+                                      compute_dtype))
+        return prob, L.conv3d(params["dist_head"], feat, compute_dtype)
 
     @property
     def div_by(self) -> Tuple[int, int, int]:

@@ -11,6 +11,8 @@ Layout (b, x, y, z, c), weights DHWIO; params ``{name: {"conv": {"w", "b"},
 {"mean", "var"}}``, keyed like the JAX pytree.  Every 3x3x3 conv is a
 hand-written CUDA kernel (``ops.hopper_conv``) without its ReLU; the
 activation and BN stay in PyTorch, and the 1x1x1 output conv is a product.
+``apply(compute_dtype=torch.bfloat16)`` runs every conv block and the
+output conv in bf16 (``layers.conv3d``), the rest in f32, as JAX's.
 """
 
 from __future__ import annotations
@@ -82,9 +84,10 @@ class UNet3D:
         return params, state
 
     def apply(self, params: Params, state: State, x: torch.Tensor,
-              train: bool = False):
+              train: bool = False, compute_dtype=torch.float32):
         """Forward: x (b, x, y, z, c) -> sigmoid probabilities (b, x, y, z,
-        1), float32 throughout.  Eval mode (BatchNorm from the running
+        1) in float32; every conv computes in ``compute_dtype`` (JAX
+        ``models/unet3d.py:80-116``).  Eval mode (BatchNorm from the running
         statistics) returns the probabilities; ``train=True`` (BatchNorm
         from the batch, running statistics moved as JAX's ``layers.
         batchnorm`` moves them) returns ``(probs, new_state)``."""
@@ -92,7 +95,7 @@ class UNet3D:
         new_state: State = {}
 
         def block(name, h):
-            h = act(L.conv3d(params[name]["conv"], h))
+            h = act(L.conv3d(params[name]["conv"], h, compute_dtype))
             if not train:
                 return L.batchnorm(params[name]["bn"], state[name], h)
             h, new_state[name] = L.batchnorm(params[name]["bn"],
@@ -111,7 +114,8 @@ class UNet3D:
             h = torch.cat([h, skips[len(self.up_filters) - 1 - i]], dim=-1)
         for i in range(len(self.head_filters)):
             h = block(f"head{i}", h)
-        probs = torch.sigmoid(L.conv3d(params["out"]["conv"], h))
+        probs = torch.sigmoid(L.conv3d(params["out"]["conv"], h,
+                                       compute_dtype))
         return (probs, new_state) if train else probs
 
     def receptive_radius(self) -> Tuple[int, int, int]:

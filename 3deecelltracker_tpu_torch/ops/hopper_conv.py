@@ -1,5 +1,6 @@
-"""3x3x3 conv + bias (+ReLU): the router, its two CUDA kernels' wrappers and
-the plain version.
+"""3x3x3 conv + bias (+ReLU): the router, its CUDA kernels' wrappers and
+the plain version, in float32 or the JAX package's bfloat16 compute
+dtype.
 
 ``conv3x3x3_bias_relu`` replaces ``3deecelltracker_tpu/ops/pallas_conv.py::
 conv3x3x3_fused`` (same contract: a channels-last ``(z, y, x, c_in)`` f32
@@ -20,11 +21,20 @@ launches exactly one of two hand-written kernels, chosen by :func:`route`:
   channels-last stores).  Its output tile and z-segments are planned here
   (:func:`direct_plan`).
 
+``compute_dtype=torch.bfloat16`` is the JAX package's ``layers.conv3d(...,
+compute_dtype=jnp.bfloat16)`` (XLA's conv of the bf16-rounded input and
+weights, f32 products and sums, the f32 bias after): widths that are
+multiples of 8 take the one-pass bf16 form of the tensor-core kernel
+(:func:`conv3x3x3_wgmma_bf16`, weights rounded and packed here by
+:func:`pack_weights_bf16`), the others the direct kernel with its operands
+rounded on load (:func:`conv3x3x3_direct_bf16`).
+
 On a CPU tensor every entry point runs :func:`conv3x3x3_bias_relu_plain`.
-There is no fallback between the three.
+There is no fallback between them.
 
 :class:`Conv3x3x3BiasReLU` is the router as an autograd function, for
-training (the JAX package differentiates its conv in XLA).  Its input
+training (the JAX package differentiates its conv in XLA), in float32; a
+bfloat16 forward has no gradient (``ROADMAP.md`` A.4).  Its input
 gradient is a SAME conv of the output gradient with the weights flipped on
 their three spatial axes and ``c_in``/``c_out`` swapped, so it runs on the
 same two kernels; the weight gradient is PyTorch's ``conv3d_weight`` with
@@ -62,15 +72,38 @@ TX, TY = 16, 8
 # column k of a K step holds channel K_ORDER[k] of the 8-channel chunk, so a
 # thread's two channels of one pixel (columns t and t + 4) are one float2
 K_ORDER = (0, 2, 4, 6, 1, 3, 5, 7)
+# the bf16 form's K step (wgmma bf16 k16): a stage's chunk of 16 channels
+CK_BF16 = 16
+COMPUTE_DTYPES = (torch.float32, torch.bfloat16)
+BF16_GRAD = ("the gradient of a bfloat16 conv is not ported (ROADMAP.md "
+             "A.4: the bf16 conv's gradient); train in float32")
+
+
+def round_bf16(t: torch.Tensor) -> torch.Tensor:
+    """f32 -> the nearest bf16 value (ties to even), as f32."""
+    return t.to(torch.bfloat16).to(torch.float32)
+
+
+def check_compute_dtype(compute_dtype) -> bool:
+    """True for bfloat16, False for float32; raises for any other."""
+    if compute_dtype not in COMPUTE_DTYPES:
+        raise TypeError(f"compute_dtype must be torch.float32 or "
+                        f"torch.bfloat16, got {compute_dtype}")
+    return compute_dtype == torch.bfloat16
 
 
 def conv3x3x3_bias_relu_plain(x: torch.Tensor, w: torch.Tensor,
-                              b: torch.Tensor,
-                              relu: bool = True) -> torch.Tensor:
+                              b: torch.Tensor, relu: bool = True,
+                              compute_dtype=torch.float32) -> torch.Tensor:
     """``relu(conv_same(x, w) + b)`` with ``F.conv3d``: x (z, y, x, c_in)
     or (b, z, y, x, c_in), w (3, 3, 3, c_in, c_out), b (c_out,) -> the same
     leading shape with c_out channels.  The bias is added after the
-    convolution, as ``layers.conv3d`` does in JAX."""
+    convolution, as ``layers.conv3d`` does in JAX.  ``compute_dtype=
+    torch.bfloat16`` convolves ``round_bf16(x)`` with ``round_bf16(w)`` in
+    f32 (on the card with TF32 off): each product is exact, so this is
+    JAX's bf16 conv up to summation order."""
+    if check_compute_dtype(compute_dtype):
+        x, w = round_bf16(x), round_bf16(w)
     xin = x if x.dim() == 5 else x[None]
     wt = w.permute(4, 3, 0, 1, 2)
     out = F.conv3d(xin.permute(0, 4, 1, 2, 3), wt, padding=1
@@ -79,11 +112,13 @@ def conv3x3x3_bias_relu_plain(x: torch.Tensor, w: torch.Tensor,
     return torch.relu(out) if relu else out
 
 
-def route(c_in: int, c_out: int) -> str:
-    """Which kernel takes a layer on the card: ``"wgmma"`` when both widths
-    are multiples of 8 (TMA's 16-byte stride rule and the k8 step),
-    ``"direct"`` otherwise."""
-    return "wgmma" if c_in % CK == 0 and c_out % CK == 0 else "direct"
+def route(c_in: int, c_out: int, compute_dtype=torch.float32) -> str:
+    """Which kernel takes a layer on the card: the tensor-core kernel when
+    both widths are multiples of 8 (TMA's 16-byte stride rule and the k8
+    step), ``"wgmma"`` in float32 and ``"wgmma_bf16"`` in bfloat16; the
+    direct kernel otherwise, ``"direct"`` / ``"direct_bf16"``."""
+    kernel = "wgmma" if c_in % CK == 0 and c_out % CK == 0 else "direct"
+    return kernel + "_bf16" if check_compute_dtype(compute_dtype) else kernel
 
 
 def direct_tile(c_out: int) -> int:
@@ -168,6 +203,27 @@ def pack_weights_tc(w: torch.Tensor) -> Tuple[torch.Tensor, int]:
     return p.reshape(n_chunks, 3 * (c_in // CK), 9, 2, CK * nb), nb
 
 
+def pack_weights_bf16(w: torch.Tensor) -> Tuple[torch.Tensor, int]:
+    """DHWIO ``w`` (3, 3, 3, c_in, c_out) -> ``(packed, nb)``: the bf16
+    form's weights, rounded to bf16 (ties to even), ``packed[nc, 3 * chunk
+    + dz, 3 * dy + dx]`` for N tile ``nc`` (``nb`` channels, zero past
+    ``c_out``) and 16-channel chunk ``chunk`` (zero past ``c_in``), each a
+    (16 k, nb n) matrix in wgmma's K-major no-swizzle core-matrix layout
+    for 16-bit types: element (k, n) at ``((n // 8) * 2 + k // 8) * 64 +
+    (n % 8) * 8 + k % 8``, column k holding channel k of the chunk.  One
+    pipeline stage of the kernel, ``packed[nc, s]``, is contiguous."""
+    c_in, c_out = int(w.shape[3]), int(w.shape[4])
+    nb = n_tile(c_out)
+    n_chunks = -(-c_out // nb)
+    kc = -(-c_in // CK_BF16)
+    p = F.pad(w, (0, nb * n_chunks - c_out, 0, kc * CK_BF16 - c_in)
+              ).to(torch.bfloat16)
+    p = p.reshape(3, 3, 3, kc, 2, 8, n_chunks, nb // 8, 8)
+    # dz dy dx chunk kh kl nc ng nl -> nc chunk dz dy dx ng kh nl kl
+    p = p.permute(6, 3, 0, 1, 2, 7, 4, 8, 5).contiguous()
+    return p.reshape(n_chunks, 3 * kc, 9, CK_BF16 * nb), nb
+
+
 def tma_halo_args(shape: Sequence[int]
                   ) -> Tuple[Tuple[int, ...], Tuple[int, ...],
                              Tuple[int, ...]]:
@@ -204,9 +260,12 @@ def cached_pack(w: torch.Tensor, tag: str,
     return packed, nb
 
 
-def packed_weights(w: torch.Tensor) -> Tuple[torch.Tensor, int]:
-    """:func:`pack_weights_tc` of ``w``, cached while ``w`` lives and is
-    not modified in place."""
+def packed_weights(w: torch.Tensor, bf16: bool = False
+                   ) -> Tuple[torch.Tensor, int]:
+    """:func:`pack_weights_tc` of ``w`` (``bf16``: :func:`pack_weights_bf16`),
+    cached while ``w`` lives and is not modified in place."""
+    if bf16:
+        return cached_pack(w, "conv3x3x3_wgmma_bf16", pack_weights_bf16)
     return cached_pack(w, "conv3x3x3_wgmma", pack_weights_tc)
 
 
@@ -234,10 +293,10 @@ def _check(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> None:
 
 
 def _launch_direct(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
-                   relu: bool) -> torch.Tensor:
+                   relu: bool, bf16: bool = False) -> torch.Tensor:
     lib = cuda_build.load("conv3x3x3")
     fn = lib.conv3x3x3_direct_f32
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 10 + \
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 11 + \
         [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     xb = x if x.dim() == 5 else x[None]
@@ -248,15 +307,17 @@ def _launch_direct(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     n_sm = torch.cuda.get_device_properties(x.device).multi_processor_count
     tile, tx, zs, _ = direct_plan(xb.shape, c_out, n_sm)
     err = fn(xb.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(), nb,
-             z, y, xl, c_in, c_out, tile, tx, zs, int(relu),
+             z, y, xl, c_in, c_out, tile, tx, zs, int(relu), int(bf16),
              torch.cuda.current_stream(x.device).cuda_stream)
     cuda_build.check(err, "conv3x3x3_direct")
-    cuda_build.count_launch(conv3x3x3_direct)
+    cuda_build.count_launch(conv3x3x3_direct_bf16 if bf16
+                            else conv3x3x3_direct)
     return out if x.dim() == 5 else out[0]
 
 
 def _launch_wgmma(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
-                  relu: bool, cache: bool = True) -> torch.Tensor:
+                  relu: bool, cache: bool = True,
+                  bf16: bool = False) -> torch.Tensor:
     c_in, c_out = int(w.shape[3]), int(w.shape[4])
     if route(c_in, c_out) != "wgmma":
         raise ValueError(f"conv3x3x3_wgmma takes c_in and c_out that are "
@@ -266,10 +327,11 @@ def _launch_wgmma(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     if xb.data_ptr() % 16 or z > GRID_Z_MAX:
         raise ValueError("conv3x3x3_wgmma needs a 16-byte aligned x and at "
                          f"most {GRID_Z_MAX} z-planes")
-    packed, nt = packed_weights(w) if cache else pack_weights_tc(w)
+    pack = pack_weights_bf16 if bf16 else pack_weights_tc
+    packed, nt = packed_weights(w, bf16) if cache else pack(w)
     n_chunks = packed.shape[0]
     lib = cuda_build.load("conv3x3x3_wgmma")
-    fn = lib.conv3x3x3_wgmma_f32
+    fn = lib.conv3x3x3_wgmma_bf16 if bf16 else lib.conv3x3x3_wgmma_f32
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + \
         [ctypes.c_void_p] * 4
     fn.restype = ctypes.c_int
@@ -287,7 +349,8 @@ def _launch_wgmma(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                  (ctypes.c_uint64 * 4)(*strides),
                  (ctypes.c_uint32 * 5)(*box), stream)
         cuda_build.check(err, "conv3x3x3_wgmma")
-        cuda_build.count_launch(conv3x3x3_wgmma)
+        cuda_build.count_launch(conv3x3x3_wgmma_bf16 if bf16
+                                else conv3x3x3_wgmma)
     return out if x.dim() == 5 else out[0]
 
 
@@ -305,13 +368,14 @@ def direct_smem_bytes(c_in: int, tile: int, tx: int) -> int:
     return out
 
 
-def wgmma_smem_bytes(nb: int) -> int:
+def wgmma_smem_bytes(nb: int, bf16: bool = False) -> int:
     """The dynamic shared memory of a block of the tensor-core kernel with
-    N tile ``nb``, in bytes, as the ``.cu`` sizes it (builds it)."""
+    N tile ``nb`` (``bf16``: of its bf16 form), in bytes, as the ``.cu``
+    sizes it (builds it)."""
     fn = cuda_build.load("conv3x3x3_wgmma").conv3x3x3_wgmma_smem_bytes
-    fn.argtypes = [ctypes.c_int]
+    fn.argtypes = [ctypes.c_int] * 2
     fn.restype = ctypes.c_int
-    out = fn(nb)
+    out = fn(nb, int(bf16))
     if out < 0:
         raise ValueError(f"no N tile {nb}; the kernel has {N_TILES}")
     return out
@@ -340,11 +404,37 @@ def conv3x3x3_wgmma(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     return _launch_wgmma(x, w, b, relu)
 
 
+def conv3x3x3_wgmma_bf16(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                         relu: bool = True) -> torch.Tensor:
+    """The one-pass bf16 form of the tensor-core kernel (``csrc/
+    conv3x3x3_wgmma.cu``), for widths that are multiples of 8: one launch
+    per batch (counted in ``conv3x3x3_wgmma_bf16.launches``) on a CUDA
+    tensor, the plain bf16 version on a CPU tensor."""
+    _check(x, w, b)
+    if x.device.type == "cpu":
+        return conv3x3x3_bias_relu_plain(x, w, b, relu, torch.bfloat16)
+    return _launch_wgmma(x, w, b, relu, bf16=True)
+
+
+def conv3x3x3_direct_bf16(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                          relu: bool = True) -> torch.Tensor:
+    """The direct kernel (``csrc/conv3x3x3.cu``) with x and w rounded to
+    bf16 on load, any widths, built for the c_in = 1 stems: one launch per
+    batch (counted in ``conv3x3x3_direct_bf16.launches``) on a CUDA tensor,
+    the plain bf16 version on a CPU tensor."""
+    _check(x, w, b)
+    if x.device.type == "cpu":
+        return conv3x3x3_bias_relu_plain(x, w, b, relu, torch.bfloat16)
+    return _launch_direct(x, w, b, relu, bf16=True)
+
+
 def conv3x3x3_bias_relu(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
-                        relu: bool = True, cache: bool = True
-                        ) -> torch.Tensor:
+                        relu: bool = True, cache: bool = True,
+                        compute_dtype=torch.float32) -> torch.Tensor:
     """SAME 3x3x3 conv + bias (+ReLU) on one (z, y, x, c_in) f32 volume or
-    a (b, z, y, x, c_in) batch of them.
+    a (b, z, y, x, c_in) batch of them, in ``compute_dtype`` (float32, or
+    bfloat16 operands with f32 products and sums, as JAX's
+    ``layers.conv3d``); the output is f32 either way.
 
     CUDA tensors launch the kernel :func:`route` names, once per batch;
     CPU tensors take the plain version.  ``cache=False`` packs ``w`` for
@@ -352,11 +442,12 @@ def conv3x3x3_bias_relu(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     for a weight that is used once.
     """
     _check(x, w, b)
+    bf16 = check_compute_dtype(compute_dtype)
     if x.device.type == "cpu":
-        return conv3x3x3_bias_relu_plain(x, w, b, relu)
+        return conv3x3x3_bias_relu_plain(x, w, b, relu, compute_dtype)
     if route(x.shape[-1], w.shape[4]) == "wgmma":
-        return _launch_wgmma(x, w, b, relu, cache)
-    return _launch_direct(x, w, b, relu)
+        return _launch_wgmma(x, w, b, relu, cache, bf16)
+    return _launch_direct(x, w, b, relu, bf16)
 
 
 def flipped_weights(w: torch.Tensor) -> torch.Tensor:
@@ -393,17 +484,23 @@ class Conv3x3x3BiasReLU(torch.autograd.Function):
     :func:`flipped_weights` through the router, on the card one more
     launch of the kernel :func:`route` picks for the swapped widths; db is
     ``g'`` summed over every axis but the channels; dW is
-    :func:`conv3x3x3_weight_grad`.  A failed build or launch raises."""
+    :func:`conv3x3x3_weight_grad`.  A failed build or launch raises.  A
+    ``compute_dtype=torch.bfloat16`` forward runs the bf16 kernels; its
+    backward raises ``NotImplementedError`` (``ROADMAP.md`` A.4: no JAX
+    trainer differentiates a bf16 conv)."""
 
     @staticmethod
-    def forward(ctx, x, w, b, relu: bool):
-        y = conv3x3x3_bias_relu(x, w, b, relu)
+    def forward(ctx, x, w, b, relu: bool, compute_dtype=torch.float32):
+        y = conv3x3x3_bias_relu(x, w, b, relu, compute_dtype=compute_dtype)
         ctx.relu = relu
+        ctx.bf16 = check_compute_dtype(compute_dtype)
         ctx.save_for_backward(x, w, y)
         return y
 
     @staticmethod
     def backward(ctx, g):
+        if ctx.bf16:
+            raise NotImplementedError(BF16_GRAD)
         x, w, y = ctx.saved_tensors
         g = (g * (y > 0) if ctx.relu else g).contiguous()
         dx = dw = db = None
@@ -417,9 +514,12 @@ class Conv3x3x3BiasReLU(torch.autograd.Function):
             dw = conv3x3x3_weight_grad(x, g)
         if ctx.needs_input_grad[2]:
             db = g.reshape(-1, g.shape[-1]).sum(0)
-        return dx, dw, db, None
+        return dx, dw, db, None, None
 
 
 conv3x3x3_direct.launches = 0
 conv3x3x3_wgmma.launches = 0
-KERNELS = (conv3x3x3_direct, conv3x3x3_wgmma)
+conv3x3x3_direct_bf16.launches = 0
+conv3x3x3_wgmma_bf16.launches = 0
+KERNELS = (conv3x3x3_direct, conv3x3x3_wgmma, conv3x3x3_direct_bf16,
+           conv3x3x3_wgmma_bf16)

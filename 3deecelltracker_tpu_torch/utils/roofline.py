@@ -5,9 +5,12 @@ larger of its bytes (each input read once, each output written once) at
 HBM3's rate and its FLOP at the f32 peak outside the tensor cores (or, where
 asked, another peak).  ``conv_tc_bound`` is the least time of the
 three-pass TF32 conv (``csrc/conv3x3x3_wgmma.cu``): three TF32 products per
-f32 multiply, at the dense TF32 tensor-core peak.
-``library_conv`` is one cuDNN call for the SAME 3x3x3 conv + bias; it is
-timed beside the port's conv kernels and never runs on a port path.
+f32 multiply, at the dense TF32 tensor-core peak; ``conv_bf16_bound`` that
+of its one-pass bf16 form, at the dense bf16 peak (f32 activations in and
+out, as the JAX package's bf16 layers hand them on).
+``library_conv`` is one cuDNN call for the SAME 3x3x3 conv + bias
+(on bf16 tensors, cuDNN's bf16 conv); each is timed beside the port's
+conv kernels and never runs on a port path.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ import torch.nn.functional as F
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_FLOP_S = 67e12
 PEAK_TF32_FLOP_S = 495e12
+PEAK_BF16_FLOP_S = 989e12
 # TF32 products per f32 multiply in the tensor-core conv (hi*hi, hi*lo,
 # lo*hi)
 TC_PASSES = 3
@@ -62,6 +66,14 @@ def conv_tc_bound(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor
     cores."""
     return bound(TC_PASSES * conv_flop(x, w.shape[-1]), conv_bytes(x, w, b),
                  PEAK_TF32_FLOP_S)
+
+
+def conv_bf16_bound(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor
+                    ) -> Tuple[float, str]:
+    """``bound`` of the same conv in one bf16 pass on the tensor cores,
+    reading x, w and b and writing the output in f32."""
+    return bound(conv_flop(x, w.shape[-1]), conv_bytes(x, w, b),
+                 PEAK_BF16_FLOP_S)
 
 
 def library_conv(x: torch.Tensor, w: torch.Tensor,

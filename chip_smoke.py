@@ -48,11 +48,12 @@ Phases (any failure raises and the script exits non-zero):
 8. the legacy slice: ``legacy_segment_and_track_arrays`` with U-Net a (the
    reference's ``unet3_a``) on the same scene in the (x, y, z) frame
    (401, 168, 24), 16 tiles per volume, the ``examples/use_unet_legacy.py``
-   settings, 1 + 1 + 5 volumes; every counter reset before and read after,
+   settings, 1 + 1 + 5 volumes, in float32 (phase 23 runs JAX's default,
+   bfloat16); every counter reset before and read after,
    the ``wgmma`` conv, flood and cc must each be > 0, the direct conv one
    per volume (the stem); the flood's launches and rounds are printed;
 9. legacy small-scene parity: the legacy slice on a small scene, card vs
-   CPU; see ``phase_legacy_small_parity``;
+   CPU, in float32; see ``phase_legacy_small_parity``;
 10. the conv probe: ``scripts.probe_conv_fast.run`` at the backbone's hot
    shape (24, 204, 84), c32 -> c32 and c32 -> c128.  It holds every
    formulation against the plain conv and each ladder kernel against its
@@ -147,7 +148,8 @@ Phases (any failure raises and the script exits non-zero):
    ``examples/use_unet_legacy.py`` flow through the folder ``Tracker``
    (``load_unet``, ``load_ffn``, ``segment_vol1``, ``load_manual_seg``,
    ``interpolate_seg``, ``cal_subregions``, ``initiate_tracking``,
-   ``track(2)``, ``save_coordinates``) from an empty U-Net cache, held to
+   ``track(2)``, ``save_coordinates``) from an empty U-Net cache, its
+   segmenter built in float32 (``legacy_tracker(f32=True)``), held to
    ``jax_legacy_record.npz`` (``hold_legacy_to_record``: cells per volume,
    ``auto_vol1`` and labels, coordinates by median and the identity gate,
    recall, switches; the GT cells matched at t = 1 printed), every counter
@@ -181,18 +183,39 @@ Phases (any failure raises and the script exits non-zero):
    that record with phase 11's rules (labels ``KERAS_LABELS_EQUAL``), seg
    and track ms per volume; and ``predict_instances_tiled`` of volume 1
    whose prob map equals the whole pass beyond the Keras receptive field
-   of the tiled faces.
+   of the tiled faces;
+23. JAX's default precision on the legacy path (paths ``legacy_bf16`` and
+   ``legacy_bf16_ensemble``): every 3x3x3 layer shape of U-Net a's tile
+   batch and its pooled levels, of variants b and c and of the bench
+   backbone in both archs through the router in bfloat16 against the plain
+   bf16 version (an f32 conv of the bf16-rounded operands) within
+   ``BF16_RTOL`` of sum |x w| + |b|, each with its time, TFLOP/s, bf16
+   bound, cuDNN's bf16 time and the TF32 kernel's time on the shape; U-Net
+   a's ms a volume in bf16 beside f32; then phase 18's folder flow with
+   the ``Tracker`` as JAX builds it (bfloat16) over the 21 volumes and
+   with ``ensemble=20``, held to ``jax_legacy_record_bf16.npz`` /
+   ``jax_legacy_record_ensemble_bf16.npz`` within twice JAX's own spread
+   (its eleven nudged runs, ``jax_legacy_record_bf16_nudged*.npz``: vol
+   1's probabilities, cells, labels, coordinates, recall, switches;
+   ``hold_legacy_bf16``), every counter reset before and read after (the bf16 ``wgmma`` conv, the bf16
+   stem once per volume, no f32 conv, the flood and cc), seg and track
+   ms per volume.
 
 Every kernel's entry in the kernels line carries its bound: the least time
 the card could take, the larger of its bytes (inputs read once, the output
 written once) at 3.35 TB/s and its operations at the peak for their type.
-That is the 67 TFLOP/s f32 peak, except for the two tensor-core kernels,
+That is the 67 TFLOP/s f32 peak, except for the tensor-core kernels,
 the ``wgmma`` conv and the ladder's nine-view conv, whose ``bound_ms``
 (the ``wgmma`` conv's also given as ``tc_bound_ms``) counts three TF32
 products per multiply at the 495 TFLOP/s dense TF32 peak; their
 ``f32_bound_ms`` is the same conv's f32 bound, the one the direct kernel is
 held to.  The nine-view conv's entry also carries its readings at the
-probe's second width (``c128_*``); it, the channel product, ``add_one``
+probe's second width (``c128_*``).  The bf16 ``wgmma`` conv's
+``bound_ms`` counts one pass at the 989 TFLOP/s dense bf16 peak over U-Net
+a's layers per volume (its headline numbers are U-Net a's, the backbone's
+ride along as ``backbone_*``, the TF32 kernel's time on the same layers as
+``tf32_ms``); the bf16 stem's is the direct kernel's bytes and f32 FMAs.
+The nine-view conv, the channel product, ``add_one``
 (beside ``x + 1``'s, ``library_device_ms``) and ``cc_label`` (the 3-D peak
 mask's; every mask's readings under ``by_mask``) carry their device time
 (``device_ms``).
@@ -421,7 +444,8 @@ def phase_build():
     print(f"[build] all: {time.perf_counter() - t0:.2f} s")
     from t3dct_torch.ops import hopper_conv
     print("[build] conv3x3x3_wgmma dynamic shared memory per block: " +
-          ", ".join(f"N tile {nb}: {hopper_conv.wgmma_smem_bytes(nb)} B"
+          ", ".join(f"N tile {nb}: {hopper_conv.wgmma_smem_bytes(nb)} B "
+                    f"(bf16 {hopper_conv.wgmma_smem_bytes(nb, True)} B)"
                     for nb in hopper_conv.N_TILES))
     print("[build] conv3x3x3 (direct) dynamic shared memory per block: " +
           ", ".join(f"c_in {ci} tile {t}x{tx}: "
@@ -850,7 +874,8 @@ def phase_legacy(dev):
     res, launches = counted(lambda: legacy_segment_and_track_arrays(
         vols_xyz, unet, ffn, lab1.transpose(1, 2, 0),
         SegmentationConfig(**LEG_SEG), TrackingConfig(**LEG_TRACK),
-        max_cells=LEG_MAX_CELLS, device=dev, timer=timer))
+        max_cells=LEG_MAX_CELLS, device=dev, timer=timer,
+        compute_dtype=torch.float32))
     wall = time.perf_counter() - t0
     print(f"[legacy] U-Net a, {len(vols_xyz)} x {vols_xyz[0].shape} "
           f"(x, y, z), {res.cells[1]} cells at t=1: wall {wall:.2f} s "
@@ -929,7 +954,7 @@ def phase_legacy_small_parity(dev):
             SegmentationConfig(noise_level=20, min_size=20, z_xy_ratio=zr,
                                z_scaling=2, shrink=(4, 4, 2)),
             TrackingConfig(beta=50.0, lambda_=0.1, max_iteration=10),
-            max_cells=64, device=d)
+            max_cells=64, device=d, compute_dtype=torch.float32)
     a, b = out["cuda"], out["cpu"]
     if a.cells != b.cells or not np.array_equal(a.auto_vol1, b.auto_vol1):
         raise AssertionError(f"legacy small scene: segmentations differ "
@@ -2473,12 +2498,22 @@ def write_legacy_folder(root, n_vols=BENCH_VOLS):
     return root, centers
 
 
-def legacy_tracker(dev, folder, n_vols=BENCH_VOLS, siz=(Y, X, Z), **kw):
+def legacy_tracker(dev, folder, n_vols=BENCH_VOLS, siz=(Y, X, Z), f32=False,
+                   **kw):
+    """The folder ``Tracker`` with the example's settings; ``f32=True``:
+    a subclass whose segmenter computes in float32 (the precision of the
+    float32 records), else JAX's default, bfloat16."""
+    import torch
     from t3dct_torch.engine.legacy import Tracker
-    return Tracker(volume_num=n_vols, siz_xyz=siz, **LEG_EXAMPLE,
-                   folder_path=str(folder), image_name=LEG_IMAGE,
-                   unet_model_file="unet3_a.npz", ffn_model_file="ffn.npz",
-                   max_cells=LEG_MAX_CELLS, device=dev, **kw)
+
+    class Float32Tracker(Tracker):
+        def _build_segmenter(self):
+            self.segmenter = self._new_segmenter(torch.float32)
+    return (Float32Tracker if f32 else Tracker)(
+        volume_num=n_vols, siz_xyz=siz, **LEG_EXAMPLE,
+        folder_path=str(folder), image_name=LEG_IMAGE,
+        unet_model_file="unet3_a.npz", ffn_model_file="ffn.npz",
+        max_cells=LEG_MAX_CELLS, device=dev, **kw)
 
 
 def timed_legacy_example(tracker, timer):
@@ -2586,7 +2621,7 @@ def phase_legacy_folder(dev, smi, folder, centers, ensemble=False):
     kw = dict(ensemble=LEG_ENSEMBLE) if ensemble else {}
     timer = CudaStageTimer()
     tracker, launches = counted(lambda: timed_legacy_example(
-        legacy_tracker(dev, folder, **kw), timer))
+        legacy_tracker(dev, folder, f32=True, **kw), timer))
     print(f"[{path}] launches {launches}")
     check_conv_launches(path, launches, BENCH_VOLS, stem_count(
         [(ci, co, n) for (*_, ci, co), n
@@ -2646,8 +2681,8 @@ def replay_unet_record(dev, folder, rec, zero_dw=False):
     class NoWeightGrad(Conv3x3x3BiasReLU):
         @staticmethod
         def backward(ctx, g):
-            dx, dw, db, none = Conv3x3x3BiasReLU.backward(ctx, g)
-            return dx, torch.zeros_like(dw), db, none
+            dx, dw, db, *rest = Conv3x3x3BiasReLU.backward(ctx, g)
+            return (dx, torch.zeros_like(dw), db, *rest)
     if zero_dw:
         L.Conv3x3x3BiasReLU = NoWeightGrad
     try:
@@ -2848,13 +2883,14 @@ def plain_convs():
     plain version (cuDNN with TF32 off) on the card: the whole network's
     plain version, launching none of the port's kernels."""
     import contextlib
+    import torch
     from t3dct_torch.models import layers
     from t3dct_torch.ops.hopper_conv import conv3x3x3_bias_relu_plain
 
     class Plain:
         @staticmethod
-        def apply(x, w, b, relu):
-            return conv3x3x3_bias_relu_plain(x, w, b, relu)
+        def apply(x, w, b, relu, compute_dtype=torch.float32):
+            return conv3x3x3_bias_relu_plain(x, w, b, relu, compute_dtype)
 
     @contextlib.contextmanager
     def ctx():
@@ -3070,6 +3106,319 @@ def phase_keras(dev, smi, root, pattern, centers):
     return launches, tiled_launches, sums, times, errs
 
 
+# phase 23: JAX's default precision, bfloat16, on the legacy path: the bf16
+# forms of the conv against their plain version layer by layer, then the
+# legacy folder flow with the Tracker as JAX builds it, held to JAX's bf16
+# records (tests/test_torch_legacy_record.py --write-bf16) within twice
+# JAX's own spread (--nudged-bf16: the same run, U-Net nudged by one ulp,
+# one run per seed; vol 1's probabilities kept with the first)
+LEG_BF16_RECORD = "jax_legacy_record_bf16.npz"
+LEG_BF16_RECORD_ENSEMBLE = "jax_legacy_record_ensemble_bf16.npz"
+LEG_BF16_SPREAD = ("jax_legacy_record_bf16_nudged.npz",) + tuple(
+    f"jax_legacy_record_bf16_nudged_s{s}.npz" for s in range(2, 13))
+# a bf16 layer against its plain version (an f32 conv of the rounded
+# operands): each product is exact, and the wgmma accumulator truncates
+# each sum it adds (a stage's 144 products), so within 1e-5 of sum |x w|
+# + |b| per output
+BF16_RTOL = 1e-5
+
+
+def bf16_layers():
+    """``(model, input shape, c_out, count per volume)`` of every 3x3x3
+    layer phase 23 holds in bf16: U-Net a, b and c on their tile batches
+    of the bench volume (``unet_conv_layers``), and the bench backbone in
+    both archs on one volume (``backbone_layers``)."""
+    import types
+    from t3dct_torch.config import StarDistConfig
+    from t3dct_torch.models.stardist3d import StarDist3DNet
+    from t3dct_torch.models.unet3d import get_unet
+    from t3dct_torch.ops.tiling import plan_tiles
+    out = []
+    for variant in "abc":
+        spec = get_unet(variant)
+        n = len(plan_tiles((Y, X, Z), spec.tile_shape,
+                           LEG_SEG["shrink"]).origins)
+        out += [(f"unet_{variant}", (n,) + tuple(shape) + (ci,), co, k)
+                for (*shape, ci, co), k in unet_conv_layers(spec).items()]
+    cfg = StarDistConfig(n_rays=96, grid=GRID, anisotropy=(9.2, 1.0, 1.0),
+                         unet_n_filter_base=32, net_conv_after_unet=128)
+    for arch in ("tpu", "keras"):
+        net = StarDist3DNet(cfg, arch)
+        rows = {}
+        for _, shape, co in backbone_layers(types.SimpleNamespace(
+                config=cfg, arch=arch, net=net), 1, CONV_LAYERS[0][:3]):
+            rows[(shape, co)] = rows.get((shape, co), 0) + 1
+        out += [(f"backbone_{arch}", shape, co, k)
+                for (shape, co), k in rows.items()]
+    return out
+
+
+def bf16_row(xin, w, b, relu):
+    """One layer in bf16 through the router against the plain bf16
+    version: its largest error, absolute and relative to sum |x w| + |b|;
+    the times of the routed kernel, the plain version, cuDNN's bf16 conv
+    (on bf16 copies made outside the timing) and the TF32 kernel on the
+    same shape; the one-pass bf16 bound."""
+    import torch
+    from t3dct_torch.ops import hopper_conv as hc
+    from t3dct_torch.utils.roofline import (conv_bf16_bound, conv_flop,
+                                            library_conv)
+    bf = torch.bfloat16
+    reps, warmup = (2, 1) if xin.numel() > 2 ** 28 else (5, 1)
+    diff = (hc.conv3x3x3_bias_relu(xin, w, b, relu, compute_dtype=bf) -
+            hc.conv3x3x3_bias_relu_plain(xin, w, b, relu, bf)).abs_()
+    err = float(diff.max())
+    diff /= hc.conv3x3x3_bias_relu_plain(hc.round_bf16(xin).abs_(),
+                                         hc.round_bf16(w).abs_(), b.abs(),
+                                         False)
+    rel = float(diff.max())
+    del diff
+    ms = cuda_ms(functools.partial(hc.conv3x3x3_bias_relu, xin, w, b, relu,
+                                   compute_dtype=bf), reps, warmup)
+    plain_ms = cuda_ms(lambda: hc.conv3x3x3_bias_relu_plain(
+        xin, w, b, relu, bf), reps, warmup)
+    tf32_ms = cuda_ms(functools.partial(hc.conv3x3x3_bias_relu, xin, w, b,
+                                        relu), reps, warmup)
+    xb, wb, bb = xin.to(bf), w.to(bf), b.to(bf)
+    library_ms = cuda_ms(lambda: library_conv(xb, wb, bb), reps, warmup)
+    del xb
+    return dict(kernel=hc.route(xin.shape[-1], w.shape[-1], bf), err=err,
+                rel=rel, ms=ms, plain_ms=plain_ms, tf32_ms=tf32_ms,
+                library_ms=library_ms, bound=conv_bf16_bound(xin, w, b),
+                tflops=conv_flop(xin, w.shape[-1]) / ms / 1e9)
+
+
+def bf16_layer_rows(dev, smi):
+    """Every layer of ``bf16_layers`` on a seeded ReLU'd input with
+    glorot weights (``bf16_row``), held within ``BF16_RTOL``; returns per
+    (model, kernel) the sums per volume and each kernel's largest error
+    (launches of no path)."""
+    import torch
+    from t3dct_torch.models.layers import glorot_uniform
+    gen = torch.Generator().manual_seed(23)
+    dgen = torch.Generator(device=dev).manual_seed(23)
+    sums, errs = {}, {}
+    for model, shape, co, count in bf16_layers():
+        ci = shape[-1]
+        xin = torch.relu_(torch.randn(shape, generator=dgen, device=dev))
+        w = glorot_uniform((3, 3, 3, ci, co), 27 * ci, 27 * co, gen, dev)
+        b = (torch.randn((co,), generator=gen) * 0.1).to(dev)
+        r = bf16_row(xin, w, b, relu=model.startswith("backbone"))
+        del xin
+        torch.cuda.empty_cache()
+        t_b, by = r["bound"]
+        print(f"[bf16] {model} {'x'.join(map(str, shape[:-1]))} {ci}->{co} "
+              f"x{count}: {r['kernel']} {r['ms']:.3f} ms "
+              f"{r['tflops']:.1f} TFLOP/s, error {r['rel']:.2e} of sum "
+              f"|x w| + |b| (max_abs_err {r['err']:.3e}); cuDNN bf16 "
+              f"{r['library_ms']:.3f} ms, TF32 kernel {r['tf32_ms']:.3f} "
+              f"ms, plain {r['plain_ms']:.3f} ms; bf16 bound {t_b:.4f} ms "
+              f"({by})")
+        if not r["rel"] <= BF16_RTOL:
+            raise AssertionError(f"bf16 conv {model} {shape} -> {co}: "
+                                 f"{r['kernel']} error {r['rel']} of the "
+                                 f"scale > {BF16_RTOL}")
+        errs[r["kernel"]] = max(errs.get(r["kernel"], 0.0), r["err"])
+        acc = sums.setdefault((model, r["kernel"]), dict(by={}))
+        for key in ("ms", "plain_ms", "tf32_ms", "library_ms"):
+            acc[key] = acc.get(key, 0.0) + count * r[key]
+        acc["bound_ms"] = acc.get("bound_ms", 0.0) + count * t_b
+        acc["by"][by] = acc["by"].get(by, 0.0) + count * t_b
+    for (model, kernel), acc in sums.items():
+        acc["bound_by"] = max(acc["by"], key=acc["by"].get)
+        print(f"[bf16] {smi}: {model} {kernel} per volume {acc['ms']:.3f} ms"
+              f" (TF32 kernel {acc['tf32_ms']:.3f}, cuDNN bf16 "
+              f"{acc['library_ms']:.3f}, plain {acc['plain_ms']:.3f}; "
+              f"bf16 bound {acc['bound_ms']:.3f} ms, by "
+              f"{acc['bound_by']})")
+    return sums, errs
+
+
+def unet_bf16_ms(dev, smi, folder):
+    """U-Net a with the trained weights on vol 1's tile batch: ms a volume
+    in bf16 and in f32, and how far the two networks' probabilities lie
+    apart (the precision's own effect, not a fault)."""
+    import torch
+    from t3dct_torch.config import SegmentationConfig
+    from t3dct_torch.engine.segmentation import MEDIAN_STRIDE, UNetSegmenter
+    from t3dct_torch.io.imageio import read_image_ts
+    from t3dct_torch.models.unet3d import unet3_a
+    from t3dct_torch.ops.lcn import normalize_image
+    from t3dct_torch.ops.tiling import extract_tiles, pad_for_tiles
+    from t3dct_torch.utils.checkpoint import load_pytree
+    from t3dct_torch.utils.device import upload_raw
+    spec = unet3_a()
+    params, state = load_pytree(spec.init(torch.Generator().manual_seed(0),
+                                          device=dev),
+                                LEGACY_ASSETS / "unet3_a.npz")
+    seg = UNetSegmenter(spec, params, state, SegmentationConfig(
+        **LEG_SEG), (Y, X, Z), device=dev)
+    raw = upload_raw(read_image_ts(1, str(folder / "data" / LEG_IMAGE),
+                                   (1, Z + 1)), dev)
+    norm = normalize_image(raw, LEG_SEG["noise_level"],
+                           median_stride=MEDIAN_STRIDE)
+    tiles = extract_tiles(pad_for_tiles(norm, seg.plan), seg.plan)[..., None]
+    out, ms = {}, {}
+    for dt in (torch.bfloat16, torch.float32):
+        out[dt] = spec.apply(params, state, tiles, compute_dtype=dt)
+        ms[dt] = cuda_ms(lambda: spec.apply(params, state, tiles,
+                                            compute_dtype=dt), 5, 1)
+    a, b = out[torch.bfloat16], out[torch.float32]
+    print(f"[bf16] {smi}: U-Net a on vol 1's {tiles.shape[0]} tiles of "
+          f"{tuple(tiles.shape[1:4])}: bf16 {ms[torch.bfloat16]:.3f} ms, f32 "
+          f"{ms[torch.float32]:.3f} ms a volume; bf16 against f32: max "
+          f"{float((a - b).abs().max()):.3e}, "
+          f"{int(((a > 0.5) != (b > 0.5)).sum())} voxels across 0.5")
+    return dict(unet_bf16_ms=ms[torch.bfloat16], unet_f32_ms=ms[torch.float32])
+
+
+def legacy_run_record(tracker, centers):
+    """What JAX's records keep (``tests/test_torch_legacy_record.py::
+    tracker_record``) of a port run: cells per volume, ``auto_vol1``,
+    tracked coordinates and labels per volume, the metrics, and vol 1's
+    probabilities as the run cached them (float16)."""
+    from t3dct_torch.engine.metrics import tracking_id_metrics
+    from t3dct_torch.io.imageio import imread_stack
+
+    def labels(folder, name):
+        return imread_stack(sorted(Path(folder).glob(name))).transpose(1, 2,
+                                                                       0)
+    h = tracker.history
+    coords = {t: c for t, c in enumerate(h.r_tracked_coordinates, start=1)}
+    out = dict(cells=np.array([len(c) for c in h.r_segmented_coordinates]),
+               auto_vol1=labels(tracker.paths.auto_segmentation_vol1,
+                                "auto_R_t0001_z*"),
+               metrics=tracking_id_metrics(coords, centers, VOXEL_SIZE,
+                                           BENCH_VOLS),
+               prob_1=np.load(Path(tracker.paths.unet_cache) /
+                              "t000001.npy"))
+    for t in range(1, BENCH_VOLS + 1):
+        out[f"coords_{t}"] = coords[t]
+        out[f"labels_{t}"] = labels(tracker.paths.track_results,
+                                    "track_results_t%06i_z*.tif" % t)
+    return out
+
+
+def legacy_departure(run, record, probs=None):
+    """How far ``run`` (``legacy_run_record``, or a record) lies from
+    ``record``: vol 1's probabilities in float16 where ``run`` keeps them
+    (largest difference, its 99.9th percentile, voxels on the other side
+    of 0.5; against ``probs`` where the record keeps none), cells per
+    volume (volumes off, the largest), ``auto_vol1`` and the tracked labels
+    (share of voxels unequal, the largest over t), tracked coordinates
+    (the largest median distance over t, the largest distance), strict
+    recall and identity switches."""
+    def metrics(r):
+        m = r["metrics"]
+        return m if isinstance(m, dict) else json.loads(str(m))
+    out = {}
+    if "prob_1" in run:
+        p = np.asarray(run["prob_1"], np.float32)
+        q = np.asarray(record["prob_1"] if "prob_1" in record else probs,
+                       np.float32)
+        d = np.abs(p - q)
+        out.update(prob_max=float(d.max()),
+                   prob_p999=float(np.percentile(d, 99.9)),
+                   prob_across=int(((p > 0.5) != (q > 0.5)).sum()))
+    off = np.abs(np.asarray(run["cells"]) - np.asarray(record["cells"]))
+    dist = [np.linalg.norm(run[f"coords_{t}"] - record[f"coords_{t}"],
+                           axis=1) for t in range(1, BENCH_VOLS + 1)]
+    got, want = metrics(run), metrics(record)
+    return dict(
+        out, cells_vols=int((off > 0).sum()), cells_max=int(off.max()),
+        auto_unequal=float((run["auto_vol1"] != record["auto_vol1"]).mean()),
+        labels_unequal=max(float((run[f"labels_{t}"] !=
+                                  record[f"labels_{t}"]).mean())
+                           for t in range(1, BENCH_VOLS + 1)),
+        coord_median=max(float(np.median(x)) for x in dist),
+        coord_max=max(float(x.max()) for x in dist),
+        recall=abs(got["strict_recall"] - want["strict_recall"]),
+        switches=abs(got["id_switches"] - want["id_switches"]))
+
+
+def jax_spread(single, nudged):
+    """JAX's own spread: per statistic, the largest departure of its
+    ``nudged`` runs from its ``single`` record (``legacy_departure``)."""
+    out = {}
+    for rec in nudged:
+        for k, v in legacy_departure(rec, single).items():
+            out[k] = max(out.get(k, v), v)
+    return out
+
+
+def hold_legacy_bf16(path, record, single, nudged, run):
+    """A bf16 legacy run (``legacy_run_record``) against JAX's bf16
+    ``record`` within twice JAX's own spread (``jax_spread`` of its
+    ``nudged`` runs from its single record, ``single``), per statistic.
+    Returns what failed and the departures."""
+    spread = jax_spread(single, nudged)
+    dep = legacy_departure(run, record, single["prob_1"])
+    for k in dep:
+        print(f"[{path}] {k}: {dep[k]:.6g} against JAX's record (JAX's own "
+              f"spread {spread[k]:.6g}, bound {2 * spread[k]:.6g})")
+    want = json.loads(str(record["metrics"]))
+    print(f"[{path}] strict recall {run['metrics']['strict_recall']}, "
+          f"identity switches {run['metrics']['id_switches']} (JAX's record "
+          f"{want['strict_recall']}, {want['id_switches']}); cells found per "
+          f"volume {run['cells'].tolist()}, JAX's {record['cells'].tolist()}")
+    bad = [f"{k} {dep[k]}" for k in dep if not dep[k] <= 2 * spread[k]]
+    if not all(np.isfinite(run[f"coords_{t}"]).all()
+               for t in range(1, BENCH_VOLS + 1)):
+        bad.append("coordinates not finite")
+    return bad, dep
+
+
+def phase_bf16(dev, smi, folder, centers):
+    """Phase 23 (paths ``legacy_bf16``, ``legacy_bf16_ensemble``): JAX's
+    default precision on the legacy path.  (1) ``bf16_layer_rows``; (2)
+    ``unet_bf16_ms``; (3) phase 18's folder flow with the ``Tracker`` as
+    JAX builds it (bfloat16), then ``ensemble=20`` in the same folder, each
+    held to its bf16 record (``hold_legacy_bf16``), every counter reset
+    before and read after: the bf16 ``wgmma`` conv, the bf16 stem once per
+    volume, no f32 conv, the flood and cc; seg and track ms per volume."""
+    import torch
+    from t3dct_torch.utils.timing import CudaStageTimer
+    sums, errs = bf16_layer_rows(dev, smi)
+    times = unet_bf16_ms(dev, smi, folder)
+    single = np.load(LEGACY_ASSETS / LEG_BF16_RECORD)
+    nudged = [np.load(LEGACY_ASSETS / name) for name in LEG_BF16_SPREAD]
+    launches, bad = {}, []
+    for path, name, kw in (
+            ("legacy_bf16", LEG_BF16_RECORD, {}),
+            ("legacy_bf16_ensemble", LEG_BF16_RECORD_ENSEMBLE,
+             dict(ensemble=LEG_ENSEMBLE))):
+        timer = CudaStageTimer()
+        tracker, launches[path] = counted(lambda: timed_legacy_example(
+            legacy_tracker(dev, folder, **kw), timer))
+        n = launches[path]
+        print(f"[{path}] launches {n}")
+        if tracker.segmenter.compute_dtype != torch.bfloat16 or \
+                n["conv3x3x3_wgmma_bf16"] <= 0 or \
+                n["conv3x3x3_direct_bf16"] != BENCH_VOLS or \
+                n["conv3x3x3_wgmma"] or n["conv3x3x3_direct"] or \
+                n["cc_label"] <= 0:
+            raise AssertionError(f"{path}: not JAX's bf16 U-Net on the "
+                                 f"bf16 kernels: {n}")
+        check_flood_launches(path, n, BENCH_VOLS)
+        held, dep = hold_legacy_bf16(path, np.load(LEGACY_ASSETS / name),
+                                     single, nudged,
+                                     legacy_run_record(tracker, centers))
+        bad += [f"{path}: {b}" for b in held]
+        seg, track = timer.times["seg"], timer.times["track"]
+        wall = timer.times["call"][0] / BENCH_VOLS
+        print(f"[{path}] {smi}: wall {wall:.2f} ms per volume for the whole "
+              f"call; seg {np.mean(seg):.2f} ms per volume "
+              f"{[round(v, 1) for v in seg]}; track {np.mean(track):.2f} ms "
+              f"per volume {[round(v, 1) for v in track]}")
+        times.update({f"{path}_seg_ms": float(np.mean(seg)),
+                      f"{path}_track_ms": float(np.mean(track)),
+                      f"{path}_wall_ms": wall,
+                      f"{path}_departures": dep})
+    if bad:
+        raise AssertionError(f"bf16 legacy runs off JAX's records: {bad}")
+    return sums, errs, times, launches
+
+
 def main() -> int:
     if not (ROOT / "3deecelltracker_tpu_torch").is_dir():
         print("chip_smoke.py must run from a checkout of the repository",
@@ -3124,6 +3473,8 @@ def main() -> int:
         phase_variants(dev, smi, Path(tmp), leg_folder[0], variant_errs)
         keras, keras_tiled, keras_sums, keras_times, keras_errs = \
             phase_keras(dev, smi, Path(tmp), *scene)
+        bf16_sums, bf16_errs, bf16_times, bf16 = phase_bf16(dev, smi,
+                                                            *leg_folder)
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
 
@@ -3136,7 +3487,9 @@ def main() -> int:
                    "legacy_folder": leg_single[name],
                    "legacy_ensemble": leg_ens[name],
                    "retrain": retrain[name], "keras": keras[name],
-                   "keras_tiled": keras_tiled[name]}
+                   "keras_tiled": keras_tiled[name],
+                   "legacy_bf16": bf16["legacy_bf16"][name],
+                   "legacy_bf16_ensemble": bf16["legacy_bf16_ensemble"][name]}
         return dict(launches=sum(by_path.values()),
                     launches_by_path=by_path)
 
@@ -3151,7 +3504,28 @@ def main() -> int:
         # the Keras backbone's layers at the bench volume's shapes
         acc.update({f"keras_{k}": v for k, v in keras_sums[name].items()})
 
+    def bf16_entry(kernel):
+        """The bf16 form's readings: U-Net a's layers per volume as its
+        headline numbers, the other models' sums by prefix."""
+        head = dict(bf16_sums[("unet_a", kernel)])
+        head.pop("by")
+        out = dict(max_abs_err=bf16_errs[kernel], **head)
+        for (model, k), acc in bf16_sums.items():
+            if k == kernel and model != "unet_a":
+                out.update({f"{model}_{key}": v for key, v in acc.items()
+                            if key != "by"})
+        return out
+
     kernels = [
+        dict(name="conv3x3x3_wgmma_bf16", route="cuda",
+             source="3deecelltracker_tpu_torch/csrc/conv3x3x3_wgmma.cu",
+             replaces="3deecelltracker_tpu/ops/pallas_conv.py:89",
+             **counts("conv3x3x3_wgmma_bf16"), **bf16_entry("wgmma_bf16"),
+             **bf16_times),
+        dict(name="conv3x3x3_direct_bf16", route="cuda",
+             source="3deecelltracker_tpu_torch/csrc/conv3x3x3.cu",
+             replaces="3deecelltracker_tpu/ops/pallas_conv.py:89",
+             **counts("conv3x3x3_direct_bf16"), **bf16_entry("direct_bf16")),
         dict(name="conv3x3x3_wgmma", route="cuda",
              source="3deecelltracker_tpu_torch/csrc/conv3x3x3_wgmma.cu",
              replaces="3deecelltracker_tpu/ops/pallas_conv.py:89",

@@ -67,7 +67,7 @@ def test_conv_kernel_matches_plain(dev, shape, relu):
     got = hopper_conv.conv3x3x3_bias_relu(xin, w, b, relu=relu)
     want = hopper_conv.conv3x3x3_bias_relu_plain(xin, w, b, relu=relu)
     torch.cuda.synchronize()
-    assert _counts() == [n0[0] + 1, n0[1]]
+    assert _counts() == [n0[0] + 1, *n0[1:]]
     _held(got, want)
 
 
@@ -87,7 +87,7 @@ def test_stem_kernel_matches_plain(dev, width, c_out, z, relu):
     got = hopper_conv.conv3x3x3_bias_relu(xin, w, b, relu=relu)
     want = hopper_conv.conv3x3x3_bias_relu_plain(xin, w, b, relu=relu)
     torch.cuda.synchronize()
-    assert _counts() == [n0[0] + 1, n0[1]]
+    assert _counts() == [n0[0] + 1, *n0[1:]]
     assert got.shape == want.shape
     _held(got, want)
     one = hopper_conv.conv3x3x3_direct(xin[3], w, b, relu=relu)
@@ -104,7 +104,7 @@ def test_conv_kernel_batch_is_one_launch(dev):
     got = hopper_conv.conv3x3x3_bias_relu(xin, w, b, relu=False)
     want = hopper_conv.conv3x3x3_bias_relu_plain(xin, w, b, relu=False)
     torch.cuda.synchronize()
-    assert _counts() == [n0[0], n0[1] + 1]
+    assert _counts() == [n0[0], n0[1] + 1, *n0[2:]]
     _held(got, want)
 
 
@@ -123,7 +123,7 @@ def test_wgmma_kernel_matches_plain(dev, shape, relu):
     got = hopper_conv.conv3x3x3_bias_relu(xin, w, b, relu=relu)
     want = hopper_conv.conv3x3x3_bias_relu_plain(xin, w, b, relu=relu)
     torch.cuda.synchronize()
-    assert _counts() == [n0[0], n0[1] + 1]
+    assert _counts() == [n0[0], n0[1] + 1, *n0[2:]]
     assert got.shape == want.shape
     _held(got, want)
 
@@ -174,6 +174,84 @@ def test_wgmma_kernel_raises_without_fallback(dev):
         hopper_conv.conv3x3x3_wgmma(xin[..., :4].contiguous(),
                                     w[:, :, :, :4].contiguous(), b)
     assert _counts() == n0
+
+
+def _held_bf16(got, xin, w, b, relu):
+    """The bf16 forms against the plain bf16 version (an f32 conv of the
+    bf16-rounded operands, TF32 off): within 1e-5 of sum |x w| + |b| per
+    output, the room the wgmma accumulator's truncated adds take."""
+    bf = torch.bfloat16
+    want = hopper_conv.conv3x3x3_bias_relu_plain(xin, w, b, relu, bf)
+    scale = hopper_conv.conv3x3x3_bias_relu_plain(
+        hopper_conv.round_bf16(xin).abs(), hopper_conv.round_bf16(w).abs(),
+        b.abs(), False)
+    assert got.shape == want.shape and got.dtype == torch.float32
+    assert float(((got - want).abs() / scale).max()) <= 1e-5
+
+
+@pytest.mark.parametrize("relu", [True, False])
+@pytest.mark.parametrize("shape", [
+    (1, 17, 19, 8, 8), (2, 17, 19, 32, 16), (2, 9, 33, 96, 32),
+    (1, 12, 20, 192, 64), (2, 17, 19, 32, 128), (3, 8, 16, 8, 64),
+    (2, 11, 7, 16, 136), (2, 13, 21, 24, 24), (3, 10, 12, 40, 8)])
+def test_wgmma_bf16_kernel_matches_plain(dev, shape, relu):
+    """The one-pass bf16 form: every N tile, two tiles (136), c_in with a
+    half chunk (8, 24, 40) and whole ones, ragged y/x, z 1-3; one launch of
+    it and none of the other kernels."""
+    xin, w, b = (t.to(dev) for t in _conv_case(shape, sum(shape)))
+    assert hopper_conv.route(shape[3], shape[4], torch.bfloat16) == \
+        "wgmma_bf16"
+    n0 = _counts()
+    got = hopper_conv.conv3x3x3_bias_relu(xin, w, b, relu,
+                                          compute_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    assert _counts() == [*n0[:3], n0[3] + 1]
+    _held_bf16(got, xin, w, b, relu)
+
+
+@pytest.mark.parametrize("shape", [(2, 17, 19, 32, 8), (1, 9, 21, 8, 128)])
+def test_wgmma_bf16_batch_of_five(dev, shape):
+    """Five volumes in one launch of the bf16 form, each as its own."""
+    xin, w, b = (t.to(dev) for t in _conv_case(shape, 17, (5,)))
+    got = hopper_conv.conv3x3x3_wgmma_bf16(xin, w, b, relu=False)
+    torch.cuda.synchronize()
+    _held_bf16(got, xin, w, b, False)
+    for i in range(5):
+        _held_bf16(got[i], xin[i], w, b, False)
+
+
+@pytest.mark.parametrize("shape", [(3, 37, 45, 1, 8), (2, 37, 13, 1, 40),
+                                   (16, 40, 16, 1, 8), (4, 20, 35, 12, 40)])
+def test_stem_bf16_kernel_matches_plain(dev, shape):
+    """The direct kernel with its operands rounded on load (c_in 1 stems
+    and a width off the tensor-core rule): one launch of it, none of the
+    other kernels."""
+    xin, w, b = (t.to(dev) for t in _conv_case(shape, shape[4], (3,)))
+    assert hopper_conv.route(shape[3], shape[4], torch.bfloat16) == \
+        "direct_bf16"
+    n0 = _counts()
+    got = hopper_conv.conv3x3x3_bias_relu(xin, w, b, True,
+                                          compute_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    assert _counts() == [*n0[:2], n0[2] + 1, n0[3]]
+    _held_bf16(got, xin, w, b, True)
+
+
+def test_bf16_layers_and_smem(dev):
+    """``layers.conv3d`` in bf16 takes the bf16 forms; each N tile's bf16
+    block fits the 227 KB a block may take; the f32 path is unchanged."""
+    from t3dct_torch.models import layers as L
+    for nb in hopper_conv.N_TILES:
+        assert 0 < hopper_conv.wgmma_smem_bytes(nb, bf16=True) <= 232448
+    xin, w, b = (t.to(dev) for t in _conv_case((2, 16, 16, 16, 32), 3, (2,)))
+    n0 = _counts()
+    got = L.conv3d({"w": w, "b": b}, xin, torch.bfloat16)
+    torch.cuda.synchronize()
+    assert _counts() == [*n0[:3], n0[3] + 1]
+    _held_bf16(got, xin, w, b, False)
+    with pytest.raises(NotImplementedError, match="A.4"):
+        x = xin.clone().requires_grad_(True)
+        L.conv3d({"w": w, "b": b}, x, torch.bfloat16).sum().backward()
 
 
 # cc cases: (shape, tile_max of the host's plan (None: the kernel's), mask);

@@ -7,7 +7,8 @@ against the JAX package, on the CPU: ``legacy_init_match``,
 ``load_ffn_arrays``, ``segresult=`` injection), on a 3-volume scene like
 ``tests/test_legacy_tracker.py``'s.  The U-Net weights are the port's seeded
 init with ``with_intensity_path``, the FFN ``feature_distance_ffn``: one set
-of numbers handed to both packages; the JAX segmenter computes in float32."""
+of numbers handed to both packages; both segmenters compute in float32
+(JAX's and the port's default is bfloat16: tests/test_torch_bf16.py)."""
 
 import jax
 import jax.numpy as jnp
@@ -132,7 +133,8 @@ def runs(tmp_path_factory):
         vols, lab1, jm, jffn, tmp_path_factory.mktemp("legacy"))
     got = legacy.legacy_segment_and_track_arrays(
         vols, tm, ffn, lab1, SegmentationConfig(**SEG),
-        TrackingConfig(**TRACK), max_cells=MAX_CELLS, device="cpu")
+        TrackingConfig(**TRACK), max_cells=MAX_CELLS, device="cpu",
+        compute_dtype=torch.float32)
     return dict(jt=jt, jlabels=jlabels, jcells=jcells, s1=s1, got=got)
 
 
@@ -189,7 +191,7 @@ def test_cpu_slice_launches_no_kernel():
         vols, tm, ffn, volume_at(1)[1], SegmentationConfig(**SEG),
         TrackingConfig(**TRACK), max_cells=MAX_CELLS, device="cpu")
     assert res.coords[2].shape == (4, 3)
-    assert [c.launches for c in counters] == before == [0, 0, 0, 0]
+    assert [c.launches for c in counters] == before == [0] * 6
 
 
 def test_segment_matches():
@@ -200,7 +202,8 @@ def test_segment_matches():
     jseg = JSegmenter(*jm, JSegConfig(**SEG), SHAPE, max_cells=MAX_CELLS,
                       compute_dtype=jnp.float32)
     tseg = UNetSegmenter(*tm, SegmentationConfig(**SEG), SHAPE,
-                         max_cells=MAX_CELLS, device="cpu")
+                         max_cells=MAX_CELLS, compute_dtype=torch.float32,
+                         device="cpu")
     want = jseg.segment(raw)
     got = tseg.segment(raw)
     np.testing.assert_allclose(got.image_cell_bg.numpy(), want.image_cell_bg,

@@ -7,9 +7,10 @@ slices into two identical folders with the vol-1 labels as
 ``manual_vol1/`` and the FFN (``feature_distance_ffn``, saved by JAX's
 ``save_pytree``) under ``models/``.  The U-Net is a small variant-a spec
 with the port's seeded weights and ``with_intensity_path``, handed to both
-packages as the same numbers (``load_unet_arrays``); JAX's segmenter is
-built in float32 (``Float32Tracker``; the port computes in float32 only,
-``ROADMAP.md`` C.6).  Each run goes through the example's flow:
+packages as the same numbers (``load_unet_arrays``); both segmenters are
+built in float32 (``Float32Tracker`` and ``PortFloat32Tracker``; both
+packages default to bfloat16, whose parity tests/test_torch_bf16.py
+holds).  Each run goes through the example's flow:
 ``load_ffn``, ``segment_vol1``, ``load_manual_seg``, ``interpolate_seg``,
 ``cal_subregions``, ``initiate_tracking``, ``track(2)``,
 ``save_coordinates``.
@@ -76,6 +77,14 @@ class Float32Tracker(jlegacy.Tracker):
             self.unet_model, self.unet_params, self.unet_bn_state, cfg,
             (self.x_siz, self.y_siz, self.z_siz), max_cells=self.max_cells,
             compute_dtype=jnp.float32)
+
+
+class PortFloat32Tracker(legacy.Tracker):
+    """The port's ``Tracker`` with its segmenter built in float32, as
+    ``Float32Tracker`` builds JAX's."""
+
+    def _build_segmenter(self):
+        self.segmenter = self._new_segmenter(torch.float32)
 
 
 class SharedSegmenterTracker(Float32Tracker):
@@ -164,7 +173,7 @@ def runs(tmp_path_factory):
         shutil.copytree(root / "jax", root / "port")
         jt = run_example(SharedSegmenterTracker(**tracker_kwargs(
             n_vols, root / "jax", **kw)), jm)
-        pt = run_example(legacy.Tracker(**tracker_kwargs(
+        pt = run_example(PortFloat32Tracker(**tracker_kwargs(
             n_vols, root / "port", **kw), device="cpu"), tm)
         out[name] = (jt, pt, root)
     return out
@@ -283,7 +292,8 @@ def test_unet_cache_loads_in_the_other_package(tmp_path, writer):
     from t3dct.config import SegmentationConfig as JSegConfig
     jseg = JSegmenter(*jm, JSegConfig(**SEG), SHAPE, max_cells=MAX_CELLS,
                       compute_dtype=jnp.float32)
-    tseg = UNetSegmenter(*tm, cfg, SHAPE, max_cells=MAX_CELLS, device="cpu")
+    tseg = UNetSegmenter(*tm, cfg, SHAPE, max_cells=MAX_CELLS,
+                         compute_dtype=torch.float32, device="cpu")
     raw = volume_at(2)[0]
     cache = tmp_path / "t000002.npy"
     if writer == "jax":

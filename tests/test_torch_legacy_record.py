@@ -36,16 +36,38 @@ maxiter 20), ``max_cells`` 512, through the example's flow
   weights nudged by one ulp (a random sign per element from each seed of
   ``NUDGE_SEEDS``), their losses and norms, for JAX's own spread.
 
-JAX's ``Tracker`` builds a bfloat16 segmenter (JAX
-``engine/segmentation.py:48``); the port computes in float32 only
-(``ROADMAP.md`` C.6), so the records are written through
-``Float32Tracker``, which builds the same segmenter in float32.
+These two are written through ``Float32Tracker``, which builds JAX's
+segmenter in float32 (``chip_smoke.py`` phases 18-19 hold the port's
+float32 segmenter to them).  JAX's ``Tracker`` itself builds a bfloat16
+segmenter (JAX ``engine/segmentation.py:48``), and three more records keep
+what it computes, each written by JAX's own ``Tracker`` (no subclass) with
+vol 1's cached probabilities (float16, ``prob_1``):
+
+- ``jax_legacy_record_bf16.npz``: single mode;
+- ``jax_legacy_record_ensemble_bf16.npz``: ``ensemble=20``;
+- ``jax_legacy_record_bf16_nudged.npz`` (seed 1, with ``prob_1``) and
+  ``_nudged_s{2..12}.npz``: single mode with every U-Net
+  weight nudged by one ulp (a random sign per element from each seed of
+  ``NUDGE_SEEDS_BF16``), JAX's own spread at that precision: a bf16
+  network rounds each layer's input again, so a change below an f32 ulp
+  moves its result as far as the port's summation order does.
 
 Regenerate (JAX on the CPU) with
 
     python tests/test_torch_legacy_record.py --write-weights   # ~30 min
     python tests/test_torch_legacy_record.py --write           # records
     python tests/test_torch_legacy_record.py --write-train     # retrain
+    python tests/test_torch_legacy_record.py --write-bf16 single ensemble
+    python tests/test_torch_legacy_record.py --nudged-bf16 1 2 3 4 5 6 \
+        7 8 9 10 11 12
+
+(each bf16 mode, or a few seeds, may run in a process of its own, in
+parallel), and print the port's bf16 runs on the CPU against them with
+``--port-bf16 ensemble`` (phase 23 holds the card to twice the nudged
+runs' spread).  ``--cross-track NPZ`` tracks the cell sets of a port
+run's cached bf16 probabilities with JAX's ``Tracker`` and the port's:
+whether a departure from the record comes from the cell sets or from the
+tracker.
 
 and, for the legacy EM's parting from JAX (``ROADMAP.md`` C.9),
 ``--nudged unet`` / ``--nudged beta`` (JAX's run with one input nudged by
@@ -80,6 +102,18 @@ WEIGHTS = ASSETS / "unet3_a.npz"
 RECORD = ASSETS / "jax_legacy_record.npz"
 RECORD_ENSEMBLE = ASSETS / "jax_legacy_record_ensemble.npz"
 TRAIN_RECORD = ASSETS / "jax_unet_train_record.npz"
+# JAX's default precision: its own Tracker's bfloat16 segmenter
+RECORD_BF16 = ASSETS / "jax_legacy_record_bf16.npz"
+RECORD_ENSEMBLE_BF16 = ASSETS / "jax_legacy_record_ensemble_bf16.npz"
+RECORD_NUDGED_BF16 = ASSETS / "jax_legacy_record_bf16_nudged.npz"
+# the seeds of JAX's nudged bf16 runs: the first keeps vol 1's
+# probabilities, the others the tracking (the assets stay under 16 MB)
+NUDGE_SEEDS_BF16 = tuple(range(1, 13))
+
+
+def nudged_bf16_path(seed: int) -> Path:
+    return RECORD_NUDGED_BF16 if seed == 1 else \
+        ASSETS / f"jax_legacy_record_bf16_nudged_s{seed}.npz"
 # the bench scene (bench.py:55-74): (z, y, x) volumes, 150 cells, seed 0
 SHAPE, N_CELLS, N_VOLS = (24, 401, 168), 150, 21
 SHAPE_XYZ = (401, 168, 24)
@@ -177,23 +211,32 @@ def tracker_record(tracker, centers, lab1) -> dict:
     return out
 
 
-def write_records(work: Path) -> dict:
+def weights_recipe() -> dict:
+    return dict(noise_level=NOISE_LEVEL, seed=WEIGHTS_SEED,
+                batch_size=BATCH, iteration=WEIGHTS_EPOCHS,
+                steps_per_epoch=WEIGHTS_STEPS)
+
+
+def write_records(work: Path, make=None, runs=None, **extra) -> dict:
     """JAX's single-mode run of the example over the bench scene, then the
-    ensemble run in the same folder."""
-    from test_torch_legacy_folder import Float32Tracker
+    ensemble run in the same folder: through ``make`` (a ``Tracker``
+    class, ``Float32Tracker`` by default) into the ``runs`` ``(path,
+    kwargs)`` (the float32 records by default).  ``extra`` goes into each
+    record as it is (the bfloat16 records' vol-1 probabilities)."""
+    if make is None:
+        from test_torch_legacy_folder import Float32Tracker as make
     vols, centers, lab1 = scene()
     folder = write_folder(work / "legacy", vols, lab1)
     recipe = dict(example=EXAMPLE, max_cells=MAX_CELLS,
-                  image_name=IMAGE_NAME, n_vols=N_VOLS, weights=dict(
-                      noise_level=NOISE_LEVEL, seed=WEIGHTS_SEED,
-                      batch_size=BATCH, iteration=WEIGHTS_EPOCHS,
-                      steps_per_epoch=WEIGHTS_STEPS))
+                  image_name=IMAGE_NAME, n_vols=N_VOLS,
+                  weights=weights_recipe())
     out = {}
-    for path, kw in ((RECORD, {}), (RECORD_ENSEMBLE,
-                                    dict(ensemble=ENSEMBLE))):
+    for path, kw in runs or ((RECORD, {}), (RECORD_ENSEMBLE,
+                                            dict(ensemble=ENSEMBLE))):
         t0 = time.time()
-        tr = run_example(example_tracker(Float32Tracker, folder, **kw))
-        rec = tracker_record(tr, centers, lab1)
+        tr = run_example(example_tracker(make, folder, **kw))
+        rec = dict(tracker_record(tr, centers, lab1),
+                   **{k: f(tr) for k, f in extra.items()})
         np.savez_compressed(path, recipe=json.dumps(dict(recipe, **kw)),
                             **rec)
         out[path.name] = dict(json.loads(rec["metrics"]),
@@ -201,6 +244,72 @@ def write_records(work: Path) -> dict:
                               seconds=round(time.time() - t0, 1))
         print(json.dumps(out), flush=True)
     return out
+
+
+def cached_probs(tracker, t=1):
+    """Volume t's U-Net probabilities as the run cached them: JAX's
+    float16 ``unet_cache/t%06i.npy``, (x, y, z)."""
+    return np.load(Path(tracker.paths.unet_cache) / ("t%06i.npy" % t))
+
+
+def write_records_bf16(work: Path, modes=("single", "ensemble")) -> dict:
+    """The bfloat16 records: JAX's own ``Tracker`` (no subclass, its
+    default bfloat16 segmenter) through the example's flow, single mode
+    and ``ensemble=20``, each in a folder of its own (``work/<mode>``);
+    the single record with vol 1's cached probabilities (``prob_1``; the
+    ensemble's are the same U-Net on the same volume, equal to them)."""
+    from t3dct.engine.legacy import Tracker as JTracker
+    runs = {"single": (RECORD_BF16, {}),
+            "ensemble": (RECORD_ENSEMBLE_BF16, dict(ensemble=ENSEMBLE))}
+    out = {}
+    for mode in modes:
+        extra = dict(prob_1=cached_probs) if mode == "single" else {}
+        out.update(write_records(work / mode, JTracker, [runs[mode]],
+                                 compute_dtype=lambda tr: "bfloat16",
+                                 **extra))
+    return out
+
+
+def nudge_weights(path: Path, seed: int = 1) -> None:
+    """Move every U-Net weight in the ``save_pytree`` file ``path`` by one
+    ulp, up or down (a random sign per element from ``seed``)."""
+    from t3dct.utils.checkpoint import load_pytree as jload
+    rng = np.random.RandomState(seed)
+
+    def nudge(a):
+        a = np.asarray(a)
+        to = np.where(rng.rand(*a.shape) < 0.5, np.float32(-np.inf),
+                      np.float32(np.inf))
+        return np.nextafter(a, to).astype(np.float32)
+    params, state = jload(junet3_a().init(jax.random.PRNGKey(0)), path)
+    jsave((jax.tree_util.tree_map(nudge, params), state), path)
+
+
+def write_nudged_bf16(work: Path, seed: int = 1) -> dict:
+    """JAX's own spread at its default precision: the bfloat16 single-mode
+    record's run with every U-Net weight nudged by one ulp (a random sign
+    per element from ``seed``), kept whole as ``nudged_bf16_path(seed)``
+    so that a port run and these runs are held to ``RECORD_BF16`` by one
+    statistic; vol 1's probabilities (``prob_1``) with seed 1 only."""
+    from t3dct.engine.legacy import Tracker as JTracker
+    vols, centers, lab1 = scene()
+    folder = write_folder(work / f"nudged_bf16_{seed}", vols, lab1)
+    nudge_weights(folder / "models" / WEIGHTS.name, seed)
+    t0 = time.time()
+    tr = run_example(example_tracker(JTracker, folder))
+    rec = tracker_record(tr, centers, lab1)
+    if seed == 1:
+        rec["prob_1"] = cached_probs(tr)
+    path = nudged_bf16_path(seed)
+    np.savez_compressed(
+        path, compute_dtype="bfloat16",
+        recipe=json.dumps(dict(example=EXAMPLE, max_cells=MAX_CELLS,
+                               image_name=IMAGE_NAME, n_vols=N_VOLS,
+                               weights=weights_recipe(), nudge_seed=seed)),
+        **rec)
+    return {path.name: dict(
+        json.loads(rec["metrics"]), cells=rec["cells"].tolist(),
+        seconds=round(time.time() - t0, 1))}
 
 
 def write_train_record(work: Path) -> dict:
@@ -318,7 +427,6 @@ def nudged_run(work: Path, what: str) -> dict:
     element, seed 1), ``"beta"`` beta_tk up.  Per volume the median and
     largest distance of its tracked cells from the record's, the cells
     farther than 0.5 and the labels equal; its metrics and cell counts."""
-    from t3dct.utils.checkpoint import load_pytree as jload
     from test_torch_legacy_folder import Float32Tracker
     vols, centers, lab1 = scene()
     folder = write_folder(work / "nudged", vols, lab1)
@@ -327,16 +435,7 @@ def nudged_run(work: Path, what: str) -> dict:
         example["beta_tk"] = float(np.nextafter(np.float32(300.0),
                                                 np.float32(400.0)))
     else:
-        rng = np.random.RandomState(1)
-
-        def nudge(a):
-            a = np.asarray(a)
-            to = np.where(rng.rand(*a.shape) < 0.5, np.float32(-np.inf),
-                          np.float32(np.inf))
-            return np.nextafter(a, to).astype(np.float32)
-        path = folder / "models" / WEIGHTS.name
-        params, state = jload(junet3_a().init(jax.random.PRNGKey(0)), path)
-        jsave((jax.tree_util.tree_map(nudge, params), state), path)
+        nudge_weights(folder / "models" / WEIGHTS.name)
     tr = run_example(Float32Tracker(
         volume_num=N_VOLS, siz_xyz=SHAPE_XYZ, **example,
         folder_path=str(folder), image_name=IMAGE_NAME,
@@ -412,6 +511,64 @@ def em_parting(ts=(5, 7, 9, 11, 13, 15, 17, 19)) -> dict:
             gammas[name].append(float(1 - post.astype(np.float64).sum()
                                       / tm.sum()))
     out["gamma_t5_iterations_10_20"] = gammas
+    return out
+
+
+def cells_flow(tracker):
+    """``run_example``'s flow over a folder whose ``unet_cache/`` already
+    holds every volume's probabilities: the tracker segments from them."""
+    tracker.load_unet()
+    tracker.load_ffn()
+    tracker.segment_vol1()
+    tracker.load_manual_seg()
+    tracker.interpolate_seg()
+    tracker.cal_subregions()
+    tracker.initiate_tracking()
+    tracker.track(from_volume=2)
+    tracker.save_coordinates()
+    return tracker
+
+
+def cross_track(work: Path, source: str) -> dict:
+    """The two trackers on the same cell sets: ``source`` an ``.npz`` of
+    ``t%06i`` float16 (x, y, z) bf16 U-Net probabilities of the 21 volumes
+    (a port run's ``unet_cache/``) in the cache of a fresh folder, tracked
+    by JAX's ``Tracker`` and by the port's on the CPU.  Per tracker:
+    switches, recall and ``chip_smoke.legacy_departure`` from the bf16
+    record.  Read from the cache, the probabilities are float16-rounded,
+    where the run that wrote them segmented its float32 ones."""
+    sys.path.insert(0, str(REPO))
+    import chip_smoke
+    import torch
+    from t3dct.engine.legacy import Tracker as JTracker
+    vols, centers, lab1 = scene()
+    folder = write_folder(work / Path(source).stem, vols, lab1)
+    (folder / "unet_cache").mkdir(parents=True, exist_ok=True)
+    with np.load(source) as probs:
+        for key in probs.files:
+            np.save(folder / "unet_cache" / (key + ".npy"), probs[key])
+    single = np.load(RECORD_BF16)
+    out = {}
+    for who in ("jax", "port"):
+        run_folder = work / f"{folder.name}_{who}"
+        shutil.copytree(folder, run_folder)
+        t0 = time.time()
+        if who == "jax":
+            run = tracker_record(cells_flow(example_tracker(
+                JTracker, run_folder)), centers, lab1)
+        else:
+            run = chip_smoke.legacy_run_record(cells_flow(
+                chip_smoke.legacy_tracker(torch.device("cpu"), run_folder)),
+                centers)
+        m = run["metrics"]
+        m = m if isinstance(m, dict) else json.loads(m)
+        out[run_folder.name] = dict(
+            switches=m["id_switches"], recall=m["strict_recall"],
+            seconds=round(time.time() - t0, 1),
+            from_bf16_record=chip_smoke.legacy_departure(
+                run, single, single["prob_1"]))
+        print(json.dumps({run_folder.name: out[run_folder.name]}),
+              flush=True)
     return out
 
 
@@ -521,9 +678,10 @@ def test_recorded_draws_give_jax_batch(records):
     np.testing.assert_array_equal(y.numpy(), np.asarray(jy))
 
 
-def port_run(tmp_path, ensemble=False):
+def port_run(tmp_path, ensemble=False, f32=True):
     """The port's folder ``Tracker`` on the CPU through
-    ``chip_smoke.py``'s phase 18 (then 19 in the same folder)."""
+    ``chip_smoke.py``'s phase 18 (then 19 in the same folder); ``f32=
+    False``: as phase 23 runs it, JAX's default precision."""
     sys.path.insert(0, str(REPO))
     import chip_smoke
     import torch
@@ -532,7 +690,7 @@ def port_run(tmp_path, ensemble=False):
     runs = []
     for kw in ({}, dict(ensemble=ENSEMBLE))[:2 if ensemble else 1]:
         tr = chip_smoke.timed_legacy_example(chip_smoke.legacy_tracker(
-            torch.device("cpu"), folder, **kw), CudaStageTimer())
+            torch.device("cpu"), folder, f32=f32, **kw), CudaStageTimer())
         runs.append((tr, centers))
     return chip_smoke, runs
 
@@ -548,6 +706,33 @@ def test_port_on_cpu_matches_records(records, tmp_path):
         bad, _ = chip_smoke.hold_legacy_to_record(
             name, records[name], tr, centers)
         assert not bad, (name, bad)
+
+
+def port_bf16_departures(tmp_path, ensemble=True) -> dict:
+    """Phase 23's folder runs on the CPU (the port's bf16 U-Net): each
+    run's ``legacy_departure`` from its bf16 record, JAX's own spread, the
+    bounds, and what ``hold_legacy_bf16`` rejects."""
+    chip_smoke, runs = port_run(tmp_path, ensemble=ensemble, f32=False)
+    single = np.load(RECORD_BF16)
+    nudged = [np.load(nudged_bf16_path(s)) for s in NUDGE_SEEDS_BF16]
+    out = dict(spread=chip_smoke.jax_spread(single, nudged))
+    for (tr, centers), path in zip(runs, (RECORD_BF16,
+                                          RECORD_ENSEMBLE_BF16)):
+        bad, dep = chip_smoke.hold_legacy_bf16(
+            path.name, np.load(path), single, nudged,
+            chip_smoke.legacy_run_record(tr, centers))
+        out[path.name] = dict(departure=dep, rejected=bad)
+    return out
+
+
+@pytest.mark.slow
+def test_port_bf16_on_cpu_matches_records(tmp_path):
+    """Phase 23's runs on the CPU: the port's bf16 single and ensemble runs
+    over the whole bench scene, each within its bounds of JAX's bf16
+    record."""
+    out = port_bf16_departures(tmp_path)
+    for name in (RECORD_BF16.name, RECORD_ENSEMBLE_BF16.name):
+        assert not out[name]["rejected"], (name, out[name])
 
 
 @pytest.mark.slow
@@ -581,6 +766,18 @@ if __name__ == "__main__":
                     help="JAX's run nudged by one ulp against the record")
     ap.add_argument("--em-parting", action="store_true",
                     help="the legacy fits on the record's own inputs")
+    ap.add_argument("--write-bf16", nargs="+",
+                    choices=("single", "ensemble"),
+                    help="the bfloat16 records of JAX's own Tracker")
+    ap.add_argument("--nudged-bf16", nargs="*", type=int,
+                    help="the bfloat16 single run, U-Net nudged by one ulp "
+                    "with each seed given (default 1)")
+    ap.add_argument("--cross-track", nargs="+", metavar="NPZ",
+                    help="JAX's and the port's trackers on the cell sets "
+                    "of a port run's cached bf16 probabilities")
+    ap.add_argument("--port-bf16", choices=("single", "ensemble"),
+                    help="the port's bf16 runs on the CPU against the bf16 "
+                    "records (ensemble: both), and JAX's spread")
     args = ap.parse_args()
     os.environ.setdefault("JAX_PLATFORMS", "cpu")
     jax.config.update("jax_platforms", "cpu")
@@ -597,4 +794,19 @@ if __name__ == "__main__":
             out["nudged"] = nudged_run(Path(tmp), args.nudged)
         if args.em_parting:
             out["em_parting"] = em_parting()
+        if args.write_bf16:
+            out["records_bf16"] = write_records_bf16(Path(tmp),
+                                                     args.write_bf16)
+        if args.nudged_bf16 is not None:
+            out["nudged_bf16"] = {}
+            for seed in args.nudged_bf16 or [1]:
+                out["nudged_bf16"].update(write_nudged_bf16(Path(tmp),
+                                                            seed))
+        if args.cross_track:
+            out["cross_track"] = {}
+            for source in args.cross_track:
+                out["cross_track"].update(cross_track(Path(tmp), source))
+        if args.port_bf16:
+            out["port_bf16"] = port_bf16_departures(
+                Path(tmp), args.port_bf16 == "ensemble")
     print(json.dumps(out))

@@ -218,7 +218,8 @@ def test_segmenter_watershed_stage_exact(seed, method):
     tm = UNet3D(**spec)
     params, state = tm.init(torch.Generator().manual_seed(0), device="cpu")
     tseg = UNetSegmenter(tm, params, state, SegmentationConfig(**cfg),
-                         p.shape, max_cells=64, device="cpu")
+                         p.shape, max_cells=64, compute_dtype=torch.float32,
+                         device="cpu")
     jparams = jax.tree_util.tree_map(lambda t: jnp.asarray(t.numpy()),
                                      (params, state))
     jseg = JSegmenter(JUNet3D(**spec), *jparams, JSegConfig(**cfg), p.shape,

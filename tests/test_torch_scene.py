@@ -156,7 +156,7 @@ def test_cpu_dispatch_takes_plain_path():
     res = segment_and_track_arrays(vols, tm, lab, ffn, VOXEL_SIZE, INTERP,
                                    TrackingConfig(), device="cpu")
     assert res.coords[2].shape == res.coords[1].shape
-    assert [k.launches for k in hopper_conv.KERNELS] == conv0 == [0, 0]
+    assert [k.launches for k in hopper_conv.KERNELS] == conv0 == [0] * 4
     assert hopper_flood.flood_slices.launches == flood0 == 0
 
 

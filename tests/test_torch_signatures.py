@@ -98,6 +98,19 @@ ENTRY_POINTS = [
     ("models.train_unet", "divide_img"),
     ("engine.segmentation", "UNetSegmenter.segment"),
     ("engine.segmentation", "UNetSegmenter.predict_cellregions"),
+    ("engine.segmentation", "UNetSegmenter.__init__"),
+    ("models.unet3d", "UNet3D.apply"),
+    ("models.stardist3d", "StarDist3DNet.apply"),
+    ("models.layers", "dense"),
+]
+# the functions that take JAX's compute_dtype, and its default in each
+COMPUTE_DTYPE = [
+    ("models.layers", "conv3d", "float32"),
+    ("models.layers", "dense", "float32"),
+    ("models.unet3d", "UNet3D.apply", "float32"),
+    ("models.stardist3d", "StarDist3DNet.apply", "float32"),
+    ("models.stardist3d", "StarDist3DNet._apply_keras", "float32"),
+    ("engine.segmentation", "UNetSegmenter.__init__", "bfloat16"),
 ]
 
 PLAIN = (type(None), bool, int, float, str, tuple)
@@ -131,6 +144,24 @@ def test_port_signature_binds_jax(module, qualname):
             (w.default is inspect.Parameter.empty), w.name
         if isinstance(w.default, PLAIN):
             assert g.default == w.default, w.name
+
+
+@pytest.mark.parametrize("module,qualname,dtype", COMPUTE_DTYPE,
+                         ids=[f"{m}.{q}" for m, q, _ in COMPUTE_DTYPE])
+def test_compute_dtype_binds_jax(module, qualname, dtype):
+    """``compute_dtype`` where JAX has it: the parameters up to it bind
+    JAX's, and its default is the torch twin of JAX's (``layers.conv3d``
+    adds ``relu``, keyword-only, after it)."""
+    import jax.numpy as jnp
+    import torch
+    want = _params(_resolve("t3dct", module, qualname))
+    got = _params(_resolve("t3dct_torch", module, qualname))
+    i = [p.name for p in want].index("compute_dtype")
+    assert [p.name for p in got[:i + 1]] == [p.name for p in want[:i + 1]]
+    assert jnp.dtype(want[i].default).name == dtype
+    assert got[i].default == getattr(torch, dtype)
+    assert all(p.kind is inspect.Parameter.KEYWORD_ONLY for p in
+               got[len(want):])
 
 
 def test_entry_points_cover_the_examples():

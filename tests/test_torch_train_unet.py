@@ -37,7 +37,6 @@ from t3dct.parallel.training import make_unet_train_step
 from t3dct.utils.checkpoint import load_pytree as jload
 from t3dct.utils.checkpoint import save_pytree as jsave
 from t3dct_torch.config import LcnConfig, TrainUnetConfig
-from t3dct_torch.engine import legacy
 from t3dct_torch.models import train_unet as tu
 from t3dct_torch.models.unet3d import UNet3D, get_unet
 from t3dct_torch.ops.lcn import normalize_label
@@ -45,8 +44,8 @@ from t3dct_torch.ops.tiling import tiled_apply
 from t3dct_torch.utils.checkpoint import leaves_with_paths
 
 from test_torch_legacy import UNET, to_jax, volume_at
-from test_torch_legacy_folder import (Float32Tracker, tracker_kwargs,
-                                      write_folder)
+from test_torch_legacy_folder import (Float32Tracker, PortFloat32Tracker,
+                                      tracker_kwargs, write_folder)
 
 WARP_TOL = 1e-5
 LOSS_RTOL = 1e-4
@@ -260,8 +259,8 @@ def folder_trackers(tmp_path):
     spec, params, state = small_model()
     out = []
     for name, make in (("jax", lambda kw: Float32Tracker(**kw)),
-                       ("port", lambda kw: legacy.Tracker(**kw,
-                                                          device="cpu"))):
+                       ("port", lambda kw: PortFloat32Tracker(
+                           **kw, device="cpu"))):
         folder = write_folder(tmp_path / name, 1)
         tr = make(tracker_kwargs(1, folder))
         model = JUNet3D(**UNET) if name == "jax" else spec

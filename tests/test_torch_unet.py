@@ -234,7 +234,8 @@ def test_segmenter_predict_matches():
     jseg = JSegmenter(jm, jp, js, JSegConfig(**cfg), x.shape, max_cells=64,
                       compute_dtype=jnp.float32)
     tseg = UNetSegmenter(tm, tp, ts, SegmentationConfig(**cfg), x.shape,
-                         max_cells=64, device="cpu")
+                         max_cells=64, compute_dtype=torch.float32,
+                         device="cpu")
     want = np.asarray(jseg._predict_impl(jp, js, jnp.asarray(x)))
     got = tseg.predict_cellregions(x).numpy()
     assert got.shape == x.shape
