@@ -46,14 +46,9 @@
 //   the channels-last output (a warp writes 512 contiguous bytes).  Bias +
 //   ReLU are applied after the sum, as conv_same(x, w) + b.  Out-of-volume
 //   taps read zeros (SAME padding); out-of-volume z taps are skipped.
-// - BF16 is the JAX package's compute_dtype=bfloat16 (layers.py:50-60):
-//   x and w are rounded to bf16 as they are loaded (__float2bfloat16_rn,
-//   round to nearest even) and the FMAs stay f32, so each product is exact
-//   and the sum is an f32 one of the rounded operands; the bias is added
-//   unrounded.  The path's c_in = 1 stems under bf16: U-Net a's down0_0
-//   (1 -> 8) and the StarDist stems (stem, the Keras pre0_0).
+// The bf16 stems (JAX's compute_dtype=bfloat16) are a kernel of their
+// own, csrc/conv3x3x3_bf16.cu.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -77,13 +72,7 @@ __host__ __device__ constexpr int plane_floats(int cot, int tx) {
 static_assert(plane_floats(8, 16) <= PF * NT && plane_floats(8, 32) <= PF * NT,
               "a c_in = 1 plane must fit the prefetch registers");
 
-// v, or v rounded to the nearest bf16 (ties to even) when BF16 is set
-template <bool BF16>
-__device__ __forceinline__ float operand(float v) {
-  return BF16 ? __bfloat162float(__float2bfloat16_rn(v)) : v;
-}
-
-template <int COT, bool ONE, bool BF16>
+template <int COT, bool ONE>
 __global__ void __launch_bounds__(NT, 2)
 conv_direct_kernel(const float* __restrict__ x, const float* __restrict__ w,
                    const float* __restrict__ b, float* __restrict__ y,
@@ -134,8 +123,7 @@ conv_direct_kernel(const float* __restrict__ x, const float* __restrict__ w,
     const int gx = x0 + p % hx - 1;
     *at = ci * plane + p;
     if (gy < 0 || gy >= Y || gx < 0 || gx >= X) return 0.f;
-    return operand<BF16>(
-        x[((static_cast<int64_t>(zi) * Y + gy) * X + gx) * Cin + c0 + ci]);
+    return x[((static_cast<int64_t>(zi) * Y + gy) * X + gx) * Cin + c0 + ci];
   };
 
   for (int z = z0; z < z1; ++z) {
@@ -156,9 +144,8 @@ conv_direct_kernel(const float* __restrict__ x, const float* __restrict__ w,
           const int tap = i / (COT * KCM);
           float v = 0.f;
           if (ci < kc && co0 + co < Cout)
-            v = operand<BF16>(
-                w[(static_cast<int64_t>(tap) * Cin + c0 + ci) * Cout + co0 +
-                  co]);
+            v = w[(static_cast<int64_t>(tap) * Cin + c0 + ci) * Cout + co0 +
+                  co];
           w_s[i] = v;
         }
       }
@@ -267,7 +254,7 @@ size_t smem_bytes(int cot, int cin, int tx) {
   return sizeof(float) * (27 * kcm * cot + 3 * kcm * plane_floats(cot, tx));
 }
 
-template <int COT, bool ONE, bool BF16>
+template <int COT, bool ONE>
 int launch(const float* x, const float* w, const float* b, float* y, int B,
            int Z, int Y, int X, int Cin, int Cout, int tx, int zs, int relu,
            cudaStream_t stream) {
@@ -278,35 +265,34 @@ int launch(const float* x, const float* w, const float* b, float* y, int B,
   if (blocks <= 0 || blocks > 0x7fffffff) return cudaErrorInvalidValue;
   const size_t smem = smem_bytes(COT, ONE ? 1 : Cin, tx);
   cudaError_t err = cudaFuncSetAttribute(
-      conv_direct_kernel<COT, ONE, BF16>,
+      conv_direct_kernel<COT, ONE>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  conv_direct_kernel<COT, ONE, BF16><<<static_cast<unsigned>(blocks), NT,
-                                        smem, stream>>>(
+  conv_direct_kernel<COT, ONE><<<static_cast<unsigned>(blocks), NT, smem,
+                                  stream>>>(
       x, w, b, y, Z, Y, X, Cin, Cout, tx, zs, relu);
   return static_cast<int>(cudaGetLastError());
 }
 
 // the output tile cot (8, 16 or 32) and c_in = 1 as template arguments
-template <bool BF16>
 int launch_tile(const float* x, const float* w, const float* b, float* y,
                 int B, int Z, int Y, int X, int Cin, int Cout, int cot,
                 int tx, int zs, int relu, cudaStream_t s) {
   const bool one = Cin == 1;
   if (cot == 8)
-    return one ? launch<8, true, BF16>(x, w, b, y, B, Z, Y, X, Cin, Cout, tx,
-                                       zs, relu, s)
-               : launch<8, false, BF16>(x, w, b, y, B, Z, Y, X, Cin, Cout,
-                                        tx, zs, relu, s);
+    return one ? launch<8, true>(x, w, b, y, B, Z, Y, X, Cin, Cout, tx, zs,
+                                 relu, s)
+               : launch<8, false>(x, w, b, y, B, Z, Y, X, Cin, Cout, tx, zs,
+                                  relu, s);
   if (cot == 16)
-    return one ? launch<16, true, BF16>(x, w, b, y, B, Z, Y, X, Cin, Cout,
-                                        tx, zs, relu, s)
-               : launch<16, false, BF16>(x, w, b, y, B, Z, Y, X, Cin, Cout,
-                                         tx, zs, relu, s);
-  return one ? launch<32, true, BF16>(x, w, b, y, B, Z, Y, X, Cin, Cout, tx,
-                                      zs, relu, s)
-             : launch<32, false, BF16>(x, w, b, y, B, Z, Y, X, Cin, Cout, tx,
-                                       zs, relu, s);
+    return one ? launch<16, true>(x, w, b, y, B, Z, Y, X, Cin, Cout, tx, zs,
+                                  relu, s)
+               : launch<16, false>(x, w, b, y, B, Z, Y, X, Cin, Cout, tx,
+                                   zs, relu, s);
+  return one ? launch<32, true>(x, w, b, y, B, Z, Y, X, Cin, Cout, tx, zs,
+                                relu, s)
+             : launch<32, false>(x, w, b, y, B, Z, Y, X, Cin, Cout, tx, zs,
+                                 relu, s);
 }
 
 }  // namespace
@@ -320,13 +306,11 @@ extern "C" int conv3x3x3_direct_smem_bytes(int cin, int cot, int tx) {
 
 // B volumes of (Z, Y, X, Cin), contiguous, into (B, Z, Y, X, Cout); cot is
 // the output tile (8, 16 or 32), tx the pixel tile's width (16 or 32), zs
-// the z-planes a block marches over; bf16 != 0 rounds x and w to bf16 on
-// load.
+// the z-planes a block marches over.
 extern "C" int conv3x3x3_direct_f32(const void* x, const void* w,
                                     const void* b, void* y, int B, int Z,
                                     int Y, int X, int Cin, int Cout, int cot,
-                                    int tx, int zs, int relu, int bf16,
-                                    void* stream) {
+                                    int tx, int zs, int relu, void* stream) {
   if (Cin < 1 || Cout < 1 || zs < 1 || !valid(cot, tx))
     return cudaErrorInvalidValue;
   const auto* xp = static_cast<const float*>(x);
@@ -334,9 +318,7 @@ extern "C" int conv3x3x3_direct_f32(const void* x, const void* w,
   const auto* bp = static_cast<const float*>(b);
   auto* yp = static_cast<float*>(y);
   auto s = static_cast<cudaStream_t>(stream);
-  return bf16 ? launch_tile<true>(xp, wp, bp, yp, B, Z, Y, X, Cin, Cout, cot,
-                                 tx, zs, relu, s)
-              : launch_tile<false>(xp, wp, bp, yp, B, Z, Y, X, Cin, Cout, cot,
-                                   tx, zs, relu, s);
+  return launch_tile(xp, wp, bp, yp, B, Z, Y, X, Cin, Cout, cot, tx, zs,
+                     relu, s);
 }
 

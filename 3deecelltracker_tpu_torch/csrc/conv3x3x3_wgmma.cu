@@ -50,30 +50,12 @@
 // packed in the same order.  The epilogue adds the bias, applies the ReLU
 // and stores channels-last, masked at the ragged y/x edge and past c_out.
 //
-// The one-pass bf16 form (BF16 = true, entry point conv3x3x3_wgmma_bf16)
-// computes what the JAX package's layers.conv3d computes with
-// compute_dtype=bfloat16 (3deecelltracker_tpu/models/layers.py:50-60, XLA's
-// conv with bf16 operands and preferred_element_type=f32, no Pallas kernel):
-// conv(bf16(x), bf16(w)) with f32 products and sums, + b in f32, f32 out.
-// Each product of two bf16 values is exact in f32, so it equals an f32
-// conv of the rounded operands up to summation order.  What bounds it on an
-// H100: one pass at the 989 TFLOP/s bf16 peak puts U-Net a's 16 tiles at
-// ~0.57 ms a volume, below the ~1.2 ms its f32 activations take at
-// 3.35 TB/s: its bytes.  Same pipeline, ring and epilogue as the TF32
-// form; a stage is (16-channel chunk, z-tap): two 8-channel halo planes
-// (two TMA copies from the same tensor map; the second is skipped, and its
-// fragment columns zeroed, where c_in % 16 == 8 leaves half a chunk) and
-// the 9 taps' weights, rounded to bf16 (round to nearest even) and packed
-// by ops/hopper_conv.py in the k16 K-major core-matrix layout (column k is
-// channel k of the chunk).  The activations stay f32 in memory and in
-// shared memory, as JAX's layers hand them on; each thread rounds its A
-// fragment to bf16 in registers (cvt.rn.bf16x2.f32) and a tap is one k16
-// wgmma against the TF32 form's three k8 ones.  The bias is added in f32
-// in the epilogue, unrounded.
+// The bf16 form (JAX's compute_dtype=bfloat16) is a kernel of its own,
+// csrc/conv3x3x3_wgmma_bf16.cu.
 //
-// The building blocks (mbarriers, TMA, the hi/lo split, wgmma, the bf16
-// pair conversion, the tensor-map encoder) are in hopper_common.cuh, shared
-// with csrc/ladder.cu's nine-view conv.
+// The building blocks (mbarriers, TMA, the hi/lo split, wgmma, the
+// tensor-map encoder) are in hopper_common.cuh, shared with csrc/ladder.cu's
+// nine-view conv.
 
 #include "hopper_common.cuh"
 
@@ -88,30 +70,29 @@ constexpr int THREADS = 256;             // two warpgroups
 constexpr int HALO_FLOATS = HY * HX * CK;
 constexpr int HALO_BYTES = HALO_FLOATS * 4;      // 5760 = 45 x 128
 
-// one form's pipeline: TF32 x3 (BF16 false) or bf16 (true) for N tile NB
-template <int NB, bool BF16>
+// the pipeline for N tile NB
+template <int NB>
 struct Form {
   // channels per stage, and the 8-channel halo planes that hold them
-  static constexpr int CKS = BF16 ? 16 : CK;
+  static constexpr int CKS = CK;
   static constexpr int HALOS = CKS / CK;
-  // packed weights of one stage, in bytes: TF32 [tap 9][hi, lo][CK * NB]
-  // f32, bf16 [tap 9][16 * NB] bf16 (ops/hopper_conv.py)
-  static constexpr int W_BYTES = BF16 ? 9 * CKS * NB * 2 : 9 * 2 * CK * NB * 4;
-  static constexpr int STAGES =
-      BF16 ? 4 : (NB >= 128 ? 2 : (NB >= 64 ? 3 : 4));
+  // packed weights of one stage, in bytes: [tap 9][hi, lo][CK * NB] f32
+  // (ops/hopper_conv.py)
+  static constexpr int W_BYTES = 9 * 2 * CK * NB * 4;
+  static constexpr int STAGES = NB >= 128 ? 2 : (NB >= 64 ? 3 : 4);
   // narrow tiles fit two blocks on an SM (<= 128 registers a thread)
   static constexpr int BLOCKS_PER_SM = NB <= 32 ? 2 : 1;
   static constexpr int SMEM =
       STAGES * (W_BYTES + HALOS * HALO_BYTES) + 2 * STAGES * 8;
 };
 
-template <int NB, bool BF16>
-__global__ void __launch_bounds__(THREADS, (Form<NB, BF16>::BLOCKS_PER_SM))
+template <int NB>
+__global__ void __launch_bounds__(THREADS, (Form<NB>::BLOCKS_PER_SM))
 conv_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
                   const void* __restrict__ wp, const float* __restrict__ bias,
                   float* __restrict__ y, int Z, int Y, int X, int Cin,
                   int Cout, int tiles_x, int n_chunks, int relu) {
-  using F = Form<NB, BF16>;
+  using F = Form<NB>;
   constexpr int S = F::STAGES;
   constexpr int WB = F::W_BYTES;
   constexpr int HS = F::HALOS * HALO_FLOATS;     // halo floats of a stage
@@ -133,8 +114,7 @@ conv_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
       static_cast<int64_t>(nc) * n_iters * WB;
 
   // thread 0 issues stage `it`'s copies into buffer it % S: its halo
-  // planes that hold channels (a chunk's second 8 are absent where c_in %
-  // 16 == 8) and its weights
+  // planes and its weights
   auto load = [&](int it) {
     const int s = it % S;
     const int c0 = (it / 3) * F::CKS;
@@ -172,66 +152,30 @@ conv_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
     const int s = it % S;
     mbar_wait(&full[s], (it / S) & 1);
     const float* h = h_s + s * HS;
-    if constexpr (BF16) {
-      // A fragments of the 9 taps, rounded to bf16: a[0] (pixel g, k 2t,
-      // 2t + 1), a[1] (pixel g + 8, the same k), a[2] / a[3] the same
-      // pixels at k 2t + 8, 2t + 9; column k is channel k of the chunk,
-      // the second 8 from the second halo plane, zero when it is absent
-      const bool two = (it / 3) * F::CKS + CK < Cin;
-      uint32_t a[9][4];
+    // A fragments of the 9 taps: a[0] (pixel g, k t), a[1] (pixel g + 8,
+    // k t), a[2] (pixel g, k t + 4), a[3] (pixel g + 8, k t + 4); column
+    // k holds channel 2 (k % 4) + k / 4
+    uint32_t a_hi[9][4], a_lo[9][4];
 #pragma unroll
-      for (int tap = 0; tap < 9; ++tap) {
-        const float* p = h + ((row + tap / 3) * HX + g + tap % 3) * CK + 2 * t;
-        const float2 v0 = *reinterpret_cast<const float2*>(p);
-        const float2 v1 = *reinterpret_cast<const float2*>(p + 8 * CK);
-        a[tap][0] = bf16x2_rn(v0.x, v0.y);
-        a[tap][1] = bf16x2_rn(v1.x, v1.y);
-        a[tap][2] = 0u;
-        a[tap][3] = 0u;
-        if (two) {
-          const float2 v2 =
-              *reinterpret_cast<const float2*>(p + HALO_FLOATS);
-          const float2 v3 =
-              *reinterpret_cast<const float2*>(p + HALO_FLOATS + 8 * CK);
-          a[tap][2] = bf16x2_rn(v2.x, v2.y);
-          a[tap][3] = bf16x2_rn(v3.x, v3.y);
-        }
-      }
-      const unsigned char* w = w_s + s * WB;
-      fence_acc(part);
-      wgmma_fence();
+    for (int tap = 0; tap < 9; ++tap) {
+      const float* p = h + ((row + tap / 3) * HX + g + tap % 3) * CK + 2 * t;
+      const float2 v0 = *reinterpret_cast<const float2*>(p);
+      const float2 v1 = *reinterpret_cast<const float2*>(p + 8 * CK);
+      split_tf32(v0.x, a_hi[tap][0], a_lo[tap][0]);
+      split_tf32(v1.x, a_hi[tap][1], a_lo[tap][1]);
+      split_tf32(v0.y, a_hi[tap][2], a_lo[tap][2]);
+      split_tf32(v1.y, a_hi[tap][3], a_lo[tap][3]);
+    }
+    const float* w = reinterpret_cast<const float*>(w_s + s * WB);
+    fence_acc(part);
+    wgmma_fence();
 #pragma unroll
-      for (int tap = 0; tap < 9; ++tap)
-        wgmma_bf16(part, a[tap],
-                   b_desc(reinterpret_cast<const float*>(
-                       w + tap * F::CKS * NB * 2)),
-                   tap > 0);
-    } else {
-      // A fragments of the 9 taps: a[0] (pixel g, k t), a[1] (pixel g + 8,
-      // k t), a[2] (pixel g, k t + 4), a[3] (pixel g + 8, k t + 4); column
-      // k holds channel 2 (k % 4) + k / 4
-      uint32_t a_hi[9][4], a_lo[9][4];
-#pragma unroll
-      for (int tap = 0; tap < 9; ++tap) {
-        const float* p = h + ((row + tap / 3) * HX + g + tap % 3) * CK + 2 * t;
-        const float2 v0 = *reinterpret_cast<const float2*>(p);
-        const float2 v1 = *reinterpret_cast<const float2*>(p + 8 * CK);
-        split_tf32(v0.x, a_hi[tap][0], a_lo[tap][0]);
-        split_tf32(v1.x, a_hi[tap][1], a_lo[tap][1]);
-        split_tf32(v0.y, a_hi[tap][2], a_lo[tap][2]);
-        split_tf32(v1.y, a_hi[tap][3], a_lo[tap][3]);
-      }
-      const float* w = reinterpret_cast<const float*>(w_s + s * WB);
-      fence_acc(part);
-      wgmma_fence();
-#pragma unroll
-      for (int tap = 0; tap < 9; ++tap) {
-        const uint64_t d_hi = b_desc(w + (2 * tap) * CK * NB);
-        const uint64_t d_lo = b_desc(w + (2 * tap + 1) * CK * NB);
-        wgmma_tf32(part, a_lo[tap], d_hi, tap > 0);
-        wgmma_tf32(part, a_hi[tap], d_lo, 1);
-        wgmma_tf32(part, a_hi[tap], d_hi, 1);
-      }
+    for (int tap = 0; tap < 9; ++tap) {
+      const uint64_t d_hi = b_desc(w + (2 * tap) * CK * NB);
+      const uint64_t d_lo = b_desc(w + (2 * tap + 1) * CK * NB);
+      wgmma_tf32(part, a_lo[tap], d_hi, tap > 0);
+      wgmma_tf32(part, a_hi[tap], d_lo, 1);
+      wgmma_tf32(part, a_hi[tap], d_hi, 1);
     }
     wgmma_commit();
     wgmma_wait_all();
@@ -274,24 +218,23 @@ conv_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
 }
 
 
-template <int NB, bool BF16>
+template <int NB>
 int launch(const CUtensorMap& map, const void* wp, const float* b, float* y,
            int B, int Z, int Y, int X, int Cin, int Cout, int relu,
            cudaStream_t stream) {
-  constexpr int SMEM = Form<NB, BF16>::SMEM;
+  constexpr int SMEM = Form<NB>::SMEM;
   const cudaError_t e = cudaFuncSetAttribute(
-      conv_wgmma_kernel<NB, BF16>,
+      conv_wgmma_kernel<NB>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
   if (e != cudaSuccess) return static_cast<int>(e);
   const int tiles_x = (X + TX - 1) / TX;
   const int n_chunks = (Cout + NB - 1) / NB;
   dim3 grid(tiles_x * ((Y + TY - 1) / TY), Z, B * n_chunks);
-  conv_wgmma_kernel<NB, BF16><<<grid, THREADS, SMEM, stream>>>(
+  conv_wgmma_kernel<NB><<<grid, THREADS, SMEM, stream>>>(
       map, wp, b, y, Z, Y, X, Cin, Cout, tiles_x, n_chunks, relu);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool BF16>
 int dispatch(const void* x, const void* wp, const void* b, void* y, int B,
              int Z, int Y, int X, int Cin, int Cout, int nb, int relu,
              const uint64_t* dims, const uint64_t* strides,
@@ -303,31 +246,26 @@ int dispatch(const void* x, const void* wp, const void* b, void* y, int B,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (nb) {
     case 8:
-      return launch<8, BF16>(map, wp, bb, out, B, Z, Y, X, Cin, Cout, relu, s);
+      return launch<8>(map, wp, bb, out, B, Z, Y, X, Cin, Cout, relu, s);
     case 16:
-      return launch<16, BF16>(map, wp, bb, out, B, Z, Y, X, Cin, Cout, relu,
-                              s);
+      return launch<16>(map, wp, bb, out, B, Z, Y, X, Cin, Cout, relu, s);
     case 32:
-      return launch<32, BF16>(map, wp, bb, out, B, Z, Y, X, Cin, Cout, relu,
-                              s);
+      return launch<32>(map, wp, bb, out, B, Z, Y, X, Cin, Cout, relu, s);
     case 64:
-      return launch<64, BF16>(map, wp, bb, out, B, Z, Y, X, Cin, Cout, relu,
-                              s);
+      return launch<64>(map, wp, bb, out, B, Z, Y, X, Cin, Cout, relu, s);
     case 128:
-      return launch<128, BF16>(map, wp, bb, out, B, Z, Y, X, Cin, Cout, relu,
-                               s);
+      return launch<128>(map, wp, bb, out, B, Z, Y, X, Cin, Cout, relu, s);
     default: return -2;
   }
 }
 
-template <bool BF16>
 int smem_of(int nb) {
   switch (nb) {
-    case 8: return Form<8, BF16>::SMEM;
-    case 16: return Form<16, BF16>::SMEM;
-    case 32: return Form<32, BF16>::SMEM;
-    case 64: return Form<64, BF16>::SMEM;
-    case 128: return Form<128, BF16>::SMEM;
+    case 8: return Form<8>::SMEM;
+    case 16: return Form<16>::SMEM;
+    case 32: return Form<32>::SMEM;
+    case 64: return Form<64>::SMEM;
+    case 128: return Form<128>::SMEM;
     default: return -2;
   }
 }
@@ -347,24 +285,10 @@ extern "C" int conv3x3x3_wgmma_f32(const void* x, const void* wp,
                                    int relu, const uint64_t* dims,
                                    const uint64_t* strides,
                                    const uint32_t* box, void* stream) {
-  return dispatch<false>(x, wp, b, y, B, Z, Y, X, Cin, Cout, nb, relu, dims,
-                         strides, box, stream);
-}
-
-// The one-pass bf16 form, the same arguments but wp: the bf16 weights
-// packed in the k16 layout (ops/hopper_conv.py::pack_weights_bf16).
-extern "C" int conv3x3x3_wgmma_bf16(const void* x, const void* wp,
-                                    const void* b, void* y, int B, int Z,
-                                    int Y, int X, int Cin, int Cout, int nb,
-                                    int relu, const uint64_t* dims,
-                                    const uint64_t* strides,
-                                    const uint32_t* box, void* stream) {
-  return dispatch<true>(x, wp, b, y, B, Z, Y, X, Cin, Cout, nb, relu, dims,
-                        strides, box, stream);
+  return dispatch(x, wp, b, y, B, Z, Y, X, Cin, Cout, nb, relu, dims,
+                  strides, box, stream);
 }
 
 // the dynamic shared memory a block of the N tile nb takes, in bytes (-2
-// for an unsupported nb), of the TF32 form (bf16 = 0) or the bf16 one
-extern "C" int conv3x3x3_wgmma_smem_bytes(int nb, int bf16) {
-  return bf16 ? smem_of<true>(nb) : smem_of<false>(nb);
-}
+// for an unsupported nb)
+extern "C" int conv3x3x3_wgmma_smem_bytes(int nb) { return smem_of(nb); }

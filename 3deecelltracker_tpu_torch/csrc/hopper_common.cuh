@@ -1,9 +1,10 @@
 // Hopper building blocks shared by the tensor-core kernels
-// (conv3x3x3_wgmma.cu, ladder.cu): mbarriers, TMA and bulk copies, the TF32
-// hi/lo split, wgmma m64nNk8 TF32 with A from registers and B from shared
-// memory in the canonical K-major no-swizzle layout, the bf16 pair
-// conversion and wgmma m64nNk16 bf16 in the same layout, and the
-// tensor-map encoder, cuTensorMapEncodeTiled.  Everything is inline in an anonymous
+// (conv3x3x3_wgmma.cu, conv3x3x3_wgmma_bf16.cu, ladder.cu): mbarriers, TMA
+// and bulk copies, the TF32 hi/lo split, wgmma m64nNk8 TF32 with A from
+// registers and B from shared memory in the canonical K-major no-swizzle
+// layout, the bf16 pair conversion, wgmma m64nNk16 bf16 with A and B from
+// shared memory in the same layout, and the tensor-map encoder,
+// cuTensorMapEncodeTiled.  Everything is inline in an anonymous
 // namespace, so each kernel source compiles its own copy and its code is
 // what it was when these lived in that source.
 
@@ -229,66 +230,66 @@ __device__ __forceinline__ uint32_t bf16x2_rn(float lo, float hi) {
   return r;
 }
 
-// B operand of a k16 bf16 step: the same K-major no-swizzle layout as the
-// TF32 one, a core matrix being 8 (n) rows of 16 bytes (8 k), so b_desc
-// (leading byte offset 128 between the two k halves, stride byte offset
-// 256 between 8-column groups of n) describes it unchanged.
-//
-// D = A (64 x 16, registers: a[0] (row g, k 2t, 2t + 1), a[1] (row g + 8,
-// k 2t, 2t + 1), a[2] (row g, k 2t + 8, 2t + 9), a[3] (row g + 8, k 2t + 8,
-// 2t + 9), the lower k in the lower half) * B (16 x N, shared memory)
-// (+ D if accumulate), bf16 in, f32 out; B not transposed (K-major)
-__device__ __forceinline__ void wgmma_bf16(Acc<8>& d, const uint32_t (&a)[4],
-                                           uint64_t desc, int accumulate) {
+// a shared-memory matrix descriptor, K-major, no swizzle: core matrices of
+// 8 rows of 16 bytes, `lbo` bytes apart along K and `sbo` bytes apart along
+// M (or N)
+__device__ __forceinline__ uint64_t smem_desc(const void* p, uint32_t lbo,
+                                              uint32_t sbo) {
+  return ((smem_u32(p) & 0x3FFFF) >> 4) | (uint64_t(lbo >> 4) << 16) |
+         (uint64_t(sbo >> 4) << 32);
+}
+
+// D = A (64 x 16, shared memory, descriptor a_desc) * B (16 x N, shared
+// memory, b_desc) (+ D if accumulate), bf16 in, f32 out, both K-major (a
+// core matrix being 8 rows of 16 bytes, 8 k)
+__device__ __forceinline__ void wgmma_bf16_ss(Acc<8>& d, uint64_t a_desc,
+                                              uint64_t b_desc, int accumulate) {
   asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
       "{%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, %8, p, 1, 1, 0;\n}\n"
+      "%4, %5, p, 1, 1, 0, 0;\n}\n"
       : "+f"(d.r[0]), "+f"(d.r[1]), "+f"(d.r[2]), "+f"(d.r[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc),
-        "r"(accumulate));
+      : "l"(a_desc), "l"(b_desc), "r"(accumulate));
 }
 
-__device__ __forceinline__ void wgmma_bf16(Acc<16>& d, const uint32_t (&a)[4],
-                                           uint64_t desc, int accumulate) {
+__device__ __forceinline__ void wgmma_bf16_ss(Acc<16>& d, uint64_t a_desc,
+                                              uint64_t b_desc, int accumulate) {
   asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
       "{%0, %1, %2, %3, %4, %5, %6, %7}, "
-      "{%8, %9, %10, %11}, %12, p, 1, 1, 0;\n}\n"
+      "%8, %9, p, 1, 1, 0, 0;\n}\n"
       : "+f"(d.r[0]), "+f"(d.r[1]), "+f"(d.r[2]), "+f"(d.r[3]),
         "+f"(d.r[4]), "+f"(d.r[5]), "+f"(d.r[6]), "+f"(d.r[7])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc),
-        "r"(accumulate));
+      : "l"(a_desc), "l"(b_desc), "r"(accumulate));
 }
 
-__device__ __forceinline__ void wgmma_bf16(Acc<32>& d, const uint32_t (&a)[4],
-                                           uint64_t desc, int accumulate) {
+__device__ __forceinline__ void wgmma_bf16_ss(Acc<32>& d, uint64_t a_desc,
+                                              uint64_t b_desc, int accumulate) {
   asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
       "{%0, %1, %2, %3, %4, %5, %6, %7, "
       " %8, %9, %10, %11, %12, %13, %14, %15}, "
-      "{%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
+      "%16, %17, p, 1, 1, 0, 0;\n}\n"
       : "+f"(d.r[0]), "+f"(d.r[1]), "+f"(d.r[2]), "+f"(d.r[3]),
         "+f"(d.r[4]), "+f"(d.r[5]), "+f"(d.r[6]), "+f"(d.r[7]),
         "+f"(d.r[8]), "+f"(d.r[9]), "+f"(d.r[10]), "+f"(d.r[11]),
         "+f"(d.r[12]), "+f"(d.r[13]), "+f"(d.r[14]), "+f"(d.r[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc),
-        "r"(accumulate));
+      : "l"(a_desc), "l"(b_desc), "r"(accumulate));
 }
 
-__device__ __forceinline__ void wgmma_bf16(Acc<64>& d, const uint32_t (&a)[4],
-                                           uint64_t desc, int accumulate) {
+__device__ __forceinline__ void wgmma_bf16_ss(Acc<64>& d, uint64_t a_desc,
+                                              uint64_t b_desc, int accumulate) {
   asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
       "{%0, %1, %2, %3, %4, %5, %6, %7, "
       " %8, %9, %10, %11, %12, %13, %14, %15, "
       " %16, %17, %18, %19, %20, %21, %22, %23, "
       " %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
       : "+f"(d.r[0]), "+f"(d.r[1]), "+f"(d.r[2]), "+f"(d.r[3]),
         "+f"(d.r[4]), "+f"(d.r[5]), "+f"(d.r[6]), "+f"(d.r[7]),
         "+f"(d.r[8]), "+f"(d.r[9]), "+f"(d.r[10]), "+f"(d.r[11]),
@@ -297,14 +298,13 @@ __device__ __forceinline__ void wgmma_bf16(Acc<64>& d, const uint32_t (&a)[4],
         "+f"(d.r[20]), "+f"(d.r[21]), "+f"(d.r[22]), "+f"(d.r[23]),
         "+f"(d.r[24]), "+f"(d.r[25]), "+f"(d.r[26]), "+f"(d.r[27]),
         "+f"(d.r[28]), "+f"(d.r[29]), "+f"(d.r[30]), "+f"(d.r[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc),
-        "r"(accumulate));
+      : "l"(a_desc), "l"(b_desc), "r"(accumulate));
 }
 
-__device__ __forceinline__ void wgmma_bf16(Acc<128>& d, const uint32_t (&a)[4],
-                                           uint64_t desc, int accumulate) {
+__device__ __forceinline__ void wgmma_bf16_ss(Acc<128>& d, uint64_t a_desc,
+                                              uint64_t b_desc, int accumulate) {
   asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
       "{%0, %1, %2, %3, %4, %5, %6, %7, "
       " %8, %9, %10, %11, %12, %13, %14, %15, "
@@ -314,7 +314,7 @@ __device__ __forceinline__ void wgmma_bf16(Acc<128>& d, const uint32_t (&a)[4],
       " %40, %41, %42, %43, %44, %45, %46, %47, "
       " %48, %49, %50, %51, %52, %53, %54, %55, "
       " %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
       : "+f"(d.r[0]), "+f"(d.r[1]), "+f"(d.r[2]), "+f"(d.r[3]),
         "+f"(d.r[4]), "+f"(d.r[5]), "+f"(d.r[6]), "+f"(d.r[7]),
         "+f"(d.r[8]), "+f"(d.r[9]), "+f"(d.r[10]), "+f"(d.r[11]),
@@ -331,8 +331,7 @@ __device__ __forceinline__ void wgmma_bf16(Acc<128>& d, const uint32_t (&a)[4],
         "+f"(d.r[52]), "+f"(d.r[53]), "+f"(d.r[54]), "+f"(d.r[55]),
         "+f"(d.r[56]), "+f"(d.r[57]), "+f"(d.r[58]), "+f"(d.r[59]),
         "+f"(d.r[60]), "+f"(d.r[61]), "+f"(d.r[62]), "+f"(d.r[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc),
-        "r"(accumulate));
+      : "l"(a_desc), "l"(b_desc), "r"(accumulate));
 }
 
 typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
@@ -362,16 +361,18 @@ EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// a 5-D f32 tensor map over x: dims innermost first, the byte strides of
-// dims 1-4, the box; no swizzle, out-of-bounds elements read 0.  False when
-// cuTensorMapEncodeTiled is missing or refuses the map.
-inline bool encode_map_5d(CUtensorMap* map, const void* x,
-                          const uint64_t* dims, const uint64_t* strides,
-                          const uint32_t* box) {
+// a 5-D tensor map over x (f32 unless `type` says otherwise): dims
+// innermost first, the byte strides of dims 1-4, the box; no swizzle,
+// out-of-bounds elements read 0.  False when cuTensorMapEncodeTiled is
+// missing or refuses the map.
+inline bool encode_map_5d(
+    CUtensorMap* map, const void* x, const uint64_t* dims,
+    const uint64_t* strides, const uint32_t* box,
+    CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_FLOAT32) {
   const EncodeTiledFn encode = encode_tiled();
   if (encode == nullptr) return false;
   const cuuint32_t elem_strides[5] = {1, 1, 1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 5, const_cast<void*>(x),
+  return encode(map, type, 5, const_cast<void*>(x),
                 dims, strides, box, elem_strides,
                 CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_128B,

@@ -15,7 +15,10 @@ input gradient runs on the same kernels; 1x1x1 convs are a plain matmul.
 float32 by default; ``torch.bfloat16`` rounds the input and the weights to
 bf16 (ties to even) and keeps the products, sums and output in f32, the
 bias added unrounded after; BatchNorm, activations, pools, upsampling and
-concatenation stay f32.
+concatenation stay f32.  :func:`conv_block_bf16` is the legacy U-Net's
+inference block in bf16 (conv, activation and eval-mode BatchNorm in f32,
+the output rounded to bf16, which is what the next bf16 conv reads): one
+launch of a kernel with all of it in its epilogue.
 """
 
 from __future__ import annotations
@@ -26,13 +29,13 @@ from typing import Dict, Optional, Sequence
 import torch
 import torch.nn.functional as F
 
-from ..ops.hopper_conv import (Conv3x3x3BiasReLU, check_compute_dtype,
+from ..ops.hopper_conv import (LEAKY_ALPHA, Conv3x3x3BiasReLU,
+                               check_compute_dtype, conv3x3x3_block_bf16,
                                round_bf16)
 from ..utils.device import select_device
 
 Params = Dict[str, torch.Tensor]
 
-LEAKY_ALPHA = 0.3
 BN_MOMENTUM = 0.99
 BN_EPS = 1e-3
 
@@ -101,6 +104,28 @@ def batchnorm(params: Params, state: Params, x: torch.Tensor,
                  "var": momentum * state["var"] + (1 - momentum) * var}
     inv = torch.rsqrt(var + eps) * params["scale"]
     return (x - mean) * inv + params["bias"], new_state
+
+
+def conv_block_bf16(conv: Params, bn: Params, state: Params,
+                    x: torch.Tensor, activation=None,
+                    eps: float = BN_EPS) -> torch.Tensor:
+    """The legacy U-Net's block at inference in bf16, JAX's ``conv3d(...,
+    bfloat16) -> act -> batchnorm(train=False)`` followed by the rounding
+    to bf16 that JAX's next conv makes: ``(b, z, y, x, c_in)`` bf16 (or
+    f32) -> ``(b, z, y, x, c_out)`` bf16.  BatchNorm's ``inv`` is
+    :func:`batchnorm`'s expression; ``activation`` None, ``"relu"`` or
+    ``"leaky_relu"``.  A 3x3x3 conv, one launch of
+    ``ops.hopper_conv.conv3x3x3_block_bf16`` (its plain version on the
+    CPU); no gradient."""
+    w = conv["w"]
+    if tuple(w.shape[:3]) != (3, 3, 3):
+        raise NotImplementedError(f"conv block kernel {tuple(w.shape[:3])}")
+    b = conv.get("b")
+    if b is None:
+        b = torch.zeros((w.shape[-1],), dtype=torch.float32, device=w.device)
+    inv = torch.rsqrt(state["var"] + eps) * bn["scale"]
+    return conv3x3x3_block_bf16(x.contiguous(), w, b, state["mean"], inv,
+                                bn["bias"], activation)
 
 
 def leaky_relu(x: torch.Tensor, alpha: float = LEAKY_ALPHA) -> torch.Tensor:

@@ -11,8 +11,14 @@ Layout (b, x, y, z, c), weights DHWIO; params ``{name: {"conv": {"w", "b"},
 {"mean", "var"}}``, keyed like the JAX pytree.  Every 3x3x3 conv is a
 hand-written CUDA kernel (``ops.hopper_conv``) without its ReLU; the
 activation and BN stay in PyTorch, and the 1x1x1 output conv is a product.
-``apply(compute_dtype=torch.bfloat16)`` runs every conv block and the
-output conv in bf16 (``layers.conv3d``), the rest in f32, as JAX's.
+``apply(compute_dtype=torch.bfloat16)`` computes every conv block and the
+output conv in bf16 as JAX's: at inference each block is one kernel launch
+(``layers.conv_block_bf16``: conv, activation and BN in its epilogue) whose
+output is stored in bf16, as JAX's next conv rounds it, and activations
+stay bf16 through pools, upsampling and concatenation (rounding to nearest
+is monotone, so it commutes with them; ``pool_max`` and ``upsample_cat``
+do them channels-last, without the copies of ``layers.max_pool3d``,
+``upsample3d`` and ``torch.cat``); training keeps JAX's f32 route.
 """
 
 from __future__ import annotations
@@ -22,6 +28,7 @@ from typing import Any, Dict, List, Tuple
 
 import torch
 
+from ..ops.hopper_conv import check_compute_dtype
 from ..utils.device import select_device
 from . import layers as L
 
@@ -88,13 +95,19 @@ class UNet3D:
         """Forward: x (b, x, y, z, c) -> sigmoid probabilities (b, x, y, z,
         1) in float32; every conv computes in ``compute_dtype`` (JAX
         ``models/unet3d.py:80-116``).  Eval mode (BatchNorm from the running
-        statistics) returns the probabilities; ``train=True`` (BatchNorm
-        from the batch, running statistics moved as JAX's ``layers.
-        batchnorm`` moves them) returns ``(probs, new_state)``."""
+        statistics) returns the probabilities, in bfloat16 through
+        ``layers.conv_block_bf16`` with bf16 activations; ``train=True``
+        (BatchNorm from the batch, running statistics moved as JAX's
+        ``layers.batchnorm`` moves them) returns ``(probs, new_state)``."""
         act = L.leaky_relu if self.activation == "leaky_relu" else torch.relu
         new_state: State = {}
+        fused = check_compute_dtype(compute_dtype) and not train
 
         def block(name, h):
+            if fused:
+                return L.conv_block_bf16(params[name]["conv"],
+                                         params[name]["bn"], state[name], h,
+                                         self.activation)
             h = act(L.conv3d(params[name]["conv"], h, compute_dtype))
             if not train:
                 return L.batchnorm(params[name]["bn"], state[name], h)
@@ -102,16 +115,21 @@ class UNet3D:
                                              state[name], h, train=True)
             return h
 
+        pool = pool_max if fused else L.max_pool3d
         skips = []
         h = x
         for lvl in range(len(self.down_filters)):
             h = block(f"down{lvl}_1", block(f"down{lvl}_0", h))
             skips.append(h)
-            h = L.max_pool3d(h, self.pool)
+            h = pool(h, self.pool)
         for i in range(len(self.up_filters)):
             h = block(f"up{i}_1", block(f"up{i}_0", h))
+            skip = skips[len(self.up_filters) - 1 - i]
+            if fused:
+                h = upsample_cat(h, skip, self.pool)
+                continue
             h = L.upsample3d(h, self.pool)
-            h = torch.cat([h, skips[len(self.up_filters) - 1 - i]], dim=-1)
+            h = torch.cat([h, skip], dim=-1)
         for i in range(len(self.head_filters)):
             h = block(f"head{i}", h)
         probs = torch.sigmoid(L.conv3d(params["out"]["conv"], h,
@@ -136,6 +154,31 @@ class UNet3D:
                 r += 2 * p ** (n_levels - i)
             radii.append(r + len(self.head_filters))
         return tuple(radii)
+
+
+def pool_max(h: torch.Tensor, pool) -> torch.Tensor:
+    """VALID max-pool of a (b, x, y, z, c) tensor with window == stride ==
+    ``pool``, as one reduction over its channels-last windows: the values
+    of ``layers.max_pool3d`` without its gradient (the bf16 inference
+    path's; ``F.max_pool3d`` would copy to channels-first and back)."""
+    b, c = h.shape[0], h.shape[-1]
+    n = [s // p for s, p in zip(h.shape[1:4], pool)]
+    h = h[:, :n[0] * pool[0], :n[1] * pool[1], :n[2] * pool[2]]
+    return h.reshape(b, n[0], pool[0], n[1], pool[1], n[2], pool[2],
+                     c).amax(dim=(2, 4, 6))
+
+
+def upsample_cat(h: torch.Tensor, skip: torch.Tensor, pool) -> torch.Tensor:
+    """``torch.cat([layers.upsample3d(h, pool), skip], -1)`` written into
+    one buffer, the nearest upsampling a broadcast copy (the bf16
+    inference path's)."""
+    b, x, y, z, c = h.shape
+    out = h.new_empty((b, x * pool[0], y * pool[1], z * pool[2],
+                       c + skip.shape[-1]))
+    out[..., c:] = skip
+    out.view(b, x, pool[0], y, pool[1], z, pool[2], -1)[..., :c] = \
+        h[:, :, None, :, None, :, None]
+    return out
 
 
 def unet3_a() -> UNet3D:

@@ -1,6 +1,6 @@
 """3x3x3 conv + bias (+ReLU): the router, its CUDA kernels' wrappers and
 the plain version, in float32 or the JAX package's bfloat16 compute
-dtype.
+dtype, and the legacy U-Net's bf16 block (conv, activation, BatchNorm).
 
 ``conv3x3x3_bias_relu`` replaces ``3deecelltracker_tpu/ops/pallas_conv.py::
 conv3x3x3_fused`` (same contract: a channels-last ``(z, y, x, c_in)`` f32
@@ -23,13 +23,19 @@ launches exactly one of two hand-written kernels, chosen by :func:`route`:
 
 ``compute_dtype=torch.bfloat16`` is the JAX package's ``layers.conv3d(...,
 compute_dtype=jnp.bfloat16)`` (XLA's conv of the bf16-rounded input and
-weights, f32 products and sums, the f32 bias after): widths that are
-multiples of 8 take the one-pass bf16 form of the tensor-core kernel
-(:func:`conv3x3x3_wgmma_bf16`, weights rounded and packed here by
-:func:`pack_weights_bf16`), the others the direct kernel with its operands
-rounded on load (:func:`conv3x3x3_direct_bf16`).
+weights, f32 products and sums, the f32 bias after), f32 out: widths that
+are multiples of 8 take the bf16 tensor-core kernel
+(``csrc/conv3x3x3_wgmma_bf16.cu``, :func:`conv3x3x3_wgmma_bf16`; the input
+rounded to bf16 here, once, the weights rounded and packed by
+:func:`pack_weights_bf16`), the c_in = 1 stems the bf16 stem kernel
+(``csrc/conv3x3x3_bf16.cu``, :func:`conv3x3x3_direct_bf16`, operands
+rounded on load).  Both kernels also compute the legacy U-Net's block in
+one launch, :func:`conv3x3x3_block_bf16`: ``bf16_rne(BN(act(conv(x,
+bf16(w)) + b)))`` with BatchNorm's eval parameters, bf16 in and out, which
+is what JAX's next layer reads (it rounds its input to bf16 again).
 
-On a CPU tensor every entry point runs :func:`conv3x3x3_bias_relu_plain`.
+On a CPU tensor every entry point runs its plain version
+(:func:`conv3x3x3_bias_relu_plain`, :func:`conv3x3x3_block_bf16_plain`).
 There is no fallback between them.
 
 :class:`Conv3x3x3BiasReLU` is the router as an autograd function, for
@@ -45,6 +51,7 @@ Pallas kernel).
 from __future__ import annotations
 
 import ctypes
+import functools
 import weakref
 from typing import Callable, Dict, Sequence, Tuple
 
@@ -72,9 +79,20 @@ TX, TY = 16, 8
 # column k of a K step holds channel K_ORDER[k] of the 8-channel chunk, so a
 # thread's two channels of one pixel (columns t and t + 4) are one float2
 K_ORDER = (0, 2, 4, 6, 1, 3, 5, 7)
-# the bf16 form's K step (wgmma bf16 k16): a stage's chunk of 16 channels
+# csrc/conv3x3x3_wgmma_bf16.cu: its K step (wgmma bf16 k16), a stage's chunk
+# of 16 channels (the 8 x 8 pixel tiles a warpgroup takes per N tile, MT,
+# come from its plan, :func:`wgmma_bf16_plan`)
 CK_BF16 = 16
+# csrc/conv3x3x3_bf16.cu: the stem kernel's threads, 256 of a column run of
+# STEM_RUN pixels x STEM_GROUP channels, and the widths of its pixel tile
+STEM_GROUP = 8
+STEM_RUN = 4
+STEM_TX = (8, 16, 32)
 COMPUTE_DTYPES = (torch.float32, torch.bfloat16)
+# the block's activations (the kernels' codes) and LeakyReLU's slope, the
+# JAX package's layers.LEAKY_ALPHA
+ACTIVATIONS = {None: 0, "relu": 1, "leaky_relu": 2}
+LEAKY_ALPHA = 0.3
 BF16_GRAD = ("the gradient of a bfloat16 conv is not ported (ROADMAP.md "
              "A.4: the bf16 conv's gradient); train in float32")
 
@@ -110,6 +128,33 @@ def conv3x3x3_bias_relu_plain(x: torch.Tensor, w: torch.Tensor,
                    ).permute(0, 2, 3, 4, 1) + b
     out = out if x.dim() == 5 else out[0]
     return torch.relu(out) if relu else out
+
+
+def activation(y: torch.Tensor, act) -> torch.Tensor:
+    """``act`` of ``y``: None, ``"relu"`` or ``"leaky_relu"`` (``where(y >=
+    0, y, LEAKY_ALPHA * y)``, as ``models.layers.leaky_relu``)."""
+    if act not in ACTIVATIONS:
+        raise ValueError(f"activation must be one of {list(ACTIVATIONS)}, "
+                         f"got {act!r}")
+    if act == "relu":
+        return torch.relu(y)
+    if act == "leaky_relu":
+        return torch.where(y >= 0, y, LEAKY_ALPHA * y)
+    return y
+
+
+def conv3x3x3_block_bf16_plain(x: torch.Tensor, w: torch.Tensor,
+                               b: torch.Tensor, mean: torch.Tensor,
+                               inv: torch.Tensor, beta: torch.Tensor,
+                               act=None) -> torch.Tensor:
+    """The legacy U-Net's bf16 block with PyTorch ops: the plain bf16 conv
+    of ``x`` (bf16 or f32, rounded), ``act``, BatchNorm in eval mode as
+    ``models.layers.batchnorm`` computes it (``(y - mean) * inv + beta``,
+    ``inv = rsqrt(var + eps) * scale``), then ``.to(torch.bfloat16)``
+    (round to nearest even); (.., c_out) bf16, contiguous."""
+    y = conv3x3x3_bias_relu_plain(x.float(), w, b, False, torch.bfloat16)
+    return ((activation(y, act) - mean) * inv + beta).to(
+        torch.bfloat16).contiguous()
 
 
 def route(c_in: int, c_out: int, compute_dtype=torch.float32) -> str:
@@ -154,8 +199,44 @@ def direct_plan(shape: Sequence[int], c_out: int, n_sm: int
     tile, tx = direct_tile(c_out), direct_tx(x)
     base = b * -(-c_out // tile) * -(-y // direct_rows(tile, tx)) * \
         -(-x // tx)
-    zs = next((-(-z // n) for n in range(1, z + 1)
-               if base * -(-z // -(-z // n)) >= DIRECT_FILL * n_sm), 1)
+    zs = z_segment(z, base, n_sm)
+    return tile, tx, zs, base * -(-z // zs)
+
+
+def z_segment(z: int, base: int, n_sm: int) -> int:
+    """The z-planes a block of a z-marching kernel takes: z cut into the
+    fewest segments of equal length that give ``DIRECT_FILL`` blocks per
+    SM with ``base`` blocks a plane (single planes if none do)."""
+    return next((-(-z // n) for n in range(1, z + 1)
+                 if base * -(-z // -(-z // n)) >= DIRECT_FILL * n_sm), 1)
+
+
+def stem_tile(y: int, x: int, c_out: int) -> Tuple[int, int, int]:
+    """The bf16 stem kernel's tile on a (y, x) plane: ``(tile, tx, ty)``,
+    its output tile (:func:`direct_tile`), the width of its pixel tile (of
+    ``STEM_TX``, the one that pads the fewest pixels, then the widest) and
+    the rows that gives (256 threads of ``STEM_RUN`` pixels x 8
+    channels)."""
+    tile = direct_tile(c_out)
+    lanes = 256 * STEM_GROUP // tile
+
+    def key(tx):
+        ty = lanes * STEM_RUN // tx
+        return (-(-y // ty) * ty * -(-x // tx) * tx, -tx)
+    tx = min(STEM_TX, key=key)
+    return tile, tx, lanes * STEM_RUN // tx
+
+
+@functools.lru_cache(maxsize=256)
+def stem_plan(shape: Sequence[int], c_out: int, n_sm: int
+              ) -> Tuple[int, int, int, int]:
+    """``(tile, tx, zs, blocks)`` of the bf16 stem kernel (``csrc/
+    conv3x3x3_bf16.cu``) on a (b, z, y, x, 1) batch: :func:`stem_tile`, the
+    z-planes each block marches over (:func:`z_segment`) and the grid."""
+    b, z, y, x = (int(s) for s in shape[:4])
+    tile, tx, ty = stem_tile(y, x, c_out)
+    base = b * -(-c_out // tile) * -(-y // ty) * -(-x // tx)
+    zs = z_segment(z, base, n_sm)
     return tile, tx, zs, base * -(-z // zs)
 
 
@@ -224,6 +305,34 @@ def pack_weights_bf16(w: torch.Tensor) -> Tuple[torch.Tensor, int]:
     return p.reshape(n_chunks, 3 * kc, 9, CK_BF16 * nb), nb
 
 
+def bf16_tiles(mt: int) -> Tuple[Tuple[int, int], Tuple[int, int]]:
+    """The bf16 tensor-core kernel's two block tiles ``(ty, tx)`` when a
+    warpgroup takes ``mt`` tiles of 8 x 8 pixels stacked in y: the two
+    warpgroups side by side, (8 mt, 16), or one above the other, tall,
+    (16 mt, 8)."""
+    return (8 * mt, 16), (16 * mt, 8)
+
+
+def bf16_tile(y: int, x: int, mt: int = 1) -> Tuple[int, int]:
+    """Of :func:`bf16_tiles`, the block tile ``(ty, tx)`` that pads fewer
+    pixels of a (y, x) plane, the wide one on a tie."""
+    return min(bf16_tiles(mt), key=lambda t: (-(-y // t[0]) * t[0] *
+                                              -(-x // t[1]) * t[1], t[1] == 8))
+
+
+def tma_halo_args_bf16(shape: Sequence[int], tile: Tuple[int, int]
+                       ) -> Tuple[Tuple[int, ...], Tuple[int, ...],
+                                  Tuple[int, ...]]:
+    """The 5-D bf16 tensor map over a contiguous (b, z, y, x, c) batch for
+    the bf16 kernel's block tile ``(ty, tx)``: dims (c, x, y, z, b), the
+    byte strides of dims 1-4, and the box of one 8-channel halo plane,
+    (8, tx + 2, ty + 2, 1, 1), 16 bytes a pixel."""
+    b, z, y, x, c = (int(s) for s in shape)
+    dims = (c, x, y, z, b)
+    strides = (2 * c, 2 * c * x, 2 * c * x * y, 2 * c * x * y * z)
+    return dims, strides, (CK, tile[1] + 2, tile[0] + 2, 1, 1)
+
+
 def tma_halo_args(shape: Sequence[int]
                   ) -> Tuple[Tuple[int, ...], Tuple[int, ...],
                              Tuple[int, ...]]:
@@ -271,7 +380,10 @@ def packed_weights(w: torch.Tensor, bf16: bool = False
 
 # ---- wrappers ---------------------------------------------------------------
 
-def _check(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> None:
+def _check(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+           x_dtypes=(torch.float32,)) -> None:
+    """Shapes, dtypes, contiguity and devices of a conv's operands: w, b
+    (and anything after them) f32, x of ``x_dtypes``."""
     if x.dim() not in (4, 5):
         raise ValueError(f"x must be ([b,] z, y, x, c_in), got "
                          f"{tuple(x.shape)}")
@@ -282,8 +394,10 @@ def _check(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> None:
     if tuple(b.shape) != (w.shape[4],):
         raise ValueError(f"b must be ({w.shape[4]},), got {tuple(b.shape)}")
     for name, t in (("x", x), ("w", w), ("b", b)):
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32, got {t.dtype}")
+        ok = x_dtypes if name == "x" else (torch.float32,)
+        if t.dtype not in ok:
+            raise TypeError(f"{name} must be {' or '.join(map(str, ok))}, "
+                            f"got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
         if t.device != x.device:
@@ -293,10 +407,10 @@ def _check(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> None:
 
 
 def _launch_direct(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
-                   relu: bool, bf16: bool = False) -> torch.Tensor:
+                   relu: bool) -> torch.Tensor:
     lib = cuda_build.load("conv3x3x3")
     fn = lib.conv3x3x3_direct_f32
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 11 + \
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 10 + \
         [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     xb = x if x.dim() == 5 else x[None]
@@ -307,17 +421,100 @@ def _launch_direct(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     n_sm = torch.cuda.get_device_properties(x.device).multi_processor_count
     tile, tx, zs, _ = direct_plan(xb.shape, c_out, n_sm)
     err = fn(xb.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(), nb,
-             z, y, xl, c_in, c_out, tile, tx, zs, int(relu), int(bf16),
+             z, y, xl, c_in, c_out, tile, tx, zs, int(relu),
              torch.cuda.current_stream(x.device).cuda_stream)
     cuda_build.check(err, "conv3x3x3_direct")
-    cuda_build.count_launch(conv3x3x3_direct_bf16 if bf16
-                            else conv3x3x3_direct)
+    cuda_build.count_launch(conv3x3x3_direct)
+    return out if x.dim() == 5 else out[0]
+
+
+def _check_bn(bn, x: torch.Tensor, c_out: int) -> None:
+    """The block's ``(mean, inv, beta)``: contiguous f32 (c_out,) on x's
+    device."""
+    for t in bn:
+        if t.dtype != torch.float32 or tuple(t.shape) != (c_out,) or \
+                not t.is_contiguous() or t.device != x.device:
+            raise ValueError(f"mean, inv and beta must be contiguous "
+                             f"float32 ({c_out},) on {x.device}")
+
+
+def _ptr(t) -> int:
+    return 0 if t is None else t.data_ptr()
+
+
+def _launch_stem_bf16(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                      act, bn=None) -> torch.Tensor:
+    """The bf16 stem kernel (``csrc/conv3x3x3_bf16.cu``) on an f32 (or
+    bf16, widened) input: f32 out with ``bn`` None (the bf16 layer), else
+    the block, bf16 out."""
+    fn = cuda_build.function(
+        "conv3x3x3_bf16", "conv3x3x3_bf16",
+        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 11 + [ctypes.c_void_p])
+    xb = (x if x.dim() == 5 else x[None]).float()
+    nb, z, y, xl, c_in = xb.shape
+    c_out = int(w.shape[4])
+    mean, inv, beta = (None,) * 3 if bn is None else bn
+    out = torch.empty((nb, z, y, xl, c_out), device=x.device,
+                      dtype=torch.float32 if bn is None else torch.bfloat16)
+    tile, tx, zs, _ = stem_plan(tuple(xb.shape), c_out,
+                                cuda_build.sm_count(x.device))
+    err = fn(xb.data_ptr(), w.data_ptr(), b.data_ptr(), _ptr(mean),
+             _ptr(inv), _ptr(beta), out.data_ptr(), nb, z, y, xl, c_in,
+             c_out, tile, tx, zs, int(bn is not None), ACTIVATIONS[act],
+             cuda_build.raw_stream(x))
+    cuda_build.check(err, "conv3x3x3_bf16")
+    cuda_build.count_launch(conv3x3x3_direct_bf16)
+    return out if x.dim() == 5 else out[0]
+
+
+@functools.lru_cache(maxsize=256)
+def _bf16_map_args(shape: Tuple[int, ...], nt: int):
+    """``(tall, dims, strides, box)`` of the bf16 kernel's launch on a
+    contiguous (b, z, y, x, c) bf16 batch with N tile ``nt``: its block
+    tile (:func:`bf16_tile`) and tensor map (:func:`tma_halo_args_bf16`),
+    the map's arguments as the ctypes arrays the ``.cu`` takes (builds
+    it: the tiles a warpgroup takes are the ``.cu``'s ``Tile<NB>::MT``)."""
+    tile = bf16_tile(shape[2], shape[3],
+                     wgmma_bf16_plan(nt, shape[4])["mt"])
+    dims, strides, box = tma_halo_args_bf16(shape, tile)
+    return (int(tile[1] == 8), (ctypes.c_uint64 * 5)(*dims),
+            (ctypes.c_uint64 * 4)(*strides), (ctypes.c_uint32 * 5)(*box))
+
+
+def _launch_wgmma_bf16(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                       act, bn=None, cache: bool = True) -> torch.Tensor:
+    """The bf16 tensor-core kernel (``csrc/conv3x3x3_wgmma_bf16.cu``) on x
+    rounded to bf16 (once, here, where it is f32): f32 out with ``bn``
+    None (the bf16 layer), else the block, bf16 out; one launch.  Where
+    c_in % 16 == 8 it assumes a finite x: a non-finite value gives NaN
+    where the plain conv gives +-Inf (the ``.cu``'s header says why)."""
+    c_in, c_out = int(w.shape[3]), int(w.shape[4])
+    if route(c_in, c_out) != "wgmma":
+        raise ValueError(f"conv3x3x3_wgmma_bf16 takes c_in and c_out that "
+                         f"are multiples of {CK}, got {c_in} -> {c_out}")
+    xb = (x if x.dim() == 5 else x[None]).to(torch.bfloat16).contiguous()
+    nb, z, y, xl, _ = xb.shape
+    if xb.data_ptr() % 16:
+        raise ValueError("conv3x3x3_wgmma_bf16 needs a 16-byte aligned x")
+    mean, inv, beta = (None,) * 3 if bn is None else bn
+    packed, nt = packed_weights(w, True) if cache else pack_weights_bf16(w)
+    fn = cuda_build.function(
+        "conv3x3x3_wgmma_bf16", "conv3x3x3_wgmma_bf16",
+        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 10 + [ctypes.c_void_p] * 4)
+    out = torch.empty((nb, z, y, xl, c_out), device=x.device,
+                      dtype=torch.float32 if bn is None else torch.bfloat16)
+    tall, dims, strides, box = _bf16_map_args(tuple(xb.shape), nt)
+    err = fn(xb.data_ptr(), packed.data_ptr(), b.data_ptr(), _ptr(mean),
+             _ptr(inv), _ptr(beta), out.data_ptr(), nb, z, y, xl, c_in,
+             c_out, nt, tall, int(bn is not None), ACTIVATIONS[act], dims,
+             strides, box, cuda_build.raw_stream(x))
+    cuda_build.check(err, "conv3x3x3_wgmma_bf16")
+    cuda_build.count_launch(conv3x3x3_wgmma_bf16)
     return out if x.dim() == 5 else out[0]
 
 
 def _launch_wgmma(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
-                  relu: bool, cache: bool = True,
-                  bf16: bool = False) -> torch.Tensor:
+                  relu: bool, cache: bool = True) -> torch.Tensor:
     c_in, c_out = int(w.shape[3]), int(w.shape[4])
     if route(c_in, c_out) != "wgmma":
         raise ValueError(f"conv3x3x3_wgmma takes c_in and c_out that are "
@@ -327,11 +524,10 @@ def _launch_wgmma(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     if xb.data_ptr() % 16 or z > GRID_Z_MAX:
         raise ValueError("conv3x3x3_wgmma needs a 16-byte aligned x and at "
                          f"most {GRID_Z_MAX} z-planes")
-    pack = pack_weights_bf16 if bf16 else pack_weights_tc
-    packed, nt = packed_weights(w, bf16) if cache else pack(w)
+    packed, nt = packed_weights(w) if cache else pack_weights_tc(w)
     n_chunks = packed.shape[0]
     lib = cuda_build.load("conv3x3x3_wgmma")
-    fn = lib.conv3x3x3_wgmma_bf16 if bf16 else lib.conv3x3x3_wgmma_f32
+    fn = lib.conv3x3x3_wgmma_f32
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + \
         [ctypes.c_void_p] * 4
     fn.restype = ctypes.c_int
@@ -349,8 +545,7 @@ def _launch_wgmma(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                  (ctypes.c_uint64 * 4)(*strides),
                  (ctypes.c_uint32 * 5)(*box), stream)
         cuda_build.check(err, "conv3x3x3_wgmma")
-        cuda_build.count_launch(conv3x3x3_wgmma_bf16 if bf16
-                                else conv3x3x3_wgmma)
+        cuda_build.count_launch(conv3x3x3_wgmma)
     return out if x.dim() == 5 else out[0]
 
 
@@ -368,14 +563,47 @@ def direct_smem_bytes(c_in: int, tile: int, tx: int) -> int:
     return out
 
 
+def stem_smem_bytes(tile: int, tx: int) -> int:
+    """The dynamic shared memory of a block of the bf16 stem kernel for
+    output tile ``tile`` and pixel tile width ``tx``, in bytes (builds
+    it)."""
+    fn = cuda_build.function("conv3x3x3_bf16", "conv3x3x3_bf16_smem_bytes",
+                             [ctypes.c_int] * 2)
+    out = fn(tile, tx)
+    if out < 0:
+        raise ValueError(f"no tile ({tile}, {tx}); the kernel has "
+                         f"{DIRECT_TILES} x {STEM_TX}")
+    return out
+
+
+def wgmma_bf16_plan(nb: int, c_in: int, tall: bool = False
+                    ) -> Dict[str, int]:
+    """The bf16 tensor-core kernel's pipeline for N tile ``nb``, ``c_in``
+    channels and the tile orientation, as the ``.cu`` plans it (builds
+    it): ``resident`` (the N tile's weights loaded once a block) or
+    streamed a stage at a time, ``stages`` in the ring, ``smem`` bytes of
+    dynamic shared memory a block, ``blocks`` an SM is meant to hold,
+    ``mt`` 8 x 8 pixel tiles a warpgroup (its block tiles
+    :func:`bf16_tiles`)."""
+    fn = cuda_build.function(
+        "conv3x3x3_wgmma_bf16", "conv3x3x3_wgmma_bf16_plan",
+        [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    out = (ctypes.c_int * 5)()
+    if fn(nb, c_in, int(tall), out) < 0:
+        raise ValueError(f"no N tile {nb}; the kernel has {N_TILES}")
+    return dict(zip(("resident", "stages", "smem", "blocks", "mt"), out))
+
+
 def wgmma_smem_bytes(nb: int, bf16: bool = False) -> int:
     """The dynamic shared memory of a block of the tensor-core kernel with
-    N tile ``nb`` (``bf16``: of its bf16 form), in bytes, as the ``.cu``
-    sizes it (builds it)."""
-    fn = cuda_build.load("conv3x3x3_wgmma").conv3x3x3_wgmma_smem_bytes
-    fn.argtypes = [ctypes.c_int] * 2
-    fn.restype = ctypes.c_int
-    out = fn(nb, int(bf16))
+    N tile ``nb`` (``bf16``: of the bf16 kernel, weights streamed, its
+    largest), in bytes, as the ``.cu`` sizes it (builds it)."""
+    if bf16:
+        return max(wgmma_bf16_plan(nb, 256, tall)["smem"]
+                   for tall in (False, True))
+    fn = cuda_build.function("conv3x3x3_wgmma", "conv3x3x3_wgmma_smem_bytes",
+                             [ctypes.c_int])
+    out = fn(nb)
     if out < 0:
         raise ValueError(f"no N tile {nb}; the kernel has {N_TILES}")
     return out
@@ -404,28 +632,62 @@ def conv3x3x3_wgmma(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     return _launch_wgmma(x, w, b, relu)
 
 
+BF16_IN = (torch.float32, torch.bfloat16)
+
+
 def conv3x3x3_wgmma_bf16(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                          relu: bool = True) -> torch.Tensor:
-    """The one-pass bf16 form of the tensor-core kernel (``csrc/
-    conv3x3x3_wgmma.cu``), for widths that are multiples of 8: one launch
-    per batch (counted in ``conv3x3x3_wgmma_bf16.launches``) on a CUDA
-    tensor, the plain bf16 version on a CPU tensor."""
-    _check(x, w, b)
+    """The bf16 tensor-core kernel (``csrc/conv3x3x3_wgmma_bf16.cu``) as
+    JAX's bf16 layer, for widths that are multiples of 8: x (f32 or bf16)
+    rounded to bf16, f32 out; one launch per batch (counted in
+    ``conv3x3x3_wgmma_bf16.launches``) on a CUDA tensor, the plain bf16
+    version on a CPU tensor."""
+    _check(x, w, b, BF16_IN)
     if x.device.type == "cpu":
-        return conv3x3x3_bias_relu_plain(x, w, b, relu, torch.bfloat16)
-    return _launch_wgmma(x, w, b, relu, bf16=True)
+        return conv3x3x3_bias_relu_plain(x.float(), w, b, relu,
+                                         torch.bfloat16)
+    return _launch_wgmma_bf16(x, w, b, "relu" if relu else None)
 
 
 def conv3x3x3_direct_bf16(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                           relu: bool = True) -> torch.Tensor:
-    """The direct kernel (``csrc/conv3x3x3.cu``) with x and w rounded to
-    bf16 on load, any widths, built for the c_in = 1 stems: one launch per
-    batch (counted in ``conv3x3x3_direct_bf16.launches``) on a CUDA tensor,
-    the plain bf16 version on a CPU tensor."""
-    _check(x, w, b)
+    """The bf16 stem kernel (``csrc/conv3x3x3_bf16.cu``) as JAX's bf16
+    layer: x and w rounded to bf16 on load, f32 out, built for the c_in = 1
+    stems (other widths take its simple kernel); one launch per batch
+    (counted in ``conv3x3x3_direct_bf16.launches``) on a CUDA tensor, the
+    plain bf16 version on a CPU tensor."""
+    _check(x, w, b, BF16_IN)
     if x.device.type == "cpu":
-        return conv3x3x3_bias_relu_plain(x, w, b, relu, torch.bfloat16)
-    return _launch_direct(x, w, b, relu, bf16=True)
+        return conv3x3x3_bias_relu_plain(x.float(), w, b, relu,
+                                         torch.bfloat16)
+    return _launch_stem_bf16(x, w, b, "relu" if relu else None)
+
+
+def conv3x3x3_block_bf16(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                         mean: torch.Tensor, inv: torch.Tensor,
+                         beta: torch.Tensor, act=None) -> torch.Tensor:
+    """The legacy U-Net's block in bf16, ``bf16_rne((act(conv(x, bf16(w)) +
+    b) - mean) * inv + beta)``, everything before the rounding in f32: x
+    ([b,] z, y, x, c_in) bf16 (or f32, rounded), w DHWIO, b, and
+    BatchNorm's ``mean``, ``inv = rsqrt(var + eps) * scale`` and ``beta``
+    per channel (f32); ``act`` None, ``"relu"`` or ``"leaky_relu"``; bf16
+    out.  On a CUDA tensor one launch of the kernel :func:`route` names for
+    bf16 (counted under ``conv3x3x3_wgmma_bf16`` or
+    ``conv3x3x3_direct_bf16``), its epilogue the bias, activation,
+    BatchNorm and rounding; on a CPU tensor
+    :func:`conv3x3x3_block_bf16_plain`."""
+    _check(x, w, b, BF16_IN)
+    c_out = int(w.shape[4])
+    bn = (mean, inv, beta)
+    _check_bn(bn, x, c_out)
+    if act not in ACTIVATIONS:
+        raise ValueError(f"activation must be one of {list(ACTIVATIONS)}, "
+                         f"got {act!r}")
+    if x.device.type == "cpu":
+        return conv3x3x3_block_bf16_plain(x, w, b, mean, inv, beta, act)
+    if route(x.shape[-1], c_out) == "wgmma":
+        return _launch_wgmma_bf16(x, w, b, act, bn)
+    return _launch_stem_bf16(x, w, b, act, bn)
 
 
 def conv3x3x3_bias_relu(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
@@ -434,20 +696,27 @@ def conv3x3x3_bias_relu(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     """SAME 3x3x3 conv + bias (+ReLU) on one (z, y, x, c_in) f32 volume or
     a (b, z, y, x, c_in) batch of them, in ``compute_dtype`` (float32, or
     bfloat16 operands with f32 products and sums, as JAX's
-    ``layers.conv3d``); the output is f32 either way.
+    ``layers.conv3d``; x may then be bf16 too); the output is f32 either
+    way.
 
     CUDA tensors launch the kernel :func:`route` names, once per batch;
     CPU tensors take the plain version.  ``cache=False`` packs ``w`` for
     the tensor-core kernel afresh instead of through :func:`cached_pack`,
     for a weight that is used once.
     """
-    _check(x, w, b)
     bf16 = check_compute_dtype(compute_dtype)
+    _check(x, w, b, BF16_IN if bf16 else (torch.float32,))
     if x.device.type == "cpu":
-        return conv3x3x3_bias_relu_plain(x, w, b, relu, compute_dtype)
-    if route(x.shape[-1], w.shape[4]) == "wgmma":
-        return _launch_wgmma(x, w, b, relu, cache, bf16)
-    return _launch_direct(x, w, b, relu, bf16)
+        return conv3x3x3_bias_relu_plain(x.float(), w, b, relu,
+                                         compute_dtype)
+    wgmma = route(x.shape[-1], w.shape[4]) == "wgmma"
+    if bf16:
+        act = "relu" if relu else None
+        return _launch_wgmma_bf16(x, w, b, act, cache=cache) if wgmma \
+            else _launch_stem_bf16(x, w, b, act)
+    if wgmma:
+        return _launch_wgmma(x, w, b, relu, cache)
+    return _launch_direct(x, w, b, relu)
 
 
 def flipped_weights(w: torch.Tensor) -> torch.Tensor:

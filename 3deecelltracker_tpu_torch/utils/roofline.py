@@ -6,8 +6,9 @@ HBM3's rate and its FLOP at the f32 peak outside the tensor cores (or, where
 asked, another peak).  ``conv_tc_bound`` is the least time of the
 three-pass TF32 conv (``csrc/conv3x3x3_wgmma.cu``): three TF32 products per
 f32 multiply, at the dense TF32 tensor-core peak; ``conv_bf16_bound`` that
-of its one-pass bf16 form, at the dense bf16 peak (f32 activations in and
-out, as the JAX package's bf16 layers hand them on).
+of the one-pass bf16 conv (``csrc/conv3x3x3_wgmma_bf16.cu``), at the dense
+bf16 peak, with the bytes of the function the kernel computes (bf16
+activations in; f32 out for the bf16 layer, bf16 for the U-Net block).
 ``library_conv`` is one cuDNN call for the SAME 3x3x3 conv + bias
 (on bf16 tensors, cuDNN's bf16 conv); each is timed beside the port's
 conv kernels and never runs on a port path.
@@ -15,7 +16,7 @@ conv kernels and never runs on a port path.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -68,12 +69,19 @@ def conv_tc_bound(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor
                  PEAK_TF32_FLOP_S)
 
 
-def conv_bf16_bound(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor
-                    ) -> Tuple[float, str]:
-    """``bound`` of the same conv in one bf16 pass on the tensor cores,
-    reading x, w and b and writing the output in f32."""
-    return bound(conv_flop(x, w.shape[-1]), conv_bytes(x, w, b),
-                 PEAK_BF16_FLOP_S)
+def conv_bf16_bound(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                    out_bytes: int = 4, x_bytes: Optional[int] = None,
+                    bn: Sequence[torch.Tensor] = ()) -> Tuple[float, str]:
+    """``bound`` of the same conv in one bf16 pass on the tensor cores:
+    x read in its own dtype (or at ``x_bytes`` an element), w, b and the
+    block's BatchNorm parameters ``bn`` read once, the output written at
+    ``out_bytes`` an element (4: the bf16 layer's f32, 2: the U-Net
+    block's bf16).  ``x_bytes=4, out_bytes=4`` is the bound of f32
+    activations in and out."""
+    pixels = x.numel() // x.shape[-1]
+    moved = (nbytes(w, b, *bn) + x.numel() * (x_bytes or x.element_size())
+             + pixels * w.shape[-1] * out_bytes)
+    return bound(conv_flop(x, w.shape[-1]), moved, PEAK_BF16_FLOP_S)
 
 
 def library_conv(x: torch.Tensor, w: torch.Tensor,

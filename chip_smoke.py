@@ -432,7 +432,8 @@ def phase_build():
         return time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    names = ("conv3x3x3_wgmma", "conv3x3x3", "flood", "cc", "ladder")
+    names = ("conv3x3x3_wgmma", "conv3x3x3", "conv3x3x3_wgmma_bf16",
+             "conv3x3x3_bf16", "flood", "cc", "ladder")
     with ThreadPoolExecutor(len(names)) as pool:    # one nvcc per source
         secs = list(pool.map(one, names))
     for name, sec in zip(names, secs):
@@ -444,9 +445,19 @@ def phase_build():
     print(f"[build] all: {time.perf_counter() - t0:.2f} s")
     from t3dct_torch.ops import hopper_conv
     print("[build] conv3x3x3_wgmma dynamic shared memory per block: " +
-          ", ".join(f"N tile {nb}: {hopper_conv.wgmma_smem_bytes(nb)} B "
-                    f"(bf16 {hopper_conv.wgmma_smem_bytes(nb, True)} B)"
+          ", ".join(f"N tile {nb}: {hopper_conv.wgmma_smem_bytes(nb)} B"
                     for nb in hopper_conv.N_TILES))
+    print("[build] conv3x3x3_wgmma_bf16 pipeline (resident weights or "
+          "streamed, stages, dynamic shared memory, blocks an SM, 8 x 8 "
+          "tiles a warpgroup) at c_in 8 / 64 / 256: " + "; ".join(
+              f"N tile {nb}: " + ", ".join(
+                  "{resident}/{stages}/{smem} B/{blocks}/{mt}".format(
+                      **hopper_conv.wgmma_bf16_plan(nb, ci))
+                  for ci in (8, 64, 256)) for nb in hopper_conv.N_TILES))
+    print("[build] conv3x3x3_bf16 (stem) dynamic shared memory per block: " +
+          ", ".join(f"tile {t}x{tx}: {hopper_conv.stem_smem_bytes(t, tx)} B"
+                    for t in hopper_conv.DIRECT_TILES
+                    for tx in hopper_conv.STEM_TX))
     print("[build] conv3x3x3 (direct) dynamic shared memory per block: " +
           ", ".join(f"c_in {ci} tile {t}x{tx}: "
                     f"{hopper_conv.direct_smem_bytes(ci, t, tx)} B"
@@ -3153,123 +3164,271 @@ def bf16_layers():
     return out
 
 
-def bf16_row(xin, w, b, relu):
-    """One layer in bf16 through the router against the plain bf16
-    version: its largest error, absolute and relative to sum |x w| + |b|;
-    the times of the routed kernel, the plain version, cuDNN's bf16 conv
-    (on bf16 copies made outside the timing) and the TF32 kernel on the
-    same shape; the one-pass bf16 bound."""
+def bf16_bn(co, gen, dev):
+    """Seeded BatchNorm eval parameters, not the identity: (mean, inv,
+    beta), ``inv`` as ``layers.batchnorm`` computes it."""
+    import torch
+    mean = torch.randn((co,), generator=gen) * 0.2
+    var = torch.rand((co,), generator=gen) + 0.5
+    scale = torch.rand((co,), generator=gen) + 0.5
+    beta = torch.randn((co,), generator=gen) * 0.2
+    return tuple(t.to(dev) for t in (mean, torch.rsqrt(var + 1e-3) * scale,
+                                     beta))
+
+
+def bf16_row(xin, w, b, bn, act):
+    """One layer in bf16 through the router, in both modes of the kernel
+    ``route`` names, against their plain versions: the bf16 layer (f32
+    out, ReLU where ``act`` is) within ``BF16_RTOL`` of sum |x w| + |b|;
+    the U-Net block (``bn`` = (mean, inv, beta), ``act``, bf16 out) the
+    rounding of a value within ``BF16_RTOL`` of sum |x w| + |b| times
+    |inv| (and 2^-21 of itself, BatchNorm's f32 roundings) of the plain
+    block's f32 value, and bit-equal to the kernel's own f32 mode followed
+    by PyTorch's activation, BatchNorm and ``.to(torch.bfloat16)``.  Times:
+    the block, the plain block, the bf16 layer, cuDNN's bf16 conv (bf16 in
+    and out, copies made outside the timing), the TF32 kernel on the f32
+    input; bounds: the block's (bf16 in and out) and the f32-activation
+    one (f32 in and out)."""
     import torch
     from t3dct_torch.ops import hopper_conv as hc
     from t3dct_torch.utils.roofline import (conv_bf16_bound, conv_flop,
                                             library_conv)
     bf = torch.bfloat16
+    mean, inv, beta = bn
+    relu = act == "relu"
     reps, warmup = (2, 1) if xin.numel() > 2 ** 28 else (5, 1)
-    diff = (hc.conv3x3x3_bias_relu(xin, w, b, relu, compute_dtype=bf) -
-            hc.conv3x3x3_bias_relu_plain(xin, w, b, relu, bf)).abs_()
-    err = float(diff.max())
-    diff /= hc.conv3x3x3_bias_relu_plain(hc.round_bf16(xin).abs_(),
+    xf = xin.float()
+    plain = hc.conv3x3x3_bias_relu_plain(xf, w, b, False, bf)
+    scale = hc.conv3x3x3_bias_relu_plain(hc.round_bf16(xf).abs_(),
                                          hc.round_bf16(w).abs_(), b.abs(),
                                          False)
-    rel = float(diff.max())
-    del diff
-    ms = cuda_ms(functools.partial(hc.conv3x3x3_bias_relu, xin, w, b, relu,
-                                   compute_dtype=bf), reps, warmup)
-    plain_ms = cuda_ms(lambda: hc.conv3x3x3_bias_relu_plain(
-        xin, w, b, relu, bf), reps, warmup)
-    tf32_ms = cuda_ms(functools.partial(hc.conv3x3x3_bias_relu, xin, w, b,
+    layer = hc.conv3x3x3_bias_relu(xin, w, b, relu, compute_dtype=bf)
+    diff = (layer - (torch.relu(plain) if relu else plain)).abs_()
+    err = float(diff.max())
+    rel = float((diff / scale).max())
+    del diff, layer
+    got = hc.conv3x3x3_block_bf16(xin, w, b, mean, inv, beta, act)
+    f32 = hc.conv3x3x3_bias_relu(xin, w, b, False, compute_dtype=bf)
+    unequal = int((got != ((hc.activation(f32, act) - mean) * inv +
+                           beta).to(bf)).sum())
+    del f32
+    v = (hc.activation(plain, act) - mean) * inv + beta
+    eps = BF16_RTOL * scale * inv.abs() + v.abs() * 2.0 ** -21
+    g32 = got.float()
+    outside = int(((g32 < (v - eps).to(bf).float()) |
+                   (g32 > (v + eps).to(bf).float())).sum())
+    block_err = float((g32 - v).abs().max())
+    del plain, scale, v, eps, g32, got
+    ms = cuda_ms(functools.partial(hc.conv3x3x3_block_bf16, xin, w, b, mean,
+                                   inv, beta, act), reps, warmup)
+    plain_ms = cuda_ms(functools.partial(hc.conv3x3x3_block_bf16_plain, xin,
+                                         w, b, mean, inv, beta, act),
+                       reps, warmup)
+    layer_ms = cuda_ms(functools.partial(hc.conv3x3x3_bias_relu, xin, w, b,
+                                         relu, compute_dtype=bf),
+                       reps, warmup)
+    tf32_ms = cuda_ms(functools.partial(hc.conv3x3x3_bias_relu, xf, w, b,
                                         relu), reps, warmup)
     xb, wb, bb = xin.to(bf), w.to(bf), b.to(bf)
     library_ms = cuda_ms(lambda: library_conv(xb, wb, bb), reps, warmup)
-    del xb
+    del xb, xf
     return dict(kernel=hc.route(xin.shape[-1], w.shape[-1], bf), err=err,
-                rel=rel, ms=ms, plain_ms=plain_ms, tf32_ms=tf32_ms,
-                library_ms=library_ms, bound=conv_bf16_bound(xin, w, b),
+                rel=rel, unequal=unequal, outside=outside,
+                block_err=block_err, ms=ms, plain_ms=plain_ms,
+                layer_ms=layer_ms, tf32_ms=tf32_ms, library_ms=library_ms,
+                bound=conv_bf16_bound(xin, w, b, 2, bn=bn),
+                f32_act_bound=conv_bf16_bound(xin, w, b, 4, x_bytes=4),
                 tflops=conv_flop(xin, w.shape[-1]) / ms / 1e9)
 
 
 def bf16_layer_rows(dev, smi):
-    """Every layer of ``bf16_layers`` on a seeded ReLU'd input with
-    glorot weights (``bf16_row``), held within ``BF16_RTOL``; returns per
-    (model, kernel) the sums per volume and each kernel's largest error
-    (launches of no path)."""
+    """Every layer of ``bf16_layers`` on a seeded input as the network
+    hands it on (bf16 ReLU'd values; the stems' f32 tiles) with glorot
+    weights and seeded BatchNorm parameters (``bf16_row``, the U-Nets'
+    activations, the backbones' ReLU), held as ``bf16_row`` says; returns
+    per (model, kernel) the sums per volume and each kernel's largest
+    error (launches of no path)."""
     import torch
     from t3dct_torch.models.layers import glorot_uniform
     gen = torch.Generator().manual_seed(23)
     dgen = torch.Generator(device=dev).manual_seed(23)
+    acts = {"unet_a": "leaky_relu", "unet_b": "relu", "unet_c": "leaky_relu"}
     sums, errs = {}, {}
     for model, shape, co, count in bf16_layers():
         ci = shape[-1]
-        xin = torch.relu_(torch.randn(shape, generator=dgen, device=dev))
+        xin = torch.randn(shape, generator=dgen, device=dev)
+        if ci > 1:
+            xin = torch.relu_(xin).to(torch.bfloat16)
         w = glorot_uniform((3, 3, 3, ci, co), 27 * ci, 27 * co, gen, dev)
         b = (torch.randn((co,), generator=gen) * 0.1).to(dev)
-        r = bf16_row(xin, w, b, relu=model.startswith("backbone"))
+        r = bf16_row(xin, w, b, bf16_bn(co, gen, dev),
+                     acts.get(model, "relu"))
         del xin
         torch.cuda.empty_cache()
         t_b, by = r["bound"]
         print(f"[bf16] {model} {'x'.join(map(str, shape[:-1]))} {ci}->{co} "
-              f"x{count}: {r['kernel']} {r['ms']:.3f} ms "
-              f"{r['tflops']:.1f} TFLOP/s, error {r['rel']:.2e} of sum "
-              f"|x w| + |b| (max_abs_err {r['err']:.3e}); cuDNN bf16 "
-              f"{r['library_ms']:.3f} ms, TF32 kernel {r['tf32_ms']:.3f} "
-              f"ms, plain {r['plain_ms']:.3f} ms; bf16 bound {t_b:.4f} ms "
-              f"({by})")
-        if not r["rel"] <= BF16_RTOL:
+              f"x{count}: {r['kernel']} block {r['ms']:.3f} ms "
+              f"{r['tflops']:.1f} TFLOP/s, bf16 layer {r['layer_ms']:.3f} "
+              f"ms; layer error {r['rel']:.2e} of sum |x w| + |b| "
+              f"(max_abs_err {r['err']:.3e}); block: {r['outside']} outside "
+              f"the bound, {r['unequal']} unequal to the f32 mode + PyTorch "
+              f"epilogue; cuDNN bf16 {r['library_ms']:.3f} ms, TF32 kernel "
+              f"{r['tf32_ms']:.3f} ms, plain {r['plain_ms']:.3f} ms; bound "
+              f"{t_b:.4f} ms ({by}), f32 activations "
+              f"{r['f32_act_bound'][0]:.4f} ms")
+        if not (r["rel"] <= BF16_RTOL and r["outside"] == 0 and
+                r["unequal"] == 0):
             raise AssertionError(f"bf16 conv {model} {shape} -> {co}: "
-                                 f"{r['kernel']} error {r['rel']} of the "
-                                 f"scale > {BF16_RTOL}")
+                                 f"{r['kernel']} layer error {r['rel']} of "
+                                 f"the scale (bound {BF16_RTOL}), block "
+                                 f"{r['outside']} outside its bound, "
+                                 f"{r['unequal']} unequal to the f32 mode")
         errs[r["kernel"]] = max(errs.get(r["kernel"], 0.0), r["err"])
         acc = sums.setdefault((model, r["kernel"]), dict(by={}))
-        for key in ("ms", "plain_ms", "tf32_ms", "library_ms"):
+        for key in ("ms", "plain_ms", "layer_ms", "tf32_ms", "library_ms"):
             acc[key] = acc.get(key, 0.0) + count * r[key]
         acc["bound_ms"] = acc.get("bound_ms", 0.0) + count * t_b
+        acc["f32_act_bound_ms"] = acc.get("f32_act_bound_ms", 0.0) + \
+            count * r["f32_act_bound"][0]
         acc["by"][by] = acc["by"].get(by, 0.0) + count * t_b
+        acc["block_max_abs_err"] = max(acc.get("block_max_abs_err", 0.0),
+                                       r["block_err"])
     for (model, kernel), acc in sums.items():
         acc["bound_by"] = max(acc["by"], key=acc["by"].get)
-        print(f"[bf16] {smi}: {model} {kernel} per volume {acc['ms']:.3f} ms"
-              f" (TF32 kernel {acc['tf32_ms']:.3f}, cuDNN bf16 "
-              f"{acc['library_ms']:.3f}, plain {acc['plain_ms']:.3f}; "
-              f"bf16 bound {acc['bound_ms']:.3f} ms, by "
-              f"{acc['bound_by']})")
+        print(f"[bf16] {smi}: {model} {kernel} per volume: block "
+              f"{acc['ms']:.3f} ms, bf16 layer {acc['layer_ms']:.3f} (TF32 "
+              f"kernel {acc['tf32_ms']:.3f}, cuDNN bf16 "
+              f"{acc['library_ms']:.3f}, plain {acc['plain_ms']:.3f}; bound "
+              f"{acc['bound_ms']:.3f} ms, by {acc['bound_by']}; f32 "
+              f"activations {acc['f32_act_bound_ms']:.3f} ms)")
     return sums, errs
 
 
+def apply_split_ms(apply, reps=3):
+    """``apply()``, a bf16 U-Net apply, timed whole and, in the same runs,
+    around each of its conv blocks: CUDA events recorded on the stream
+    just before and just after every call of
+    ``layers.conv3x3x3_block_bf16`` inside the apply (the kernel, and the
+    wrapper's host work where the card waits on it).  Returns ms per
+    apply ``(whole, blocks)``; raises unless the calls bracketed equal the
+    bf16 kernels' launches counted over the same runs, so no launch of
+    the apply lies outside a pair.  Prints how many of one apply's conv
+    launches a ``torch.profiler`` trace in this process holds (traces here
+    have held only some)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from t3dct_torch.models import unet3d
+    layers, marks = unet3d.L, []
+    inner = layers.conv3x3x3_block_bf16
+
+    def bracketed(*args, **kw):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        out = inner(*args, **kw)
+        ev[1].record()
+        marks.append(ev)
+        return out
+
+    def runs():
+        start, end = (torch.cuda.Event(enable_timing=True)
+                      for _ in range(2))
+        start.record()
+        for _ in range(reps):
+            apply()
+        end.record()
+        return start, end
+
+    layers.conv3x3x3_block_bf16 = bracketed
+    try:
+        apply()
+        marks.clear()
+        (start, end), n = counted(runs)
+    finally:
+        layers.conv3x3x3_block_bf16 = inner
+    launched = n["conv3x3x3_wgmma_bf16"] + n["conv3x3x3_direct_bf16"]
+    if launched != len(marks) or sum(n[k] for k in ("conv3x3x3_wgmma",
+                                                    "conv3x3x3_direct")):
+        raise AssertionError(f"bf16 apply: {len(marks)} blocks bracketed, "
+                             f"launches {n}")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        apply()
+        torch.cuda.synchronize()
+    held = sum(e.device_type == torch.autograd.DeviceType.CUDA and
+               ("conv_bf16_kernel<" in e.name or "stem_kernel<" in e.name)
+               for e in prof.events())
+    print(f"[bf16] a profiler trace of one apply holds {held} of its "
+          f"{launched // reps} conv launches")
+    return (start.elapsed_time(end) / reps,
+            sum(a.elapsed_time(b) for a, b in marks) / reps)
+
+
 def unet_bf16_ms(dev, smi, folder):
-    """U-Net a with the trained weights on vol 1's tile batch: ms a volume
-    in bf16 and in f32, and how far the two networks' probabilities lie
-    apart (the precision's own effect, not a fault)."""
+    """U-Net a with the trained weights, b and c with seeded ones, each on
+    vol 1's tile batch of its own tile plan: ms a volume in bf16 (a also
+    in f32, and how far the two networks' probabilities lie apart: the
+    precision's own effect, not a fault), and, from a run with CUDA events
+    around each conv block inside the apply (``apply_split_ms``), that
+    run's time split into its conv blocks and the rest of the call (pools,
+    upsampling and concatenation, the output conv, the host's work between
+    launches where the card waits on it)."""
     import torch
     from t3dct_torch.config import SegmentationConfig
     from t3dct_torch.engine.segmentation import MEDIAN_STRIDE, UNetSegmenter
     from t3dct_torch.io.imageio import read_image_ts
-    from t3dct_torch.models.unet3d import unet3_a
+    from t3dct_torch.models.unet3d import get_unet
     from t3dct_torch.ops.lcn import normalize_image
     from t3dct_torch.ops.tiling import extract_tiles, pad_for_tiles
     from t3dct_torch.utils.checkpoint import load_pytree
     from t3dct_torch.utils.device import upload_raw
-    spec = unet3_a()
-    params, state = load_pytree(spec.init(torch.Generator().manual_seed(0),
-                                          device=dev),
-                                LEGACY_ASSETS / "unet3_a.npz")
-    seg = UNetSegmenter(spec, params, state, SegmentationConfig(
-        **LEG_SEG), (Y, X, Z), device=dev)
     raw = upload_raw(read_image_ts(1, str(folder / "data" / LEG_IMAGE),
                                    (1, Z + 1)), dev)
     norm = normalize_image(raw, LEG_SEG["noise_level"],
                            median_stride=MEDIAN_STRIDE)
-    tiles = extract_tiles(pad_for_tiles(norm, seg.plan), seg.plan)[..., None]
-    out, ms = {}, {}
-    for dt in (torch.bfloat16, torch.float32):
-        out[dt] = spec.apply(params, state, tiles, compute_dtype=dt)
-        ms[dt] = cuda_ms(lambda: spec.apply(params, state, tiles,
-                                            compute_dtype=dt), 5, 1)
-    a, b = out[torch.bfloat16], out[torch.float32]
-    print(f"[bf16] {smi}: U-Net a on vol 1's {tiles.shape[0]} tiles of "
-          f"{tuple(tiles.shape[1:4])}: bf16 {ms[torch.bfloat16]:.3f} ms, f32 "
-          f"{ms[torch.float32]:.3f} ms a volume; bf16 against f32: max "
-          f"{float((a - b).abs().max()):.3e}, "
-          f"{int(((a > 0.5) != (b > 0.5)).sum())} voxels across 0.5")
-    return dict(unet_bf16_ms=ms[torch.bfloat16], unet_f32_ms=ms[torch.float32])
+    out = {}
+    for variant in "abc":
+        spec = get_unet(variant)
+        params, state = spec.init(torch.Generator().manual_seed(0),
+                                  device=dev)
+        if variant == "a":
+            params, state = load_pytree((params, state),
+                                        LEGACY_ASSETS / "unet3_a.npz")
+        seg = UNetSegmenter(spec, params, state, SegmentationConfig(
+            **LEG_SEG), (Y, X, Z), device=dev)
+        tiles = extract_tiles(pad_for_tiles(norm, seg.plan),
+                              seg.plan)[..., None]
+        ms, probs = {}, {}
+        dts = (torch.bfloat16, torch.float32) if variant == "a" else \
+            (torch.bfloat16,)
+        with torch.no_grad():
+            for dt in dts:
+                probs[dt] = spec.apply(params, state, tiles,
+                                       compute_dtype=dt)
+                ms[dt] = cuda_ms(lambda: spec.apply(params, state, tiles,
+                                                    compute_dtype=dt), 3, 1)
+            whole, conv = apply_split_ms(lambda: spec.apply(
+                params, state, tiles, compute_dtype=torch.bfloat16))
+        bf = ms[torch.bfloat16]
+        line = (f"[bf16] {smi}: U-Net {variant} on vol 1's "
+                f"{tiles.shape[0]} tiles of {tuple(tiles.shape[1:4])}: bf16 "
+                f"{bf:.3f} ms a volume; with events around its blocks "
+                f"{whole:.3f} ms, of which the conv blocks {conv:.3f} ms and "
+                f"the rest {whole - conv:.3f} ms")
+        if variant == "a":
+            a, b = probs[torch.bfloat16], probs[torch.float32]
+            line += (f"; f32 {ms[torch.float32]:.3f} ms; bf16 against f32: "
+                     f"max {float((a - b).abs().max()):.3e}, "
+                     f"{int(((a > 0.5) != (b > 0.5)).sum())} voxels across "
+                     f"0.5")
+            out["unet_f32_ms"] = ms[torch.float32]
+        print(line)
+        key = "unet" if variant == "a" else f"unet_{variant}"
+        out.update({f"{key}_bf16_ms": bf, f"{key}_bf16_evented_ms": whole,
+                    f"{key}_bf16_conv_ms": conv,
+                    f"{key}_bf16_rest_ms": whole - conv})
+        del tiles, probs, params, state, seg
+        torch.cuda.empty_cache()
+    return out
 
 
 def legacy_run_record(tracker, centers):
@@ -3370,8 +3529,9 @@ def hold_legacy_bf16(path, record, single, nudged, run):
 
 def phase_bf16(dev, smi, folder, centers):
     """Phase 23 (paths ``legacy_bf16``, ``legacy_bf16_ensemble``): JAX's
-    default precision on the legacy path.  (1) ``bf16_layer_rows``; (2)
-    ``unet_bf16_ms``; (3) phase 18's folder flow with the ``Tracker`` as
+    default precision on the legacy path.  (1) ``bf16_layer_rows``, both
+    modes of both bf16 kernels; (2) ``unet_bf16_ms``, U-Net a, b and c;
+    (3) phase 18's folder flow with the ``Tracker`` as
     JAX builds it (bfloat16), then ``ensemble=20`` in the same folder, each
     held to its bf16 record (``hold_legacy_bf16``), every counter reset
     before and read after: the bf16 ``wgmma`` conv, the bf16 stem once per
@@ -3518,12 +3678,12 @@ def main() -> int:
 
     kernels = [
         dict(name="conv3x3x3_wgmma_bf16", route="cuda",
-             source="3deecelltracker_tpu_torch/csrc/conv3x3x3_wgmma.cu",
+             source="3deecelltracker_tpu_torch/csrc/conv3x3x3_wgmma_bf16.cu",
              replaces="3deecelltracker_tpu/ops/pallas_conv.py:89",
              **counts("conv3x3x3_wgmma_bf16"), **bf16_entry("wgmma_bf16"),
              **bf16_times),
         dict(name="conv3x3x3_direct_bf16", route="cuda",
-             source="3deecelltracker_tpu_torch/csrc/conv3x3x3.cu",
+             source="3deecelltracker_tpu_torch/csrc/conv3x3x3_bf16.cu",
              replaces="3deecelltracker_tpu/ops/pallas_conv.py:89",
              **counts("conv3x3x3_direct_bf16"), **bf16_entry("direct_bf16")),
         dict(name="conv3x3x3_wgmma", route="cuda",

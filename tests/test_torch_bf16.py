@@ -13,7 +13,7 @@ layer by layer on JAX's own input to each layer (teacher forcing); the
 whole network only statistically, against JAX's own spread, by the records
 (``assets/legacy/jax_legacy_record_bf16*.npz``, tests/
 test_torch_legacy_record.py).  ``emulate_bf16`` repeats the bf16 form of
-the tensor-core kernel's arithmetic (``csrc/conv3x3x3_wgmma.cu``: stages,
+the tensor-core kernel's arithmetic (``csrc/conv3x3x3_wgmma_bf16.cu``: stages,
 taps, k16 columns, the packed weights read through the core-matrix layout,
 per-stage partial sums)."""
 

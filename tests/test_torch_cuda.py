@@ -254,6 +254,60 @@ def test_bf16_layers_and_smem(dev):
         L.conv3d({"w": w, "b": b}, x, torch.bfloat16).sum().backward()
 
 
+def _bn_case(c_out, seed):
+    """BatchNorm's eval parameters, not the identity: (mean, inv, beta),
+    ``inv`` as ``layers.batchnorm`` computes it."""
+    g = torch.Generator().manual_seed(seed)
+    mean = torch.randn(c_out, generator=g) * 0.2
+    var = torch.rand(c_out, generator=g) + 0.5
+    scale = torch.rand(c_out, generator=g) + 0.5
+    beta = torch.randn(c_out, generator=g) * 0.2
+    return mean, torch.rsqrt(var + 1e-3) * scale, beta
+
+
+@pytest.mark.parametrize("shape", [
+    (1, 17, 19, 8, 8, "leaky_relu"), (2, 17, 19, 32, 16, "relu"),
+    (3, 8, 16, 64, 128, None), (2, 11, 7, 16, 136, "leaky_relu"),
+    (2, 9, 33, 96, 256, "relu"), (3, 13, 8, 24, 64, "leaky_relu"),
+    (4, 20, 35, 1, 8, "leaky_relu"), (2, 12, 20, 1, 64, "relu"),
+    (3, 9, 7, 1, 40, None), (2, 10, 12, 12, 40, "relu")])
+def test_block_bf16_kernels(dev, shape):
+    """The U-Net block in one launch of the kernel ``route`` names (bf16
+    in, the stems f32; a half chunk, several N tiles, the tall tile, ragged
+    y/x, widths off the tensor-core rule): bit-equal to that kernel's f32
+    mode followed by PyTorch's activation, BatchNorm and rounding, and
+    within 1e-5 of sum |x w| + |b| (times |inv|) of the plain version
+    before its rounding."""
+    z, y, x, ci, co, act = shape
+    bf = torch.bfloat16
+    xin, w, b = (t.to(dev) for t in _conv_case((z, y, x, ci, co), ci + co,
+                                                (2,)))
+    if ci > 1:
+        xin = torch.relu(xin).to(bf)
+    mean, inv, beta = (t.to(dev) for t in _bn_case(co, co))
+    kernel = hopper_conv.route(ci, co, bf)
+    n0 = _counts()
+    got = hopper_conv.conv3x3x3_block_bf16(xin, w, b, mean, inv, beta, act)
+    torch.cuda.synchronize()
+    k = 3 if kernel == "wgmma_bf16" else 2
+    assert _counts() == [n + (i == k) for i, n in enumerate(n0)]
+    assert got.dtype == bf and got.shape == xin.shape[:-1] + (co,)
+    f32 = hopper_conv.conv3x3x3_bias_relu(xin, w, b, False,
+                                          compute_dtype=bf)
+    want = ((hopper_conv.activation(f32, act) - mean) * inv + beta).to(bf)
+    assert torch.equal(got, want)
+    plain = hopper_conv.conv3x3x3_bias_relu_plain(xin.float(), w, b, False,
+                                                  bf)
+    v = (hopper_conv.activation(plain, act) - mean) * inv + beta
+    eps = 1e-5 * hopper_conv.conv3x3x3_bias_relu_plain(
+        hopper_conv.round_bf16(xin.float()).abs(),
+        hopper_conv.round_bf16(w).abs(), b.abs(), False) * inv.abs() + \
+        v.abs() * 2.0 ** -21
+    g32 = got.float()
+    assert bool(((v - eps).to(bf).float() <= g32).all())
+    assert bool((g32 <= (v + eps).to(bf).float()).all())
+
+
 # cc cases: (shape, tile_max of the host's plan (None: the kernel's), mask);
 # shapes ragged on every axis at the card's plan (z past TILE_Z_MAX, with z
 # % 4 = 2 and 0: byte and word loads), small tiles (ragged everywhere, one
