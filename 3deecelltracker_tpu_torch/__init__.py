@@ -43,12 +43,28 @@ Entry points:
   ``utils.keras_import``, HDF5 recordings (``io.imageio.
   save_recording_h5``) and ``scripts.track_stardist_h5``; reading HDF5
   needs ``h5py``;
+- several cards: ``parallel.multihost.initialize`` (one process a card,
+  as ``torchrun`` starts them) and ``parallel.make_mesh``, whose mesh the
+  ``mesh=`` of ``predict_and_save``, ``segment_and_track``,
+  ``track_timelapse`` and ``UNetSegmenter`` take, with
+  ``StarDist3D.predict_instances_sharded`` for the tiles of one volume;
+- ``scripts.synthetic_demo`` (train, segment and track a synthetic
+  recording) and the examples' other twins under ``scripts``;
 - ``scripts.probe_conv_fast.run`` (the conv probe).
 """
 
 import sys as _sys
 
 from . import config, coordinates  # noqa: F401
+from .config import (  # noqa: F401
+    LcnConfig,
+    MeshConfig,
+    SegmentationConfig,
+    StarDistConfig,
+    TrackingConfig,
+    TrainFfnConfig,
+    TrainUnetConfig,
+)
 from .coordinates import Coordinates  # noqa: F401
 from .engine import analyses, correction, legacy, metrics  # noqa: F401
 from .engine import pipeline, segmentation, stardist  # noqa: F401
@@ -62,9 +78,11 @@ from .ops import (connected, edt, filters, hopper_cc,  # noqa: F401
                   neighborhood, nms, numerics, peaks, pointset, prgls, rays,
                   segment_reduce, stardist_gt, subregions, tiling, trim,
                   watershed)
-from .parallel import ensemble  # noqa: F401
+from .parallel import comm, ensemble, mesh, multihost  # noqa: F401
+from .parallel import spatial  # noqa: F401
 from .utils import (checkpoint, convert, cuda_build, device,  # noqa: F401
-                    keras_import, optim, roofline, synthetic, timing)
+                    keras_import, optim, profiling, roofline, synthetic,
+                    timing)
 
 __version__ = "0.1.0"
 

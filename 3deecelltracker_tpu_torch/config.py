@@ -71,6 +71,16 @@ class StarDistConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class MeshConfig:
+    """The mesh's layout for work over several cards
+    (``parallel.make_mesh_from_config``; the reference runs on one GPU)."""
+    data_axis: str = "data"
+    spatial_axis: str = "spatial"
+    data_parallel: int = 1
+    spatial_parallel: int = 1
+
+
+@dataclasses.dataclass(frozen=True)
 class TrainUnetConfig:
     """U-Net trainer (reference ``unet3d.py:346-601``)."""
     batch_size: int = 8

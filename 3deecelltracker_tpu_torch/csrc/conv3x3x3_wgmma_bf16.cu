@@ -40,14 +40,14 @@
 //   tile: core matrix i is halo row i's 8 consecutive x-pixels (8 rows of
 //   16 bytes, contiguous), so the descriptor's stride between core
 //   matrices is the halo's row pitch, its leading offset the distance to
-//   the chunk's second 8-channel plane (0 for a half chunk, c_in % 16 ==
-//   8, whose second plane is not loaded: the packed weights of the missing
-//   channels are zero, so it adds exact zeros), and every (dy, dx) tap is
-//   the same descriptor started (dy * HX + dx) pixels on.  No thread loads
-//   or converts an A fragment.  Finite inputs are assumed there: a half
-//   chunk's Inf or NaN activation meets those zero weights too, and Inf x 0
-//   makes the tap's outputs NaN where the plain conv gives +-Inf (the
-//   legacy U-Net's c_in = 8 layers read finite, normalized activations).
+//   the chunk's second 8-channel plane, and every (dy, dx) tap is the same
+//   descriptor started (dy * HX + dx) pixels on.  No thread loads or
+//   converts an A fragment.  A half chunk (c_in % 16 == 8) loads no second
+//   plane: its leading offset points at a plane of zeros that the block
+//   clears once, after the ring, so the missing channels' zero weights
+//   meet zeros and add exact zeros whatever the activations hold (Inf or
+//   NaN in the loaded plane stays in its own channels, as in the plain
+//   conv).
 // - Narrow N tiles take MT = 4 (N 8) or 2 (N 16-32) such 8 x 8 tiles a
 //   warpgroup, stacked in y (MT accumulators): a wgmma of N 8-32 is too
 //   short for its latency, so a stage issues its MT x 9 wgmmas tap by tap,
@@ -254,9 +254,13 @@ conv_bf16_kernel(const __grid_constant__ CUtensorMap xmap, const Args a) {
   const int box = plane_box(MT, a.tall);
   const int pitch = plane_pitch(MT, a.tall);
   const int slot_bytes = 2 * pitch + (a.resident ? 0 : WB);
+  const bool half = a.Cin % KC != 0;       // the last chunk is a half one
   unsigned char* w_res = smem;
   unsigned char* ring = smem + (a.resident ? n_iters * WB : 0);
-  uint64_t* full = reinterpret_cast<uint64_t*>(ring + S * slot_bytes);
+  // a half chunk's second k-half: `pitch` bytes of zeros after the ring
+  unsigned char* zeros = ring + S * slot_bytes;
+  uint64_t* full =
+      reinterpret_cast<uint64_t*>(zeros + (half ? pitch : 0));
   uint64_t* empty = full + S;
   uint64_t* wbar = empty + S;
   const int nc = blockIdx.y;
@@ -266,6 +270,12 @@ conv_bf16_kernel(const __grid_constant__ CUtensorMap xmap, const Args a) {
   const int th = tile_h(MT, a.tall);
   const int hx = tw + 2;
 
+  if (half) {
+    for (int i = threadIdx.x; i < pitch / 16; i += THREADS)
+      reinterpret_cast<uint4*>(zeros)[i] = make_uint4(0u, 0u, 0u, 0u);
+    // the wgmmas read the plane through the async proxy
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  }
   if (threadIdx.x == 0) {
     for (int s = 0; s < S; ++s) {
       mbar_init(&full[s], 1);
@@ -347,9 +357,11 @@ conv_bf16_kernel(const __grid_constant__ CUtensorMap xmap, const Args a) {
       const unsigned char* w =
           a.resident ? w_res + it * WB : slot + 2 * pitch;
       // A: halo rows 16 hx bytes apart, the chunk's second plane `pitch`
-      // on (a half chunk: the first again); B: k halves 128 bytes apart,
-      // n groups 256
-      const uint32_t lbo = (it / 3) * KC + CK < a.Cin ? pitch : 0;
+      // on (a half chunk: the plane of zeros); B: k halves 128 bytes
+      // apart, n groups 256
+      const uint32_t lbo = (it / 3) * KC + CK < a.Cin
+                               ? pitch
+                               : static_cast<uint32_t>(zeros - slot);
       const uint64_t da =
           smem_desc(slot + (oy * hx + ox) * 16, lbo, hx * 16);
       const uint64_t db = smem_desc(w, 128, 256);
@@ -395,15 +407,18 @@ Plan plan(int Cin, int tall) {
   const int wb = Tile<NB>::W_BYTES;
   const int wall = n_iters * wb;
   const int halo = 2 * plane_pitch(Tile<NB>::MT, tall);
+  const int zeros = Cin % KC ? plane_pitch(Tile<NB>::MT, tall) : 0;
   const int bars = (2 * MAX_STAGES + 1) * 8;
-  const int budget = SM_SMEM / Tile<NB>::MIN_BLOCKS - BLOCK_RESERVED - bars;
+  const int budget =
+      SM_SMEM / Tile<NB>::MIN_BLOCKS - BLOCK_RESERVED - bars - zeros;
   Plan p;
   p.min_blocks = Tile<NB>::MIN_BLOCKS;
   p.resident = wall + 3 * halo <= budget;
   const int slot = halo + (p.resident ? 0 : wb);
   p.stages = (budget - (p.resident ? wall : 0)) / slot;
   if (p.stages > MAX_STAGES) p.stages = MAX_STAGES;
-  p.smem = (p.resident ? wall : 0) + p.stages * slot + (2 * p.stages + 1) * 8;
+  p.smem = (p.resident ? wall : 0) + p.stages * slot + zeros +
+           (2 * p.stages + 1) * 8;
   return p;
 }
 

@@ -1,5 +1,5 @@
 """The v1.0 workflow's drivers (counterpart of
-``3deecelltracker_tpu/engine/pipeline.py``, single device):
+``3deecelltracker_tpu/engine/pipeline.py``):
 ``seg_candidates_to_padded_real``, the per-volume track-and-correct step
 fed from the ``seg/`` artifacts (``fused_track_and_correct`` :40-125) or
 straight from the seg outputs (``fused_track_from_seg`` :165-204),
@@ -14,15 +14,17 @@ the recording into ``seg/``, the user proofreads ``auto_vol1`` into
 ``handoff="disk"`` the segmenter writes ``seg/`` on its own thread and
 stream while tracking follows it volume by volume; with
 ``handoff="device"`` tracking takes each volume's seg outputs on the
-device.  Vol-1's proofed labels build the subregion atlas and the vol-1
-centres once per recording.  ``segment_and_track_arrays`` takes arrays in
-and gives arrays out.
+device.  Over a mesh (``mesh=``) the segmentation and the ensemble's
+members split over the ranks and rank 0 tracks.  Vol-1's proofed labels
+build the subregion atlas and the vol-1 centres once per recording.
+``segment_and_track_arrays`` takes arrays in and gives arrays out.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import queue
 import threading
 from pathlib import Path
@@ -39,10 +41,12 @@ from ..io.imageio import (PathPattern, check_recording, check_transport,
 from ..io.prefetch import VolumePrefetcher, ready_event, to_host, upload_async
 from ..ops.subregions import SubregionAtlas
 from ..ops.trim import trim_mean
-from ..parallel.ensemble import ensemble_member_predictions
-from ..utils.device import select_device, to_device, upload_raw
+from ..parallel.ensemble import ensemble_member_predictions, lead_members
+from ..utils.device import (same_device, select_device, to_device,
+                            upload_raw)
 from .correction import correct_prediction
-from .stardist import SegArtifactSaver, StarDist3D, predict_and_save
+from .stardist import (MeshSegStream, SegArtifactSaver, StarDist3D,
+                       predict_and_save)
 from .tracker import TrackerLite, get_volumes_list, track_step
 from .transformer import (BOUNDARY_XY, CoordsToImageTransformer,
                           upsample_prob_pipeline)
@@ -283,10 +287,6 @@ class _AsyncTrackSaver:
                 self.errors.append(e)
 
 
-def _same_device(a: torch.device, b: torch.device) -> bool:
-    return a.type == b.type and (a.index or 0) == (b.index or 0)
-
-
 def segment_and_track(images_path, model: StarDist3D,
                       results_dir: Union[str, Path],
                       manual_vol1_glob: str,
@@ -343,15 +343,31 @@ def segment_and_track(images_path, model: StarDist3D,
     ``device``: the card by default (``"cpu"`` to run on the CPU); the
     model must be on it.
 
-    Not ported yet, each raising: ``mesh``, ``data_axis`` and
-    ``transport="u8"`` (ROADMAP.md A.5) and ``save_figures=True`` (A.9)."""
+    ``mesh``: a ``DeviceMesh`` (``parallel.make_mesh``) whose
+    ``data_axis`` spans it.  Every rank of the mesh calls
+    ``segment_and_track`` with the same arguments (its model on its own
+    device, by default its device), and every rank returns the
+    coordinates.  With ``handoff="device"`` the volumes after the first
+    are segmented in groups of the axis size, one a rank
+    (``engine.stardist.MeshSegStream``); each group's outputs go to rank 0
+    by point-to-point sends, and rank 0 runs the serial tracking
+    recurrence in t order, as JAX's ``_seg_stream`` feeds its device 0.
+    With ``handoff="disk"`` the segmenter thread runs ``predict_and_save``
+    over the mesh (on a process group of its own) and tracking runs
+    ``track_timelapse`` over it.  Rank 0 writes every file, with the bytes
+    of the same call without a mesh.
+
+    Not ported yet, each raising: ``transport="u8"`` (ROADMAP.md A.5b) and
+    ``save_figures=True`` (A.9)."""
     if handoff not in ("disk", "device"):
         raise ValueError(f"handoff must be 'disk' or 'device', got "
                          f"{handoff!r}")
-    if mesh is not None or data_axis != "data":
-        raise NotImplementedError(
-            "mesh= / data_axis= (segmentation over several cards) is not "
-            "ported yet (ROADMAP.md A.5)")
+    ax = None
+    if mesh is not None:
+        from ..parallel.mesh import mesh_axis
+        ax = mesh_axis(mesh, data_axis, sole=True)
+        if device is None:
+            device = ax.device
     if save_figures:
         raise NotImplementedError(
             "save_figures=True (the matching figures) is not ported yet "
@@ -364,18 +380,21 @@ def segment_and_track(images_path, model: StarDist3D,
     check_transport(transport)
     check_recording(images_path)
     dev = select_device(device)
-    if not _same_device(model.device, dev):
+    if not same_device(model.device, dev):
         raise ValueError(f"the model is on {model.device}, the driver on "
                          f"{dev}")
     stage = timer.stage if timer is not None else (
         lambda name: contextlib.nullcontext())
     drive = (_segment_and_track_device if handoff == "device"
              else _segment_and_track_disk)
+    if ax is not None and not same_device(ax.device, dev):
+        raise ValueError(f"this rank is on {ax.device}, the driver on "
+                         f"{dev}")
     with stage("call"):
         coords_by_t = drive(
             images_path, model, results_dir, manual_vol1_glob, ffn_weights,
             voxel_size, interpolation_factor, t_range, config, miss_frame,
-            verbose, stage, transport, dev)
+            verbose, stage, transport, dev, ax)
     if verbose and timer is not None:
         print()
         print(timer.summary())
@@ -385,11 +404,15 @@ def segment_and_track(images_path, model: StarDist3D,
 def _segment_and_track_disk(images_path, model, results_dir,
                             manual_vol1_glob, ffn_weights, voxel_size,
                             interpolation_factor, t_range, config,
-                            miss_frame, verbose, stage, transport, dev
-                            ) -> Dict[int, np.ndarray]:
+                            miss_frame, verbose, stage, transport, dev,
+                            ax=None) -> Dict[int, np.ndarray]:
     """``predict_and_save`` on a thread (and CUDA stream) of its own,
     :func:`track_timelapse` here, gated volume by volume on the written
-    ``seg/`` artifacts (JAX ``pipeline.py:281-356``)."""
+    ``seg/`` artifacts (JAX ``pipeline.py:281-356``).  Over a mesh axis
+    ``ax`` the segmenter takes a process group of its own, made here on
+    every rank before the thread starts."""
+    from ..parallel.comm import duplicate
+    seg_ax = duplicate(ax) if ax is not None else None
     t_min, t_max = t_range
     done_lock = threading.Condition()
     done: set = set()
@@ -417,7 +440,7 @@ def _segment_and_track_disk(images_path, model, results_dir,
                                  volumes=list(range(t_min, t_max + 1)),
                                  progress_cb=progress,
                                  should_stop=cancel.is_set,
-                                 transport=transport)
+                                 mesh=seg_ax, transport=transport)
         except Exception as e:          # surfaced on the tracking side
             seg_error.append(e)
         with done_lock:
@@ -447,12 +470,14 @@ def _segment_and_track_disk(images_path, model, results_dir,
             results_dir, manual_vol1_glob, ffn_weights, voxel_size,
             interpolation_factor, t_range,
             tuple(int(g) for g in model.config.grid), config, miss_frame,
-            images_path, verbose, stage, volume_ready, dev)
+            images_path, verbose, stage, volume_ready, dev, ax)
         tracked_ok = True
     finally:
         if not tracked_ok:
             cancel.set()
         th.join()
+        if seg_ax is not None:
+            torch.distributed.destroy_process_group(seg_ax.group)
     if seg_error:
         raise seg_error[0]
     return coords
@@ -461,8 +486,50 @@ def _segment_and_track_disk(images_path, model, results_dir,
 def _segment_and_track_device(images_path, model, results_dir,
                               manual_vol1_glob, ffn_weights, voxel_size,
                               interpolation_factor, t_range, config,
-                              miss_frame, verbose, stage, transport, dev
-                              ) -> Dict[int, np.ndarray]:
+                              miss_frame, verbose, stage, transport, dev,
+                              ax=None) -> Dict[int, np.ndarray]:
+    if ax is None:
+        return _device_handoff(images_path, model, results_dir,
+                               manual_vol1_glob, ffn_weights, voxel_size,
+                               interpolation_factor, t_range, config,
+                               miss_frame, verbose, stage, transport, dev)
+    from ..parallel.comm import follow, lead_result
+    if ax.index == 0:
+        return lead_result(ax, lambda: _device_handoff(
+            images_path, model, results_dir, manual_vol1_glob, ffn_weights,
+            voxel_size, interpolation_factor, t_range, config, miss_frame,
+            verbose, stage, transport, dev, ax))
+    # the other ranks segment their share of each group, then take rank
+    # 0's coordinates (or its error)
+    side = torch.cuda.Stream(dev) if dev.type == "cuda" else None
+    stream = MeshSegStream(model, ax, _raw_loader(images_path, transport,
+                                                  dev, side),
+                           list(range(t_range[0], t_range[1] + 1)),
+                           t_range[0])
+    try:
+        for _ in stream:
+            pass
+    finally:
+        stream.close()
+    return follow(ax)
+
+
+def _raw_loader(images_path, transport, dev, side):
+    """A prefetch worker's load of volume t: the raw slices, their exact
+    percentiles, and the upload started on stream ``side``."""
+    def load(t):
+        x = load_2d_slices_at_time(images_path, t=t, do_normalize=False)
+        x, mi, ma = transport_encode(x, transport)
+        return upload_async(x, dev, side), mi, ma
+    return load
+
+
+def _device_handoff(images_path, model, results_dir, manual_vol1_glob,
+                    ffn_weights, voxel_size, interpolation_factor, t_range,
+                    config, miss_frame, verbose, stage, transport, dev,
+                    ax=None) -> Dict[int, np.ndarray]:
+    """The device handoff on one card, or on rank 0 of mesh axis ``ax``
+    (the volumes after the first from a :class:`MeshSegStream`)."""
     t_min, t_max = t_range
     transformer = CoordsToImageTransformer(results_dir, voxel_size,
                                            device=dev)
@@ -479,39 +546,48 @@ def _segment_and_track_device(images_path, model, results_dir,
     labels_dtype = torch.uint8 if vol1.cell_num <= 255 else torch.int32
     miss = set(miss_frame or [])
     side = torch.cuda.Stream(dev) if dev.type == "cuda" else None
-
-    def _load_raw(t):
-        x = load_2d_slices_at_time(images_path, t=t, do_normalize=False)
-        x, mi, ma = transport_encode(x, transport)
-        return upload_async(x, dev, side), mi, ma
-
-    loader = VolumePrefetcher(_load_raw, range(t_min, t_max + 1), depth=2,
-                              workers=2)
+    load_raw = _raw_loader(images_path, transport, dev, side)
     seg_saver = SegArtifactSaver(model, results_dir, t_min, side,
                                  n_writers=1, max_cells=tracker.max_cells)
     track_saver = _AsyncTrackSaver(transformer, images_path, side,
                                    seg_saver)
+    truncated = [False]
+
+    def one_card():
+        loader = VolumePrefetcher(load_raw, range(t_min, t_max + 1),
+                                  depth=2, workers=2)
+        volumes = iter(loader)
+        try:
+            while True:
+                try:
+                    t, (upload, mi, ma) = next(volumes)
+                except StopIteration:
+                    return
+                except FileNotFoundError:
+                    # the recording ended early: the volumes before the
+                    # gap are tracked, then the driver raises
+                    truncated[0] = True
+                    return
+                with stage("seg"):
+                    seg_out = model.predict_instances_device(
+                        upload.wait(), norm_minmax=(mi, ma),
+                        return_labels=(t == t_min))
+                yield t, seg_out
+        finally:
+            loader.close()
+
+    stream = None
+    if ax is not None:
+        stream = MeshSegStream(
+            model, ax, load_raw, list(range(t_min, t_max + 1)), t_min,
+            lambda: bool(seg_saver.errors or track_saver.errors))
     coords_t1 = vol1
     corrected_by_t: Dict[int, Coordinates] = {}
     prev_pts = prev_kept = None
     done_t = t_min - 1
-    truncated = False
+    segmented = one_card() if stream is None else iter(stream)
     try:
-        volumes = iter(loader)
-        while True:
-            try:
-                t, (upload, mi, ma) = next(volumes)
-            except StopIteration:
-                break
-            except FileNotFoundError:
-                # the recording ended early: the volumes before the gap
-                # are tracked, then the driver raises
-                truncated = True
-                break
-            with stage("seg"):
-                seg_out = model.predict_instances_device(
-                    upload.wait(), norm_minmax=(mi, ma),
-                    return_labels=(t == t_min))
+        for t, seg_out in segmented:
             kept, _, _, points, prob_map, _ = seg_out
             seg_saver.put(t, seg_out)
             if t == t_min:
@@ -546,13 +622,16 @@ def _segment_and_track_device(images_path, model, results_dir,
                 raise track_saver.errors[0]
             if verbose and t > t_min:
                 print(f"tracked t={t}/{t_max}", end="\r")
-        if truncated:
+        if truncated[0] or (stream is not None and stream.truncated):
             raise RuntimeError(
                 f"segmentation ended at t={done_t} before volume "
                 f"{done_t + 1} (raw images missing from the "
                 f"recording?); tracking cannot continue")
     finally:
-        loader.close()
+        if stream is not None:
+            stream.close()
+        else:
+            segmented.close()
         seg_saver.close()
         track_saver.close()
     if seg_saver.errors:
@@ -607,12 +686,24 @@ def track_timelapse(results_dir: Union[str, Path],
     ``timer``: optional ``utils.timing.CudaStageTimer`` (``"track"`` per
     volume, ``"interpolate_vol1"``).  ``device``: the card by default.
 
-    Not ported yet, each raising: ``mesh`` (ROADMAP.md A.5) and
-    ``save_figures=True`` (A.9)."""
+    ``mesh``: a ``DeviceMesh`` whose ``"data"`` axis spans it.  Every rank
+    calls ``track_timelapse`` with the same arguments, and every rank
+    returns the coordinates.  Rank 0 reads the artifacts, runs the
+    recurrence and writes ``track_results/`` (the bytes of the same call
+    without a mesh); in ensemble mode each volume's members, padded to a
+    multiple of the axis size, are split over the ranks
+    (``parallel.ensemble``), gathered, and the padding dropped before the
+    trimmed mean.  Single mode runs on rank 0 alone (the recurrence is
+    serial), as JAX's ignores the mesh there.
+
+    Not ported yet: ``save_figures=True`` (ROADMAP.md A.9), which
+    raises."""
+    ax = None
     if mesh is not None:
-        raise NotImplementedError(
-            "mesh= (the member fan-out over several cards) is not ported "
-            "yet (ROADMAP.md A.5)")
+        from ..parallel.mesh import mesh_axis
+        ax = mesh_axis(mesh, "data", sole=True)
+        if device is None:
+            device = ax.device
     if save_figures:
         raise NotImplementedError(
             "save_figures=True (the matching figures) is not ported yet "
@@ -623,7 +714,7 @@ def track_timelapse(results_dir: Union[str, Path],
     coords_by_t = _track_timelapse(
         results_dir, manual_vol1_glob, ffn_weights, voxel_size,
         interpolation_factor, t_range, tuple(int(g) for g in grid), config,
-        miss_frame, images_path, verbose, stage, volume_ready, dev)
+        miss_frame, images_path, verbose, stage, volume_ready, dev, ax)
     if verbose and timer is not None:
         print()
         print(timer.summary())
@@ -633,7 +724,26 @@ def track_timelapse(results_dir: Union[str, Path],
 def _track_timelapse(results_dir, manual_vol1_glob, ffn_weights, voxel_size,
                      interpolation_factor, t_range, grid_t, config,
                      miss_frame, images_path, verbose, stage, volume_ready,
-                     dev) -> Dict[int, np.ndarray]:
+                     dev, ax=None) -> Dict[int, np.ndarray]:
+    """The tracking loop on one card, or over mesh axis ``ax``: rank 0
+    runs it and sends its result (or error) to the other ranks, which run
+    their share of each volume's ensemble members meanwhile."""
+    args = (results_dir, manual_vol1_glob, ffn_weights, voxel_size,
+            interpolation_factor, t_range, grid_t, config, miss_frame,
+            images_path, verbose, stage, volume_ready, dev)
+    if ax is None:
+        return _track_volumes(*args)
+    from ..parallel.comm import follow, lead_result
+    from ..parallel.ensemble import MemberFollower
+    if ax.index == 0:
+        return lead_result(ax, lambda: _track_volumes(*args, ax))
+    return follow(ax, MemberFollower(ax, dev))
+
+
+def _track_volumes(results_dir, manual_vol1_glob, ffn_weights, voxel_size,
+                   interpolation_factor, t_range, grid_t, config,
+                   miss_frame, images_path, verbose, stage, volume_ready,
+                   dev, ax=None) -> Dict[int, np.ndarray]:
     t_min, t_max = t_range
     transformer = CoordsToImageTransformer(results_dir, voxel_size,
                                            device=dev)
@@ -704,8 +814,10 @@ def _track_timelapse(results_dir, manual_vol1_glob, ffn_weights, voxel_size,
                 confirmed = torch.stack(
                     [(vol1 if t1 == t_min else corrected_by_t[t1]).real
                      for t1 in t1s])
+                members = ensemble_member_predictions if ax is None else \
+                    functools.partial(lead_members, ax)
                 with stage("track"):
-                    preds = ensemble_member_predictions(
+                    preds = members(
                         tracker.ffn_params, tracker.ffn_state, confirmed,
                         seg1, mask1, seg2, mask2, beta=config.beta,
                         lambda_=config.lambda_, k_points=config.k_neighbors,

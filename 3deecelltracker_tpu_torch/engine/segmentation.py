@@ -1,6 +1,6 @@
 """U-Net segmentation engine of the legacy path: volume -> cell instances ->
 centres (counterpart of ``3deecelltracker_tpu/engine/segmentation.py``:
-``SegResult``, ``UNetSegmenter``, single device).
+``SegResult``, ``UNetSegmenter``).
 
 Per volume: LCN (strided median), reflect-pad, the whole tile batch through
 the U-Net in one forward, stitch; then the per-z 2-D watershed, the 3-D
@@ -9,9 +9,10 @@ Everything stays on the device; the host reads the probability maximum, the
 adaptive ``min_size``/``cell_num`` and the cell count.  The U-Net computes in
 ``compute_dtype``, bfloat16 by default as JAX's (``engine/segmentation.py:
 48``): bf16 conv operands, f32 products, sums and activations (``models.
-layers.conv3d``); ``torch.float32`` computes in f32 throughout.  The
-scale-out over several cards (``mesh``) is not ported (``ROADMAP.md``
-A.5).  The probabilities may go through
+layers.conv3d``); ``torch.float32`` computes in f32 throughout.  Over
+several cards (``mesh``) the U-Net sweep splits its tile batch over the
+ranks (``mesh_mode="tiles"``) or the volume along x with halo exchange
+(``"halo"``), ``parallel.spatial``.  The probabilities may go through
 the reference's on-disk cache (``unet_cache/t%06i.npy``, tracker.py:652-669)
 in JAX's format: float16 ``.npy`` read back as float32, so a cache written
 by either package loads in the other.
@@ -25,6 +26,7 @@ from typing import NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ..config import SegmentationConfig
 from ..models.unet3d import UNet3D
@@ -58,17 +60,34 @@ class UNetSegmenter:
                  compute_dtype=torch.bfloat16, mesh=None,
                  mesh_mode: str = "tiles", spatial_axis: Optional[str] = None,
                  halo: Optional[int] = None, *, device=None):
-        """JAX's constructor; ``mesh``, ``mesh_mode``, ``spatial_axis`` and
-        ``halo`` other than their defaults raise ``NotImplementedError``
-        (``ROADMAP.md`` A.5).  ``device=None`` is the card."""
-        if (mesh, mesh_mode, spatial_axis, halo) != (None, "tiles", None,
-                                                     None):
-            raise NotImplementedError(
-                "UNetSegmenter(mesh=, mesh_mode=, spatial_axis=, halo=): the "
-                "U-Net sweep over several cards is not ported yet "
-                "(ROADMAP.md A.5)")
+        """JAX's constructor (``engine/segmentation.py:49-135``).
+        ``device=None`` is the card; with a ``mesh`` (a ``DeviceMesh``,
+        ``parallel.make_mesh``) the device is this rank's, and every rank
+        of the mesh axis builds the segmenter and calls it with the same
+        volumes, each getting the whole result.
+
+        ``mesh_mode="tiles"``: the tile batch is split over the ranks of
+        ``spatial_axis`` (default: the mesh's first axis) and gathered;
+        every tile's probabilities equal the one-card sweep's.
+
+        ``mesh_mode="halo"``: the whole LCN-normalized volume, zero-padded
+        to the pooling grid (x to a multiple of the axis size times the x
+        pool factor), is split along x over ``spatial_axis`` (default
+        ``"spatial"``) with halo exchange (``parallel.spatial.
+        make_spatially_sharded_apply``) and swept in one un-tiled apply per
+        rank.  ``halo`` defaults to the model's receptive radius in x
+        rounded up to the total x pool factor, which keeps every interior
+        voxel exact; a halo off that grid, or wider than a rank's x shard,
+        raises ``ValueError``.  JAX's edge band: within ``halo`` voxels of
+        the volume's x faces the sweep differs from SAME padding at every
+        layer."""
         check_compute_dtype(compute_dtype)
         self.compute_dtype = compute_dtype
+        if mesh is not None:
+            from ..parallel.mesh import check_mesh, mesh_device
+            check_mesh(mesh)
+            if device is None:
+                device = mesh_device(mesh.device_type)
         self.device = select_device(device)
         self.model = model
         self.params = to_device(params, self.device)
@@ -78,11 +97,74 @@ class UNetSegmenter:
         self.max_cells = int(max_cells)
         self.plan = plan_tiles(self.vol_shape, model.tile_shape,
                                config.shrink)
+        self.mesh = mesh
+        self._predict = self._predict_impl
+        if mesh is None:
+            return
+        from ..parallel import spatial
+        if mesh_mode == "tiles":
+            tile_fn = spatial.make_tile_parallel_predict(
+                self._apply_probs, mesh, self.plan,
+                axis=spatial_axis or mesh.mesh_dim_names[0])
+            self._predict = lambda raw: tile_fn(
+                self.params, self.state, self._normalize(raw))
+        elif mesh_mode == "halo":
+            self._predict = self._halo_predict(mesh, spatial_axis or
+                                               "spatial", halo)
+        else:
+            raise ValueError(
+                f"mesh_mode must be 'tiles' or 'halo', got {mesh_mode!r}")
+
+    def _apply_probs(self, params, state, xb: torch.Tensor) -> torch.Tensor:
+        return self.model.apply(params, state, xb,
+                                compute_dtype=self.compute_dtype)
+
+    def _normalize(self, image_raw: torch.Tensor) -> torch.Tensor:
+        return normalize_image(image_raw, self.config.noise_level,
+                               median_stride=MEDIAN_STRIDE)
+
+    def _halo_predict(self, mesh, axis: str, halo: Optional[int]):
+        """The halo mode's predict (JAX :86-127)."""
+        from ..parallel.mesh import mesh_axis
+        from ..parallel.spatial import make_spatially_sharded_apply
+        model = self.model
+        n_levels = len(model.down_filters)
+        tp = model.pool[0] ** n_levels
+        axis_size = mesh_axis(mesh, axis).size
+        if halo is None:
+            r = model.receptive_radius()[0]
+            halo = -(-r // tp) * tp
+        if halo % tp:
+            raise ValueError(
+                f"halo must be a multiple of the total x pool factor "
+                f"{tp} (pooling-grid alignment), got {halo}")
+        self.halo = int(halo)
+        xl, yl, zl = self.vol_shape
+        mult = axis_size * tp
+        shard_x = (xl + ((-xl) % mult)) // axis_size
+        if self.halo > shard_x:
+            raise ValueError(
+                f"halo ({self.halo}) exceeds the per-device x shard "
+                f"({shard_x} = padded {xl} / {axis_size} devices): the "
+                f"halo slices would clamp.  Use fewer devices on the "
+                f"{axis!r} axis, a bigger volume, or a smaller "
+                f"pool-aligned halo= (edge-band accuracy tradeoff, see "
+                f"the docstring)")
+        sharded = make_spatially_sharded_apply(self._apply_probs, mesh,
+                                               self.halo, axis=axis)
+        # zeros after each axis's end (F.pad takes the last axis first)
+        pads = (0, (-zl) % model.pool[2] ** n_levels,
+                0, (-yl) % model.pool[1] ** n_levels, 0, (-xl) % mult)
+
+        def predict_halo(image_raw):
+            padded = F.pad(self._normalize(image_raw), pads)
+            probs = sharded(self.params, self.state, padded[None, ..., None])
+            return probs[0, :xl, :yl, :zl, 0]
+        return predict_halo
 
     # ---- stage 1: LCN + tiled U-Net (tracker.py:662-669) -------------------
     def _predict_impl(self, image_raw: torch.Tensor) -> torch.Tensor:
-        norm = normalize_image(image_raw, self.config.noise_level,
-                               median_stride=MEDIAN_STRIDE)
+        norm = self._normalize(image_raw)
         tiles = extract_tiles(pad_for_tiles(norm, self.plan), self.plan)
         probs = self.model.apply(self.params, self.state, tiles[..., None],
                                  compute_dtype=self.compute_dtype)
@@ -98,7 +180,7 @@ class UNetSegmenter:
         if cache_path is not None and Path(cache_path).exists():
             return torch.from_numpy(np.load(cache_path).astype(
                 np.float32)).to(self.device)
-        probs = self._predict_impl(upload_raw(image_raw, self.device))
+        probs = self._predict(upload_raw(image_raw, self.device))
         if cache_path is not None:
             Path(cache_path).parent.mkdir(parents=True, exist_ok=True)
             np.save(str(cache_path), probs.cpu().numpy().astype(np.float16))

@@ -16,7 +16,9 @@ and, when asked, the label render.  Outputs stay on the device.
 orders the kept candidates once their arrays are on the host.
 :class:`SegArtifactSaver` writes them as ``seg/`` artifacts on saver
 threads, and :func:`predict_and_save` segments a whole TIFF recording into
-a results tree with it.
+a results tree with it, on one card or, over a mesh, a volume a rank
+(:class:`MeshSegStream`).  :meth:`StarDist3D.predict_instances_sharded`
+splits one volume's tiles over the ranks.
 """
 
 from __future__ import annotations
@@ -46,7 +48,7 @@ from ..ops.rays import rays_golden_spiral
 from ..ops.tiling import TilePlan, pad_for_tiles, plan_tiles
 from ..utils.checkpoint import save_pytree
 from ..utils.convert import load_npz, stardist_params_from_numpy
-from ..utils.device import select_device, upload_raw
+from ..utils.device import same_device, select_device, upload_raw
 from ..utils.keras_import import import_stardist3d, stardist_config_from_json
 
 
@@ -411,35 +413,52 @@ class StarDist3D:
             nms_thresh = self.thresholds["nms"]
         vol = tuple(int(s) for s in x_raw.shape)
         plan = self.plan_tiling(vol, tile_shape, shrink)
-        grid = tuple(self.config.grid)
-        gshape = self._grid_shape(vol)
-        c_g = tuple(c // g for c, g in zip(plan.center_shape, grid))
         xn = pad_for_tiles(self._normalize(x_raw, norm_minmax), plan)
-        prob_map = torch.zeros(gshape, dtype=torch.float32,
-                               device=self.device)
         origins = [tuple(int(v) for v in o) for o in plan.origins]
+        outs = self._tile_batches(xn, origins, plan, vol, tile_candidates,
+                                  prob_thresh, tile_batch)
+        return self._merge_tiles(plan, vol, origins, *outs, nms_thresh,
+                                 return_labels)
+
+    def _tile_batches(self, xn: torch.Tensor, origins, plan: TilePlan,
+                      vol: Tuple[int, int, int], k_tile: int,
+                      prob_thresh: float, tile_batch: int):
+        """:meth:`_tile_batch` over the tiles at ``origins`` in batches of
+        ``tile_batch`` (the last filled with copies of its last tile,
+        whose outputs are dropped), concatenated in origin order."""
         batch = max(1, min(int(tile_batch), len(origins)))
         parts = []
         for start in range(0, len(origins), batch):
             chunk = origins[start:start + batch]
             n_real = len(chunk)
             chunk = chunk + [chunk[-1]] * (batch - n_real)
-            prob_c, top_p, dists, points, valid = self._tile_batch(
-                xn, chunk, plan, vol, tile_candidates, prob_thresh)
-            for i, o in enumerate(chunk[:n_real]):
-                og = [v // g for v, g in zip(o, grid)]
-                ext = [min(c, gs - v) for c, gs, v in zip(c_g, gshape, og)]
-                if all(e > 0 for e in ext):
-                    prob_map[og[0]:og[0] + ext[0], og[1]:og[1] + ext[1],
-                             og[2]:og[2] + ext[2]] = \
-                        prob_c[i, :ext[0], :ext[1], :ext[2]]
-            parts.append((top_p[:n_real], dists[:n_real], points[:n_real],
-                          valid[:n_real]))
-        probs, dists, points, valid = (
-            torch.cat([p[i] for p in parts]).flatten(0, 1)
-            for i in range(4))
-        # the global merge: a stable sort by prob (ties keep tile order,
-        # as numpy's stable argsort does in JAX), cut to the budget
+            parts.append([t[:n_real] for t in self._tile_batch(
+                xn, chunk, plan, vol, k_tile, prob_thresh)])
+        return [torch.cat([p[i] for p in parts]) for i in range(5)]
+
+    def _merge_tiles(self, plan: TilePlan, vol, origins, prob_c, probs,
+                     dists, points, valid, nms_thresh: float,
+                     return_labels: bool):
+        """The tiled program's merge from every tile's :meth:`_tile_batch`
+        outputs in origin order: each tile's centre prob map pasted into
+        the grid map (cut at its end); the candidates by a stable sort on
+        prob (ties keep tile order, as numpy's stable argsort does in JAX),
+        cut to ``max_candidates``; then NMS and render.  The tiled
+        program's outputs."""
+        grid = tuple(self.config.grid)
+        gshape = self._grid_shape(vol)
+        c_g = tuple(c // g for c, g in zip(plan.center_shape, grid))
+        prob_map = torch.zeros(gshape, dtype=torch.float32,
+                               device=self.device)
+        for i, o in enumerate(origins):
+            og = [v // g for v, g in zip(o, grid)]
+            ext = [min(c, gs - v) for c, gs, v in zip(c_g, gshape, og)]
+            if all(e > 0 for e in ext):
+                prob_map[og[0]:og[0] + ext[0], og[1]:og[1] + ext[1],
+                         og[2]:og[2] + ext[2]] = \
+                    prob_c[i, :ext[0], :ext[1], :ext[2]]
+        probs, dists, points, valid = (t.flatten(0, 1) for t in
+                                       (probs, dists, points, valid))
         order = torch.sort(torch.where(valid, probs, -torch.inf),
                            descending=True, stable=True
                            ).indices[:self.max_candidates]
@@ -515,14 +534,54 @@ class StarDist3D:
                                   return_labels: bool = True,
                                   norm_minmax: Tuple[float, float] = (0.,
                                                                       1.)):
-        """Tiles fanned out over several cards: not ported yet
-        (ROADMAP.md A.5); :meth:`predict_instances_tiled` runs the same
-        tiles on one card."""
-        raise NotImplementedError(
-            "predict_instances_sharded (tiles over several cards) is not "
-            "ported yet (ROADMAP.md A.5); predict_instances_tiled runs "
-            "them on one card")
+        """Tile-and-stitch instance prediction with the tiles split over
+        the ranks of a 1-axis mesh (JAX :711-776): every rank calls it
+        with the same volume and arguments, runs the same per-tile program
+        as :meth:`predict_instances_tiled_device` on its contiguous share
+        of the tiles (in batches of 8; the last share filled with copies
+        of the last tile, whose outputs are dropped), and gathers every
+        tile's centre prob map and candidates; then every rank runs the
+        global merge, NMS and render.  Returns what
+        :meth:`predict_instances_tiled` returns, on every rank, and the
+        same instances.  ``mesh``: a ``DeviceMesh`` whose first axis takes
+        the tiles, or None for a world of every rank (JAX's default mesh of
+        every device); the model must be on this rank's device."""
+        from ..parallel.mesh import mesh_axis
+        ax = mesh_axis(mesh)
+        if not same_device(self.device, ax.device):
+            raise ValueError(f"the model is on {self.device}, this rank on "
+                             f"{ax.device}")
+        if prob_thresh is None:
+            prob_thresh = self.thresholds["prob"]
+        if nms_thresh is None:
+            nms_thresh = self.thresholds["nms"]
+        return self.finalize_instances(to_host(
+            self._sharded_device(ax, self._volume(x), norm_minmax,
+                                 tile_shape, shrink, tile_candidates,
+                                 return_labels, prob_thresh, nms_thresh),
+            None, None))
 
+    def _sharded_device(self, ax, x_raw: torch.Tensor, norm_minmax,
+                        tile_shape, shrink, k_tile: int,
+                        return_labels: bool, prob_thresh: float,
+                        nms_thresh: float, tile_batch: int = 8):
+        """:meth:`predict_instances_sharded`'s outputs on the device, as
+        :meth:`predict_instances_tiled_device` gives them."""
+        from ..parallel.comm import all_gather_tensors
+        vol = tuple(int(s) for s in x_raw.shape)
+        plan = self.plan_tiling(vol, tile_shape, shrink)
+        xn = pad_for_tiles(self._normalize(x_raw, norm_minmax), plan)
+        origins = [tuple(int(v) for v in o) for o in plan.origins]
+        per = -(-len(origins) // ax.size)
+        mine = [origins[min(i, len(origins) - 1)]
+                for i in range(ax.index * per, (ax.index + 1) * per)]
+        gathered = all_gather_tensors(ax, self._tile_batches(
+            xn, mine, plan, vol, k_tile, prob_thresh, tile_batch))
+        prob_c, probs, dists, points, valid = (
+            torch.cat([g[i] for g in gathered])[:len(origins)]
+            for i in range(5))
+        return self._merge_tiles(plan, vol, origins, prob_c, probs, dists,
+                                 points, valid, nms_thresh, return_labels)
 
 def load_stardist_model(model_name: str = "stardist",
                         basedir: str = "stardist_models", *,
@@ -664,6 +723,129 @@ class SegArtifactSaver:
                     self._cond.notify_all()
 
 
+class MeshSegStream:
+    """The volumes of ``work`` segmented over the ranks of a mesh axis
+    (``parallel.mesh.MeshAxis``), in groups of the axis size: rank i of
+    the axis loads and segments the group's i-th volume with the
+    single-volume program (:meth:`StarDist3D.predict_instances_device`)
+    and sends its outputs to rank 0 of the axis, as bytes, by
+    point-to-point sends.  Volume ``labels_t`` (the recording's first,
+    whose labels are rendered) runs on rank 0 alone, as JAX runs vol 1's
+    single-volume program (``engine/stardist.py:906-1043``).
+
+    Iterating yields ``(t, seg_out)`` in t order on rank 0 of the axis
+    and nothing on the others; every rank of the axis iterates it.
+    Before each group the ranks exchange two flags each: whether its
+    volume loaded, and ``should_stop()``.  A stop on any rank ends the
+    sweep on all; the first volume that did not load ends it after the
+    volumes before it (``truncated``, with ``done_t`` the last one
+    segmented).  A consumer that leaves the loop early calls
+    :meth:`close`, which takes the group's remaining sends and stops the
+    other ranks at the next exchange."""
+
+    def __init__(self, model: StarDist3D, ax, load_raw: Callable, work,
+                 labels_t: int, should_stop: Optional[Callable[[], bool]]
+                 = None, prefetch_depth: int = 2):
+        self.model, self.ax = model, ax
+        self.should_stop = should_stop
+        self.truncated = False
+        self.done_t = work[0] - 1 if work else labels_t - 1
+        # the steps, in t order: (t,) for the labels volume, else groups
+        # of up to the axis size
+        self.steps: List[Tuple[int, ...]] = []
+        group: List[int] = []
+        for t in work:
+            if t == labels_t:
+                if group:
+                    self.steps.append(tuple(group))
+                    group = []
+                self.steps.append((t,))
+            else:
+                group.append(t)
+                if len(group) == ax.size:
+                    self.steps.append(tuple(group))
+                    group = []
+        if group:
+            self.steps.append(tuple(group))
+        self.labels_t = labels_t
+        mine = [ts[ax.index] for ts in self.steps
+                if self._owner(ts) is not None
+                and self._owner(ts) == ax.index]
+        self.loader = VolumePrefetcher(load_raw, mine, depth=prefetch_depth,
+                                       workers=2)
+        self._abort = False
+        self._gen = self._run()
+
+    def _single(self, ts) -> bool:
+        return ts == (self.labels_t,)
+
+    def _owner(self, ts) -> Optional[int]:
+        """The axis rank that segments this rank's volume of step ``ts``
+        (this rank, or None where it has none)."""
+        if self._single(ts):
+            return 0 if self.ax.index == 0 else None
+        return self.ax.index if self.ax.index < len(ts) else None
+
+    def close(self) -> None:
+        """End the sweep on every rank (the protocol drained), then stop
+        the loads."""
+        self._abort = True
+        try:
+            for _ in self._gen:
+                pass
+        finally:
+            self.loader.close()
+
+    def __iter__(self):
+        return self._gen
+
+    def _run(self):
+        from ..parallel.comm import all_ints, recv_tensors, send_tensors, \
+            spec_of
+        ax, model = self.ax, self.model
+        volumes = iter(self.loader)
+        for ts in self.steps:
+            stop = self._abort or bool(self.should_stop is not None
+                                       and self.should_stop())
+            item, status = None, 2              # 2: no volume of mine
+            if self._owner(ts) is not None:
+                try:
+                    item = next(volumes)[1]
+                    status = 0
+                except FileNotFoundError:
+                    status = 1
+            flags = all_ints(ax, [status, int(stop)])
+            if any(f[1] for f in flags):
+                return
+            owners = [0] if self._single(ts) else range(len(ts))
+            n_ok = 0
+            for i in owners:
+                if flags[i][0] != 0:
+                    break
+                n_ok += 1
+            out = None
+            if item is not None and ax.index < n_ok:
+                upload, mi, ma = item
+                out = model.predict_instances_device(
+                    upload.wait(), norm_minmax=(mi, ma),
+                    return_labels=self._single(ts))
+            if ax.index == 0:
+                for i in range(n_ok):
+                    if i > 0:
+                        got = recv_tensors(ax, spec_of(base), i)
+                        yield ts[i], (*got, None)
+                    else:
+                        base = out[:5]
+                        yield ts[0], out
+            elif out is not None:
+                send_tensors(ax, out[:5], 0)
+            if n_ok:
+                self.done_t = ts[n_ok - 1]
+            if n_ok < len(owners):
+                self.truncated = True
+                return
+
+
 def predict_and_save(images_path, model: StarDist3D,
                      results_folder: Union[str, Path],
                      prefetch_depth: int = 2,
@@ -707,20 +889,31 @@ def predict_and_save(images_path, model: StarDist3D,
     two saver threads copy the results back on the side stream and write
     them.  ``model.device`` is the device.
 
-    Not ported yet, each raising: ``mesh``, ``data_axis`` and
-    ``transport="u8"`` (ROADMAP.md A.5; ``mesh`` with ``tile_shape``
-    raises JAX's ``ValueError``)."""
+    ``mesh``: a ``DeviceMesh`` (``parallel.make_mesh``) whose
+    ``data_axis`` takes the volumes: every rank of the mesh calls
+    ``predict_and_save`` with the same arguments and its model on its own
+    device, and the volumes are segmented in groups of the axis size, one
+    a rank (:class:`MeshSegStream`; the recording's first volume on rank
+    0 alone).  The mesh's first rank (0 on every axis) writes every
+    artifact, with the bytes of the same call without a mesh, and calls
+    ``progress_cb``; every rank returns once the tree is written.  With
+    ``tile_shape`` it raises JAX's ``ValueError`` (shard tiles with
+    :meth:`StarDist3D.predict_instances_sharded`).  ``data_axis`` is
+    ignored without a mesh, as in JAX.
+
+    Not ported yet: ``transport="u8"`` (``ROADMAP.md`` A.5b), which
+    raises."""
+    ax = None
     if mesh is not None:
         if tile_shape is not None:
             raise ValueError(
                 "mesh= and tile_shape= are mutually exclusive; shard "
                 "tiles of huge volumes via predict_instances_sharded")
-        raise NotImplementedError(
-            "mesh= (segmentation over several cards) is not ported yet "
-            "(ROADMAP.md A.5)")
-    if data_axis != "data":
-        raise NotImplementedError(
-            "data_axis= (a mesh axis) is not ported yet (ROADMAP.md A.5)")
+        from ..parallel.mesh import mesh_axis
+        ax = mesh_axis(mesh, data_axis, sole=True)
+        if model is not None and not same_device(model.device, ax.device):
+            raise ValueError(f"the model is on {model.device}, this rank "
+                             f"on {ax.device}")
     check_transport(transport)
     check_recording(images_path)
     tree = ResultsTree(results_folder)
@@ -745,6 +938,11 @@ def predict_and_save(images_path, model: StarDist3D,
             tile_candidates=tile_candidates, return_labels=return_labels,
             tile_batch=tile_batch)
 
+    if ax is not None:
+        _predict_and_save_mesh(model, ax, _load_raw, work, t_min,
+                               results_folder, side, prefetch_depth,
+                               progress_cb, should_stop)
+        return
     loader = VolumePrefetcher(_load_raw, work, depth=prefetch_depth,
                               workers=2)
     saver = SegArtifactSaver(model, results_folder, t_min, side,
@@ -773,6 +971,42 @@ def predict_and_save(images_path, model: StarDist3D,
     if saver.errors:
         raise saver.errors[0]
     print(f"All images from t={work[0]} to t={done_t} have been segmented")
+
+
+def _predict_and_save_mesh(model: StarDist3D, ax, load_raw, work, t_min,
+                           results_folder, side, prefetch_depth,
+                           progress_cb, should_stop) -> None:
+    """:func:`predict_and_save` over the ranks of mesh axis ``ax``: a
+    :class:`MeshSegStream`, whose rank 0 writes when it is the mesh's
+    first rank; a write failure stops every rank."""
+    from ..parallel.comm import barrier
+    saver = (SegArtifactSaver(model, results_folder, t_min, side,
+                              progress_cb=progress_cb)
+             if ax.lead else None)
+
+    def stop():
+        return bool((should_stop is not None and should_stop())
+                    or (saver is not None and saver.errors))
+
+    stream = MeshSegStream(model, ax, load_raw, work, t_min, stop,
+                           prefetch_depth)
+    try:
+        for t, seg_out in stream:
+            if saver is not None:
+                saver.put(t, seg_out)
+    finally:
+        stream.close()
+        if saver is not None:
+            saver.close()
+    barrier(ax)
+    if saver is not None and saver.errors:
+        raise saver.errors[0]
+    if ax.lead:
+        if stream.truncated:
+            print(f"Warning: segmentation stopped; images at "
+                  f"t={stream.done_t + 1} cannot be loaded!")
+        print(f"All images from t={work[0]} to t={stream.done_t} have "
+              f"been segmented")
 
 
 def save_arrays_to_folder(arrays: List[np.ndarray],

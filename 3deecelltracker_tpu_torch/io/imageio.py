@@ -171,7 +171,7 @@ def check_transport(transport: str) -> None:
     """Raise unless ``transport`` is a wire format the port has."""
     if transport == "u8":
         raise NotImplementedError(
-            "transport='u8' is not ported yet (ROADMAP.md A.5); use "
+            "transport='u8' is not ported yet (ROADMAP.md A.5b); use "
             "transport='u16'")
     if transport != "u16":
         raise ValueError(f"transport must be 'u16' or 'u8', got "

@@ -1,5 +1,6 @@
 """FFN point-pair matching network (counterpart of
-``3deecelltracker_tpu/models/ffn.py``: ``ffn_apply``, ``ffn_pair_scores``).
+``3deecelltracker_tpu/models/ffn.py``: ``FFN``, ``init_ffn``, ``ffn_apply``,
+``ffn_pair_scores``).
 
 A shared trunk Dense(61->512, no bias) -> BN -> LeakyReLU on each half of
 a pair, concat -> Dense(512, no bias) -> BN -> LeakyReLU -> Dense(1) ->
@@ -10,6 +11,7 @@ Params ``{"feat", "comb", "pred", "feat_bn",
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict, Tuple
 
 import torch
@@ -26,7 +28,29 @@ MAX_PAIR_ELEMENTS = 1 << 30
 Params = Dict[str, Any]
 
 
-def init_ffn(generator: torch.Generator, device=None
+@dataclasses.dataclass(frozen=True)
+class FFN:
+    """The network's widths with its init and apply (JAX ``models/ffn.py:
+    39-61``)."""
+    n_features: int = N_FEATURES
+    hidden: int = HIDDEN
+
+    def init(self, generator: torch.Generator, device=None
+             ) -> Tuple[Params, Params]:
+        """``(params, state)``: :func:`init_ffn` at these widths."""
+        return init_ffn(generator, device, self.n_features, self.hidden)
+
+    def apply(self, params: Params, state: Params, x: torch.Tensor,
+              train: bool = False) -> Tuple[torch.Tensor, Params]:
+        """Pairwise forward on (batch, 2 * n_features) rows -> ``((batch,
+        1) scores, state)``, the state moved in train mode (JAX's
+        ``FFN.apply``)."""
+        out = ffn_apply(params, state, x, train, n_features=self.n_features)
+        return out if train else (out, state)
+
+
+def init_ffn(generator: torch.Generator, device=None,
+             n_features: int = N_FEATURES, hidden: int = HIDDEN
              ) -> Tuple[Params, Params]:
     """Seeded glorot init with identity batchnorms (not JAX's numbers);
     ``device=None`` is the card."""
@@ -45,12 +69,12 @@ def init_ffn(generator: torch.Generator, device=None
                 {"mean": torch.zeros(c, device=device),
                  "var": torch.ones(c, device=device)})
 
-    params = {"feat": dense(N_FEATURES, HIDDEN, False),
-              "comb": dense(2 * HIDDEN, HIDDEN, False),
-              "pred": dense(HIDDEN, 1, True)}
+    params = {"feat": dense(n_features, hidden, False),
+              "comb": dense(2 * hidden, hidden, False),
+              "pred": dense(hidden, 1, True)}
     state = {}
-    params["feat_bn"], state["feat_bn"] = bn(HIDDEN)
-    params["comb_bn"], state["comb_bn"] = bn(HIDDEN)
+    params["feat_bn"], state["feat_bn"] = bn(hidden)
+    params["comb_bn"], state["comb_bn"] = bn(hidden)
     return params, state
 
 

@@ -142,7 +142,7 @@ class TrainFFN:
     through ``utils.convert``.  ``seed`` also seeds the synthesis, as in
     JAX.  ``device``: the card unless ``"cpu"`` is passed.  Data-parallel
     training over several cards (JAX's ``mesh=`` and ``data_axis=``) is not
-    ported yet (ROADMAP.md A.5) and raises."""
+    ported yet (ROADMAP.md A.5b) and raises."""
 
     def __init__(self, model_name: str,
                  points1_path: Optional[str] = None,
@@ -155,7 +155,7 @@ class TrainFFN:
         if mesh is not None or data_axis != "data":
             raise NotImplementedError(
                 "mesh= / data_axis= (data-parallel training over several "
-                "cards) is not ported yet (ROADMAP.md A.5)")
+                "cards) is not ported yet (ROADMAP.md A.5b)")
         self.device = select_device(device)
         if config is not None:
             learning_rate = config.learning_rate

@@ -76,7 +76,7 @@ class TrainStarDist3D:
     ``utils.convert``.  ``seed`` also seeds the patch sampler, as in JAX.
     ``device``: the card unless ``"cpu"`` is passed.  Data-parallel
     training over several cards (JAX's ``mesh=`` and ``data_axis=``) is
-    not ported yet (ROADMAP.md A.5) and raises."""
+    not ported yet (ROADMAP.md A.5b) and raises."""
 
     def __init__(self, config: StarDistConfig,
                  basedir: Union[str, Path] = "stardist_models",
@@ -92,7 +92,7 @@ class TrainStarDist3D:
         if mesh is not None or data_axis != "data":
             raise NotImplementedError(
                 "mesh= / data_axis= (data-parallel training over several "
-                "cards) is not ported yet (ROADMAP.md A.5)")
+                "cards) is not ported yet (ROADMAP.md A.5b)")
         self.device = select_device(device)
         self.config = config
         self.net = StarDist3DNet(config)

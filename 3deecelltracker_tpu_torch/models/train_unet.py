@@ -169,7 +169,7 @@ class TrainingUNet3D:
     with ``seed`` (other numbers than JAX's init); :meth:`start_from`
     replaces them, e.g. with a JAX checkpoint.  ``device``: the card
     unless ``"cpu"`` is passed.  ``mesh`` (data-parallel training over
-    several cards) is not ported yet (ROADMAP.md A.5) and raises."""
+    several cards) is not ported yet (ROADMAP.md A.5b) and raises."""
 
     def __init__(self, noise_level: float, folder_path: Union[str, Path],
                  model: UNet3D, learning_rate: float = 1e-3, seed: int = 0,
@@ -178,7 +178,7 @@ class TrainingUNet3D:
         if mesh is not None:
             raise NotImplementedError(
                 "mesh= (data-parallel training over several cards) is not "
-                "ported yet (ROADMAP.md A.5)")
+                "ported yet (ROADMAP.md A.5b)")
         if config is not None:
             learning_rate = config.learning_rate
             batch_size = config.batch_size

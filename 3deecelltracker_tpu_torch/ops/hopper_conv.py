@@ -486,8 +486,8 @@ def _launch_wgmma_bf16(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     """The bf16 tensor-core kernel (``csrc/conv3x3x3_wgmma_bf16.cu``) on x
     rounded to bf16 (once, here, where it is f32): f32 out with ``bn``
     None (the bf16 layer), else the block, bf16 out; one launch.  Where
-    c_in % 16 == 8 it assumes a finite x: a non-finite value gives NaN
-    where the plain conv gives +-Inf (the ``.cu``'s header says why)."""
+    c_in % 16 == 8 the last chunk's missing channels read a plane of
+    zeros, so a non-finite x gives what the plain conv gives."""
     c_in, c_out = int(w.shape[3]), int(w.shape[4])
     if route(c_in, c_out) != "wgmma":
         raise ValueError(f"conv3x3x3_wgmma_bf16 takes c_in and c_out that "

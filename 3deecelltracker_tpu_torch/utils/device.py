@@ -34,9 +34,10 @@ def prefer_cusolver() -> None:
 
 def select_device(device: Union[str, torch.device, None]) -> torch.device:
     """Resolve ``device``, pin full float32 precision and cuSOLVER
-    factorizations.  ``None`` means the first CUDA card; without one it
-    raises rather than fall back: the CPU runs only when the caller asks
-    for it (``device="cpu"``)."""
+    factorizations.  ``None`` means this process's CUDA card: the first,
+    unless ``parallel.multihost.initialize`` put the process on card
+    ``LOCAL_RANK``; without one it raises rather than fall back: the CPU
+    runs only when the caller asks for it (``device="cpu"``)."""
     pin_float32()
     prefer_cusolver()
     if device is not None:
@@ -44,7 +45,13 @@ def select_device(device: Union[str, torch.device, None]) -> torch.device:
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: the port runs on the card by "
                            "default; pass device=\"cpu\" to run on the CPU")
-    return torch.device("cuda", 0)
+    return torch.device("cuda", torch.cuda.current_device()
+                        if torch.cuda.is_initialized() else 0)
+
+
+def same_device(a: torch.device, b: torch.device) -> bool:
+    """Whether two devices are one (``cuda`` is ``cuda:0``)."""
+    return a.type == b.type and (a.index or 0) == (b.index or 0)
 
 
 def to_device(tree, device: torch.device):

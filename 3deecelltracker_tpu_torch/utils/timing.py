@@ -1,7 +1,8 @@
 """Stage timing on the host clock, the caller's stream synchronized around
 each stage (the counterpart of
 ``3deecelltracker_tpu/utils/profiling.py::StageTimer`` for a device that
-runs ahead of the host)."""
+runs ahead of the host).  ``utils.profiling.StageTimer`` is JAX's twin,
+which does not synchronize."""
 
 from __future__ import annotations
 

@@ -199,7 +199,29 @@ Phases (any failure raises and the script exits non-zero):
    1's probabilities, cells, labels, coordinates, recall, switches;
    ``hold_legacy_bf16``), every counter reset before and read after (the bf16 ``wgmma`` conv, the bf16
    stem once per volume, no f32 conv, the flood and cc), seg and track
-   ms per volume.
+   ms per volume;
+24. non-finite activations in the bf16 kernel's half chunk (``ROADMAP.md``
+   C.10): U-Net a's c_in % 16 == 8 shapes (8 -> 16, 8 -> 8) in the f32-out
+   layer mode and the block mode, with +Inf, -Inf and NaN planted in
+   single activations: the kernel equals the plain version exactly where
+   that is not finite, and holds it within ``BF16_RTOL`` elsewhere
+   (``nonfinite_rows``; those launches are no path's);
+25. the mesh (paths ``mesh_bench``, ``mesh_ensemble``, ``mesh_sharded``,
+   ``mesh_unet_tiles``, ``mesh_unet_halo``): an NCCL world of one
+   (``parallel.multihost.initialize`` over a ``FileStore`` in the run's
+   temporary directory, destroyed at the end), ``make_mesh(1)``, then
+   ``segment_and_track(mesh=, handoff="device")`` over phase 11's TIFFs,
+   ensemble ``track_timelapse(mesh=)`` over phase 12's ``seg/``,
+   ``predict_instances_sharded`` on phase 17's volume and the
+   ``UNetSegmenter`` (trained U-Net a, bf16) on the legacy folder's vol 1
+   in ``mesh_mode="tiles"`` and ``"halo"``, each held bit for bit against
+   what it is made of: phase 11's and 13's trees and coordinates,
+   ``predict_instances_tiled`` on the same volume, the segmenter without a
+   mesh, and the U-Net applied straight to the zero-extended padded
+   volume; ms per volume beside the runs without a mesh;
+26. the synthetic demo (path ``demo``): ``scripts.synthetic_demo.main`` on
+   the card, the example's whole recipe, each stage's seconds and the
+   median tracking error at t = 6 against ``DEMO_MAX_ERROR``.
 
 Every kernel's entry in the kernels line carries its bound: the least time
 the card could take, the larger of its bytes (inputs read once, the output
@@ -1131,6 +1153,10 @@ def hold_to_record(path, record, results, coords, centers, cands, model,
     return bad, got_metrics, want_metrics
 
 
+# phases 11 and 13's wall ms per volume, printed beside phase 25's
+WALLS = {}
+
+
 def phase_bench_scene(dev, smi, root):
     """Phase 11: the bench scene through the real entry point with the
     trained weights and ``handoff="device"``, held to JAX's record of the
@@ -1161,6 +1187,7 @@ def phase_bench_scene(dev, smi, root):
     bad, _, _ = hold_to_record("bench", record, results, coords, centers,
                                cands, model)
     wall = timer.times["call"][0] / BENCH_VOLS
+    WALLS["bench"] = wall
     seg_ms, track_ms = np.mean(timer.times["seg"]), \
         np.mean(timer.times["track"])
     print(f"[bench] {smi}: wall {wall:.2f} ms per volume for the whole call "
@@ -1306,6 +1333,7 @@ def phase_bench_ensemble(dev, smi, root, pattern, centers):
             config=TrackingConfig(**ENSEMBLE), verbose=False, timer=timer,
             device=dev))
         wall = 1e3 * (time.perf_counter() - t0) / BENCH_VOLS
+        WALLS["bench_ensemble"] = wall
     finally:
         pipeline.get_volumes_list = volumes_list
         pipeline.ensemble_member_predictions = fan_out
@@ -3579,6 +3607,311 @@ def phase_bf16(dev, smi, folder, centers):
     return sums, errs, times, launches
 
 
+def nonfinite_rows(dev):
+    """Phase 24 (``ROADMAP.md`` C.10): the bf16 tensor-core kernel on U-Net
+    a's c_in % 16 == 8 shapes, whose last (only) 16-channel chunk is a
+    half one, with +Inf, -Inf and NaN planted in single activations more
+    than two voxels apart (no output sums two of them), in both batch
+    items: the f32-out layer mode and the block mode (LeakyReLU, eval
+    BatchNorm, bf16 out) against their plain versions on the CPU (oneDNN's
+    direct sum keeps +-Inf), exactly where the plain output is not finite
+    (the same NaNs, the same signed Infs) and within ``BF16_RTOL`` of sum
+    |x w| + |b| (the block: its rounding) elsewhere.  Returns each case's
+    non-finite outputs and largest finite error."""
+    import torch
+    from t3dct_torch.ops import hopper_conv as hc
+    bf = torch.bfloat16
+    gen = torch.Generator().manual_seed(24)
+    rows, bad = [], []
+    for ci, co in ((8, 16), (8, 8)):
+        x = torch.relu(torch.randn((2, 6, 40, 40, ci), generator=gen))
+        for b, (z, y, xx), c in ((0, (3, 10, 10), ci - 1),
+                                 (1, (2, 30, 25), 0)):
+            x[b, z, y, xx, c] = float("inf")
+            x[b, z, y + 6, xx + 6, c] = float("-inf")
+            x[b, z, y - 5, xx + 12, c] = float("nan")
+        x = hc.round_bf16(x)
+        w = torch.randn((3, 3, 3, ci, co), generator=gen) / (27 * ci) ** 0.5
+        bias = torch.randn((co,), generator=gen) * 0.1
+        bn = bf16_bn(co, gen, "cpu")
+        finite = torch.where(torch.isfinite(x), x, 0.0)
+        scale = hc.conv3x3x3_bias_relu_plain(
+            finite.abs(), hc.round_bf16(w).abs(), bias.abs(), False)
+        plain = hc.conv3x3x3_bias_relu_plain(x, w, bias, False, bf)
+        xd, wd, bd = x.to(dev).to(bf), w.to(dev), bias.to(dev)
+        mean, inv, beta = bn
+        for mode in ("layer", "block"):
+            if mode == "layer":
+                got = hc.conv3x3x3_bias_relu(xd, wd, bd, False,
+                                             compute_dtype=bf).cpu()
+                want, eps = plain, BF16_RTOL * scale
+                lo = hi = None
+            else:
+                got = hc.conv3x3x3_block_bf16(
+                    xd, wd, bd, *(t.to(dev) for t in bn),
+                    "leaky_relu").cpu().float()
+                want = hc.conv3x3x3_block_bf16_plain(
+                    x, w, bias, mean, inv, beta, "leaky_relu").float()
+                v = (hc.activation(plain, "leaky_relu") - mean) * inv + beta
+                eps = BF16_RTOL * scale * inv.abs() + v.abs() * 2.0 ** -21
+                lo, hi = (v - eps).to(bf).float(), (v + eps).to(bf).float()
+            nonfinite = ~torch.isfinite(want)
+            same_mask = torch.equal(nonfinite, ~torch.isfinite(got))
+            same_values = torch.equal(
+                got[nonfinite].nan_to_num(0.0, 1.0, -1.0),
+                want[nonfinite].nan_to_num(0.0, 1.0, -1.0)) and \
+                torch.equal(got[nonfinite].isnan(), want[nonfinite].isnan())
+            ok = ~nonfinite & torch.isfinite(got)
+            if lo is None:
+                outside = int(((got - want).abs() > eps)[ok].sum())
+            else:
+                outside = int(((got < lo) | (got > hi))[ok].sum())
+            err = float((got - want).abs()[ok].max())
+            n_nan = int(want.isnan().sum())
+            n_inf = int(want.isinf().sum())
+            rows.append(dict(shape=f"{ci}->{co}", mode=mode, nan=n_nan,
+                             inf=n_inf, err=err, outside=outside))
+            print(f"[c10] {ci} -> {co} {mode}: {n_nan} NaN and {n_inf} "
+                  f"+-Inf outputs in the plain version, the kernel's "
+                  f"{'the same' if same_mask and same_values else 'DIFFER'}"
+                  f"; finite outputs max error {err:.3e}, {outside} "
+                  f"outside the bound")
+            if not (same_mask and same_values) or outside or not \
+                    (n_nan and n_inf):
+                bad.append((ci, co, mode))
+    if bad:
+        raise AssertionError(f"C.10: the half chunk's non-finite outputs "
+                             f"differ from the plain version: {bad}")
+    return rows
+
+
+# the synthetic demo's bound on its median tracking error at t = 6 (real
+# units), set before the demo's first card run from JAX's
+# examples/synthetic_demo.py run once on the CPU, which printed 2.14 (its
+# StarDist, trained on the CPU, kept no cell; the cells standing still
+# would score 2.96): JAX's figure with a quarter of room for the card's
+# other training numerics (TF32 convs)
+DEMO_MAX_ERROR = 1.25 * 2.14
+
+
+def phase_mesh(dev, smi, root, pattern, folder):
+    """Phase 25: the mesh entry points over an NCCL world of one, each
+    held bit for bit against what it is made of (see the module
+    docstring).  Returns the launches of each path and the times."""
+    import shutil
+    import torch
+    from t3dct_torch.config import (SegmentationConfig, StarDistConfig,
+                                    TrackingConfig)
+    from t3dct_torch.engine.pipeline import (segment_and_track,
+                                             track_timelapse)
+    from t3dct_torch.engine.segmentation import UNetSegmenter
+    from t3dct_torch.engine.stardist import StarDist3D
+    from t3dct_torch.io.imageio import read_image_ts
+    from t3dct_torch.models.unet3d import get_unet
+    from t3dct_torch.parallel import make_mesh, multihost
+    from t3dct_torch.scripts import segment_large_volume as script
+    from t3dct_torch.utils.checkpoint import load_pytree
+    from t3dct_torch.utils.device import upload_raw
+    t_phase = time.perf_counter()
+    multihost.initialize(num_processes=1, process_id=0,
+                         store=str(root / "nccl_store"))
+    launches, times, bad = {}, {}, []
+    try:
+        mesh = make_mesh(1)
+
+        def tree_bytes(d):
+            return {str(p.relative_to(d)): p.read_bytes()
+                    for p in sorted(d.rglob("*")) if p.is_file()}
+
+        def same_tree(name, got, want, subs):
+            for sub in subs:
+                if tree_bytes(got / sub) != tree_bytes(want / sub):
+                    bad.append(f"{name}: {sub} differs from the run "
+                               f"without a mesh")
+
+        def same_coords(name, got, want_root):
+            from t3dct_torch.io.artifacts import ResultsTree
+            tree = ResultsTree(want_root)
+            for t, c in got.items():
+                if not np.array_equal(c, tree.load_coords_real(t)):
+                    bad.append(f"{name}: t={t} coordinates differ")
+
+        # segment_and_track over phase 11's TIFFs
+        results = root / "results_mesh"
+        shutil.copytree(root / "results" / "manual_vol1",
+                        results / "manual_vol1")
+        model = trained_model(dev, [])
+        t0 = time.perf_counter()
+        coords, launches["mesh_bench"] = counted(lambda: segment_and_track(
+            pattern, model, results, str(results / "manual_vol1" / "*.tif"),
+            ASSETS / "ffn.npz", VOXEL_SIZE, 10, (1, BENCH_VOLS),
+            TrackingConfig(beta=3.0, lambda_=3.0), verbose=False,
+            handoff="device", mesh=mesh))
+        times["mesh_bench_ms"] = 1e3 * (time.perf_counter() - t0) / \
+            BENCH_VOLS
+        same_tree("mesh_bench", results, root / "results",
+                  ("seg", "auto_vol1", "track_results"))
+        same_coords("mesh_bench", coords, root / "results")
+        # ensemble track_timelapse over phase 12's seg/
+        results = root / "results_mesh_ensemble"
+        shutil.copytree(root / "results_disk" / "seg", results / "seg")
+        shutil.copytree(root / "results" / "manual_vol1",
+                        results / "manual_vol1")
+        t0 = time.perf_counter()
+        coords, launches["mesh_ensemble"] = counted(
+            lambda: track_timelapse(
+                results, str(results / "manual_vol1" / "*.tif"),
+                ASSETS / "ffn.npz", VOXEL_SIZE, 10, (1, BENCH_VOLS),
+                grid=GRID, config=TrackingConfig(**ENSEMBLE),
+                verbose=False, mesh=mesh))
+        times["mesh_ensemble_ms"] = 1e3 * (time.perf_counter() - t0) / \
+            BENCH_VOLS
+        same_tree("mesh_ensemble", results, root / "results_ensemble",
+                  ("track_results",))
+        same_coords("mesh_ensemble", coords, root / "results_ensemble")
+        # predict_instances_sharded on phase 17's volume, at the threshold
+        # that keeps the top 1% of the grid (as phase 17's batch check)
+        sd = StarDist3D(StarDistConfig(**script.CONFIG), max_candidates=512,
+                        render_box=(9, 17, 17), device=dev)
+        x = np.random.default_rng(0).random(ZEBRAFISH, np.float32)
+        (_, _), prob = sd.predict_instances_tiled(x, ZEBRAFISH_TILE)
+        thr = float(np.quantile(prob[2:-2, 2:-2, 2:-2], 0.99))
+        kw = dict(tile_shape=ZEBRAFISH_TILE, prob_thresh=thr)
+        t0 = time.perf_counter()
+        want = sd.predict_instances_tiled(x, **kw)
+        tiled_ms = 1e3 * (time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        got, launches["mesh_sharded"] = counted(
+            lambda: sd.predict_instances_sharded(x, mesh=mesh, **kw))
+        times["mesh_sharded_ms"] = 1e3 * (time.perf_counter() - t0)
+        times["mesh_sharded_tiled_ms"] = tiled_ms
+        (g_lab, g_det), g_prob = got
+        (w_lab, w_det), w_prob = want
+        if not (np.array_equal(g_prob, w_prob)
+                and np.array_equal(g_lab, w_lab)
+                and all(np.array_equal(g_det[k], w_det[k])
+                        for k in ("points", "prob", "dist"))):
+            bad.append("mesh_sharded differs from predict_instances_tiled")
+        print(f"[mesh] sharded zebrafish: {len(g_det['points'])} instances "
+              f"at prob {thr:.4f}, {times['mesh_sharded_ms']:.1f} ms "
+              f"against the tiled run's {tiled_ms:.1f} ms")
+        # the U-Net segmenter on the legacy folder's vol 1, bf16
+        spec = get_unet("a")
+        params, state = load_pytree(
+            spec.init(torch.Generator().manual_seed(0), device=dev),
+            LEGACY_ASSETS / "unet3_a.npz")
+        raw = read_image_ts(1, str(folder / "data" / LEG_IMAGE), (1, Z + 1))
+        cfg = SegmentationConfig(**LEG_SEG)
+        plain = UNetSegmenter(spec, params, state, cfg, (Y, X, Z),
+                              max_cells=LEG_MAX_CELLS, device=dev)
+        t0 = time.perf_counter()
+        want = plain.segment(raw)
+        torch.cuda.synchronize()
+        times["unet_seg_ms"] = 1e3 * (time.perf_counter() - t0)
+        tiles = UNetSegmenter(spec, params, state, cfg, (Y, X, Z),
+                              max_cells=LEG_MAX_CELLS, mesh=mesh)
+        for name, seg in (("unet_probs_ms", plain),
+                          ("mesh_unet_tiles_probs_ms", tiles)):
+            seg.predict_cellregions(raw)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            seg.predict_cellregions(raw)
+            torch.cuda.synchronize()
+            times[name] = 1e3 * (time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        got, launches["mesh_unet_tiles"] = counted(lambda: tiles.segment(
+            raw))
+        times["mesh_unet_tiles_ms"] = 1e3 * (time.perf_counter() - t0)
+        if not (torch.equal(got.image_cell_bg, want.image_cell_bg)
+                and torch.equal(got.segmentation_auto,
+                                want.segmentation_auto)):
+            bad.append("mesh_unet_tiles differs from the segmenter "
+                       "without a mesh")
+        halo = UNetSegmenter(spec, params, state, cfg, (Y, X, Z),
+                             max_cells=LEG_MAX_CELLS, mesh=mesh,
+                             mesh_mode="halo")
+        probs, launches["mesh_unet_halo"] = counted(
+            lambda: halo.predict_cellregions(raw))
+        t0 = time.perf_counter()
+        halo.predict_cellregions(raw)
+        torch.cuda.synchronize()
+        times["mesh_unet_halo_ms"] = 1e3 * (time.perf_counter() - t0)
+        norm = halo._normalize(upload_raw(raw, dev))
+        tp = spec.pool[0] ** len(spec.down_filters)
+        padded = torch.nn.functional.pad(norm, (
+            0, (-Z) % spec.pool[2] ** len(spec.down_filters),
+            0, (-X) % spec.pool[1] ** len(spec.down_filters), 0, (-Y) % tp))
+        h = halo.halo
+        ext = torch.nn.functional.pad(padded, (0, 0, 0, 0, h, h))
+        direct = spec.apply(params, state, ext[None, ..., None],
+                            compute_dtype=torch.bfloat16)[
+            0, h:h + padded.shape[0], ..., 0][:Y, :X, :Z]
+        if not torch.equal(probs, direct):
+            bad.append("mesh_unet_halo differs from the U-Net applied to "
+                       "the zero-extended volume")
+        apart = int(((probs - want.image_cell_bg).abs() > 1e-2).sum())
+        print(f"[mesh] U-Net a bf16 on vol 1: segment "
+              f"{times['unet_seg_ms']:.1f} ms, over the mesh "
+              f"{times['mesh_unet_tiles_ms']:.1f} ms (tile mode); "
+              f"probabilities (warm) {times['unet_probs_ms']:.2f} ms, over "
+              f"the mesh {times['mesh_unet_tiles_probs_ms']:.2f} ms (tile "
+              f"mode) and {times['mesh_unet_halo_ms']:.2f} ms (halo mode, "
+              f"halo {h}; {apart} voxels more than 1e-2 from the tile "
+              f"sweep's: the halo sweep has no tile seams)")
+    finally:
+        torch.distributed.destroy_process_group()
+    for path, n in launches.items():
+        print(f"[mesh] {path} launches {n}")
+    need = {"mesh_bench": ("conv3x3x3_wgmma", "conv3x3x3_direct",
+                           "flood_slices"),
+            "mesh_ensemble": ("flood_slices",),
+            "mesh_sharded": ("conv3x3x3_wgmma", "conv3x3x3_direct"),
+            "mesh_unet_tiles": ("conv3x3x3_wgmma_bf16",
+                                "conv3x3x3_direct_bf16", "flood_slices",
+                                "cc_label"),
+            "mesh_unet_halo": ("conv3x3x3_wgmma_bf16",
+                               "conv3x3x3_direct_bf16")}
+    for path, names in need.items():
+        for name in names:
+            if launches[path][name] <= 0:
+                bad.append(f"{path}: {name} never launched")
+    print(f"[mesh] {smi}: segment_and_track over the mesh "
+          f"{times['mesh_bench_ms']:.2f} ms per volume (the whole call; "
+          f"phase 11 without it {WALLS.get('bench', float('nan')):.2f}); "
+          f"ensemble track_timelapse over the mesh "
+          f"{times['mesh_ensemble_ms']:.2f} ms per volume (phase 13 "
+          f"without it {WALLS.get('bench_ensemble', float('nan')):.2f}); "
+          f"phase {time.perf_counter() - t_phase:.1f} s")
+    if bad:
+        raise AssertionError(f"mesh: {bad}")
+    return launches, times
+
+
+def phase_demo(dev, smi, root):
+    """Phase 26: the port's synthetic demo on the card, the example's whole
+    recipe; each stage's seconds and the median tracking error at t = 6,
+    held to ``DEMO_MAX_ERROR``."""
+    from t3dct_torch.scripts import synthetic_demo as demo
+    t0 = time.perf_counter()
+    out, launches = counted(lambda: demo.main(["--out", str(root / "demo")]))
+    total = time.perf_counter() - t0
+    print(f"[demo] launches {launches}")
+    print(f"[demo] {smi}: " + ", ".join(
+        f"{k} {v:.2f} s" for k, v in out["seconds"].items())
+        + f"; {total:.1f} s in all; median tracking error at t="
+        f"{demo.N_VOLS} {out['median_error']:.4f} real units (bound "
+        f"{DEMO_MAX_ERROR})")
+    bad = [name for name in ("conv3x3x3_wgmma", "conv3x3x3_direct",
+                             "flood_slices") if launches[name] <= 0]
+    if bad or not out["median_error"] <= DEMO_MAX_ERROR:
+        raise AssertionError(f"demo: kernels never launched {bad}, median "
+                             f"error {out['median_error']} against "
+                             f"{DEMO_MAX_ERROR}")
+    return launches, dict(demo_s=total, demo_median_error=out[
+        "median_error"], **{f"demo_{k}_s": v for k, v in
+                            out["seconds"].items()})
+
+
 def main() -> int:
     if not (ROOT / "3deecelltracker_tpu_torch").is_dir():
         print("chip_smoke.py must run from a checkout of the repository",
@@ -3635,6 +3968,12 @@ def main() -> int:
             phase_keras(dev, smi, Path(tmp), *scene)
         bf16_sums, bf16_errs, bf16_times, bf16 = phase_bf16(dev, smi,
                                                             *leg_folder)
+        t0 = time.perf_counter()
+        c10 = nonfinite_rows(dev)
+        print(f"[c10] phase {time.perf_counter() - t0:.1f} s")
+        mesh, mesh_times = phase_mesh(dev, smi, Path(tmp), scene[0],
+                                      leg_folder[0])
+        demo, demo_times = phase_demo(dev, smi, Path(tmp))
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
 
@@ -3649,7 +3988,9 @@ def main() -> int:
                    "retrain": retrain[name], "keras": keras[name],
                    "keras_tiled": keras_tiled[name],
                    "legacy_bf16": bf16["legacy_bf16"][name],
-                   "legacy_bf16_ensemble": bf16["legacy_bf16_ensemble"][name]}
+                   "legacy_bf16_ensemble": bf16["legacy_bf16_ensemble"][name],
+                   **{path: n[name] for path, n in mesh.items()},
+                   "demo": demo[name]}
         return dict(launches=sum(by_path.values()),
                     launches_by_path=by_path)
 
@@ -3681,7 +4022,7 @@ def main() -> int:
              source="3deecelltracker_tpu_torch/csrc/conv3x3x3_wgmma_bf16.cu",
              replaces="3deecelltracker_tpu/ops/pallas_conv.py:89",
              **counts("conv3x3x3_wgmma_bf16"), **bf16_entry("wgmma_bf16"),
-             **bf16_times),
+             **bf16_times, c10_nonfinite=c10),
         dict(name="conv3x3x3_direct_bf16", route="cuda",
              source="3deecelltracker_tpu_torch/csrc/conv3x3x3_bf16.cu",
              replaces="3deecelltracker_tpu/ops/pallas_conv.py:89",
@@ -3695,7 +4036,8 @@ def main() -> int:
              **train_times, **tiled_times, **zebra_times, **retrain_times,
              **{f"legacy_{k}": v for k, v in leg_single_times.items()},
              **{f"legacy_ensemble_{k}": v
-                for k, v in leg_ens_times.items()}, **keras_times),
+                for k, v in leg_ens_times.items()}, **keras_times,
+             **mesh_times, **demo_times),
         dict(name="conv3x3x3_direct", route="cuda",
              source="3deecelltracker_tpu_torch/csrc/conv3x3x3.cu",
              replaces="3deecelltracker_tpu/ops/pallas_conv.py:89",

@@ -394,10 +394,25 @@ def test_segmenter_defaults_to_bf16():
 @pytest.mark.parametrize("kw", [dict(mesh=object()), dict(mesh_mode="halo"),
                                 dict(spatial_axis="x"), dict(halo=4)])
 def test_segmenter_mesh_raises(kw):
+    """A mesh that is no ``DeviceMesh`` raises ``TypeError``; without a
+    mesh, ``mesh_mode``, ``spatial_axis`` and ``halo`` are ignored, as in
+    JAX: the segmenter is the one-card tile sweep (its probabilities equal
+    the default segmenter's).  The mesh runs are
+    ``tests/test_torch_mesh_unet.py``."""
     spec, params, state = small_unet()
-    with pytest.raises(NotImplementedError, match="A.5"):
-        UNetSegmenter(spec, params, state, SegmentationConfig(**SEG), SHAPE,
-                      device="cpu", **kw)
+    if "mesh" in kw:
+        with pytest.raises(TypeError, match="DeviceMesh"):
+            UNetSegmenter(spec, params, state, SegmentationConfig(**SEG),
+                          SHAPE, device="cpu", **kw)
+        return
+    raw = np.random.RandomState(3).rand(*SHAPE).astype(np.float32) * 400
+    seg = UNetSegmenter(spec, params, state, SegmentationConfig(**SEG),
+                        SHAPE, max_cells=MAX_CELLS, device="cpu", **kw)
+    plain = UNetSegmenter(spec, params, state, SegmentationConfig(**SEG),
+                          SHAPE, max_cells=MAX_CELLS, device="cpu")
+    assert seg.mesh is None
+    assert torch.equal(seg.predict_cellregions(raw),
+                       plain.predict_cellregions(raw))
 
 
 def test_tracker_builds_jax_default(tmp_path):

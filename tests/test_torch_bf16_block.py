@@ -415,7 +415,7 @@ def emulate_block_tile(x, packed, nb, tile, z, y0, x0, wg, j):
     as ``csrc/conv3x3x3_wgmma_bf16.cu`` reads its operands: the halo
     planes as TMA writes them ((ty + 2) x (tx + 2) pixels of 16 bytes, zero
     out of the volume; a half chunk's second plane not loaded, the
-    descriptor's leading offset 0 reading the first again), A's core
+    descriptor's leading offset reading the block's plane of zeros), A's core
     matrix i at the descriptor's start + i * SBO (the halo's row pitch),
     its K halves LBO apart, tile j's start 8 j halo rows on, each tap (dy,
     dx) the start moved (dy * hx + dx) pixels, B through the packed
@@ -432,9 +432,11 @@ def emulate_block_tile(x, packed, nb, tile, z, y0, x0, wg, j):
         chunk, dz = divmod(s, 3)
         zz = z + dz - 1
         planes = []
-        for c0 in (16 * chunk, 16 * chunk + 8 if 16 * chunk + 8 < c_in
-                   else 16 * chunk):
+        for c0 in (16 * chunk, 16 * chunk + 8):
             pl = torch.zeros((hy * hx, 8))
+            if c0 >= c_in:              # a half chunk: the plane of zeros
+                planes.append(pl)
+                continue
             for i in range(hy * hx):
                 gy, gx = y0 - 1 + i // hx, x0 - 1 + i % hx
                 if 0 <= zz < zl and 0 <= gy < yl and 0 <= gx < xl:
@@ -487,3 +489,53 @@ def test_wgmma_bf16_addressing(mt, tall, c_in):
                     d = (got[m, :c_out] - want[z, py, px]).abs()
                     assert bool((d <= TOL * s[z, py, px] + 1e-30).all()), \
                         (wg, j, m)
+
+
+@pytest.mark.parametrize("tall", [False, True])
+@pytest.mark.parametrize("c_in", [8, 24])
+def test_wgmma_bf16_addressing_nonfinite(tall, c_in):
+    """A half chunk (c_in % 16 == 8) with +Inf, -Inf and NaN activations:
+    the emulated tiles equal the plain bf16 conv exactly where it is not
+    finite (the missing channels' k-half reads the plane of zeros, so no
+    Inf meets a zero weight) and hold it within ``TOL`` of sum |x w|
+    elsewhere.  The planted voxels lie more than two voxels apart, so no
+    output sums two of them."""
+    rng = np.random.RandomState(c_in)
+    mt = 1
+    zl, yl, xl, c_out = 3, 19, 11, 16
+    x = np.maximum(rng.randn(zl, yl, xl, c_in), 0).astype(np.float32)
+    tile = hc.bf16_tiles(mt)[int(tall)]
+    ty, tx = tile
+    z, y0, x0 = 1, 0, 0
+    last = c_in - 1                     # a channel of the half chunk
+    x[1, 1, 1, last] = np.inf
+    x[1, 5, 5, 0] = -np.inf
+    x[1, 1, 7, last] = np.nan
+    x = torch.from_numpy(x)
+    w = torch.from_numpy((rng.randn(3, 3, 3, c_in, c_out) /
+                          np.sqrt(27 * c_in)).astype(np.float32))
+    packed, nb = hc.pack_weights_bf16(w)
+    zero = torch.zeros(c_out)
+    want = hc.conv3x3x3_bias_relu_plain(x, w, zero, False, BF16)
+    fin = torch.where(torch.isfinite(x), x, 0.0)
+    s = hc.conv3x3x3_bias_relu_plain(hc.round_bf16(fin).abs(),
+                                     hc.round_bf16(w).abs(), zero, False)
+    n_nonfinite = 0
+    for wg in range(2):
+        oy, ox = (ty // 2 * wg, 0) if tall else (0, 8 * wg)
+        got = emulate_block_tile(x, packed, nb, tile, z, y0, x0, wg, 0)
+        for m in range(64):
+            py, px = y0 + oy + m // 8, x0 + ox + m % 8
+            if py >= yl or px >= xl:
+                continue
+            g, want_p = got[m, :c_out], want[z, py, px]
+            bad = ~torch.isfinite(want_p)
+            assert torch.equal(~torch.isfinite(g), bad), (wg, m)
+            assert torch.equal(g[bad].nan_to_num(0.0, 1.0, -1.0),
+                               want_p[bad].nan_to_num(0.0, 1.0, -1.0))
+            assert torch.equal(g[bad].isnan(), want_p[bad].isnan())
+            n_nonfinite += int(bad.sum())
+            d = (g[~bad] - want_p[~bad]).abs()
+            assert bool((d <= TOL * s[z, py, px][~bad] + 1e-30).all()), \
+                (wg, m)
+    assert n_nonfinite > 0

@@ -922,3 +922,49 @@ def test_unet_train_step_on_the_card_matches_cpu(dev, tmp_path):
     diff = sum(float(((a - b) ** 2).sum()) for a, b in zip(pc, ph))
     norm = sum(float((b ** 2).sum()) for b in ph)
     assert diff ** 0.5 <= 1e-4 * norm ** 0.5
+
+
+@pytest.mark.parametrize("mode", ["layer", "block"])
+@pytest.mark.parametrize("c_in,c_out", [(8, 16), (8, 8), (24, 16)])
+def test_wgmma_bf16_half_chunk_nonfinite(dev, c_in, c_out, mode):
+    """A half chunk (c_in % 16 == 8) with +Inf, -Inf and NaN in single
+    activations (``ROADMAP.md`` C.10): the kernel's non-finite outputs are
+    the plain version's (computed on the CPU), the same NaNs and signed
+    Infs; its finite ones hold it (``_held_bf16``'s bound, or the block's
+    rounding of a value within it)."""
+    bf = torch.bfloat16
+    g = torch.Generator().manual_seed(c_in + c_out)
+    x = torch.relu(torch.randn((2, 5, 24, 26, c_in), generator=g))
+    x[0, 2, 4, 4, c_in - 1] = float("inf")
+    x[0, 2, 12, 12, c_in - 1] = float("-inf")
+    x[1, 3, 20, 6, 0] = float("nan")
+    x = hopper_conv.round_bf16(x)
+    w = torch.randn((3, 3, 3, c_in, c_out), generator=g) / (27 * c_in) ** 0.5
+    b = torch.randn((c_out,), generator=g) * 0.1
+    mean, inv, beta = _bn_case(c_out, c_in)
+    plain = hopper_conv.conv3x3x3_bias_relu_plain(x, w, b, False, bf)
+    scale = hopper_conv.conv3x3x3_bias_relu_plain(
+        torch.where(torch.isfinite(x), x, 0.0).abs(),
+        hopper_conv.round_bf16(w).abs(), b.abs(), False)
+    xd = x.to(dev).to(bf)
+    if mode == "layer":
+        got = hopper_conv.conv3x3x3_bias_relu(
+            xd, w.to(dev), b.to(dev), False, compute_dtype=bf).cpu()
+        want, lo, hi = plain, plain - 1e-5 * scale, plain + 1e-5 * scale
+    else:
+        got = hopper_conv.conv3x3x3_block_bf16(
+            xd, w.to(dev), b.to(dev), mean.to(dev), inv.to(dev),
+            beta.to(dev), "leaky_relu").cpu().float()
+        want = hopper_conv.conv3x3x3_block_bf16_plain(
+            x, w, b, mean, inv, beta, "leaky_relu").float()
+        v = (hopper_conv.activation(plain, "leaky_relu") - mean) * inv + beta
+        eps = 1e-5 * scale * inv.abs() + v.abs() * 2.0 ** -21
+        lo, hi = (v - eps).to(bf).float(), (v + eps).to(bf).float()
+    bad = ~torch.isfinite(want)
+    assert bool(want.isnan().any()) and bool(want.isinf().any())
+    assert torch.equal(~torch.isfinite(got), bad)
+    assert torch.equal(got[bad].isnan(), want[bad].isnan())
+    assert torch.equal(got[bad].nan_to_num(0.0, 1.0, -1.0),
+                       want[bad].nan_to_num(0.0, 1.0, -1.0))
+    ok = ~bad
+    assert bool(((got >= lo) & (got <= hi))[ok].all())

@@ -255,14 +255,15 @@ def test_driver_raises_past_max_cells(scene, models, tmp_path, extra):
 
 @pytest.mark.parametrize("kwargs,err,match", [
     (dict(handoff="wire"), ValueError, "handoff must be"),
-    (dict(mesh=object()), NotImplementedError, "A.5"),
+    (dict(mesh=object()), TypeError, "DeviceMesh"),
     (dict(save_figures=True), NotImplementedError, "A.9"),
-    (dict(transport="u8"), NotImplementedError, "A.5"),
+    (dict(transport="u8"), NotImplementedError, "A.5b"),
     (dict(config=TrackingConfig(ensemble=True), handoff="device"),
      ValueError, "supports single mode only"),
 ], ids=["bad_handoff", "mesh", "figures", "u8", "ensemble"])
 def test_driver_raises_for_what_is_not_ported(tmp_path, kwargs, err, match):
-    """Each raises before anything is read or written."""
+    """Each raises before anything is read or written: a mesh that is no
+    ``DeviceMesh`` too (the mesh runs are ``tests/test_torch_mesh_*.py``)."""
     args = dict(config=TrackingConfig(), verbose=False, device="cpu")
     args.update(kwargs)
     with pytest.raises(err, match=match):

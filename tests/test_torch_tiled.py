@@ -225,21 +225,44 @@ def test_predict_and_save_tiled_rejects_mesh_and_data_axis(models,
     with pytest.raises(ValueError, match="mutually exclusive"):
         predict_and_save(pattern, tm, tmp_path / "r", tile_shape=TILE,
                          mesh=object())
-    with pytest.raises(NotImplementedError, match="A.5"):
-        predict_and_save(pattern, tm, tmp_path / "r", data_axis="tiles")
-    with pytest.raises(NotImplementedError, match="A.5"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
+        predict_and_save(pattern, tm, tmp_path / "r", data_axis="tiles",
+                         mesh=object())
+    # no process group here: the sharded path raises instead of running
+    # on one process (tests/test_torch_mesh_tiles.py runs it)
+    with pytest.raises(RuntimeError, match="not initialized"):
         tm.predict_instances_sharded(np.zeros(SHAPE, np.float32))
 
 
 def test_segment_large_volume_script_at_small_size():
     """``scripts/segment_large_volume.py`` with the example's config and
-    tiled settings on a small volume on the CPU; ``--sharded`` raises with
-    its item."""
+    tiled settings on a small volume on the CPU; ``--sharded`` outside a
+    process group raises (no fall back to one process; ``--cpu-mesh``
+    runs are ``tests/test_torch_mesh_tiles.py``)."""
     from t3dct_torch.scripts import segment_large_volume as script
     out = script.main(["--shape", "16", "64", "64", "--tile", "112", "112",
                        "--repeat", "2", "--device", "cpu"])
     assert out["labels_shape"] == (16, 64, 64)
     assert out["prob_map_shape"] == (8, 16, 16)
     assert len(out["seconds"]) == 2 and out["instances"] >= 0
-    with pytest.raises(NotImplementedError, match="A.5"):
-        script.main(["--sharded", "--device", "cpu"])
+    with pytest.raises(RuntimeError, match="not initialized"):
+        script.main(["--sharded", "--shape", "16", "64", "64", "--device",
+                     "cpu"])
+
+
+def test_segment_large_volume_script_sharded_cpu_mesh():
+    """``--sharded --cpu-mesh 2``: two spawned ``gloo`` ranks split the
+    36 tiles (``predict_instances_sharded``) and rank 0's result is the
+    sequential tiled run's: labels and points equal, the prob map within
+    ``PROB_TOL`` (the ranks run one thread each, this process its own
+    count, and the CPU conv sums in another order on another count;
+    ``tests/test_torch_mesh_tiles.py`` holds the two bit for bit on equal
+    threads)."""
+    from t3dct_torch.scripts import segment_large_volume as script
+    args = ["--shape", "16", "96", "96", "--tile", "112", "112"]
+    want = script.main(args + ["--device", "cpu"])
+    got = script.main(args + ["--sharded", "--cpu-mesh", "2"])
+    assert got["labels_shape"] == want["labels_shape"] == (16, 96, 96)
+    assert np.abs(got["prob_map"] - want["prob_map"]).max() <= PROB_TOL
+    np.testing.assert_array_equal(got["labels"], want["labels"])
+    np.testing.assert_array_equal(got["points"], want["points"])

@@ -204,16 +204,19 @@ def test_predict_and_save_write_failure_raises(scene, models, tmp_path,
         predict_and_save(pattern, tm, tmp_path)
 
 
-@pytest.mark.parametrize("kwargs,match", [
-    (dict(tile_shape=(None, 32, 32), data_axis="tiles"), "A.5"),
-    (dict(mesh=object()), "A.5"),
-    (dict(transport="u8"), "A.5"),
+@pytest.mark.parametrize("kwargs,err,match", [
+    (dict(tile_shape=(None, 32, 32), mesh=object()), ValueError,
+     "mutually exclusive"),
+    (dict(mesh=object()), TypeError, "DeviceMesh"),
+    (dict(transport="u8"), NotImplementedError, "A.5b"),
 ], ids=["tiles", "mesh", "u8"])
 def test_predict_and_save_raises_for_what_is_not_ported(tmp_path, kwargs,
-                                                        match):
-    """The tiled sweep is ported (``tests/test_torch_tiled.py``); over a
-    mesh axis it is not."""
-    with pytest.raises(NotImplementedError, match=match):
+                                                        err, match):
+    """Each raises before anything is written: tiles over a mesh (JAX's
+    ``ValueError``; ``predict_instances_sharded`` shards tiles), a mesh
+    that is no ``DeviceMesh``, and the u8 wire format (A.5b).  The mesh
+    runs are ``tests/test_torch_mesh_*.py``."""
+    with pytest.raises(err, match=match):
         predict_and_save(str(tmp_path / "r_t%03i_z*.tif"), None,
                          tmp_path / "res", **kwargs)
     assert not (tmp_path / "res").exists()
@@ -360,12 +363,13 @@ def test_track_timelapse_ensemble_differs_from_single(segmented, scene,
                for t in range(2, N_VOLS + 1))
 
 
-@pytest.mark.parametrize("kwargs,match", [
-    (dict(mesh=object()), "A.5"), (dict(save_figures=True), "A.9")],
+@pytest.mark.parametrize("kwargs,err,match", [
+    (dict(mesh=object()), TypeError, "DeviceMesh"),
+    (dict(save_figures=True), NotImplementedError, "A.9")],
     ids=["mesh", "figures"])
 def test_track_timelapse_raises_for_what_is_not_ported(tmp_path, kwargs,
-                                                       match):
-    with pytest.raises(NotImplementedError, match=match):
+                                                       err, match):
+    with pytest.raises(err, match=match):
         track_timelapse(tmp_path, str(tmp_path / "m/*.tif"), None,
                         VOXEL_SIZE, INTERP, (1, 2), device="cpu", **kwargs)
 
