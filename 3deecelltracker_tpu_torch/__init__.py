@@ -79,7 +79,7 @@ from .ops import (connected, edt, filters, hopper_cc,  # noqa: F401
                   segment_reduce, stardist_gt, subregions, tiling, trim,
                   watershed)
 from .parallel import comm, ensemble, mesh, multihost  # noqa: F401
-from .parallel import spatial  # noqa: F401
+from .parallel import spatial, training  # noqa: F401
 from .utils import (checkpoint, convert, cuda_build, device,  # noqa: F401
                     keras_import, optim, profiling, roofline, synthetic,
                     timing)

@@ -105,18 +105,22 @@ def feature_distance_ffn(generator: torch.Generator, device=None
 
 
 def ffn_apply(params: Params, state: Params, x: torch.Tensor,
-              train: bool = False, n_features: int = N_FEATURES):
+              train: bool = False, n_features: int = N_FEATURES,
+              group=None):
     """Forward on (batch, 2*n_features) pair rows -> (batch, 1) scores.
     ``train=True`` normalizes with the batch's statistics (the trunk's
     batchnorm over both halves at once, as JAX's ``ffn_apply``) and
-    returns ``(scores, new_state)``; eval mode returns the scores."""
+    returns ``(scores, new_state)``; eval mode returns the scores.
+    ``group`` (train mode): the mesh axis (``parallel.mesh.MeshAxis``)
+    whose ranks hold the batch's rows; the batchnorms' statistics are the
+    whole batch's (``layers.batchnorm``)."""
     new_state = dict(state)
 
     def bn(name, h):
         if not train:
             return L.batchnorm(params[name], state[name], h)
         h, new_state[name] = L.batchnorm(params[name], state[name], h,
-                                         train=True)
+                                         train=True, group=group)
         return h
 
     a = L.dense(params["feat"], x[:, :n_features])

@@ -32,6 +32,8 @@ import torch.nn.functional as F
 from ..ops.hopper_conv import (LEAKY_ALPHA, Conv3x3x3BiasReLU,
                                check_compute_dtype, conv3x3x3_block_bf16,
                                round_bf16)
+from ..parallel.comm import all_reduce_sum, halo_extend
+from ..parallel.mesh import MeshAxis
 from ..utils.device import select_device
 
 Params = Dict[str, torch.Tensor]
@@ -63,12 +65,18 @@ def init_conv3d(kernel: Sequence[int], c_in: int, c_out: int,
 
 
 def conv3d(params: Params, x: torch.Tensor, compute_dtype=torch.float32, *,
-           relu: bool = False) -> torch.Tensor:
+           relu: bool = False, spatial: Optional[MeshAxis] = None
+           ) -> torch.Tensor:
     """SAME conv of (b, z, y, x, c_in) with DHWIO weights, + bias, with an
     optional fused ReLU, in ``compute_dtype`` (module docstring).  3x3x3
     kernels run a CUDA kernel, one launch for the whole batch (with a
     gradient under autograd in float32); 1x1x1 kernels are a matmul over
-    channels."""
+    channels.  ``spatial``: the mesh axis that dim 1 is split over; a
+    3x3x3 conv then extends the local shard by one plane from each
+    neighbour (``parallel.comm.halo_extend``, zeros past the ends; the
+    gradient goes back), runs the kernel on the extended shard and crops
+    the two extra output planes: the SAME conv of the whole tensor, this
+    rank's block of it."""
     w = params["w"]
     b = params.get("b")
     if b is None:
@@ -82,24 +90,43 @@ def conv3d(params: Params, x: torch.Tensor, compute_dtype=torch.float32, *,
         return torch.relu(y) if relu else y
     if k != (3, 3, 3):
         raise NotImplementedError(f"conv kernel {k}")
+    if spatial is not None:
+        y = Conv3x3x3BiasReLU.apply(halo_extend(spatial, x, 1).contiguous(),
+                                    w, b, relu, compute_dtype)
+        return y[:, 1:-1]
     return Conv3x3x3BiasReLU.apply(x.contiguous(), w, b, relu, compute_dtype)
 
 
 def batchnorm(params: Params, state: Params, x: torch.Tensor,
               train: bool = False, momentum: float = BN_MOMENTUM,
-              eps: float = BN_EPS):
+              eps: float = BN_EPS, group: Optional[MeshAxis] = None):
     """BatchNorm over the last axis.  Eval mode returns ``y`` from the
     running statistics; ``train=True`` returns ``(y, new_state)``: ``y``
     from the batch's mean and population variance (``jnp.var``'s, the
     mean of the centred squares) and the running statistics moved by
-    ``momentum`` as JAX's ``layers.batchnorm`` does."""
+    ``momentum`` as JAX's ``layers.batchnorm`` does.  ``group``: the mesh
+    axis over whose ranks the batch is split; the batch's sum and element
+    count, then its sum of centred squares, are summed over it (with their
+    gradient), so every rank normalizes by the whole batch's statistics
+    and moves the same running ones."""
     if not train:
         inv = torch.rsqrt(state["var"] + eps) * params["scale"]
         return (x - state["mean"]) * inv + params["bias"]
     axes = tuple(range(x.dim() - 1))
-    mean = torch.mean(x, axes)
-    centred = x - mean
-    var = torch.mean(centred * centred, axes)
+    if group is None:
+        mean = torch.mean(x, axes)
+        centred = x - mean
+        var = torch.mean(centred * centred, axes)
+    else:
+        c = x.shape[-1]
+        local = torch.cat([torch.sum(x, axes),
+                           x.new_full((1,), float(x.numel() // c))])
+        total = all_reduce_sum(group, local)
+        count = total[c]
+        mean = total[:c] / count
+        centred = x - mean
+        var = all_reduce_sum(group, torch.sum(centred * centred, axes)) \
+            / count
     new_state = {"mean": momentum * state["mean"] + (1 - momentum) * mean,
                  "var": momentum * state["var"] + (1 - momentum) * var}
     inv = torch.rsqrt(var + eps) * params["scale"]

@@ -9,6 +9,13 @@ and runs the train step: train-mode forward, BCE, gradient, Adam
 (``utils/optim.Adam``, optax's arithmetic).  One set gives 2n samples: n
 positive pairs (label 0 where the point was replaced by a seg error) and n
 negative pairs with mismatched partners, the sides swapped with p = 0.5.
+
+Over a mesh (``mesh=``, JAX's ``data_axis`` sharding): every rank's
+generator makes the whole batch from the same seed and the rank keeps its
+rows of ``data_axis``; the batchnorms take the whole batch's statistics and
+the BCE its whole mean, the gradients and the loss are summed over the axis
+in one ``all_reduce`` and every rank takes the same Adam step.  The lead
+rank's parameters are broadcast and it alone writes the weight files.
 """
 
 from __future__ import annotations
@@ -25,6 +32,10 @@ from ..ops.pointset import normalize_points
 from ..utils.checkpoint import leaves_with_paths, load_pytree, save_pytree
 from ..utils.device import fresh_tensors, select_device
 from ..utils.optim import Adam
+from ..parallel.comm import all_reduce_grads
+from ..parallel.training import (bce_from_probs, broadcast_trees_,
+                                 check_trainer_mesh, lead_read, lead_write,
+                                 mesh_rows)
 from .ffn import ffn_apply, init_ffn
 from .synthesize import add_seg_errors, affine_transform, no_match_points
 
@@ -140,9 +151,11 @@ class TrainFFN:
     ``torch.Generator`` seeded with ``seed`` (other numbers than JAX's
     init); :meth:`start_from` replaces them, e.g. with JAX's ``FFN().init``
     through ``utils.convert``.  ``seed`` also seeds the synthesis, as in
-    JAX.  ``device``: the card unless ``"cpu"`` is passed.  Data-parallel
-    training over several cards (JAX's ``mesh=`` and ``data_axis=``) is not
-    ported yet (ROADMAP.md A.5b) and raises."""
+    JAX.  ``device``: the card unless ``"cpu"`` is passed.  ``mesh``: a
+    ``DeviceMesh`` (``parallel.make_mesh``) that every rank of it passes,
+    the batch split over its ``data_axis`` (module docstring);
+    ``ValueError`` unless the batch size divides by that axis (JAX
+    ``train_ffn.py:174-178``)."""
 
     def __init__(self, model_name: str,
                  points1_path: Optional[str] = None,
@@ -152,11 +165,12 @@ class TrainFFN:
                  learning_rate: float = 1e-3, seed: int = 0,
                  config=None, mesh=None, data_axis: str = "data", *,
                  device=None):
-        if mesh is not None or data_axis != "data":
-            raise NotImplementedError(
-                "mesh= / data_axis= (data-parallel training over several "
-                "cards) is not ported yet (ROADMAP.md A.5b)")
         self.device = select_device(device)
+        self.mesh = mesh
+        self._whole = self._data = None
+        if mesh is not None:
+            self._whole, self._data = check_trainer_mesh(
+                mesh, self.device, (data_axis,))
         if config is not None:
             learning_rate = config.learning_rate
         self.config = config
@@ -168,6 +182,7 @@ class TrainFFN:
                                     self.device)
         self.params = fresh_tensors(params, self.device, True)
         self.bn_state = fresh_tensors(bn_state, self.device, False)
+        broadcast_trees_(self._whole, self.params, self.bn_state)
         self.optimizer = Adam(_leaves(self.params), learning_rate)
 
         if points1_path is not None:
@@ -193,28 +208,39 @@ class TrainFFN:
         self.points_t1 = norm.numpy()
         self.points_generator = DataGeneratorFFN(
             self.points_t1, seed=seed, config=config, device=self.device)
+        if mesh is not None:
+            mesh_rows(self._data, self.points_generator.batch_size)
 
     def start_from(self, params) -> None:
         """Train from ``params``, the ``(params, bn_state)`` trees of
         arrays or tensors, with a fresh optimizer state, as setting them on
         JAX's trainer before its first step does.  The seeded init and the
-        Adam state that ``__init__`` built are dropped."""
+        Adam state that ``__init__`` built are dropped.  Over a mesh, the
+        lead rank's values on every rank."""
         self.params = fresh_tensors(params[0], self.device, True)
         self.bn_state = fresh_tensors(params[1], self.device, False)
+        broadcast_trees_(self._whole, self.params, self.bn_state)
         self.optimizer = Adam(_leaves(self.params),
                               self.optimizer.learning_rate)
 
     def train_step(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
         """One step on a batch: train-mode forward (the batchnorms' running
         statistics move), BCE, gradient, Adam.  Returns the loss on the
-        device."""
-        out, new_bn = ffn_apply(self.params, self.bn_state, x, train=True)
-        loss = bce_loss(out, y)
+        device.  Over a mesh, ``x`` and ``y`` are this rank's rows and the
+        loss the whole batch's."""
+        out, new_bn = ffn_apply(self.params, self.bn_state, x, train=True,
+                                group=self._data)
+        loss = bce_from_probs(out, y, BCE_EPS, self._data)
         grads = torch.autograd.grad(loss, self.optimizer.params)
+        loss = loss.detach()
+        if self._data is not None:
+            *grads, loss = all_reduce_grads(self._data,
+                                            [*grads, loss.reshape(1)])
+            loss = loss[0]
         self.optimizer.step(grads)
         self.bn_state = {k: {s: v.detach() for s, v in d.items()}
                          for k, d in new_bn.items()}
-        return loss.detach()
+        return loss
 
     def _snapshot(self):
         return ({k: {s: v.detach() for s, v in d.items()}
@@ -233,10 +259,12 @@ class TrainFFN:
         losses = []
         gen = iter(self.points_generator)
         end_epoch = self.current_epoch + num_epochs
+        rows = slice(None) if self._data is None else \
+            mesh_rows(self._data, self.points_generator.batch_size)
         for epoch in range(self.current_epoch, end_epoch):
             step_losses, n = [], 0
             for x, y in gen:
-                step_losses.append(self.train_step(x, y))
+                step_losses.append(self.train_step(x[rows], y[rows]))
                 n += 1
                 if n > iteration:
                     break
@@ -245,21 +273,25 @@ class TrainFFN:
             losses.append(total / max(n, 1))
             if verbose:
                 print(f"Epoch {epoch}: train loss {losses[-1]:.4f}")
-            save_pytree(self._snapshot(), self.path_model / "weights" /
-                        f"{weights_name}_epoch{epoch}.npz")
+            self._save(self.path_model / "weights" /
+                       f"{weights_name}_epoch{epoch}.npz")
             self.current_epoch += 1
-        save_pytree(self._snapshot(),
-                    self.path_model / (self.model_name + ".npz"))
+        self._save(self.path_model / (self.model_name + ".npz"))
         return losses
+
+    def _save(self, path: Path) -> None:
+        lead_write(self._whole, lambda: save_pytree(self._snapshot(), path))
 
     def select_ffn_weights(self, step: int,
                            weights_name: str = FFN_WEIGHTS_NAME) -> None:
         if step <= 0:
             raise ValueError("step should be an integer >= 1")
-        params, self.bn_state = load_pytree(
-            self._snapshot(),
-            self.path_model / "weights" / f"{weights_name}_epoch{step}.npz")
+        snapshot = self._snapshot()
+        params, self.bn_state = lead_read(self._whole, lambda: load_pytree(
+            snapshot, self.path_model / "weights" /
+            f"{weights_name}_epoch{step}.npz"), snapshot)
         with torch.no_grad():
             for dst, src in zip(_leaves(self.params), _leaves(params)):
                 dst.copy_(src)
+        broadcast_trees_(self._whole, self.params, self.bn_state)
         print(f"Loaded the trained FFN model at step {step}")

@@ -12,6 +12,15 @@ object probability, optionally foreground-weighted, plus the
 prob-weighted ray-distance MAE with its background term, weights 1 : 0.2)
 -> its gradient (every 3x3x3 conv through ``ops.hopper_conv.
 Conv3x3x3BiasReLU``) -> Adam (``utils.optim``, optax's arithmetic).
+
+Over a mesh (``mesh=``, JAX's ``data_axis`` sharding): every rank draws the
+whole batch from the same sampler and keeps its rows of ``data_axis``
+(the mesh's other axes hold replicas), builds their GT, and computes its
+term of the whole batch's loss (the means' denominators summed over the
+axis); the gradients and the loss are summed over the axis in one
+``all_reduce`` and every rank takes the same Adam step.  The lead rank's
+parameters are broadcast, every rank takes its validation loss, and it
+alone writes the model folder.
 """
 
 from __future__ import annotations
@@ -28,6 +37,10 @@ from ..ops.stardist_gt import edt_prob, star_dist3d
 from ..utils.checkpoint import leaves_with_paths, load_pytree
 from ..utils.device import fresh_tensors, select_device
 from ..utils.optim import Adam
+from ..parallel.comm import all_reduce_grads
+from ..parallel.training import (agreed, broadcast_trees_,
+                                 check_trainer_mesh, lead_read, lead_write,
+                                 mesh_rows)
 from .stardist3d import StarDist3DNet
 from .train_ffn import clip_prob
 
@@ -74,9 +87,10 @@ class TrainStarDist3D:
     ``torch.Generator`` seeded with ``seed`` (other numbers than JAX's
     init); :meth:`start_from` replaces them, e.g. with JAX's init through
     ``utils.convert``.  ``seed`` also seeds the patch sampler, as in JAX.
-    ``device``: the card unless ``"cpu"`` is passed.  Data-parallel
-    training over several cards (JAX's ``mesh=`` and ``data_axis=``) is
-    not ported yet (ROADMAP.md A.5b) and raises."""
+    ``device``: the card unless ``"cpu"`` is passed.  ``mesh``: a
+    ``DeviceMesh`` (``parallel.make_mesh``) that every rank of it passes,
+    the batch split over its ``data_axis`` (module docstring);
+    ``ValueError`` unless ``batch_size`` divides by that axis."""
 
     def __init__(self, config: StarDistConfig,
                  basedir: Union[str, Path] = "stardist_models",
@@ -89,16 +103,20 @@ class TrainStarDist3D:
                  background_reg: float = 1e-4,
                  foreground_prob: float = 0.9,
                  mesh=None, data_axis: str = "data", *, device=None):
-        if mesh is not None or data_axis != "data":
-            raise NotImplementedError(
-                "mesh= / data_axis= (data-parallel training over several "
-                "cards) is not ported yet (ROADMAP.md A.5b)")
         self.device = select_device(device)
+        self.mesh = mesh
+        self._whole = self._data = None
+        self._rows = slice(None)
+        if mesh is not None:
+            self._whole, self._data = check_trainer_mesh(
+                mesh, self.device, (data_axis,))
+            self._rows = mesh_rows(self._data, int(batch_size))
         self.config = config
         self.net = StarDist3DNet(config)
         self.params = fresh_tensors(
             self.net.init(torch.Generator().manual_seed(seed), self.device),
             self.device, True)
+        broadcast_trees_(self._whole, self.params)
         self.optimizer = Adam([v for _, v in
                                leaves_with_paths(self.params)],
                               learning_rate)
@@ -119,8 +137,10 @@ class TrainStarDist3D:
         """Train from ``params`` (``{layer: {"w", "b"}}`` of arrays or
         tensors) with a fresh optimizer state, as setting ``params`` on
         JAX's trainer before its first step does.  The seeded init and the
-        Adam state that ``__init__`` built are dropped."""
+        Adam state that ``__init__`` built are dropped.  Over a mesh, the
+        lead rank's values on every rank."""
         self.params = fresh_tensors(params, self.device, True)
+        broadcast_trees_(self._whole, self.params)
         self.optimizer = Adam([v for _, v in
                                leaves_with_paths(self.params)],
                               self.optimizer.learning_rate)
@@ -139,36 +159,54 @@ class TrainStarDist3D:
 
     # ---- loss -----------------------------------------------------------
     def loss(self, params, x: torch.Tensor, prob_gt: torch.Tensor,
-             dist_gt: torch.Tensor) -> torch.Tensor:
+             dist_gt: torch.Tensor, axis=None) -> torch.Tensor:
         """JAX's ``_loss`` (``models/train_stardist.py:154-175``): x (b, z,
-        y, x); prob_gt (b, gz, gy, gx); dist_gt (..., rays)."""
+        y, x); prob_gt (b, gz, gy, gx); dist_gt (..., rays).  ``axis``: the
+        mesh axis (``parallel.mesh.MeshAxis``) whose ranks hold the batch's
+        rows, each a block of this shape; this rank's term of the whole
+        batch's loss, every mean's denominator (``sum(w_fg)``, ``sum(w)``,
+        the counts) the whole batch's, which carries no gradient."""
         prob, dist = self.net.apply(params, x[..., None])
         prob = prob[..., 0]
         eps = 1e-7
         p = clip_prob(prob, eps)
         y = prob_gt
         bce = -(y * torch.log(p) + (1 - y) * torch.log(1 - p))
-        if self.prob_fg_weight != 1.0:
-            w_fg = 1.0 + (self.prob_fg_weight - 1.0) * (y > 0)
-            loss_prob = torch.sum(w_fg * bce) / torch.sum(w_fg)
-        else:
-            loss_prob = torch.mean(bce)
         w = prob_gt[..., None]
+        weighted = self.prob_fg_weight != 1.0
+        w_fg = 1.0 + (self.prob_fg_weight - 1.0) * (y > 0) if weighted \
+            else None
+        sum_w = torch.sum(w)
+        sum_fg = torch.sum(w_fg) if weighted else sum_w
+        if axis is not None:
+            sum_w, sum_fg = all_reduce_grads(axis, [sum_w, sum_fg])
+
+        def mean(t):
+            if axis is None:
+                return torch.mean(t)
+            return torch.sum(t) / (t.numel() * axis.size)
+        loss_prob = torch.sum(w_fg * bce) / sum_fg if weighted else mean(bce)
         loss_dist = torch.sum(w * torch.abs(dist - dist_gt)) / \
-            (torch.sum(w) * dist.shape[-1] + eps)
+            (sum_w * dist.shape[-1] + eps)
         if self.background_reg > 0:
-            loss_dist = loss_dist + self.background_reg * torch.mean(
+            loss_dist = loss_dist + self.background_reg * mean(
                 (1.0 - w) * torch.abs(dist))
         return loss_prob + self.dist_loss_weight * loss_dist
 
     def train_step(self, x: torch.Tensor, prob_gt: torch.Tensor,
                    dist_gt: torch.Tensor) -> torch.Tensor:
         """Loss, gradient and one Adam update in place; the loss stays on
-        the device."""
-        loss = self.loss(self.params, x, prob_gt, dist_gt)
+        the device.  Over a mesh, ``x`` and the GT are this rank's rows and
+        the loss the whole batch's."""
+        loss = self.loss(self.params, x, prob_gt, dist_gt, self._data)
         grads = torch.autograd.grad(loss, self.optimizer.params)
+        loss = loss.detach()
+        if self._data is not None:
+            *grads, loss = all_reduce_grads(self._data,
+                                            [*grads, loss.reshape(1)])
+            loss = loss[0]
         self.optimizer.step(grads)
-        return loss.detach()
+        return loss
 
     # ---- data ------------------------------------------------------------
     def _fg_indices(self, y: np.ndarray) -> np.ndarray:
@@ -205,11 +243,13 @@ class TrainStarDist3D:
         return augmenter(xp.astype(np.float32), yp.astype(np.int32),
                          self.rng)
 
-    def sample_batch(self, X: List[np.ndarray], Y: List[np.ndarray]
+    def sample_batch(self, X: List[np.ndarray], Y: List[np.ndarray],
+                     rows: slice = slice(None)
                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-        """``batch_size`` patches on the device and their GT: (x, prob_gt,
-        dist_gt)."""
-        pairs = [self._sample_patch(X, Y) for _ in range(self.batch_size)]
+        """``batch_size`` patches drawn, and ``rows`` of them on the device
+        with their GT: (x, prob_gt, dist_gt)."""
+        pairs = [self._sample_patch(X, Y)
+                 for _ in range(self.batch_size)][rows]
         xb = np.stack([np.ascontiguousarray(x) for x, _ in pairs])
         yb = np.stack([np.ascontiguousarray(y) for _, y in pairs])
         xb = torch.from_numpy(xb).to(self.device)
@@ -223,16 +263,20 @@ class TrainStarDist3D:
         return float(np.float32(self.optimizer.learning_rate))
 
     def _val_loss(self, val_batches) -> float:
+        """The mean loss of the whole validation batches (the lead rank's
+        over a mesh)."""
         with torch.no_grad():
-            return float(np.mean([float(self.loss(self.params, *b))
-                                  for b in val_batches]))
+            return agreed(self._whole, float(np.mean(
+                [float(self.loss(self.params, *b)) for b in val_batches])))
 
     def _assign(self, tree) -> None:
-        """Copy ``tree``'s values into the parameters in place."""
+        """Copy ``tree``'s values into the parameters in place (the lead
+        rank's over a mesh)."""
         with torch.no_grad():
             for (_, dst), (_, src) in zip(leaves_with_paths(self.params),
                                           leaves_with_paths(tree)):
                 dst.copy_(src)
+        broadcast_trees_(self._whole, self.params)
 
     # ---- loop ------------------------------------------------------------
     def train(self, X: List[np.ndarray], Y: List[np.ndarray],
@@ -266,7 +310,8 @@ class TrainStarDist3D:
         best_val, best_params, plateau = np.inf, None, 0
         losses = []
         for epoch in range(1, epochs + 1):
-            step_losses = [self.train_step(*self.sample_batch(X, Y))
+            step_losses = [self.train_step(*self.sample_batch(X, Y,
+                                                              self._rows))
                            for _ in range(steps_per_epoch)]
             total = float(torch.sum(torch.stack(step_losses)))
             losses.append(total / steps_per_epoch)
@@ -298,12 +343,15 @@ class TrainStarDist3D:
         return losses
 
     def save(self) -> None:
+        """The model folder (the lead rank's write over a mesh)."""
         from ..engine.stardist import StarDist3D
         params = {k: {s: v.detach() for s, v in d.items()}
                   for k, d in self.params.items()}
-        StarDist3D(self.config, params=params, device=self.device).save(
-            self.basedir / self.model_name)
+        lead_write(self._whole, lambda: StarDist3D(
+            self.config, params=params, device=self.device).save(
+            self.basedir / self.model_name))
 
     def load(self) -> None:
-        self._assign(load_pytree(
-            self.params, self.basedir / self.model_name / "weights.npz"))
+        self._assign(lead_read(self._whole, lambda: load_pytree(
+            self.params, self.basedir / self.model_name / "weights.npz"),
+            self.params))

@@ -16,6 +16,14 @@ train_unet.py``; the reference's ``unet3d.py:282-601``).
   hand-written kernels), LeakyReLU and BatchNorm after it as in the
   forward.  60 steps an epoch, the weights saved whenever the validation
   loss improves, the user picks the step (:543-588).
+- Over a mesh (``mesh=``, JAX's ``parallel/training.py``): the batch is
+  split on b over the mesh's ``data`` axis and on x over its ``spatial``
+  axis, and each step is ``parallel.training.make_sharded_unet_train_step``'s
+  (halo-exchanging convs, BatchNorm statistics and gradients summed over
+  the mesh).  Every rank draws the whole batch (its start and affines) and
+  augments its own rows; the lead rank's parameters are broadcast, the lead
+  alone writes the weight files, and every rank takes the lead's
+  validation loss.
 """
 
 from __future__ import annotations
@@ -31,7 +39,10 @@ from ..ops.lcn import normalize_image, normalize_label
 from ..utils.checkpoint import leaves_with_paths, load_pytree, save_pytree
 from ..utils.device import fresh_tensors, select_device
 from ..utils.optim import Adam
-from .train_ffn import bce_loss as bce_from_probs
+from ..parallel.training import (agreed, bce_from_probs, broadcast_trees_,
+                                 check_trainer_mesh, lead_read, lead_write,
+                                 make_sharded_unet_train_step,
+                                 make_unet_train_step, mesh_rows)
 from .unet3d import UNet3D
 
 NOT_PORTED_FIGURES = "figures are not ported yet (ROADMAP.md A.9)"
@@ -168,21 +179,32 @@ class TrainingUNet3D:
     parameters start from ``model.init`` with a ``torch.Generator`` seeded
     with ``seed`` (other numbers than JAX's init); :meth:`start_from`
     replaces them, e.g. with a JAX checkpoint.  ``device``: the card
-    unless ``"cpu"`` is passed.  ``mesh`` (data-parallel training over
-    several cards) is not ported yet (ROADMAP.md A.5b) and raises."""
+    unless ``"cpu"`` is passed.
+
+    ``mesh``: a ``DeviceMesh`` with ``data`` and ``spatial`` axes
+    (``parallel.make_mesh``) that every rank of it passes (module
+    docstring); ``ValueError`` unless ``batch_size`` divides by the data
+    axis and the tile's x splits over the spatial axis into shards that
+    pool without a halo (``UNet3D.check_x_shard``), ``TypeError`` for
+    anything but a ``DeviceMesh``."""
 
     def __init__(self, noise_level: float, folder_path: Union[str, Path],
                  model: UNet3D, learning_rate: float = 1e-3, seed: int = 0,
                  batch_size: int = 8, mesh=None, config=None, *,
                  device=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh= (data-parallel training over several cards) is not "
-                "ported yet (ROADMAP.md A.5b)")
         if config is not None:
             learning_rate = config.learning_rate
             batch_size = config.batch_size
         self.device = select_device(device)
+        self.mesh = mesh
+        self._whole = self._data = self._spatial = None
+        if mesh is not None:
+            self._whole, self._data, self._spatial = check_trainer_mesh(
+                mesh, self.device, ("data", "spatial"))
+            mesh_rows(self._data, batch_size)
+            n_x = self._spatial.size
+            mesh_rows(self._spatial, model.tile_shape[0], "tile x")
+            model.check_x_shard(model.tile_shape[0] // n_x, n_x)
         self.config = config
         self.noise_level = noise_level
         self.folder_path = Path(folder_path)
@@ -195,8 +217,7 @@ class TrainingUNet3D:
         self.learning_rate = float(learning_rate)
         self.start_from(*model.init(torch.Generator().manual_seed(seed),
                                     device=self.device))
-        save_pytree((self.params, self.bn_state),
-                    self.models_path / "weights_initial.npz")
+        self._save("weights_initial.npz")
         self._gen = torch.Generator().manual_seed(seed + 1)
         self.val_losses: List[float] = []
         self.train_image = self.train_label = None
@@ -205,11 +226,32 @@ class TrainingUNet3D:
     def start_from(self, params, bn_state) -> None:
         """Train from ``params`` and ``bn_state`` (nested dicts of arrays
         or tensors) with a fresh optimizer state, as JAX's ``retrain_unet``
-        sets them and re-inits optax's state."""
+        sets them and re-inits optax's state.  Over a mesh, the lead
+        rank's values on every rank."""
         self.params = fresh_tensors(params, self.device, True)
         self.bn_state = fresh_tensors(bn_state, self.device, False)
+        broadcast_trees_(self._whole, self.params, self.bn_state)
         self.optimizer = Adam([v for _, v in leaves_with_paths(self.params)],
                               self.learning_rate)
+        if self.mesh is None:
+            self._step = make_unet_train_step(self.model, self.optimizer)
+        else:
+            self._step, _ = make_sharded_unet_train_step(
+                self.model, self.optimizer, self.mesh)
+
+    def _save(self, name: str) -> None:
+        """The parameters and BatchNorm state to ``models/<name>`` (the
+        lead rank's write over a mesh)."""
+        lead_write(self._whole, lambda: save_pytree(
+            (self.params, self.bn_state), self.models_path / name))
+
+    def _load(self, name: str):
+        """``models/<name>`` in the trees' structure (read by the lead
+        rank over a mesh; the others take its values when they are
+        assigned)."""
+        template = (self.params, self.bn_state)
+        return lead_read(self._whole, lambda: load_pytree(
+            template, self.models_path / name), template)
 
     # ---- data -------------------------------------------------------------
     def load_dataset(self):
@@ -269,35 +311,37 @@ class TrainingUNet3D:
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
         """An augmented batch: ``batch_size`` consecutive patches from a
         start drawn from ``rng_np`` (the reference's exclusive upper bound,
-        unet3d.py:337), each through its own affine."""
+        unet3d.py:337), each through its own affine.  Over a mesh, every
+        rank draws the whole batch and returns its block: its rows,
+        augmented, and its x shard of them."""
         n = self.train_subimage.shape[0]
         start = rng_np.randint(0, max(n - self.batch_size, 1))
         imgs = self._train_x[start:start + self.batch_size]
         labs = self._train_y[start:start + self.batch_size]
         draws = self._draw_affines(imgs.shape[0], tuple(imgs.shape[1:3]))
-        return augment_with(imgs, labs, draws)
-
-    def loss(self, params, bn_state, x: torch.Tensor, y: torch.Tensor):
-        """BCE of the train-mode forward and the new BatchNorm state."""
-        probs, new_bn = self.model.apply(params, bn_state, x, train=True)
-        return bce_from_probs(probs, y.to(torch.float32)), new_bn
+        if self.mesh is None:
+            return augment_with(imgs, labs, draws)
+        rows = mesh_rows(self._data, imgs.shape[0])
+        x, y = augment_with(imgs[rows], labs[rows], draws[rows])
+        cols = mesh_rows(self._spatial, x.shape[1], "tile x")
+        return x[:, cols], y[:, cols]
 
     def train_step(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
         """Loss, gradient, one Adam update in place and the new BatchNorm
-        state; the loss stays on the device."""
-        loss, new_bn = self.loss(self.params, self.bn_state, x, y)
-        grads = torch.autograd.grad(loss, self.optimizer.params)
-        self.optimizer.step(grads)
-        self.bn_state = {k: {s: v.detach() for s, v in d.items()}
-                         for k, d in new_bn.items()}
-        return loss.detach()
+        state (``parallel.training``'s step; over a mesh ``x`` and ``y``
+        are this rank's block and the loss the whole batch's); the loss
+        stays on the device."""
+        loss, self.bn_state = self._step(self.params, self.bn_state, x, y)
+        return loss
 
     def validation_loss(self) -> float:
-        """BCE of the eval-mode forward over every validation patch."""
+        """BCE of the eval-mode forward over every validation patch (the
+        lead rank's over a mesh, where every rank computes it whole)."""
         with torch.no_grad():
             probs = self.model.apply(self.params, self.bn_state,
                                      self._valid_x)
-            return float(bce_from_probs(probs, self._valid_y))
+            return agreed(self._whole,
+                          float(bce_from_probs(probs, self._valid_y)))
 
     def _assign(self, params, bn_state) -> None:
         with torch.no_grad():
@@ -305,6 +349,7 @@ class TrainingUNet3D:
                                           leaves_with_paths(params)):
                 dst.copy_(src)
         self.bn_state = fresh_tensors(bn_state, self.device, False)
+        broadcast_trees_(self._whole, self.params, self.bn_state)
 
     def train(self, iteration: int = 100, steps_per_epoch: int = None,
               weights_name: str = "weights_training_",
@@ -316,9 +361,7 @@ class TrainingUNet3D:
         if steps_per_epoch is None:
             steps_per_epoch = (self.config.steps_per_epoch
                                if self.config is not None else 60)
-        self.start_from(*load_pytree((self.params, self.bn_state),
-                                     self.models_path /
-                                     "weights_initial.npz"))
+        self.start_from(*self._load("weights_initial.npz"))
         self.val_losses = []
         rng_np = np.random.RandomState(0)
         for step in range(1, iteration + 1):
@@ -330,9 +373,7 @@ class TrainingUNet3D:
                     prev = min(self.val_losses) if self.val_losses else None
                     print(f"step {step}: val_loss improved to {val:.4f}"
                           + (f" (from {prev:.4f})" if prev else ""))
-                save_pytree((self.params, self.bn_state),
-                            self.models_path /
-                            f"{weights_name}step{step}.npz")
+                self._save(f"{weights_name}step{step}.npz")
             self.val_losses.append(val)
         return self.val_losses
 
@@ -340,11 +381,8 @@ class TrainingUNet3D:
                        weights_name: str = "weights_training_"):
         """Restore the weights of epoch ``step`` and save them as
         ``unet3_pretrained.npz``."""
-        self._assign(*load_pytree((self.params, self.bn_state),
-                                  self.models_path /
-                                  f"{weights_name}step{step}.npz"))
-        save_pytree((self.params, self.bn_state),
-                    self.models_path / "unet3_pretrained.npz")
+        self._assign(*self._load(f"{weights_name}step{step}.npz"))
+        self._save("unet3_pretrained.npz")
 
     # ---- inspection plots (ROADMAP.md A.9) ------------------------------------
     def draw_dataset(self, path=None):

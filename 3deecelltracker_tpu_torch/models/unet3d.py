@@ -91,28 +91,47 @@ class UNet3D:
         return params, state
 
     def apply(self, params: Params, state: State, x: torch.Tensor,
-              train: bool = False, compute_dtype=torch.float32):
+              train: bool = False, compute_dtype=torch.float32, *,
+              mesh_axes=None):
         """Forward: x (b, x, y, z, c) -> sigmoid probabilities (b, x, y, z,
         1) in float32; every conv computes in ``compute_dtype`` (JAX
         ``models/unet3d.py:80-116``).  Eval mode (BatchNorm from the running
         statistics) returns the probabilities, in bfloat16 through
         ``layers.conv_block_bf16`` with bf16 activations; ``train=True``
         (BatchNorm from the batch, running statistics moved as JAX's
-        ``layers.batchnorm`` moves them) returns ``(probs, new_state)``."""
+        ``layers.batchnorm`` moves them) returns ``(probs, new_state)``.
+
+        ``mesh_axes`` (``train=True``): ``(batch, spatial)``, ``x`` this
+        rank's block of a batch split over mesh axes
+        (``parallel.mesh.MeshAxis``): ``batch`` holds every rank with a
+        part of the batch (the BatchNorms' statistics are summed over it),
+        ``spatial`` the ranks that x (dim 1) is split over, or None (each
+        3x3x3 conv takes one halo plane from its neighbours); pools, upsampling and
+        the 1x1x1 conv stay local, so the x shard must be a multiple of the
+        product of the x pool factors over the down levels."""
         act = L.leaky_relu if self.activation == "leaky_relu" else torch.relu
         new_state: State = {}
         fused = check_compute_dtype(compute_dtype) and not train
+        stats = spatial = None
+        if mesh_axes is not None:
+            if not train:
+                raise ValueError("mesh_axes is for train=True")
+            stats, spatial = mesh_axes
+            if spatial is not None:
+                self.check_x_shard(int(x.shape[1]), spatial.size)
 
         def block(name, h):
             if fused:
                 return L.conv_block_bf16(params[name]["conv"],
                                          params[name]["bn"], state[name], h,
                                          self.activation)
-            h = act(L.conv3d(params[name]["conv"], h, compute_dtype))
+            h = act(L.conv3d(params[name]["conv"], h, compute_dtype,
+                             spatial=spatial))
             if not train:
                 return L.batchnorm(params[name]["bn"], state[name], h)
             h, new_state[name] = L.batchnorm(params[name]["bn"],
-                                             state[name], h, train=True)
+                                             state[name], h, train=True,
+                                             group=stats)
             return h
 
         pool = pool_max if fused else L.max_pool3d
@@ -135,6 +154,18 @@ class UNet3D:
         probs = torch.sigmoid(L.conv3d(params["out"]["conv"], h,
                                        compute_dtype))
         return (probs, new_state) if train else probs
+
+    def check_x_shard(self, shard: int, n: int) -> None:
+        """Raise ``ValueError`` unless an x shard of ``shard`` voxels (a
+        tile x of ``shard * n`` over ``n`` ranks) pools without a halo:
+        a multiple of the x pool factors' product over the down levels."""
+        f = self.pool[0] ** len(self.down_filters)
+        if shard % f:
+            raise ValueError(
+                f"the x shard {shard} (tile x {shard * n} over {n} spatial "
+                f"ranks) is not a multiple of {f}, the product of the x "
+                f"pool factors {self.pool[0]} over "
+                f"{len(self.down_filters)} down levels")
 
     def receptive_radius(self) -> Tuple[int, int, int]:
         """Per-axis receptive radius of :meth:`apply` (JAX

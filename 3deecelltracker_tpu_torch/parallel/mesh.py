@@ -16,6 +16,7 @@ ranks, this rank's place on it and its device.
 
 from __future__ import annotations
 
+import weakref
 from typing import List, NamedTuple, Optional, Tuple
 
 import torch
@@ -143,5 +144,33 @@ def mesh_axis(mesh, axis: Optional[str] = None,
     return MeshAxis(group, dist.get_process_group_ranks(group),
                     mesh.get_local_rank(axis),
                     all(c == 0 for c in mesh.get_coordinate()),
+                    mesh_device(mesh.device_type))
+
+
+_WHOLE = weakref.WeakKeyDictionary()    # mesh -> its ranks' own group
+
+
+def mesh_all(mesh) -> MeshAxis:
+    """Every rank of a checked mesh as one axis, in the mesh's row-major
+    order (rank 0 of it is the mesh's lead): the group that the sharded
+    trainers reduce their gradients and batch statistics over and
+    broadcast the lead's parameters on.  A mesh of one axis gives that
+    axis's group, a mesh of every rank of the world in rank order the
+    world's; otherwise the mesh's ranks make a group of their own once
+    (each of them calls this)."""
+    check_mesh(mesh)
+    ranks = [int(r) for r in mesh.mesh.flatten().tolist()]
+    coord = mesh.get_coordinate()
+    index = ranks.index(dist.get_rank())
+    if mesh.ndim == 1:
+        group = mesh.get_group(0)
+    elif ranks == list(range(dist.get_world_size())):
+        group = dist.group.WORLD
+    else:
+        group = _WHOLE.get(mesh)
+        if group is None:
+            group = dist.new_group(ranks, use_local_synchronization=True)
+            _WHOLE[mesh] = group
+    return MeshAxis(group, ranks, index, all(c == 0 for c in coord),
                     mesh_device(mesh.device_type))
 

@@ -7,7 +7,9 @@
 cards, ``gloo`` when the caller asks for the CPU) and puts each process on
 ``cuda:<local rank>``.  A single process needs no group: ``initialize``
 does nothing there unless a ``store`` asks for a world of one.
-``local_shard`` splits a work list over the processes as JAX's does.
+``local_shard`` splits a work list over the processes as JAX's does, and
+``global_batch_from_local`` makes a sharded batch of each process's
+block.
 """
 
 from __future__ import annotations
@@ -97,8 +99,29 @@ def local_shard(items: Sequence, pid: Optional[int] = None,
 
 
 def global_batch_from_local(mesh, local_batch, pspec):
-    """Data-parallel training's input assembly: not ported yet
-    (``ROADMAP.md`` A.5b)."""
-    raise NotImplementedError(
-        "global_batch_from_local (data-parallel training) is not ported "
-        "yet (ROADMAP.md A.5b)")
+    """A global batch assembled from every process's local block (the
+    training input pipeline; ``jax.make_array_from_process_local_data``'s
+    counterpart): a ``DTensor`` on ``mesh`` whose local shard is
+    ``local_batch`` (a tensor or an array, moved to this rank's device).
+    ``pspec``: one entry per leading dim of the batch, a mesh axis name
+    (the dim is split over that axis, ``Shard(dim)``) or None; mesh axes
+    that it names nowhere replicate (``Replicate()``).  Every process
+    passes a block of the same shape."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from .mesh import check_mesh, mesh_device
+    check_mesh(mesh)
+    names = tuple(mesh.mesh_dim_names or ())
+    if isinstance(pspec, str) or pspec is None:
+        pspec = (pspec,)
+    placements = [Replicate()] * len(names)
+    for dim, name in enumerate(pspec):
+        if name is None:
+            continue
+        if name not in names:
+            raise ValueError(f"pspec {tuple(pspec)} names {name!r}, not an "
+                             f"axis of the mesh {names}")
+        if not isinstance(placements[names.index(name)], Replicate):
+            raise ValueError(f"pspec {tuple(pspec)} names {name!r} twice")
+        placements[names.index(name)] = Shard(dim)
+    local = torch.as_tensor(local_batch).to(mesh_device(mesh.device_type))
+    return DTensor.from_local(local, mesh, placements, run_check=False)

@@ -221,7 +221,20 @@ Phases (any failure raises and the script exits non-zero):
    volume; ms per volume beside the runs without a mesh;
 26. the synthetic demo (path ``demo``): ``scripts.synthetic_demo.main`` on
    the card, the example's whole recipe, each stage's seconds and the
-   median tracking error at t = 6 against ``DEMO_MAX_ERROR``.
+   median tracking error at t = 6 against ``DEMO_MAX_ERROR``;
+27. mesh training (paths ``mesh_train_stardist``, ``mesh_train_ffn``,
+   ``mesh_train_unet``): an NCCL world of one again, then phase 14's 30
+   StarDist steps and 30 FFN iterations from JAX's inits with
+   ``mesh=make_mesh(1)`` (and once more without, timed the same way), and
+   phase 20's 30 U-Net a steps on JAX's batches through
+   ``TrainingUNet3D(mesh=make_mesh(1, 1))``, whose steps are
+   ``make_sharded_unet_train_step``'s (the halo path at spatial size 1:
+   zero halos, the conv kernels on the x + 2 shapes, the synchronized
+   BatchNorm, one all-reduce a step).  Each mesh run is held to JAX's
+   record with phase 14's or 20's gates and to the run without a mesh
+   (``MESH_*``: the CPU tests' tolerances), with the same conv launches a
+   step; prints ms per step beside the run without a mesh and the
+   parameters' departure from it.
 
 Every kernel's entry in the kernels line carries its bound: the least time
 the card could take, the larger of its bytes (inputs read once, the output
@@ -2694,21 +2707,30 @@ def sync(dev):
         torch.cuda.synchronize()
 
 
-def replay_unet_record(dev, folder, rec, zero_dw=False):
+def replay_unet_record(dev, folder, rec, zero_dw=False, mesh=None):
     """The first steps of ``retrain_unet`` on ``dev`` from the trained
     weights in ``folder`` (``write_legacy_folder``), on JAX's batches: the
     record's affine draws replace the trainer's, and its patch starts must
     be the ones ``np.random.RandomState(1)`` gives here.  ``zero_dw``
-    plants every 3x3x3 dW zeroed.  Returns the losses, the update norms
-    (steps, leaves) and ms per step."""
+    plants every 3x3x3 dW zeroed; ``mesh``: the trainer is
+    ``TrainingUNet3D(mesh=mesh)``, its steps
+    ``make_sharded_unet_train_step``'s.  Returns the losses, the update
+    norms (steps, leaves), ms per step and the trained parameters."""
     import torch
     from t3dct_torch.models import layers as L
+    from t3dct_torch.models import train_unet
     from t3dct_torch.ops.hopper_conv import Conv3x3x3BiasReLU
     from t3dct_torch.utils.optim import record_update_norms
     tracker = legacy_tracker(dev, folder)
     tracker.load_unet()
     tracker.load_manual_seg()
-    trainer = tracker._unet_trainer()
+    cls = train_unet.TrainingUNet3D
+    if mesh is not None:
+        train_unet.TrainingUNet3D = functools.partial(cls, mesh=mesh)
+    try:
+        trainer = tracker._unet_trainer()
+    finally:
+        train_unet.TrainingUNet3D = cls
     draws = [[(torch.from_numpy(m), torch.from_numpy(o))
               for m, o in zip(ms, offs)]
              for ms, offs in zip(rec["affine_m"], rec["affine_offset"])]
@@ -2741,7 +2763,7 @@ def replay_unet_record(dev, folder, rec, zero_dw=False):
     if starts != rec["starts"].tolist():
         raise AssertionError(f"retrain: patch starts {starts}, JAX's "
                              f"{rec['starts'].tolist()}")
-    return losses, np.asarray(norms), times
+    return losses, np.asarray(norms), times, trainer.params
 
 
 def phase_retrain(dev, smi, root):
@@ -2758,7 +2780,9 @@ def phase_retrain(dev, smi, root):
     (``--min-size LEG_RETRAIN_MIN_SIZE``):
     validation losses, checkpoints at each improvement,
     ``select_unet_weights`` of the best, then tracking with the chosen
-    weights.  Returns the 30 steps' launches and the readings."""
+    weights.  Returns the 30 steps' launches, the readings, and the
+    replay (losses, ms per step, parameters, launches, the legacy folder)
+    that phase 27 holds its mesh run to."""
     from t3dct_torch.models.unet3d import unet3_a
     from t3dct_torch.scripts import use_unet_legacy
     grads = phase_train_grads(dev, unet_train_layers(unet3_a()), relu=False,
@@ -2767,14 +2791,14 @@ def phase_retrain(dev, smi, root):
     leaves = json.loads(str(rec["leaves"]))
     folder, _ = write_legacy_folder(root / "retrain", n_vols=1)
 
-    (losses, norms, times), launches = counted(
+    (losses, norms, times, params), launches = counted(
         lambda: replay_unet_record(dev, folder, rec))
     spread = rec["update_norms_nudged"]
     hold_losses("U-Net retrain", losses, rec["losses"], len(rec["losses"]),
                 rec["losses_nudged"])
     hold_update_norms("U-Net retrain", norms, rec["update_norms"], spread,
                       leaves, first=0)
-    _, faulty, _ = replay_unet_record(dev, folder, rec, zero_dw=True)
+    _, faulty, _, _ = replay_unet_record(dev, folder, rec, zero_dw=True)
     _, fault_dep, fault_bound = late_norm_departures(
         faulty, rec["update_norms"], spread, first=0)
     print(f"[retrain] planted fault, every dW zeroed: update-norm departure "
@@ -2820,7 +2844,9 @@ def phase_retrain(dev, smi, root):
             (Path(tracker.paths.unet_weights) /
              "unet3_retrained.npz").is_file() != (best > 0):
         raise AssertionError("retrain example: checkpoints or tracking")
-    return launches, dict(unet_step_ms=step_ms,
+    replay = dict(losses=losses, times=times, params=params,
+                  launches=launches, folder=folder)
+    return replay, launches, dict(unet_step_ms=step_ms,
                           unet_train_fwd_ms=grads["fwd"],
                           unet_train_dx_ms=grads["dx"],
                           unet_train_dx_bound_ms=grads["dx_bound"],
@@ -3912,6 +3938,187 @@ def phase_demo(dev, smi, root):
                             out["seconds"].items()})
 
 
+# phase 27: the mesh trainers against phases 14 and 20 without a mesh,
+# within the CPU tests' tolerances (tests/test_torch_mesh_train.py):
+# StarDist's first MESH_SD_FIRST steps (the recipe is chaotic: an ulp
+# parts JAX's own runs by 3.6e-4 at step 2 and by tens of percent past
+# step 16, so its later steps are held to JAX's record alone), the FFN's
+# first MESH_FFN_FIRST, and U-Net a's every step (JAX's nudged runs part by
+# 1e-6 over its 30) and its parameters in the norm of the whole tree
+MESH_SD_FIRST, MESH_SD_RTOL = 3, 1e-3
+MESH_FFN_FIRST, MESH_FFN_RTOL = 3, 2e-5
+MESH_UNET_RTOL, MESH_UNET_PARAM_RTOL = 1e-4, 1e-3
+
+
+def param_departure(got, want):
+    """(the largest relative departure of a leaf in its norm, the whole
+    tree's) of two parameter trees of tensors."""
+    from t3dct_torch.utils.checkpoint import leaves_with_paths
+    pairs = [(a.detach().double(), b.detach().double()) for (_, a), (_, b)
+             in zip(leaves_with_paths(got), leaves_with_paths(want))]
+    leaf = max(float((a - b).norm() / b.norm().clamp_min(1e-30))
+               for a, b in pairs)
+    whole = (sum(float(((a - b) ** 2).sum()) for a, b in pairs)
+             / sum(float((b ** 2).sum()) for _, b in pairs)) ** 0.5
+    return leaf, whole
+
+
+def phase_mesh_train(dev, smi, root, cfg, trainer_kw, ffn_seed, steps,
+                     replay):
+    """Phase 27 (paths ``mesh_train_stardist``, ``mesh_train_ffn``,
+    ``mesh_train_unet``): the trainers' ``mesh=`` over an NCCL world of
+    one.  StarDist and the FFN: phase 14's record runs from JAX's inits,
+    over ``make_mesh(1)`` and without a mesh; U-Net a: phase 20's 30
+    replayed steps on JAX's batches over ``make_mesh(1, 1)`` through
+    ``make_sharded_unet_train_step`` (the halo path at spatial size 1: zero
+    halos, the kernels on the x + 2 shapes, the synchronized BatchNorm),
+    beside phase 20's run without a mesh (``replay``).  Each mesh run is
+    held to JAX's record with its phase's gates and to the run without a
+    mesh (``MESH_*``); the conv launches must equal the run without a
+    mesh's; prints ms per step beside it (host-clocked between two syncs)
+    and the parameters' departure."""
+    import torch
+    from t3dct_torch.models.train_ffn import DataGeneratorFFN, TrainFFN
+    from t3dct_torch.models.train_stardist import TrainStarDist3D
+    from t3dct_torch.parallel import make_mesh, multihost
+    from t3dct_torch.utils.convert import load_npz
+    from t3dct_torch.utils.optim import record_update_norms
+    t_phase = time.perf_counter()
+    rec = np.load(TRAIN_ASSETS / "jax_train_record.npz")
+    urec = np.load(LEGACY_ASSETS / "jax_unet_train_record.npz")
+    img, lab, _ = vol1_training_data()
+    sd_init = load_npz(TRAIN_ASSETS / "sd_init.npz")
+    ffn_init = load_npz(TRAIN_ASSETS / "ffn_init.npz")
+    with np.load(ASSETS / "jax_record.npz") as bench_rec:
+        cloud = ffn_cloud_file(root / "pts_mesh.txt",
+                               bench_rec["seg_coords_1"])
+
+    def step_ms(trainer):
+        """Wrap ``trainer.train_step`` so that each step is timed on the
+        host between two syncs; returns the list its times go to."""
+        step, times = trainer.train_step, []
+
+        def train_step(*args):
+            sync(dev)
+            t0 = time.perf_counter()
+            out = step(*args)
+            sync(dev)
+            times.append(1e3 * (time.perf_counter() - t0))
+            return out
+        trainer.train_step = train_step
+        return times
+
+    def sd_run(tag, mesh):
+        tr = TrainStarDist3D(cfg, basedir=root / f"sd_mesh_{tag}",
+                             device=dev, mesh=mesh, **trainer_kw)
+        tr.start_from(sd_init)
+        times = step_ms(tr)          # the update norms outside the clock
+        norms = record_update_norms(tr)
+        losses, launches = counted(lambda: tr.train(
+            [img], [lab], epochs=steps, steps_per_epoch=1, verbose=False))
+        return dict(losses=losses, norms=norms, launches=launches,
+                    ms=float(np.mean(times[3:])), params=tr.params)
+
+    def ffn_run(tag, mesh):
+        tf = TrainFFN("ffn", points1_path=cloud,
+                      basedir=root / f"ffn_mesh_{tag}", seed=ffn_seed,
+                      device=dev, mesh=mesh)
+        tf.start_from((ffn_init["0"], ffn_init["1"]))
+        tf.points_generator = DataGeneratorFFN(rec["ffn_points_t1"],
+                                               seed=ffn_seed, device=dev)
+        times = step_ms(tf)
+        losses, launches = counted(lambda: tf.train(
+            num_epochs=steps, iteration=0, verbose=False))
+        return dict(losses=losses, launches=launches,
+                    ms=float(np.mean(times[3:])), params=tf.params)
+
+    def first_off(name, got, want, n, rtol):
+        rel = np.abs(np.asarray(got) - want) / np.abs(want)
+        print(f"[mesh train] {name}: rel diff per step to the run without "
+              f"a mesh {fmt_rel(rel)} (held through step {n} within "
+              f"{rtol:g})")
+        return [i + 1 for i in range(n) if not rel[i] <= rtol]
+
+    multihost.initialize(num_processes=1, process_id=0,
+                         store=str(root / "nccl_store_train"))
+    try:
+        mesh = make_mesh(1)
+        sd = {tag: sd_run(tag, m) for tag, m in (("mesh", mesh),
+                                                 ("plain", None))}
+        ffn = {tag: ffn_run(tag, m) for tag, m in (("mesh", mesh),
+                                                   ("plain", None))}
+        (losses, norms, times, params), unet_launches = counted(
+            lambda: replay_unet_record(dev, replay["folder"], urec,
+                                       mesh=make_mesh(1, 1)))
+    finally:
+        torch.distributed.destroy_process_group()
+    hold_losses("StarDist (mesh)", sd["mesh"]["losses"], rec["sd_losses"],
+                LOSS_PER_STEP, sd_spread(rec))
+    hold_update_norms("StarDist (mesh)", sd["mesh"]["norms"],
+                      rec["sd_update_norms"], sd_norm_spread(rec),
+                      json.loads(str(rec["sd_update_leaves"])))
+    hold_losses("FFN (mesh)", ffn["mesh"]["losses"], rec["ffn_losses"])
+    hold_losses("U-Net retrain (mesh)", losses, urec["losses"],
+                len(urec["losses"]), urec["losses_nudged"])
+    hold_update_norms("U-Net retrain (mesh)", norms, urec["update_norms"],
+                      urec["update_norms_nudged"],
+                      json.loads(str(urec["leaves"])), first=0)
+    bad = [f"StarDist step {i}" for i in first_off(
+        "StarDist", sd["mesh"]["losses"], sd["plain"]["losses"],
+        MESH_SD_FIRST, MESH_SD_RTOL)]
+    bad += [f"FFN step {i}" for i in first_off(
+        "FFN", ffn["mesh"]["losses"], ffn["plain"]["losses"],
+        MESH_FFN_FIRST, MESH_FFN_RTOL)]
+    bad += [f"U-Net step {i}" for i in first_off(
+        "U-Net a", losses, replay["losses"], len(losses), MESH_UNET_RTOL)]
+    runs = {"StarDist": (sd["mesh"]["params"], sd["plain"]["params"]),
+            "FFN": (ffn["mesh"]["params"], ffn["plain"]["params"]),
+            "U-Net a": (params, replay["params"])}
+    departures = {k: param_departure(*v) for k, v in runs.items()}
+    print(f"[mesh train] parameters after {steps} steps against the run "
+          f"without a mesh, the largest leaf's relative departure and the "
+          f"whole tree's: {departures}")
+    if not departures["U-Net a"][1] <= MESH_UNET_PARAM_RTOL:
+        bad.append(f"U-Net parameters {departures['U-Net a']}")
+    launches = {"mesh_train_stardist": sd["mesh"]["launches"],
+                "mesh_train_ffn": ffn["mesh"]["launches"],
+                "mesh_train_unet": unet_launches}
+    plain = {"mesh_train_stardist": sd["plain"]["launches"],
+             "mesh_train_ffn": ffn["plain"]["launches"],
+             "mesh_train_unet": replay["launches"]}
+    convs = ("conv3x3x3_wgmma", "conv3x3x3_direct")
+    for path, n in launches.items():
+        k_steps = len(losses) if path == "mesh_train_unet" else steps
+        per_step = {k: n[k] / k_steps for k in convs}
+        want = {k: plain[path][k] / k_steps for k in convs}
+        print(f"[mesh train] {path}: conv launches per step {per_step} "
+              f"(without a mesh {want}); all launches {n}")
+        if per_step != want:
+            bad.append(f"{path}: conv launches {per_step}, without a mesh "
+                       f"{want}")
+        if path != "mesh_train_ffn":
+            bad += [f"{path}: {k} never launched" for k in convs
+                    if n[k] <= 0]
+    unet_ms = float(np.mean(times[3:]))
+    unet_plain_ms = float(np.mean(replay["times"][3:]))
+    print(f"[mesh train] {smi}: ms per step over the mesh of one (without "
+          f"it), the mean of steps 4-{steps}, each between two syncs: "
+          f"StarDist {sd['mesh']['ms']:.2f} ({sd['plain']['ms']:.2f}), FFN "
+          f"{ffn['mesh']['ms']:.2f} ({ffn['plain']['ms']:.2f}), U-Net a "
+          f"{unet_ms:.2f} ({unet_plain_ms:.2f}); phase "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    if bad:
+        raise AssertionError(f"mesh train: {bad}")
+    return launches, dict(
+        mesh_sd_step_ms=sd["mesh"]["ms"],
+        mesh_sd_step_ms_plain=sd["plain"]["ms"],
+        mesh_ffn_iter_ms=ffn["mesh"]["ms"],
+        mesh_ffn_iter_ms_plain=ffn["plain"]["ms"],
+        mesh_unet_step_ms=unet_ms, mesh_unet_step_ms_plain=unet_plain_ms,
+        mesh_train_param_departure={k: v[1] for k, v in
+                                    departures.items()})
+
+
 def main() -> int:
     if not (ROOT / "3deecelltracker_tpu_torch").is_dir():
         print("chip_smoke.py must run from a checkout of the repository",
@@ -3961,7 +4168,7 @@ def main() -> int:
                                                            *leg_folder)
         leg_ens, leg_ens_times = phase_legacy_folder(dev, smi, *leg_folder,
                                                      ensemble=True)
-        retrain, retrain_times = phase_retrain(dev, smi, Path(tmp))
+        replay, retrain, retrain_times = phase_retrain(dev, smi, Path(tmp))
         variant_errs = {}
         phase_variants(dev, smi, Path(tmp), leg_folder[0], variant_errs)
         keras, keras_tiled, keras_sums, keras_times, keras_errs = \
@@ -3974,6 +4181,8 @@ def main() -> int:
         mesh, mesh_times = phase_mesh(dev, smi, Path(tmp), scene[0],
                                       leg_folder[0])
         demo, demo_times = phase_demo(dev, smi, Path(tmp))
+        mesh_train, mesh_train_times = phase_mesh_train(
+            dev, smi, Path(tmp), cfg, trainer_kw, ffn_seed, steps, replay)
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
 
@@ -3990,7 +4199,8 @@ def main() -> int:
                    "legacy_bf16": bf16["legacy_bf16"][name],
                    "legacy_bf16_ensemble": bf16["legacy_bf16_ensemble"][name],
                    **{path: n[name] for path, n in mesh.items()},
-                   "demo": demo[name]}
+                   "demo": demo[name],
+                   **{path: n[name] for path, n in mesh_train.items()}}
         return dict(launches=sum(by_path.values()),
                     launches_by_path=by_path)
 
@@ -4037,7 +4247,7 @@ def main() -> int:
              **{f"legacy_{k}": v for k, v in leg_single_times.items()},
              **{f"legacy_ensemble_{k}": v
                 for k, v in leg_ens_times.items()}, **keras_times,
-             **mesh_times, **demo_times),
+             **mesh_times, **demo_times, **mesh_train_times),
         dict(name="conv3x3x3_direct", route="cuda",
              source="3deecelltracker_tpu_torch/csrc/conv3x3x3.cu",
              replaces="3deecelltracker_tpu/ops/pallas_conv.py:89",

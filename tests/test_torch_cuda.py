@@ -924,6 +924,49 @@ def test_unet_train_step_on_the_card_matches_cpu(dev, tmp_path):
     assert diff ** 0.5 <= 1e-4 * norm ** 0.5
 
 
+def test_halo_conv_gradients_on_the_card(dev, tmp_path):
+    """The mesh trainers' 3x3x3 conv over a spatial axis
+    (``layers.conv3d(spatial=)``) on an NCCL world of one, a (1, 1) mesh:
+    the halo path runs (zero halos from the exchange) and the kernels run
+    on the extended shapes.  Two convs (the c_in = 1 stem, then 8 -> 8)
+    and ``sum(out * r)``: dx, dw and db within ``_held``'s bound of the
+    same stack without a mesh, each conv's forward and dX launched on its
+    kernel."""
+    from t3dct_torch.models import layers as L
+    from t3dct_torch.parallel import make_mesh, multihost
+    from t3dct_torch.parallel.mesh import mesh_axis
+    g = torch.Generator().manual_seed(5)
+    x = torch.randn((2, 16, 12, 10, 1), generator=g)
+    ws = [torch.randn((3, 3, 3, 1, 8), generator=g) * 0.5,
+          torch.randn((8,), generator=g),
+          torch.randn((3, 3, 3, 8, 8), generator=g) / (27 * 8) ** 0.5,
+          torch.randn((8,), generator=g)]
+    r = torch.randn((2, 16, 12, 10, 8), generator=g).to(dev)
+    multihost.initialize(store=str(tmp_path / "store"))
+    try:
+        ax = mesh_axis(make_mesh(1, 1), "spatial")
+        out = {}
+        for name, spatial in (("mesh", ax), ("plain", None)):
+            xi = x.to(dev).requires_grad_(True)
+            wi = [t.to(dev).requires_grad_(True) for t in ws]
+            before = _counts()
+            h = L.conv3d({"w": wi[0], "b": wi[1]}, xi, relu=True,
+                         spatial=spatial)
+            y = L.conv3d({"w": wi[2], "b": wi[3]}, h, spatial=spatial)
+            grads = torch.autograd.grad(torch.sum(y * r), [xi, *wi])
+            out[name] = [t.cpu() for t in grads], [
+                a - b for a, b in zip(_counts(), before)]
+    finally:
+        torch.distributed.destroy_process_group()
+    (got, launches), (want, plain_launches) = out["mesh"], out["plain"]
+    for a, b in zip(got, want):
+        assert a.shape == b.shape
+        _held(a, b)
+    # direct: the stem's forward and its dX (8 -> 1); wgmma: the 8 -> 8
+    # conv's forward and dX
+    assert launches == plain_launches == [2, 2, 0, 0]
+
+
 @pytest.mark.parametrize("mode", ["layer", "block"])
 @pytest.mark.parametrize("c_in,c_out", [(8, 16), (8, 8), (24, 16)])
 def test_wgmma_bf16_half_chunk_nonfinite(dev, c_in, c_out, mode):

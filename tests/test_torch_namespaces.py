@@ -33,10 +33,6 @@ LEFT_OUT = {
     "utils": {"enable_compilation_cache":
               "XLA's compile cache: not to be ported (ROADMAP.md, "
               "'Do not port'); utils.cuda_build caches the kernels"},
-    "parallel": {"make_unet_train_step":
-                 "data-parallel training waits for ROADMAP.md A.5b",
-                 "make_sharded_unet_train_step":
-                 "data-parallel training waits for ROADMAP.md A.5b"},
     "ops": {"lcn": "ops.lcn stays the module, which the port's callers "
                    "import as such; the function is ops.lcn.lcn"},
 }

@@ -103,6 +103,9 @@ ENTRY_POINTS = [
     ("models.stardist3d", "StarDist3DNet.apply"),
     ("models.layers", "dense"),
 ]
+# the port's own keyword-only extras beyond ``device``: the U-Net's
+# forward over a mesh's blocks (JAX's sharding is the jit's, not apply's)
+PORT_EXTRAS = {("models.unet3d", "UNet3D.apply"): ["mesh_axes"]}
 # the functions that take JAX's compute_dtype, and its default in each
 COMPUTE_DTYPE = [
     ("models.layers", "conv3d", "float32"),
@@ -134,7 +137,8 @@ def test_port_signature_binds_jax(module, qualname):
     got = _params(_resolve("t3dct_torch", module, qualname))
     extra = got[len(want):]
     assert [p.name for p in got[:len(want)]] == [p.name for p in want]
-    assert [p.name for p in extra] in ([], ["device"])
+    assert [p.name for p in extra] in ([], ["device"],
+                                       PORT_EXTRAS.get((module, qualname)))
     for p in extra:
         assert p.kind is inspect.Parameter.KEYWORD_ONLY
         assert p.default is None

@@ -300,7 +300,7 @@ def test_retrain_unet_and_select_match(tmp_path, monkeypatch):
 
 def test_not_ported_raise(tmp_path):
     spec, _, _ = small_model()
-    with pytest.raises(NotImplementedError, match="A.5b"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         tu.TrainingUNet3D(NOISE, tmp_path, spec, mesh=object(),
                           device="cpu")
     tr = tu.TrainingUNet3D(NOISE, tmp_path, spec, device="cpu")

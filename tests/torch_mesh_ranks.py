@@ -42,6 +42,8 @@ from t3dct_torch.parallel.comm import barrier  # noqa: E402
 from t3dct_torch.parallel.mesh import mesh_axis  # noqa: E402
 from t3dct_torch.parallel.spatial import (  # noqa: E402
     make_spatially_sharded_apply)
+from t3dct_torch.parallel.training import (  # noqa: E402
+    make_sharded_unet_train_step, make_unet_train_step)
 
 DEADLINE = 600.0        # seconds a spawned world may take
 
@@ -234,3 +236,203 @@ def halo_cases(rank: int, world: int, root: Path, unet: str, raw: str,
     return {"halo_f32": halo_probs(world, unet, raw, seg_cfg),
             "bf16": fn(params, state, torch.load(batch, weights_only=False)),
             "ext": seen[0]}
+
+
+# ---- data-parallel training (test_torch_mesh_train.py) ------------------
+
+def _tree(tree):
+    """A tree of tensors detached onto the CPU (a rank's result)."""
+    if isinstance(tree, dict):
+        return {k: _tree(v) for k, v in tree.items()}
+    return tree.detach().cpu().clone()
+
+
+def unet_step_case(spec, params, state, x, y, mesh, lr, dtensor=False):
+    """One Adam step of ``spec`` on the batch ``(x, y)``: over ``mesh``
+    through ``make_sharded_unet_train_step`` (this rank's block from
+    ``shard``, as a ``DTensor`` of every rank's block with ``dtensor``),
+    or without a mesh through ``make_unet_train_step``."""
+    from t3dct_torch.parallel.multihost import global_batch_from_local
+    from t3dct_torch.utils.checkpoint import leaves_with_paths
+    from t3dct_torch.utils.device import fresh_tensors
+    from t3dct_torch.utils.optim import Adam
+    p = fresh_tensors(params, torch.device("cpu"), True)
+    s = fresh_tensors(state, torch.device("cpu"), False)
+    opt = Adam([v for _, v in leaves_with_paths(p)], lr)
+    if mesh is None:
+        loss, new_s = make_unet_train_step(spec, opt)(p, s, x, y)
+    else:
+        step, shard = make_sharded_unet_train_step(spec, opt, mesh)
+        x, y = shard(x), shard(y)
+        if dtensor:
+            x, y = (global_batch_from_local(mesh, t, ("data", "spatial"))
+                    for t in (x, y))
+        loss, new_s = step(p, s, x, y)
+    return {"loss": float(loss), "params": _tree(p), "state": _tree(new_s)}
+
+
+def halo_grads_case(mesh, x, w1, b1, w2, b2, r):
+    """Two 3x3x3 convs (ReLU after the first) and ``sum(out * r)`` over
+    this rank's x shard of the spatial axis, halos exchanged; dx of the
+    shard gathered over the axis, dw and db summed over it.  Without a
+    mesh, the same on the whole tensor."""
+    from t3dct_torch.models import layers as L
+    from t3dct_torch.parallel.comm import all_gather_tensors, \
+        all_reduce_grads
+    ax = None if mesh is None else mesh_axis(mesh, "spatial")
+    if ax is not None:
+        per = x.shape[1] // ax.size
+        x, r = (t[:, ax.index * per:(ax.index + 1) * per] for t in (x, r))
+    x = x.clone().requires_grad_(True)
+    ws = [t.clone().requires_grad_(True) for t in (w1, b1, w2, b2)]
+    h = L.conv3d({"w": ws[0], "b": ws[1]}, x, relu=True, spatial=ax)
+    out = L.conv3d({"w": ws[2], "b": ws[3]}, h, spatial=ax)
+    dx, *dws = torch.autograd.grad(torch.sum(out * r), [x, *ws])
+    if ax is not None:
+        dx = torch.cat([g[0] for g in all_gather_tensors(ax, [dx])], dim=1)
+        dws = all_reduce_grads(ax, dws)
+    return {"dx": dx, "dw1": dws[0], "db1": dws[1], "dw2": dws[2],
+            "db2": dws[3]}
+
+
+def _files(folder: Path) -> list:
+    return sorted(str(p.relative_to(folder)) for p in folder.rglob("*")
+                  if p.is_file())
+
+
+def train_cases(rank: int, world: int, root: Path, unet: str, halo: str,
+                sd: str, ffn: str, trainer: str) -> dict:
+    """The file's cases on every rank (``tests/test_torch_mesh_train.py``
+    holds them): the sharded U-Net step over (2, 2) and (1, 4) meshes, the
+    halo conv's gradients over 4 x shards, ``global_batch_from_local``,
+    the misaligned shapes' ``ValueError``s, and the three trainers over
+    meshes with each rank's own folder; rank 0's runs without a mesh
+    beside them."""
+    from t3dct_torch.config import TrainFfnConfig
+    from t3dct_torch.models.train_ffn import TrainFFN
+    from t3dct_torch.models.train_stardist import TrainStarDist3D
+    from t3dct_torch.models.train_unet import TrainingUNet3D
+    from t3dct_torch.parallel.multihost import global_batch_from_local
+    cpu = dict(device_type="cpu")
+    meshes = {"2x2": make_mesh(2, 2, **cpu), "1x4": make_mesh(1, 4, **cpu),
+              "4x1": make_mesh(4, 1, **cpu)}
+    lead = meshes["2x2"]
+    out = {}
+    # (a) the U-Net step
+    u = torch.load(unet, weights_only=False)
+    spec = UNet3D(**u["spec"])
+    for name in ("2x2", "1x4"):
+        out[f"step_{name}"] = unet_step_case(
+            spec, u["params"], u["state"], u["x"], u["y"], meshes[name],
+            u["lr"])
+    out["step_plain"] = _on_rank0(rank, lead, lambda: unet_step_case(
+        spec, u["params"], u["state"], u["x"], u["y"], None, u["lr"]))
+    # (e) the halo's adjoint over 4 x shards
+    h = torch.load(halo, weights_only=False)
+    out["halo"] = halo_grads_case(meshes["1x4"], **h)
+    # (f) a DTensor of every rank's block
+    step, shard = make_sharded_unet_train_step(
+        spec, None, meshes["2x2"])
+    block = shard(u["x"])
+    dt = global_batch_from_local(meshes["2x2"], block, ("data", "spatial"))
+    out["dtensor"] = {"full": dt.full_tensor(), "local": dt.to_local(),
+                      "block": block,
+                      "placements": [str(p) for p in dt.placements]}
+    out["step_dtensor"] = unet_step_case(
+        spec, u["params"], u["state"], u["x"], u["y"], meshes["2x2"],
+        u["lr"], dtensor=True)
+    # (g) misaligned shapes
+    errors = {}
+    for tag, fn in (
+            ("x_shard", lambda: make_sharded_unet_train_step(
+                spec, None, meshes["1x4"])[1](u["x"][:, :12])),
+            ("x_split", lambda: make_sharded_unet_train_step(
+                spec, None, meshes["1x4"])[1](u["x"][:, :14])),
+            ("batch", lambda: shard(u["x"][:3])),
+            ("trainer_tile", lambda: TrainingUNet3D(
+                1.0, root / f"bad{rank}", UNet3D(**dict(
+                    u["spec"], tile_shape=(12, 16, 4))),
+                batch_size=4, mesh=meshes["1x4"], device="cpu")),
+            ("ffn_batch", lambda: TrainFFN(
+                "bad", points1_path=ffn_points(ffn),
+                basedir=root / f"bad_ffn{rank}", mesh=meshes["4x1"],
+                config=TrainFfnConfig(batch_size=30), device="cpu"))):
+        try:
+            fn()
+            errors[tag] = None
+        except ValueError as e:
+            errors[tag] = str(e)
+    out["errors"] = errors
+    # (b) the StarDist trainer, (c) the FFN trainer, and the U-Net trainer
+    out.update(stardist_train_case(rank, root, sd, meshes, lead))
+    out.update(ffn_train_case(rank, root, ffn, meshes["4x1"], lead))
+    out.update(unet_train_case(rank, root, trainer, meshes["2x2"]))
+    return out
+
+
+def ffn_points(ffn: str) -> str:
+    return torch.load(ffn, weights_only=False)["points"]
+
+
+def stardist_train_case(rank, root, sd, meshes, lead):
+    """``TrainStarDist3D.train`` (epochs of one step) from JAX's init over
+    (4, 1) and (2, 2) (the spatial ranks replicas), each rank in its own
+    folder, and on rank 0 without a mesh."""
+    from t3dct_torch.models.train_stardist import TrainStarDist3D
+    d = torch.load(sd, weights_only=False)
+    cfg = StarDistConfig(**d["cfg"])
+
+    def run(name, mesh):
+        tr = TrainStarDist3D(cfg, basedir=root / f"sd_{name}_{rank}",
+                             device="cpu", mesh=mesh, **d["trainer"])
+        tr.start_from(d["params"])
+        losses = tr.train([d["img"]], [d["lab"]], epochs=d["steps"],
+                          steps_per_epoch=1, verbose=False)
+        return {"losses": losses, "params": _tree(tr.params),
+                "files": _files(root / f"sd_{name}_{rank}")}
+    return {"sd_4x1": run("4x1", meshes["4x1"]),
+            "sd_2x2": run("2x2", meshes["2x2"]),
+            "sd_plain": _on_rank0(rank, lead, lambda: run("plain", None))}
+
+
+def ffn_train_case(rank, root, ffn, mesh, lead):
+    """``TrainFFN.train`` (epochs of one step) from JAX's init over
+    (4, 1), each rank in its own folder, and on rank 0 without a mesh."""
+    from t3dct_torch.models.train_ffn import TrainFFN
+    d = torch.load(ffn, weights_only=False)
+
+    def run(name, mesh):
+        folder = root / f"ffn_{name}_{rank}"
+        tf = TrainFFN("m", points1_path=d["points"], basedir=folder,
+                      seed=0, device="cpu", mesh=mesh)
+        tf.start_from((d["params"], d["state"]))
+        losses = tf.train(num_epochs=d["epochs"], iteration=0,
+                          verbose=False)
+        return {"losses": losses, "params": _tree(tf.params),
+                "state": _tree(tf.bn_state), "files": _files(folder)}
+    return {"ffn_4x1": run("4x1", mesh),
+            "ffn_plain": _on_rank0(rank, lead, lambda: run("plain", None))}
+
+
+def unet_train_case(rank, root, trainer, mesh):
+    """``TrainingUNet3D.train`` (2 epochs of 2 steps) and
+    ``select_weights`` over a (2, 2) mesh, each rank in its own folder, and
+    on rank 0 without a mesh: both draw their batches from the same
+    seeds."""
+    from t3dct_torch.models.train_unet import TrainingUNet3D
+    d = torch.load(trainer, weights_only=False)
+    spec = UNet3D(**d["spec"])
+
+    def run(name, mesh):
+        folder = root / f"unet_{name}_{rank}"
+        tr = TrainingUNet3D(d["noise"], folder, spec, batch_size=4,
+                            mesh=mesh, device="cpu")
+        tr.start_from(d["params"], d["state"])
+        tr.load_dataset_arrays(d["img"], d["lab"], d["img"], d["lab"])
+        tr.preprocess()
+        val = tr.train(iteration=2, steps_per_epoch=2, verbose=False)
+        tr.select_weights(1)
+        return {"val": val, "params": _tree(tr.params),
+                "state": _tree(tr.bn_state), "files": _files(folder)}
+    return {"unet_2x2": run("2x2", mesh),
+            "unet_plain": _on_rank0(rank, mesh, lambda: run("plain", None))}
