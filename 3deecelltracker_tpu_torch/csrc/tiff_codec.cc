@@ -4,7 +4,8 @@
 // (SURVEY §2.2 N7).  This is the TPU build's native data-loader: a minimal,
 // dependency-free reader for the data contract actually used by the
 // pipeline — little-endian grayscale TIFFs, 8/16-bit, single-page slices or
-// multi-page volumes (training data),
+// multi-page volumes (training data; these may also hold several samples a
+// pixel, interleaved: PlanarConfiguration 1, e.g. RGB),
 // uncompressed or LZW (incl. horizontal predictor), strip-based — plus a
 // std::thread fan-out that decodes a whole z-stack in parallel, and an
 // uncompressed writer for label output.
@@ -23,6 +24,8 @@ namespace {
 struct TiffInfo {
   uint32_t width = 0, height = 0;
   uint16_t bits = 8, compression = 1, predictor = 1, samples = 1;
+  uint16_t planar = 1;                  // PlanarConfiguration
+  bool mixed_bits = false;              // samples of different depths
   std::vector<uint64_t> strip_offsets;
   std::vector<uint64_t> strip_counts;
   uint32_t rows_per_strip = 0;
@@ -95,7 +98,9 @@ bool parse_ifd_at(const std::vector<uint8_t>& d, uint32_t ifd,
       case 257: if (!read_values(e, type, count, &vals)) return false;
         info->height = vals[0]; break;
       case 258: if (!read_values(e, type, count, &vals)) return false;
-        info->bits = vals[0]; break;
+        info->bits = vals[0];
+        for (uint64_t v : vals) info->mixed_bits |= v != vals[0];
+        break;
       case 259: if (!read_values(e, type, count, &vals)) return false;
         info->compression = vals[0]; break;
       case 273: if (!read_values(e, type, count, &info->strip_offsets))
@@ -108,6 +113,8 @@ bool parse_ifd_at(const std::vector<uint8_t>& d, uint32_t ifd,
       case 279: if (!read_values(e, type, count, &info->strip_counts))
           return false;
         break;
+      case 284: if (!read_values(e, type, count, &vals)) return false;
+        info->planar = vals[0]; break;
       case 317: if (!read_values(e, type, count, &vals)) return false;
         info->predictor = vals[0]; break;
       default: break;
@@ -125,6 +132,20 @@ bool parse_ifd(const std::vector<uint8_t>& d, TiffInfo* info) {
 // every page of a multi-page file, in order; at most max_pages, each IFD
 // after the one before it (a chain that loops back is corrupt)
 const uint32_t kMaxPages = 1u << 16;
+const uint16_t kMaxSamples = 16;
+
+// a grayscale page, 8 or 16 bits
+bool grayscale(const TiffInfo& info) {
+  return info.samples == 1 && (info.bits == 8 || info.bits == 16);
+}
+
+// a page of 1..kMaxSamples samples a pixel, interleaved, all of 8 or all
+// of 16 bits
+bool chunky(const TiffInfo& info) {
+  return info.samples >= 1 && info.samples <= kMaxSamples &&
+         (info.samples == 1 || info.planar == 1) && !info.mixed_bits &&
+         (info.bits == 8 || info.bits == 16);
+}
 
 int parse_pages(const std::vector<uint8_t>& d, std::vector<TiffInfo>* pages) {
   if (!is_tiff_le(d)) return 2;
@@ -136,10 +157,11 @@ int parse_pages(const std::vector<uint8_t>& d, std::vector<TiffInfo>* pages) {
     TiffInfo info;
     uint32_t next;
     if (!parse_ifd_at(d, ifd, &info, &next)) return 2;
-    if (info.samples != 1 || (info.bits != 8 && info.bits != 16)) return 6;
+    if (!chunky(info)) return 6;
     if (!pages->empty() && (info.width != (*pages)[0].width ||
                             info.height != (*pages)[0].height ||
-                            info.bits != (*pages)[0].bits))
+                            info.bits != (*pages)[0].bits ||
+                            info.samples != (*pages)[0].samples))
       return 7;
     pages->push_back(info);
     prev = ifd;
@@ -241,18 +263,23 @@ bool lzw_decode(const uint8_t* src, size_t src_len, uint8_t* dst,
   return di == dst_len;
 }
 
-void undo_hpredictor(uint8_t* row, uint32_t width, uint16_t bits) {
+// horizontal differencing undone, each sample against the same sample of
+// the pixel before it
+void undo_hpredictor(uint8_t* row, uint32_t width, uint16_t bits,
+                     uint16_t samples) {
+  size_t n = size_t(width) * samples;
   if (bits == 8) {
-    for (uint32_t x = 1; x < width; ++x) row[x] += row[x - 1];
+    for (size_t i = samples; i < n; ++i) row[i] += row[i - samples];
   } else {
     uint16_t* r = reinterpret_cast<uint16_t*>(row);
-    for (uint32_t x = 1; x < width; ++x) r[x] += r[x - 1];
+    for (size_t i = samples; i < n; ++i) r[i] += r[i - samples];
   }
 }
 
+// one page into out (width * height * samples uint16, samples innermost)
 int decode_into(const TiffInfo& info, const std::vector<uint8_t>& d,
                 uint16_t* out) {
-  size_t bytes_per_px = info.bits / 8;
+  size_t bytes_per_px = size_t(info.bits / 8) * info.samples;
   size_t row_bytes = size_t(info.width) * bytes_per_px;
   std::vector<uint8_t> raw(row_bytes * info.height);
   size_t row0 = 0;
@@ -280,11 +307,12 @@ int decode_into(const TiffInfo& info, const std::vector<uint8_t>& d,
     }
     if (info.predictor == 2) {
       for (uint32_t r = 0; r < rows; ++r)
-        undo_hpredictor(dst + row_bytes * r, info.width, info.bits);
+        undo_hpredictor(dst + row_bytes * r, info.width, info.bits,
+                        info.samples);
     }
     row0 += rows;
   }
-  size_t n = size_t(info.width) * info.height;
+  size_t n = size_t(info.width) * info.height * info.samples;
   if (info.bits == 8) {
     for (size_t i = 0; i < n; ++i) out[i] = raw[i];
   } else {
@@ -439,9 +467,10 @@ int write_tiff(const char* path, const uint16_t* data, int width,
 
 extern "C" {
 
-// the page count and the (shared) size of a multi-page grayscale TIFF
+// the page count and the (shared) size, depth and samples a pixel of a
+// multi-page TIFF
 int t3dct_tiff_pages(const char* path, int* n_pages, int* width,
-                     int* height, int* bits) {
+                     int* height, int* bits, int* samples) {
   std::vector<uint8_t> d;
   if (!read_file(path, d)) return 1;
   std::vector<TiffInfo> pages;
@@ -451,22 +480,24 @@ int t3dct_tiff_pages(const char* path, int* n_pages, int* width,
   *width = int(pages[0].width);
   *height = int(pages[0].height);
   *bits = int(pages[0].bits);
+  *samples = int(pages[0].samples);
   return 0;
 }
 
-// decode every page into out (n_pages * width * height uint16), after
-// checking that the file holds n_pages pages of that size
+// decode every page into out (n_pages * width * height * samples uint16,
+// samples innermost), after checking that the file holds n_pages pages of
+// that size
 int t3dct_tiff_read_pages(const char* path, uint16_t* out, int n_pages,
-                          int width, int height) {
+                          int width, int height, int samples) {
   std::vector<uint8_t> d;
   if (!read_file(path, d)) return 1;
   std::vector<TiffInfo> pages;
   int rc = parse_pages(d, &pages);
   if (rc) return rc;
   if (int(pages.size()) != n_pages || int(pages[0].width) != width ||
-      int(pages[0].height) != height)
+      int(pages[0].height) != height || int(pages[0].samples) != samples)
     return 7;
-  size_t stride = size_t(width) * height;
+  size_t stride = size_t(width) * height * samples;
   for (int i = 0; i < n_pages; ++i) {
     rc = decode_into(pages[i], d, out + stride * i);
     if (rc) return rc;
@@ -480,7 +511,7 @@ int t3dct_tiff_info(const char* path, int* width, int* height, int* bits) {
   if (!read_file(path, d)) return 1;
   TiffInfo info;
   if (!parse_ifd(d, &info)) return 2;
-  if (info.samples != 1 || (info.bits != 8 && info.bits != 16)) return 6;
+  if (!grayscale(info)) return 6;
   *width = int(info.width);
   *height = int(info.height);
   *bits = int(info.bits);
@@ -493,7 +524,7 @@ int t3dct_tiff_read(const char* path, uint16_t* out) {
   if (!read_file(path, d)) return 1;
   TiffInfo info;
   if (!parse_ifd(d, &info)) return 2;
-  if (info.samples != 1 || (info.bits != 8 && info.bits != 16)) return 6;
+  if (!grayscale(info)) return 6;
   return decode_into(info, d, out);
 }
 
@@ -514,7 +545,7 @@ int t3dct_tiff_read_volume(const char** paths, int n, uint16_t* out,
     if (!read_file(path, d)) return 1;
     TiffInfo info;
     if (!parse_ifd(d, &info)) return 2;
-    if (info.samples != 1 || (info.bits != 8 && info.bits != 16)) return 6;
+    if (!grayscale(info)) return 6;
     if (int(info.width) != width || int(info.height) != height) return 7;
     return decode_into(info, d, slot);
   };

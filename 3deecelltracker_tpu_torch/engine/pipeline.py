@@ -95,15 +95,16 @@ def track_and_correct(ffn_params, ffn_state, confirmed_raw: torch.Tensor,
                       voxel_size, image_shape, beta: float, lambda_: float,
                       max_repetition: int = 20, k_points: int = 20,
                       max_iteration: int = 2000,
-                      prob_grid: Tuple[int, int, int] = (1, 1, 1)
-                      ) -> TrackOutput:
+                      prob_grid: Tuple[int, int, int] = (1, 1, 1),
+                      m_step_refine: int = 0) -> TrackOutput:
     """One volume of the single-mode tracking recurrence
     (``fused_track_and_correct``): FFN matching + PR-GLS from the padded
     seg point sets of t1 and t2 (real units, ``TrackerLite._pad_np``),
     then boundary flags, accurate correction and boundary recalculation.
     ``prob_img``: t2's probability map in the (x, y, z) frame, any float
     dtype; with ``prob_grid`` != (1, 1, 1) it is the grid-resolution map
-    of ``seg/prob*.npy``, upsampled and cropped on the device."""
+    of ``seg/prob*.npy``, upsampled and cropped on the device.
+    ``m_step_refine``: the EM's compensated M-step (``ops.prgls``)."""
     if tuple(prob_grid) != (1, 1, 1):
         prob_img = upsample_prob_pipeline(prob_img, prob_grid, image_shape)
     # prob maps travel as float16; the correction weighs in f32
@@ -113,7 +114,7 @@ def track_and_correct(ffn_params, ffn_state, confirmed_raw: torch.Tensor,
     res = track_step(ffn_params, ffn_state, confirmed_raw * vs, seg_t1_real,
                      seg_t1_mask, seg_t2_real, seg_t2_mask, beta=beta,
                      lambda_=lambda_, k_points=k_points,
-                     max_iteration=max_iteration)
+                     max_iteration=max_iteration, m_step_refine=m_step_refine)
     corrected_raw, labels, n_corr = correct_prediction(
         atlas, coord_vol1_raw, res.tracked / vs, res.tracked, prob_img,
         image_shape, voxel_size, max_repetition=max_repetition,
@@ -130,7 +131,7 @@ def track_from_seg(ffn_params, ffn_state, confirmed_raw: torch.Tensor,
                    max_repetition: int = 20, k_points: int = 20,
                    max_iteration: int = 2000,
                    prob_grid: Tuple[int, int, int] = (1, 1, 1),
-                   pad_n: int = 192) -> TrackOutput:
+                   m_step_refine: int = 0, pad_n: int = 192) -> TrackOutput:
     """:func:`track_and_correct` fed directly from the seg outputs of t1
     and t2 (``fused_track_from_seg``): the candidates compressed and
     padded, and the grid prob map transposed (z, y, x) -> (x, y, z), on
@@ -143,7 +144,8 @@ def track_from_seg(ffn_params, ffn_state, confirmed_raw: torch.Tensor,
         ffn_params, ffn_state, confirmed_raw, coord_vol1_raw, seg1_real, m1,
         seg2_real, m2, prob_zyx_grid.permute(1, 2, 0), atlas, voxel_size,
         image_shape, beta, lambda_, max_repetition=max_repetition,
-        k_points=k_points, max_iteration=max_iteration, prob_grid=prob_grid)
+        k_points=k_points, max_iteration=max_iteration, prob_grid=prob_grid,
+        m_step_refine=m_step_refine)
 
 
 @dataclasses.dataclass
@@ -220,7 +222,8 @@ def segment_and_track_arrays(volumes: Sequence[np.ndarray],
                     max_repetition=config.max_correction_reps,
                     k_points=config.k_neighbors,
                     max_iteration=config.max_iteration,
-                    prob_grid=grid_t, pad_n=pad_n)
+                    prob_grid=grid_t, m_step_refine=config.m_step_refine,
+                    pad_n=pad_n)
                 coords_t1 = Coordinates(out.corrected_raw,
                                         interpolation_factor, vs_t)
                 labels[t] = out.labels.cpu().numpy().astype(np.uint16)
@@ -639,7 +642,9 @@ def _device_handoff(images_path, model, results_dir, manual_vol1_glob,
                         max_repetition=config.max_correction_reps,
                         k_points=config.k_neighbors,
                         max_iteration=config.max_iteration,
-                        prob_grid=grid_t, pad_n=tracker.max_cells)
+                        prob_grid=grid_t,
+                        m_step_refine=tracker.m_step_refine,
+                        pad_n=tracker.max_cells)
                 corrected = Coordinates(out.corrected_raw,
                                         transformer.interpolation_factor,
                                         vs_t)
@@ -854,7 +859,8 @@ def _track_volumes(results_dir, manual_vol1_glob, ffn_weights, voxel_size,
                         tracker.ffn_params, tracker.ffn_state, confirmed,
                         seg1, mask1, seg2, mask2, beta=config.beta,
                         lambda_=config.lambda_, k_points=config.k_neighbors,
-                        max_iteration=config.max_iteration)
+                        max_iteration=config.max_iteration,
+                        m_step_refine=tracker.m_step_refine)
                     pred = Coordinates.from_real(
                         trim_mean(preds, config.trim_proportion, axis=0),
                         transformer.interpolation_factor, vs_t)
@@ -874,7 +880,8 @@ def _track_volumes(results_dir, manual_vol1_glob, ffn_weights, voxel_size,
                         max_repetition=config.max_correction_reps,
                         k_points=config.k_neighbors,
                         max_iteration=config.max_iteration,
-                        prob_grid=grid_t)
+                        prob_grid=grid_t,
+                        m_step_refine=tracker.m_step_refine)
                 corrected = Coordinates(out.corrected_raw,
                                         transformer.interpolation_factor,
                                         vs_t)

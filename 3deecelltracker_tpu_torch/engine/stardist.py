@@ -26,6 +26,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import queue
+import sys
 import threading
 from pathlib import Path
 import warnings
@@ -1063,7 +1064,8 @@ def load_training_images(path_train_images: str, path_train_labels: str,
     """Load and normalize StarDist training volumes and split them
     (``stardistwrapper.load_training_images`` :168-211): sorted globs with
     matching file names, every page of each multi-page TIFF
-    (``io.imageio.imread_volume``), per-volume 1/99.8 percentile
+    (``io.imageio.imread_volume``; a volume of (z, y, x, c) channels,
+    each channel normalized on its own), per-volume 1/99.8 percentile
     normalization, label-hole filling, the single-volume duplication and
     the seeded 15% validation split.  ``plot=True`` (JAX's default) draws
     the first volume and its labels (``viz.plot_img_label_max_projection``,
@@ -1084,12 +1086,14 @@ def load_training_images(path_train_images: str, path_train_labels: str,
         raise ValueError("Error: Filenames in X and Y do not match.")
     X = [np.asarray(imread_volume(p)) for p in X_paths]
     Y = [np.asarray(imread_volume(p)) for p in Y_paths]
-    if X[0].ndim != 3:
-        raise NotImplementedError(
-            f"{X_paths[0]}: volumes with channels are not ported yet; the "
-            f"port reads (z, y, x) grayscale pages, got {X[0].shape}")
-    n_channel = 1
-    X = [percentile_normalize(x.astype(np.float32), 1, 99.8) for x in X]
+    n_channel = 1 if X[0].ndim == 3 else X[0].shape[-1]
+    if n_channel > 1:
+        print("Normalizing image channels independently.")
+        sys.stdout.flush()
+    # over (z, y, x); each channel of a (z, y, x, c) volume on its own
+    X = [percentile_normalize(x.astype(np.float32), 1, 99.8,
+                              axis=(0, 1, 2) if x.ndim == 4 else None)
+         for x in X]
     Y = [fill_label_holes(y.astype(np.int32)) for y in Y]
     if len(X) == 1:
         print("Warning: only one training data was provided! It will be "
@@ -1107,10 +1111,11 @@ def load_training_images(path_train_images: str, path_train_labels: str,
     print('- validation:     %3d' % len(X_val))
     print(f"X[0].shape={X[0].shape}")
     if plot:
+        img = X[0] if X[0].ndim == 3 else X[0][..., :3]
         if max_projection:
-            plot_img_label_max_projection(X[0], Y[0])
+            plot_img_label_max_projection(img, Y[0])
         else:
-            plot_img_label_center_slice(X[0], Y[0])
+            plot_img_label_center_slice(img, Y[0])
     return X, Y, X_trn, Y_trn, X_val, Y_val, n_channel
 
 

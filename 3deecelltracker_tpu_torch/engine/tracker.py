@@ -44,10 +44,12 @@ def track_step(ffn_params, ffn_state, confirmed_t1_real: torch.Tensor,
                seg_t2_real: torch.Tensor, seg_t2_mask: torch.Tensor,
                beta: float = BETA, lambda_: float = LAMBDA,
                k_points: int = K_POINTS,
-               max_iteration: int = MAX_ITERATION) -> PrglsResult:
+               max_iteration: int = MAX_ITERATION,
+               m_step_refine: int = 0) -> PrglsResult:
     """Predict the confirmed set's real coordinates at t2.  Returns the
     PR-GLS result with ``tracked`` already denormalized to real units
-    (the JAX twin returns ``tracked`` alone).
+    (the JAX twin returns ``tracked`` alone).  ``m_step_refine``: the
+    EM's compensated M-step (``ops.prgls``).
 
     With a leading member axis on the t1 inputs ((E, l, 3) confirmed,
     (E, m, 3) seg_t1, (E, m) mask) and the t2 set shared, the E members
@@ -68,7 +70,7 @@ def track_step(ffn_params, ffn_state, confirmed_t1_real: torch.Tensor,
     result = prgls_with_two_ref(
         prior, t2_norm, t1_norm, confirmed_norm, beta=beta,
         lambda_=lambda_, max_iteration=max_iteration,
-        tgt_mask=t2_mask, ref_mask=seg_t1_mask)
+        tgt_mask=t2_mask, ref_mask=seg_t1_mask, m_step_refine=m_step_refine)
     return result._replace(tracked=result.tracked * scale + mean)
 
 
@@ -127,7 +129,9 @@ class TrackerLite:
     dicts of arrays or tensors; either way they land on the device of
     ``proofed_coords_vol1``.  ``max_cells``: the static pad of the
     segmented point sets, ``ceil(1.5 n1 / 64) * 64`` for n1 vol-1 cells by
-    default."""
+    default.  ``m_step_refine``: every prediction's EM runs the compensated
+    M-step with that many corrections (``ops.prgls``; 0, the default, the
+    floored solve)."""
 
     def __init__(self, results_dir: Union[str, Path], ffn_weights,
                  proofed_coords_vol1: Coordinates,
@@ -137,14 +141,11 @@ class TrackerLite:
         if miss_frame is not None and not isinstance(miss_frame, list):
             raise TypeError(
                 f"miss_frame should be a list or None, got {type(miss_frame)}")
-        if m_step_refine:
-            raise NotImplementedError(
-                "m_step_refine > 0 is not ported: it measured worse "
-                "(ROADMAP.md A, 'Do not port')")
         self.tree = ResultsTree(results_dir)
         self.tree.make_dirs()
         self.proofed_coords_vol1 = proofed_coords_vol1
         self.miss_frame = [] if miss_frame is None else miss_frame
+        self.m_step_refine = int(m_step_refine)
         dev = proofed_coords_vol1.raw_f32.device
         self.device = dev
         if isinstance(ffn_weights, (str, Path)):
@@ -209,7 +210,8 @@ class TrackerLite:
         p2, m2 = self._pad(seg_t2.real.cpu().numpy())
         tracked = track_step(self.ffn_params, self.ffn_state,
                              confirmed_coord_t1.real.to(self.device), p1, m1,
-                             p2, m2, beta=beta, lambda_=lambda_).tracked
+                             p2, m2, beta=beta, lambda_=lambda_,
+                             m_step_refine=self.m_step_refine).tracked
         coords = Coordinates.from_real(
             tracked, self.proofed_coords_vol1.interpolation_factor,
             self.proofed_coords_vol1.voxel_size)
@@ -247,7 +249,8 @@ class TrackerLite:
         tracked = track_step(self.ffn_params, self.ffn_state,
                              torch.stack(confirmed), torch.stack(seg1),
                              torch.stack(mask1), p2, m2, beta=beta,
-                             lambda_=lambda_).tracked
+                             lambda_=lambda_,
+                             m_step_refine=self.m_step_refine).tracked
         # each member as predict_cell_positions returns it
         preds = Coordinates.from_real(
             tracked, self.proofed_coords_vol1.interpolation_factor,

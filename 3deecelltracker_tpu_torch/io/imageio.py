@@ -97,10 +97,12 @@ def imread(path) -> np.ndarray:
 
 
 def imread_volume(path) -> np.ndarray:
-    """A (multi-page) TIFF as a volume: (n_pages, h, w), or the 2-D slice
-    of a single-page file (the ``tifffile.imread`` role for the training
-    volumes, ``stardistwrapper.py:173-175``).  Every page is read: a
-    reader of page 0 alone would train on one z-slice of each volume."""
+    """A (multi-page) TIFF as a volume: (n_pages, h, w[, c]), or the 2-D
+    (or (h, w, c)) image of a single-page file, as the JAX twin's PIL read
+    gives them (the ``tifffile.imread`` role for the training volumes,
+    ``stardistwrapper.py:173-175``); c for pages of interleaved samples
+    (RGB).  Every page is read: a reader of page 0 alone would train on
+    one z-slice of each volume."""
     _require_tiff(path)
     vol = tiff.tiff_read_pages(path)
     return vol[0] if vol.shape[0] == 1 else vol
@@ -210,15 +212,18 @@ def transport_encode(x: np.ndarray, transport: str
 
 
 def percentile_normalize(x: np.ndarray, pmin: float = 1.0,
-                         pmax: float = 99.8, eps: float = 1e-20
-                         ) -> np.ndarray:
-    """csbdeep's ``normalize`` over the whole array, in float32 (integer
-    input takes its percentiles from :func:`fast_percentiles`)."""
-    if np.issubdtype(x.dtype, np.integer):
+                         pmax: float = 99.8, eps: float = 1e-20,
+                         axis=None) -> np.ndarray:
+    """csbdeep's ``normalize`` in float32, over the whole array (integer
+    input takes its percentiles from :func:`fast_percentiles`) or, with
+    ``axis``, per slice along the other axes (``(0, 1, 2)``: each channel
+    of a (z, y, x, c) volume on its own), as the JAX twin computes it."""
+    if axis is None and np.issubdtype(x.dtype, np.integer):
         mi, ma = np.float32(fast_percentiles(x, (pmin, pmax)))
         return (x.astype(np.float32, copy=False) - mi) / (ma - mi + eps)
     x = x.astype(np.float32, copy=False)
-    mi, ma = np.percentile(x, pmin), np.percentile(x, pmax)
+    mi = np.percentile(x, pmin, axis=axis, keepdims=axis is not None)
+    ma = np.percentile(x, pmax, axis=axis, keepdims=axis is not None)
     return (x - mi) / (ma - mi + eps)
 
 

@@ -4,7 +4,8 @@ writer added).
 
 The codec reads and writes the recording contract (single-page grayscale
 TIFFs, 8/16-bit, uncompressed or LZW), decodes or encodes a whole z-stack
-on a thread pool, reads and writes multi-page volumes (training data),
+on a thread pool, reads and writes multi-page volumes (training data; it
+reads them with several interleaved samples a pixel too, e.g. RGB),
 and computes the exact 65536-bin histogram behind
 ``io.imageio.fast_percentiles``.  It is a host library: the card's machine
 has no PIL, so nothing here falls back to one, and a failed build or a
@@ -54,9 +55,10 @@ _SIGNATURES = {
     "t3dct_tiff_write_volume": [_PATHS, ctypes.c_int, _U16P, ctypes.c_int,
                                 ctypes.c_int, ctypes.c_int, ctypes.c_int,
                                 ctypes.c_int],
-    "t3dct_tiff_pages": [ctypes.c_char_p, _INTP, _INTP, _INTP, _INTP],
+    "t3dct_tiff_pages": [ctypes.c_char_p, _INTP, _INTP, _INTP, _INTP,
+                         _INTP],
     "t3dct_tiff_read_pages": [ctypes.c_char_p, _U16P, ctypes.c_int,
-                              ctypes.c_int, ctypes.c_int],
+                              ctypes.c_int, ctypes.c_int, ctypes.c_int],
     "t3dct_tiff_write_pages": [ctypes.c_char_p, _U16P, ctypes.c_int,
                                ctypes.c_int, ctypes.c_int, ctypes.c_int,
                                ctypes.c_int],
@@ -178,20 +180,25 @@ def tiff_read_volume(paths: List) -> np.ndarray:
 
 
 def tiff_read_pages(path) -> np.ndarray:
-    """Every page of a (multi-page) grayscale TIFF as (n_pages, h, w); the
-    pages must share their size and bit depth."""
-    n, w, h, b = (ctypes.c_int() for _ in range(4))
+    """Every page of a (multi-page) TIFF as (n_pages, h, w), or
+    (n_pages, h, w, c) for pages of c > 1 interleaved samples a pixel
+    (``PlanarConfiguration`` 1, e.g. RGB), as PIL reads them; the pages
+    must share their size, bit depth and samples."""
+    n, w, h, b, c = (ctypes.c_int() for _ in range(5))
     _check(load().t3dct_tiff_pages(str(path).encode(), ctypes.byref(n),
                                    ctypes.byref(w), ctypes.byref(h),
-                                   ctypes.byref(b)),
+                                   ctypes.byref(b), ctypes.byref(c)),
            f"reading the pages of {path}")
     if not (0 < w.value and 0 < h.value and
-            n.value * w.value * h.value <= MAX_SLICE_PIXELS * 64):
+            n.value * w.value * h.value * c.value
+            <= MAX_SLICE_PIXELS * 64):
         raise OSError(f"{path}: implausible TIFF size {n.value}x"
-                      f"{w.value}x{h.value}")
-    out = np.empty((n.value, h.value, w.value), np.uint16)
+                      f"{w.value}x{h.value}x{c.value}")
+    shape = (n.value, h.value, w.value) + ((c.value,) if c.value > 1
+                                           else ())
+    out = np.empty(shape, np.uint16)
     _check(load().t3dct_tiff_read_pages(str(path).encode(), _u16(out),
-                                        n.value, w.value, h.value),
+                                        n.value, w.value, h.value, c.value),
            f"decoding {path}")
     return out.astype(np.uint8) if b.value == 8 else out
 

@@ -34,9 +34,16 @@ ARCHS = ("tpu", "keras")
 @dataclasses.dataclass(frozen=True)
 class StarDist3DNet:
     """``arch``: ``"tpu"`` (default) or ``"keras"`` (the reference's Keras
-    topology, for checkpoints imported with ``utils.keras_import``)."""
+    topology, for checkpoints imported with ``utils.keras_import``).
+
+    ``fused_up``: the JAX twin's sub-pixel phase decomposition of the "tpu"
+    up-blocks' first conv, which computes the same network in another XLA
+    layout (JAX ``models/stardist3d.py:49-55``).  The port's conv kernels
+    take the upsampled, concatenated input either way, so ``True`` and
+    ``False`` run the same network here."""
     config: StarDistConfig
     arch: str = "tpu"
+    fused_up: bool = False
 
     def __post_init__(self):
         if self.arch not in ARCHS:

@@ -40,7 +40,7 @@ There is no fallback between them.
 
 :class:`Conv3x3x3BiasReLU` is the router as an autograd function, for
 training (the JAX package differentiates its conv in XLA), in float32; a
-bfloat16 forward has no gradient (``ROADMAP.md`` A.4).  Its input
+bfloat16 forward has no gradient, as in JAX (``ROADMAP.md`` A.4).  Its input
 gradient is a SAME conv of the output gradient with the weights flipped on
 their three spatial axes and ``c_in``/``c_out`` swapped, so it runs on the
 same two kernels; the weight gradient is PyTorch's ``conv3d_weight`` with
@@ -93,8 +93,9 @@ COMPUTE_DTYPES = (torch.float32, torch.bfloat16)
 # JAX package's layers.LEAKY_ALPHA
 ACTIVATIONS = {None: 0, "relu": 1, "leaky_relu": 2}
 LEAKY_ALPHA = 0.3
-BF16_GRAD = ("the gradient of a bfloat16 conv is not ported (ROADMAP.md "
-             "A.4: the bf16 conv's gradient); train in float32")
+BF16_GRAD = ("a bfloat16 conv has no gradient, as in JAX, whose jax.grad "
+             "of layers.conv3d(compute_dtype=bfloat16) raises a TypeError "
+             "(ROADMAP.md A.4, closed as parity); train in float32")
 
 
 def round_bf16(t: torch.Tensor) -> torch.Tensor:
@@ -755,8 +756,8 @@ class Conv3x3x3BiasReLU(torch.autograd.Function):
     ``g'`` summed over every axis but the channels; dW is
     :func:`conv3x3x3_weight_grad`.  A failed build or launch raises.  A
     ``compute_dtype=torch.bfloat16`` forward runs the bf16 kernels; its
-    backward raises ``NotImplementedError`` (``ROADMAP.md`` A.4: no JAX
-    trainer differentiates a bf16 conv)."""
+    backward raises ``NotImplementedError`` (``ROADMAP.md`` A.4, closed as
+    parity: JAX's ``jax.grad`` of its bf16 conv raises too)."""
 
     @staticmethod
     def forward(ctx, x, w, b, relu: bool, compute_dtype=torch.float32):

@@ -1,10 +1,11 @@
 """PR-GLS non-rigid registration by EM (counterpart of
 ``3deecelltracker_tpu/ops/prgls.py``: ``prgls_with_two_ref`` and its
-single-reference ``prgls_quick``, with ``m_step_refine=0`` only, and the
-legacy v0.4 ``pr_gls_quick``).
+single-reference ``prgls_quick``, and the legacy v0.4 ``pr_gls_quick``).
 
 Motion T(X) = X + C G with the gaussian Gram matrix G; the M-step solves
-(G diag(P1) + max(lambda sigma^2, floor) I) C^T = (Y^T P - X^T diag(P1))^T.
+(G diag(P1) + max(lambda sigma^2, floor) I) C^T = (Y^T P - X^T diag(P1))^T,
+or, with ``m_step_refine`` > 0, the unfloored system by iterative
+refinement with compensated residuals (``ops.df32``).
 Every product is true float32 (the device pins TF32 off): the EM's 1e-3
 convergence tail is unreachable otherwise.  The JAX ``while_loop`` becomes
 a Python loop whose state freezes under a device-side ``active`` flag; the
@@ -21,6 +22,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from . import numerics
+from .df32 import compensated_residual
 from .knn import pairwise_sq_dists
 from .matching import legacy_init_match
 
@@ -28,6 +30,7 @@ CHECK_EVERY = 16
 VOL = 1.0                   # outlier volume of the E-step
 CONVERGENCE_EPSILON = 1e-3  # stop when the ref movement norm falls below
 SOLVE_FLOOR = 1e-3          # floor of lambda sigma^2 in the M-step solve
+REFINE_FLOOR = 1e-4         # the refined solve's preconditioner floor
 STALL_LIMIT = 30.0          # stop after this many non-improving iterations
 
 
@@ -48,6 +51,26 @@ def solve_m_step(coeff: torch.Tensor, dep: torch.Tensor) -> torch.Tensor:
     return torch.where(info[..., None, None] != 0, torch.nan, c.mT)
 
 
+def solve_m_step_refined(coeff: torch.Tensor, a_true: torch.Tensor,
+                         dep: torch.Tensor, steps: int) -> torch.Tensor:
+    """C (3, n) with ``C a_true = dep`` by preconditioned iterative
+    refinement (the JAX twin's ``m_step_refine`` branch): ``coeff`` (the
+    system with a floored regularizer) is LU-factored once, solved once,
+    then ``steps`` corrections ``x += lu_solve(r)`` follow, each ``r`` the
+    compensated residual of the true system ``a_true``
+    (``df32.compensated_residual``).  Batched over leading axes; nothing
+    is read on the host.  A factor with a zero pivot gives NaN, as JAX's
+    ``lu_solve`` gives a non-finite result there."""
+    lu, piv, info = torch.linalg.lu_factor_ex(coeff.mT)
+    b = dep.mT                                                  # (n, 3)
+    x = torch.linalg.lu_solve(lu, piv, b)
+    a_t = a_true.mT
+    for _ in range(steps):
+        x = x + torch.linalg.lu_solve(lu, piv,
+                                      compensated_residual(b, a_t, x))
+    return torch.where(info[..., None, None] != 0, torch.nan, x.mT)
+
+
 class PrglsResult(NamedTuple):
     tracked: torch.Tensor          # moved second reference (l, 3)
     moved_ref: torch.Tensor        # T(X) (n, 3)
@@ -61,13 +84,26 @@ def prgls_with_two_ref(init_match: torch.Tensor, ptrs_tgt: torch.Tensor,
                        beta: float = 3.0, lambda_: float = 3.0,
                        max_iteration: int = 2000,
                        tgt_mask: Optional[torch.Tensor] = None,
-                       ref_mask: Optional[torch.Tensor] = None
-                       ) -> PrglsResult:
+                       ref_mask: Optional[torch.Tensor] = None,
+                       vol: float = VOL,
+                       convergence_epsilon: float = CONVERGENCE_EPSILON,
+                       solve_floor: float = SOLVE_FLOOR,
+                       m_step_refine: int = 0) -> PrglsResult:
     """Fit the motion field on (ptrs_ref -> ptrs_tgt) guided by
     ``init_match`` and apply it to ``tracked_ref`` (see the JAX twin for
     the reference-parity details: the first movement is discarded, gamma
-    clamps at 1e-4, the stop is a movement norm < 1e-3 or 30 stalled
-    iterations).
+    clamps at 1e-4, the stop is a movement norm < ``convergence_epsilon``
+    or 30 stalled iterations).  ``vol``: the E-step's outlier volume.
+
+    ``m_step_refine == 0``: each M-step solves the system with its
+    regularizer floored at ``solve_floor`` (``solve_m_step``).
+    ``m_step_refine > 0``: the true, unfloored system by preconditioned
+    iterative refinement (``solve_m_step_refined``; the preconditioner
+    floored at ``REFINE_FLOOR``, then ``m_step_refine`` compensated
+    corrections), as the JAX twin's option runs it.  It is many small
+    ops a solve and measured worse than the floor end to end on JAX's
+    f32 trajectories (the JAX twin's docstring); it is here because it is
+    JAX's option.
 
     Every input may carry a leading member axis (E): (E, m, n) priors,
     (E, m, 3) / (E, n, 3) / (E, l, 3) points, (E, m) / (E, n) masks.  Then
@@ -107,16 +143,22 @@ def prgls_with_two_ref(init_match: torch.Tensor, ptrs_tgt: torch.Tensor,
         p_joint = (1.0 - per_member(gamma)) * prior * k / \
             (2.0 * math.pi * s) ** 1.5
         p_joint = torch.where(valid_pair, p_joint, 0.0)
-        denom = torch.sum(p_joint, dim=-1) + gamma[..., None] / VOL
+        denom = torch.sum(p_joint, dim=-1) + gamma[..., None] / vol
         post = p_joint / denom[..., :, None]
         return torch.where(valid_pair, post, 0.0)
 
     def m_step(post, pred_ref, sigma_sq):
         p1 = torch.sum(post, dim=-2)
         dep = ptrs_tgt.mT @ post - pred_ref.mT * p1[..., None, :]   # (3, n)
-        s_eff = torch.clamp_min(lambda_ * sigma_sq, SOLVE_FLOOR)
+        s_true = lambda_ * sigma_sq
+        if not m_step_refine:
+            s_eff = torch.clamp_min(s_true, solve_floor)
+            coeff = gram_nn * p1[..., None, :] + per_member(s_eff) * eye
+            return solve_m_step(coeff, dep)                         # (3, n)
+        s_eff = torch.clamp_min(s_true, REFINE_FLOOR)
         coeff = gram_nn * p1[..., None, :] + per_member(s_eff) * eye
-        return solve_m_step(coeff, dep)                             # (3, n)
+        a_true = gram_nn * p1[..., None, :] + per_member(s_true) * eye
+        return solve_m_step_refined(coeff, a_true, dep, m_step_refine)
 
     pred_ref = ptrs_ref.to(f32)
     pred_tracked = tracked_ref.to(f32)
@@ -128,7 +170,7 @@ def prgls_with_two_ref(init_match: torch.Tensor, ptrs_tgt: torch.Tensor,
     it = torch.ones(lead, dtype=torch.int32, device=dev)
 
     def running():
-        converged = (it > 1) & ((move_norm < CONVERGENCE_EPSILON)
+        converged = (it > 1) & ((move_norm < convergence_epsilon)
                                 | (stall >= STALL_LIMIT))
         return (it < max_iteration) & ~converged
 
@@ -172,13 +214,17 @@ def prgls_quick(init_match: torch.Tensor, ptrs_tgt: torch.Tensor,
                 tracked_ref: torch.Tensor, beta: float = 3.0,
                 lambda_: float = 3.0, max_iteration: int = 2000,
                 tgt_mask: Optional[torch.Tensor] = None,
-                ref_mask: Optional[torch.Tensor] = None) -> PrglsResult:
+                ref_mask: Optional[torch.Tensor] = None,
+                vol: float = VOL, solve_floor: float = SOLVE_FLOOR,
+                m_step_refine: int = 0) -> PrglsResult:
     """``trackerlite.prgls_quick`` (:262-306): the single-reference EM, the
     motion field fit on ``tracked_ref`` and applied to it."""
     return prgls_with_two_ref(init_match, ptrs_tgt, tracked_ref,
                               tracked_ref, beta=beta, lambda_=lambda_,
                               max_iteration=max_iteration,
-                              tgt_mask=tgt_mask, ref_mask=ref_mask)
+                              tgt_mask=tgt_mask, ref_mask=ref_mask, vol=vol,
+                              solve_floor=solve_floor,
+                              m_step_refine=m_step_refine)
 
 
 class LegacyPrglsResult(NamedTuple):

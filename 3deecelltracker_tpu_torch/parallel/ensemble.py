@@ -36,12 +36,14 @@ def ensemble_member_predictions(ffn_params, ffn_state,
                                 seg_t2_mask: torch.Tensor,      # (M,)
                                 beta: float = 3.0, lambda_: float = 3.0,
                                 k_points: int = 20,
-                                max_iteration: int = 2000) -> torch.Tensor:
+                                max_iteration: int = 2000,
+                                m_step_refine: int = 0) -> torch.Tensor:
     """Every member's tracked real coordinates at t2, (E, L, 3)."""
     return track_step(ffn_params, ffn_state, confirmed_stack, seg_t1_stack,
                       seg_t1_masks, seg_t2, seg_t2_mask, beta=beta,
                       lambda_=lambda_, k_points=k_points,
-                      max_iteration=max_iteration).tracked
+                      max_iteration=max_iteration,
+                      m_step_refine=m_step_refine).tracked
 
 
 def ensemble_track_step(ffn_params, ffn_state,
@@ -51,12 +53,13 @@ def ensemble_track_step(ffn_params, ffn_state,
                         seg_t2: torch.Tensor, seg_t2_mask: torch.Tensor,
                         beta: float = 3.0, lambda_: float = 3.0,
                         k_points: int = 20, max_iteration: int = 2000,
-                        trim_proportion: float = 0.1) -> torch.Tensor:
+                        trim_proportion: float = 0.1,
+                        m_step_refine: int = 0) -> torch.Tensor:
     """All members at once, combined by the trimmed mean: (L, 3)."""
     preds = ensemble_member_predictions(
         ffn_params, ffn_state, confirmed_stack, seg_t1_stack, seg_t1_masks,
         seg_t2, seg_t2_mask, beta=beta, lambda_=lambda_, k_points=k_points,
-        max_iteration=max_iteration)
+        max_iteration=max_iteration, m_step_refine=m_step_refine)
     return trim_mean(preds, trim_proportion, axis=0)
 
 
@@ -92,7 +95,7 @@ def make_sharded_ensemble_members(mesh, data_axis: str = "data",
     padding rows before the trimmed mean (a trim over repeated members
     biases the combine); ``engine.pipeline.track_timelapse(mesh=)`` does.
     ``static_kwargs``: ``beta``, ``lambda_``, ``k_points``,
-    ``max_iteration``."""
+    ``max_iteration``, ``m_step_refine``."""
     ax = mesh_axis(mesh, data_axis)
 
     def fn(ffn_params, ffn_state, confirmed_stack, seg_t1_stack,

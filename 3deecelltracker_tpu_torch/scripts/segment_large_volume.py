@@ -40,6 +40,7 @@ import torch
 from ..config import StarDistConfig
 from ..engine.stardist import StarDist3D
 from ..parallel import multihost
+from ..utils.cache import enable_compilation_cache
 
 # examples/segment_large_volume.py:58-64, 72-73
 CONFIG = dict(n_rays=32, grid=(2, 4, 4), anisotropy=(2.0, 1.0, 1.0),
@@ -52,6 +53,7 @@ TILED = dict(shrink=(0, 48, 48), tile_candidates=128)
 def main(argv: Optional[Sequence[str]] = None) -> dict:
     """Runs the example; returns ``{"shape", "labels_shape", "instances",
     "prob_map_shape", "seconds"}`` (``seconds``: one entry per call)."""
+    enable_compilation_cache()
     ap = argparse.ArgumentParser()
     ap.add_argument("--shape", type=int, nargs=3, default=(64, 512, 512),
                     help="(z, y, x) volume shape")

@@ -36,6 +36,7 @@ from ..io.artifacts import ResultsTree
 from ..io.imageio import save_label_slices, save_recording_h5
 from ..models.train_ffn import TrainFFN
 from ..models.train_stardist import TrainStarDist3D
+from ..utils.cache import enable_compilation_cache
 
 SHAPE_ZYX = (16, 64, 64)
 Z_RATIO = 2.0
@@ -82,6 +83,7 @@ def recording_volume(t, centers0, drift) -> np.ndarray:
 def main(argv: Optional[Sequence[str]] = None) -> dict:
     """Runs the demo; returns ``{"seconds": {stage: s}, "median_error",
     "results"}``, the error in real units at t = ``N_VOLS``."""
+    enable_compilation_cache()
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default="/tmp/t3dct_demo")
     ap.add_argument("--h5", action="store_true",

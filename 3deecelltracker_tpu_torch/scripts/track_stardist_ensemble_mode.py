@@ -27,11 +27,13 @@ from ..config import TrackingConfig
 from ..engine import load_stardist_model, predict_and_save, track_timelapse
 from ..io.artifacts import ResultsTree
 from ..io.imageio import get_t_range
+from ..utils.cache import enable_compilation_cache
 
 
 def main(argv: Optional[Sequence[str]] = None):
     """Runs the example's step; returns the tracked ``{t: (n, 3) real
     coordinates}``, or None after the segmentation step."""
+    enable_compilation_cache()
     ap = argparse.ArgumentParser()
     ap.add_argument("--images", required=True)
     ap.add_argument("--results", default="results")

@@ -37,11 +37,13 @@ from ..engine.pipeline import track_timelapse
 from ..engine.stardist import load_stardist_model, predict_and_save
 from ..io.artifacts import ResultsTree
 from ..io.imageio import get_t_range
+from ..utils.cache import enable_compilation_cache
 
 
 def main(argv: Optional[Sequence[str]] = None):
     """Runs the example's step; returns the tracked ``{t: (n, 3) real
     coordinates}``, or None after the segmentation step."""
+    enable_compilation_cache()
     ap = argparse.ArgumentParser()
     ap.add_argument("--h5", required=True, help="HDF5 recording (TCZYX)")
     ap.add_argument("--channel", type=int, default=0)

@@ -16,9 +16,11 @@ import argparse
 from typing import Optional, Sequence
 
 from ..models.train_ffn import TrainFFN
+from ..utils.cache import enable_compilation_cache
 
 
 def main(argv: Optional[Sequence[str]] = None) -> list:
+    enable_compilation_cache()
     ap = argparse.ArgumentParser()
     ap.add_argument("--model-name", default="ffn_model")
     ap.add_argument("--points", help="txt/CSV of (n, 3) cell positions")

@@ -22,9 +22,11 @@ from typing import Optional, Sequence
 from ..engine.metrics import optimize_thresholds
 from ..engine.stardist import StarDist3D, configure, load_training_images
 from ..models.train_stardist import TrainStarDist3D
+from ..utils.cache import enable_compilation_cache
 
 
 def main(argv: Optional[Sequence[str]] = None) -> Path:
+    enable_compilation_cache()
     ap = argparse.ArgumentParser()
     ap.add_argument("--train-images", required=True)
     ap.add_argument("--train-labels", required=True)

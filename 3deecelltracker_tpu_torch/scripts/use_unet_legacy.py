@@ -27,9 +27,11 @@ from typing import Optional, Sequence
 import numpy as np
 
 from ..engine.legacy import Tracker
+from ..utils.cache import enable_compilation_cache
 
 
 def main(argv: Optional[Sequence[str]] = None) -> Tracker:
+    enable_compilation_cache()
     ap = argparse.ArgumentParser()
     ap.add_argument("--folder", required=True)
     ap.add_argument("--image-name", default="raw_t%04i_z%04i.tif")

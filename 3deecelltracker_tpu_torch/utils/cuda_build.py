@@ -6,7 +6,8 @@ compiled for ``sm_90a`` into its own shared library, and is loaded once per
 process; a source may include the shared headers beside it
 (``csrc/*.cuh``).  Libraries are cached under ``_build/`` in the package
 (listed in ``.gitignore``) by a digest of the source, the headers and the
-flags, so a changed source or header never loads a stale build.  Beside
+flags, so a changed source or header never loads a stale build
+(``utils.cache.enable_compilation_cache`` moves ``BUILD_DIR``).  Beside
 each library, ``ptxas``'s report of its kernels (``-Xptxas -v``: registers,
 spills, static shared memory) is kept for :func:`resource_usage`.  Nothing
 here runs at import time: the first kernel call builds.  The wrappers'

@@ -35,7 +35,7 @@ from t3dct_torch.io import imageio
 from t3dct_torch.io.artifacts import ResultsTree
 from t3dct_torch.ops.segment_reduce import label_counts, topq_mean_intensity
 from test_torch_scene import (INTERP, SHAPE, VOXEL_SIZE, ffn_pair,
-                              recording)
+                              recording, torch_threads)
 from test_torch_tracking import _atlas_to_torch, _seg_candidates
 from test_torch_viz import drawn, pixels
 
@@ -243,6 +243,27 @@ def test_predict_cell_positions_matches_jax(tracked_tree):
     np.testing.assert_array_equal(g[1], w[1])
     assert g[2].shape == w[2].shape == (len(got.real), 4)
     np.testing.assert_allclose(g[2], w[2], atol=1e-2)
+
+
+def test_predict_cell_positions_refine_matches_jax(tracked_tree):
+    """``TrackerLite(m_step_refine=8)``: every prediction's EM runs the
+    compensated M-step; within 1e-2 real units of JAX's tracker with the
+    same option, from the seg cells and from given coordinates."""
+    root, jt, tt = tracked_tree
+    (jp, js), (tp, ts) = ffn_pair()
+    jr = JTrackerLite(root, (jp, js), jt.proofed_coords_vol1,
+                      m_step_refine=8)
+    tr = TrackerLite(root, (tp, ts), tt.proofed_coords_vol1,
+                     m_step_refine=8)
+    assert tr.m_step_refine == jr.m_step_refine == 8
+    for t1, t2, conf in ((1, 2, None), (2, 3, True)):
+        want = jr.predict_cell_positions(
+            t1, t2, jt.proofed_coords_vol1 if conf else None)
+        with torch_threads(1):
+            got = tr.predict_cell_positions(
+                t1, t2, tt.proofed_coords_vol1 if conf else None)
+        np.testing.assert_allclose(got.real.numpy(), np.asarray(want.real),
+                                   atol=1e-2)
 
 
 def test_coordinates_csv_is_jax_bytes(tmp_path):

@@ -19,13 +19,19 @@ single mode with ``predict_and_save(tile_shape=TILE_SHAPE)``, each volume
 cut into tiles along y (``predict_instances_tiled``); regenerate it with
 ``--write-tiled``.  The u8 record is the single-mode run again with the
 8-bit upload (``transport="u8"``: each volume quantized against its own
-1/99.8 percentiles); regenerate it with ``--write-u8``.
+1/99.8 percentiles); regenerate it with ``--write-u8``.  The refine record
+is the single-mode run again with the compensated M-step
+(``TrackingConfig(m_step_refine=REFINE)``, ``bench_composition``'s other
+arguments), each volume's EM iteration count recorded beside it;
+regenerate it with ``--write-refine``.
 
 The tier-1 tests hold the port's loaders to JAX's on the assets and check
 the records; the ``slow`` tests re-derive the record with JAX and run the
 port on the CPU over the whole scene against each record, with the bounds
-of ``chip_smoke.py``'s phases 11, 13, 16 and 28."""
+of ``chip_smoke.py``'s phases 11, 13, 16, 28 and 29."""
 
+import contextlib
+import functools
 import json
 import sys
 import time
@@ -59,6 +65,9 @@ RECORD = ASSETS / "jax_record.npz"
 ENSEMBLE_RECORD = ASSETS / "jax_record_ensemble.npz"
 TILED_RECORD = ASSETS / "jax_record_tiled.npz"
 U8_RECORD = ASSETS / "jax_record_u8.npz"
+REFINE_RECORD = ASSETS / "jax_record_refine.npz"
+# the refine record's TrackingConfig.m_step_refine
+REFINE = 8
 N_VOLS = 21
 SHAPE = (24, 401, 168)
 VOXEL_SIZE = (1.0, 1.0, 9.2)
@@ -91,13 +100,47 @@ def jax_model():
     return model
 
 
-def write_record(out: Path, work: Path, transport: str = "u16") -> dict:
+@contextlib.contextmanager
+def jax_em_iterations():
+    """Inside the block every PR-GLS EM that JAX's ``track_step`` runs
+    appends its iteration count to the list yielded, in the order the EMs
+    run: ``engine.tracker.prgls_with_two_ref`` is wrapped while the block
+    traces, its ``n_iterations`` handed to the host by a
+    ``jax.debug.callback``.  The JAX package itself is not changed."""
+    import t3dct.engine.tracker as jtracker
+    counts = []
+    em = jtracker.prgls_with_two_ref
+
+    def counted(*args, **kwargs):
+        res = em(*args, **kwargs)
+        jax.debug.callback(lambda n: counts.append(int(n)),
+                           res.n_iterations)
+        return res
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jtracker, "prgls_with_two_ref", counted)
+        yield counts
+
+
+def write_record(out: Path, work: Path, transport: str = "u16",
+                 m_step_refine: int = 0) -> dict:
     """JAX's ``segment_and_track(handoff="device", transport=transport)``
     over the bench scene with the committed weights, through ``bench.py``'s
     own ``make_recording`` and ``bench_composition``; writes the record to
-    ``out`` and returns its metrics."""
+    ``out`` and returns its metrics.  ``m_step_refine`` > 0 runs
+    ``bench_composition``'s ``TrackingConfig`` with that
+    ``m_step_refine`` and records each tracked volume's EM iteration count
+    (``em_iterations``, t = 2, 3, ...)."""
+    import t3dct.config as jconfig
     from t3dct.io.imageio import imread_stack
-    with jax_script(REPO / "bench.py", "jax_bench", work / "xla") as bench:
+    with jax_script(REPO / "bench.py", "jax_bench", work / "xla") as bench, \
+            (jax_em_iterations() if m_step_refine else
+             contextlib.nullcontext([])) as iterations, \
+            pytest.MonkeyPatch.context() as mp:
+        if m_step_refine:
+            # bench_composition imports TrackingConfig when it runs
+            mp.setattr(jconfig, "TrackingConfig", functools.partial(
+                jconfig.TrackingConfig, m_step_refine=m_step_refine))
         raw = work / "raw"
         raw.mkdir(parents=True)
         images_path, centers, lab1 = bench.make_recording(raw)
@@ -107,10 +150,15 @@ def write_record(out: Path, work: Path, transport: str = "u16") -> dict:
                                             jax_model(), jax_ffn_weights(),
                                             handoff="device",
                                             transport=transport)
+        jax.effects_barrier()
         wall = time.perf_counter() - t0
         metrics = bench.tracking_id_metrics(coords, centers)
     metrics.update(cpu_wall_s=wall, transport=transport)
     arrays, labels, counts = {}, {}, {}
+    if m_step_refine:
+        assert len(iterations) == N_VOLS - 1, iterations
+        metrics.update(m_step_refine=m_step_refine)
+        arrays["em_iterations"] = np.asarray(iterations, np.int32)
     for t in range(1, N_VOLS + 1):
         arrays[f"seg_coords_{t}"] = np.load(results / "seg" /
                                             f"coords{t:06d}.npy")
@@ -465,6 +513,41 @@ def test_u8_record_holds_the_bench_run(u8_record, record):
                for t in range(1, N_VOLS + 1))
 
 
+@pytest.fixture(scope="module")
+def refine_record():
+    with np.load(REFINE_RECORD) as data:
+        return {k: data[k] for k in data.files}
+
+
+def test_refine_record_holds_the_bench_run(refine_record, record):
+    """JAX's run with ``m_step_refine=REFINE``: the u16 record's kept cells
+    in every volume (the segmentation is the same), tracked coordinates
+    and labels as that record holds them, each tracked volume's EM
+    iteration count, strict recall 1.0 and 0 identity switches; the
+    coordinates are not the floored EM's."""
+    rec = refine_record
+    assert REFINE_RECORD.stat().st_size < LABELS_BUDGET
+    metrics = json.loads(str(rec["metrics"]))
+    assert metrics["m_step_refine"] == REFINE
+    assert metrics["strict_recall"] == 1.0 and metrics["id_switches"] == 0
+    iters = rec["em_iterations"]
+    assert iters.shape == (N_VOLS - 1,) and iters.dtype == np.int32
+    assert ((iters > 1) & (iters < 2000)).all()
+    n1 = record["coords_1"].shape[0]
+    for t in range(1, N_VOLS + 1):
+        np.testing.assert_array_equal(rec[f"seg_coords_{t}"],
+                                      record[f"seg_coords_{t}"])
+        assert rec[f"coords_{t}"].shape == (n1, 3)
+        assert np.isfinite(rec[f"coords_{t}"]).all()
+    labels = [k for k in rec if k.startswith("labels_")]
+    assert labels
+    for k in labels:
+        assert rec[k].shape == (SHAPE[1], SHAPE[2], SHAPE[0])
+        assert rec[k].dtype == np.uint8
+    assert any(not np.array_equal(rec[f"coords_{t}"], record[f"coords_{t}"])
+               for t in range(2, N_VOLS + 1))
+
+
 def test_port_scene_is_the_bench_scene(tmp_path):
     """``utils.synthetic.make_recording`` gives the volumes, labels and
     centres that ``bench.make_recording`` writes (first two volumes)."""
@@ -483,7 +566,8 @@ def test_port_scene_is_the_bench_scene(tmp_path):
 
 
 def hold_to_record(record, results: Path, coords, centers,
-                   kept_as_sets: bool = False) -> dict:
+                   kept_as_sets: bool = False, coord_median=COORD_MEDIAN,
+                   labels_equal=LABELS_EQUAL) -> dict:
     """Phase 11's checks on a run of the port (without the candidate
     margins, which need the run's candidates): kept cells exact (with
     ``kept_as_sets``, the same cells in any order), coords and labels
@@ -502,12 +586,12 @@ def hold_to_record(record, results: Path, coords, centers,
         else:
             np.testing.assert_array_equal(got, record[f"seg_coords_{t}"])
         d = np.linalg.norm(coords[t] - record[f"coords_{t}"], axis=1)
-        assert np.median(d) <= COORD_MEDIAN and d.max() <= gate, t
+        assert np.median(d) <= coord_median and d.max() <= gate, t
         if f"labels_{t}" in record:
             lab = imread_stack(sorted((results / "track_results" / "labels")
                                       .glob("track_results_t%06i_z*.tif"
                                             % t))).transpose(1, 2, 0)
-            assert (lab == record[f"labels_{t}"]).mean() >= LABELS_EQUAL
+            assert (lab == record[f"labels_{t}"]).mean() >= labels_equal
     got = tracking_id_metrics(coords, centers, VOXEL_SIZE, N_VOLS)
     assert got["strict_recall"] == want["strict_recall"]
     assert got["id_switches"] == want["id_switches"]
@@ -575,6 +659,53 @@ def test_port_u8_on_cpu_matches_record(u8_record, tmp_path):
         TrackingConfig(beta=3.0, lambda_=3.0), verbose=False,
         handoff="device", transport="u8", device="cpu")
     hold_to_record(u8_record, results, coords, centers, kept_as_sets=True)
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("em_threads", [1, 2, 3, 4])
+def test_port_refine_on_cpu_matches_record(refine_record, tmp_path,
+                                           em_threads):
+    """The port's ``segment_and_track`` with ``m_step_refine=REFINE`` on
+    the CPU over the whole bench scene, held to JAX's refine record by
+    phase 29's rule (kept cells exact, the coordinates and labels within
+    ``chip_smoke.REFINE_*``) and with strict recall and identity switches
+    equal.  The run with the EM on one torch thread set those bounds at
+    twice its own departure (the refined EM is chaotic: a volume's median
+    up to 0.5782 real units, labels 0.997608 equal at least, EM
+    iterations 40-305 a volume against JAX's 39-262); the thread count
+    sets the float32 summation order, so 2-4 threads are other
+    trajectories (medians up to 0.6251).  The segmentation runs on every
+    thread.  Prints each volume's departure."""
+    sys.path.insert(0, str(REPO))
+    import chip_smoke
+    from t3dct_torch.config import TrackingConfig
+    from t3dct_torch.engine import pipeline
+    from t3dct_torch.engine.pipeline import segment_and_track
+    from test_torch_scene import torch_threads
+    pattern, centers = chip_smoke.write_bench_scene(tmp_path)
+    model = StarDist3D.load(ASSETS / "sd_model", device="cpu")
+    model.max_candidates, model.render_box = MAX_CANDIDATES, RENDER_BOX
+    results = tmp_path / "results"
+    track = pipeline.track_from_seg
+
+    def em_thread_track(*args, **kwargs):
+        with torch_threads(em_threads):
+            return track(*args, **kwargs)
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(pipeline, "track_from_seg", em_thread_track)
+        coords = segment_and_track(
+            pattern, model, results,
+            str(results / "manual_vol1" / "*.tif"), ASSETS / "ffn.npz",
+            VOXEL_SIZE, 10, (1, N_VOLS),
+            TrackingConfig(beta=3.0, lambda_=3.0, m_step_refine=REFINE),
+            verbose=False, handoff="device", device="cpu")
+    for t in range(1, N_VOLS + 1):
+        d = np.linalg.norm(coords[t] - refine_record[f"coords_{t}"], axis=1)
+        print(f"t={t}: median {np.median(d):.4f}, max {d.max():.3f}")
+    hold_to_record(refine_record, results, coords, centers,
+                   coord_median=chip_smoke.REFINE_COORD_MEDIAN,
+                   labels_equal=chip_smoke.REFINE_LABELS_EQUAL)
 
 
 @pytest.mark.slow
@@ -652,11 +783,15 @@ if __name__ == "__main__":
                     help="run JAX over the bench scene with "
                          "transport='u8' and write "
                          "assets/bench/jax_record_u8.npz")
+    ap.add_argument("--write-refine", action="store_true",
+                    help="run JAX over the bench scene with "
+                         "m_step_refine=REFINE and write "
+                         "assets/bench/jax_record_refine.npz")
     args = ap.parse_args()
     if not (args.write or args.write_ensemble or args.write_tiled
-            or args.write_u8):
+            or args.write_u8 or args.write_refine):
         ap.error("nothing to do without --write, --write-ensemble, "
-                 "--write-tiled or --write-u8")
+                 "--write-tiled, --write-u8 or --write-refine")
     os.environ.setdefault("JAX_PLATFORMS", "cpu")
     jax.config.update("jax_platforms", "cpu")
     for flag, path, writer in ((args.write, RECORD, write_record),
@@ -666,7 +801,10 @@ if __name__ == "__main__":
                                 write_tiled_record),
                                (args.write_u8, U8_RECORD,
                                 lambda out, work: write_record(
-                                    out, work, transport="u8"))):
+                                    out, work, transport="u8")),
+                               (args.write_refine, REFINE_RECORD,
+                                lambda out, work: write_record(
+                                    out, work, m_step_refine=REFINE))):
         if flag:
             with tempfile.TemporaryDirectory() as tmp:
                 m = writer(path, Path(tmp))

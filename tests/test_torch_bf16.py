@@ -273,8 +273,35 @@ def test_bf16_wrappers_run_plain_on_cpu():
     assert len(hc.KERNELS) == 4
 
 
+@pytest.mark.parametrize("wrt", ["w", "x"])
+def test_bf16_gradient_refusal_is_jax_parity(wrt):
+    """ROADMAP.md A.4 closed as parity: on the same inputs JAX cannot
+    differentiate its bf16 conv either.  ``jax.grad`` through
+    ``layers.conv3d(..., jnp.bfloat16)`` raises ``TypeError`` (the
+    transpose of ``conv_general_dilated`` with
+    ``preferred_element_type=float32`` meets bf16 and f32 operands), and
+    the port's bf16 backward raises ``NotImplementedError`` naming A.4,
+    whichever operand the gradient is taken for."""
+    import jax
+    x, w, b = case(8, 16)
+    p = {"w": jnp.asarray(w), "b": jnp.asarray(b)}
+
+    def loss(v):
+        args = (dict(p, w=v), jnp.asarray(x)) if wrt == "w" else (p, v)
+        return jnp.sum(JL.conv3d(*args, jnp.bfloat16))
+
+    with pytest.raises(TypeError, match="same dtypes"):
+        jax.grad(loss)(p["w"] if wrt == "w" else jnp.asarray(x))
+    xt, wt, bt = (torch.from_numpy(a) for a in (x, w, b))
+    (wt if wrt == "w" else xt).requires_grad_(True)
+    y = L.conv3d({"w": wt, "b": bt}, xt, BF16)
+    with pytest.raises(NotImplementedError, match="A.4") as err:
+        y.sum().backward()
+    assert "JAX" in str(err.value)
+
+
 def test_bf16_backward_raises():
-    """No JAX trainer differentiates a bf16 conv: the port's bf16 Function
+    """JAX cannot differentiate a bf16 conv: the port's bf16 Function
     raises in backward, naming the ROADMAP item, and falls back to
     nothing."""
     x, w, b = (torch.from_numpy(a) for a in case(8, 16))

@@ -13,7 +13,8 @@ same file names in both trees.  Both runs draw the matching figures
 (``save_figures=True``): the same file names and image sizes, and the
 plotted point sets (the confirmed cells at t - 1, the segmented cells at
 t, the tracked cells) within the coordinates' bound.  The 8-bit upload
-(``transport="u8"``) is held to JAX's with the same bounds.  Then the
+(``transport="u8"``) and the EM's compensated M-step
+(``m_step_refine=8``) are held to JAX's with the same bounds.  Then the
 driver's edges: miss frames, a recording that ends early, a volume past
 the tracker's pad, and the raises for bad arguments."""
 
@@ -35,7 +36,7 @@ from t3dct_torch.engine.stardist import StarDist3D
 from t3dct_torch.io import imageio
 from t3dct_torch.utils.timing import CudaStageTimer
 from test_torch_scene import (INTERP, SHAPE, VOXEL_SIZE, ffn_pair,
-                              recording, stardist_pair)
+                              recording, stardist_pair, torch_threads)
 
 N_VOLS = 4
 COORD_ATOL = 1e-2
@@ -62,19 +63,21 @@ def manual_vol1(results: Path, lab) -> str:
 
 
 def run_port(pattern, results, lab, model, ffn, t_range=(1, N_VOLS),
-             **kwargs):
+             config_kw=None, **kwargs):
     kwargs.setdefault("handoff", "device")
     return segment_and_track(pattern, model, results,
                              manual_vol1(results, lab), ffn, VOXEL_SIZE,
-                             INTERP, t_range, TrackingConfig(),
+                             INTERP, t_range,
+                             TrackingConfig(**(config_kw or {})),
                              verbose=False, device="cpu", **kwargs)
 
 
 def run_jax(pattern, results, lab, model, ffn, t_range=(1, N_VOLS),
-            **kwargs):
+            config_kw=None, **kwargs):
     out = j_segment_and_track(pattern, model, results,
                               manual_vol1(results, lab), ffn, VOXEL_SIZE,
-                              INTERP, t_range, JTrackingConfig(),
+                              INTERP, t_range,
+                              JTrackingConfig(**(config_kw or {})),
                               verbose=False, handoff="device", **kwargs)
     return {t: np.asarray(c) for t, c in out.items()}
 
@@ -216,6 +219,35 @@ def test_driver_u8_matches_jax(scene, models, tmp_path):
             np.load(tmp_path / "port/seg" / f"prob{t:06d}.npy"),
             np.load(tmp_path / "jax/seg" / f"prob{t:06d}.npy"),
             atol=PROB_ATOL)
+
+
+def test_driver_refine_matches_jax(scene, models, runs, tmp_path):
+    """``TrackingConfig(m_step_refine=8)``: the EM's compensated M-step
+    (``ops.prgls``) through the device handoff, held to JAX's run of the
+    same config with the bounds of the default run, and not the default
+    run's coordinates; the port on one torch thread
+    (``test_torch_scene.torch_threads``)."""
+    _, pattern, _, lab = scene
+    jm, tm, jffn, tffn = models
+    refine = dict(m_step_refine=8)
+    want = run_jax(pattern, tmp_path / "jax", lab, jm, jffn,
+                   config_kw=refine)
+    with torch_threads(1):
+        got = run_port(pattern, tmp_path / "port", lab, tm, tffn,
+                       config_kw=refine)
+    assert sorted(got) == sorted(want) == list(range(1, N_VOLS + 1))
+    for t in want:
+        np.testing.assert_allclose(got[t], want[t], atol=COORD_ATOL)
+    assert files(tmp_path / "port") == files(tmp_path / "jax")
+    for t in range(2, N_VOLS + 1):
+        pat = "track_results/labels/track_results_t%06i_z*.tif" % t
+        got_l, want_l = (np.stack([imageio.imread(p) for p in
+                                   sorted((tmp_path / side).glob(pat))])
+                         for side in ("port", "jax"))
+        assert (got_l == want_l).mean() >= LABELS_EQUAL
+    default = runs[2]
+    assert any(not np.array_equal(got[t], default[t])
+               for t in range(2, N_VOLS + 1))
 
 
 def test_driver_seg_artifacts_match_jax(runs):

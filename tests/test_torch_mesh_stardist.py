@@ -5,7 +5,9 @@ file), on the small TIFF recording of ``tests/test_torch_workflow.py``:
 handoffs and ensemble ``track_timelapse(mesh=)``; ``predict_and_save``
 and the device handoff also with the 8-bit upload (``transport="u8"``,
 held to the run without a mesh; ``tests/test_torch_driver.py`` and
-``test_torch_workflow.py`` hold u8 to JAX).
+``test_torch_workflow.py`` hold u8 to JAX); the device handoff and the
+ensemble also with the EM's compensated M-step (``m_step_refine=8``, held
+to the run without a mesh; the same files hold it to JAX).
 
 Each mesh run equals the port's own run without a mesh bit for bit: the
 coordinates every rank returns and every file of the tree.  Each is held
@@ -49,8 +51,9 @@ from test_torch_workflow import (COORD_ATOL, ENSEMBLE, LABELS_EQUAL,
 N_VOLS = 5
 WORLD = 2
 RUNS = ["device", "disk", "ens"]
-# the runs held to the run without a mesh (JAX's mesh runs are u16 only)
-ONE_CARD_RUNS = RUNS + ["device_u8"]
+# the runs held to the run without a mesh (JAX's mesh runs are u16 only,
+# without the compensated M-step)
+ONE_CARD_RUNS = RUNS + ["device_u8", "device_refine", "ens_refine"]
 
 
 @pytest.fixture(scope="module")

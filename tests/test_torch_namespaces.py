@@ -32,9 +32,6 @@ TOP_LEVEL = ["ops", "Coordinates", "LcnConfig", "MeshConfig",
              "SegmentationConfig", "StarDistConfig", "TrackingConfig",
              "TrainFfnConfig", "TrainUnetConfig"]
 LEFT_OUT = {
-    "utils": {"enable_compilation_cache":
-              "XLA's compile cache: not to be ported (ROADMAP.md, "
-              "'Do not port'); utils.cuda_build caches the kernels"},
     "ops": {"lcn": "ops.lcn stays the module, which the port's callers "
                    "import as such; the function is ops.lcn.lcn"},
 }
@@ -187,3 +184,24 @@ def test_ffn_dataclass_matches_jax():
                 np.testing.assert_allclose(
                     new_state[k][s].detach().numpy(),
                     np.asarray(jnew[k][s]), rtol=1e-5, atol=1e-6)
+
+
+def test_enable_compilation_cache_moves_the_build_dir(tmp_path,
+                                                      monkeypatch):
+    """``utils.enable_compilation_cache`` (JAX's name) points
+    ``utils.cuda_build``'s build directory at ``path``, else at
+    ``$T3DCT_CACHE_DIR``, else at the package's ``_build/``, makes it and
+    returns it; ``cuda_build`` builds and looks for libraries there."""
+    from t3dct_torch.utils import cuda_build, enable_compilation_cache
+    monkeypatch.setattr(cuda_build, "BUILD_DIR", cuda_build.BUILD_DIR)
+    monkeypatch.delenv("T3DCT_CACHE_DIR", raising=False)
+    got = enable_compilation_cache(tmp_path / "a")
+    assert got == str(tmp_path / "a") and (tmp_path / "a").is_dir()
+    assert cuda_build._library("cc").parent == tmp_path / "a"
+    monkeypatch.setenv("T3DCT_CACHE_DIR", str(tmp_path / "b"))
+    assert enable_compilation_cache() == str(tmp_path / "b")
+    assert cuda_build.BUILD_DIR == tmp_path / "b"
+    monkeypatch.delenv("T3DCT_CACHE_DIR")
+    default = cuda_build.PKG_DIR / "_build"
+    assert enable_compilation_cache(min_compile_seconds=2.0) == str(default)
+    assert cuda_build.BUILD_DIR == default

@@ -64,6 +64,22 @@ def jax_script(path, name, cache_dir):
             jax.config.update(k, v)
 
 
+@contextlib.contextmanager
+def torch_threads(n):
+    """Torch's CPU ops on ``n`` threads inside the block.  The refined EM
+    is thousands of ops on tensors of a few thousand elements: on a host
+    that other test workers share, intra-op threads spin at every op's
+    barrier (an ensemble test took 73 s on 8 threads and 1.8 s on one),
+    and the thread count sets the float32 summation order, so the
+    iteration at which the EM's stall rule stops."""
+    was = torch.get_num_threads()
+    torch.set_num_threads(n)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(was)
+
+
 def recording(n_vols=3, seed=0):
     """(volumes, {t: centres zyx}, proofed vol-1 labels (x, y, z))."""
     vols, centers, lab1 = make_recording(n_vols, N_CELLS, SHAPE, seed)

@@ -8,8 +8,10 @@ naming its ``ROADMAP.md`` item (held by the tests of each module).
 Entry points: the names the examples and the JAX package's docstring call
 (``examples/*.py``), the legacy ``engine.legacy.Tracker`` of
 ``use_unet_legacy.py`` with every public method, its trainer
-``TrainingUNet3D`` and ``UNetSegmenter.segment``, and the Keras
-importers of ``utils.keras_import``."""
+``TrainingUNet3D`` and ``UNetSegmenter.segment``, the Keras
+importers of ``utils.keras_import``, ``utils.cache``, and the PR-GLS EM
+with its compensated M-step (``ops.prgls``, ``ops.df32``) and the
+functions that carry ``m_step_refine``."""
 
 import importlib
 import inspect
@@ -101,7 +103,21 @@ ENTRY_POINTS = [
     ("engine.segmentation", "UNetSegmenter.__init__"),
     ("models.unet3d", "UNet3D.apply"),
     ("models.stardist3d", "StarDist3DNet.apply"),
+    ("models.stardist3d", "StarDist3DNet.__init__"),
     ("models.layers", "dense"),
+    ("utils.cache", "enable_compilation_cache"),
+    ("io.imageio", "percentile_normalize"),
+] + [
+    # the EM with the compensated M-step and the drivers that carry it
+    ("ops.prgls", "prgls_with_two_ref"),
+    ("ops.prgls", "prgls_quick"),
+    ("engine.tracker", "track_step"),
+    ("parallel.ensemble", "ensemble_member_predictions"),
+    ("parallel.ensemble", "ensemble_track_step"),
+] + [
+    ("ops.df32", name) for name in (
+        "two_sum", "fast_two_sum", "two_prod", "df_add", "df_sum",
+        "compensated_residual")
 ]
 # the port's own keyword-only extras beyond ``device``: the U-Net's
 # forward over a mesh's blocks (JAX's sharding is the jit's, not apply's)

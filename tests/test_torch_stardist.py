@@ -68,6 +68,26 @@ def test_network_forward_random_weights():
     assert np.abs(td.numpy() - np.asarray(jd)).max() <= _conv_bound(jd)
 
 
+@pytest.mark.parametrize("fused_up", [False, True])
+def test_network_fused_up_matches_jax(fused_up):
+    """``StarDist3DNet(fused_up=)``, JAX's option: the port's net with it
+    against JAX's ``fused_up=True`` net (the sub-pixel decomposition of
+    the up-blocks, the same network) within f32 summation order."""
+    from t3dct.config import StarDistConfig as JCfg
+    from t3dct.models.stardist3d import StarDist3DNet as JNet
+    from t3dct_torch.config import StarDistConfig
+    from t3dct_torch.models.stardist3d import StarDist3DNet
+    tparams = stardist_params(seed=6, intensity_path=False)
+    x = np.random.RandomState(7).rand(1, 4, 16, 16, 1).astype(np.float32)
+    jp, jd = JNet(JCfg(**SD_CFG), fused_up=True).apply(to_jax(tparams),
+                                                       jnp.asarray(x))
+    net = StarDist3DNet(StarDistConfig(**SD_CFG), fused_up=fused_up)
+    assert net.fused_up is fused_up
+    tp, td = net.apply(tparams, torch.from_numpy(x))
+    assert np.abs(tp.numpy() - np.asarray(jp)).max() <= _conv_bound(jp)
+    assert np.abs(td.numpy() - np.asarray(jd)).max() <= _conv_bound(jd)
+
+
 def _candidates(seed, k=48, plateau=False):
     rng = np.random.RandomState(seed)
     prob = rng.rand(6, 16, 12).astype(np.float32)

@@ -259,6 +259,108 @@ def test_imread_volume_reads_every_page(tmp_path):
     np.testing.assert_array_equal(imread_volume(tmp_path / "s.tif"), vol[0])
 
 
+def write_rgb_volume(path, vol, compression=None):
+    """A (z, h, w, 3) uint8 volume as a multi-page RGB TIFF written by PIL
+    (chunky pages: the samples of a pixel interleaved)."""
+    from PIL import Image
+    frames = [Image.fromarray(z, "RGB") for z in vol]
+    kwargs = {"compression": compression} if compression else {}
+    frames[0].save(str(path), save_all=True, append_images=frames[1:],
+                   **kwargs)
+
+
+def write_chunky16(path, vol, planar=1):
+    """A (z, h, w, c) uint16 volume as a multi-page TIFF of c interleaved
+    16-bit samples a pixel, uncompressed, one strip a page (PIL writes no
+    such file); ``planar=2`` labels the same bytes as separate planes,
+    which the port's codec refuses."""
+    import struct
+    z, h, w, c = vol.shape
+    out = bytearray(b"II*\0\0\0\0\0")
+    prev = 4
+    for page in vol:
+        data = np.ascontiguousarray(page, "<u2").tobytes()
+        data_at = len(out)
+        out += data
+        bits = struct.pack(f"<{c}H", *([16] * c))
+        if len(bits) > 4:               # out of line: the entry's offset
+            bits_at = len(out)
+            out += bits
+            bits = struct.pack("<I", bits_at)
+        # (tag, type, count, the value field's 4 bytes)
+        tags = [(256, 3, 1, w), (257, 3, 1, h), (258, 3, c, bits),
+                (259, 3, 1, 1), (262, 3, 1, 1), (273, 4, 1, data_at),
+                (277, 3, 1, c), (278, 3, 1, h), (279, 4, 1, len(data)),
+                (284, 3, 1, planar)]
+        struct.pack_into("<I", out, prev, len(out))
+        out += struct.pack("<H", len(tags))
+        for tag, typ, count, value in tags:
+            if isinstance(value, int):
+                value = struct.pack("<HH" if typ == 3 else "<I",
+                                    *((value, 0) if typ == 3 else (value,)))
+            out += struct.pack("<HHI", tag, typ, count) + \
+                value.ljust(4, b"\0")
+        prev = len(out)
+        out += b"\0\0\0\0"
+    Path(path).write_bytes(bytes(out))
+
+
+def test_imread_volume_reads_channels(tmp_path):
+    """Pages of interleaved samples read as (z, y, x, c), as JAX's PIL read
+    gives them: RGB written by PIL, plain and LZW, every page and a single
+    page; 16-bit pages of two samples exactly (PIL reads 16-bit RGB as
+    8-bit, so these are held to the written values); separate planes
+    (``PlanarConfiguration`` 2) raise."""
+    from t3dct.io.imageio import imread_volume as j_imread_volume
+    rng = np.random.RandomState(5)
+    rgb = rng.randint(0, 256, (4, 9, 11, 3)).astype(np.uint8)
+    for comp in (None, "tiff_lzw"):
+        write_rgb_volume(tmp_path / "rgb.tif", rgb, comp)
+        got = imread_volume(tmp_path / "rgb.tif")
+        assert got.shape == (4, 9, 11, 3) and got.dtype == np.uint8
+        np.testing.assert_array_equal(got, rgb)
+        np.testing.assert_array_equal(got,
+                                      j_imread_volume(tmp_path / "rgb.tif"))
+    write_rgb_volume(tmp_path / "one.tif", rgb[:1])
+    np.testing.assert_array_equal(imread_volume(tmp_path / "one.tif"),
+                                  j_imread_volume(tmp_path / "one.tif"))
+    two = rng.randint(0, 65536, (3, 5, 7, 2)).astype(np.uint16)
+    write_chunky16(tmp_path / "c16.tif", two)
+    got = imread_volume(tmp_path / "c16.tif")
+    assert got.dtype == np.uint16
+    np.testing.assert_array_equal(got, two)
+    write_chunky16(tmp_path / "planes.tif", two, planar=2)
+    with pytest.raises(OSError, match="codec error 6"):
+        imread_volume(tmp_path / "planes.tif")
+
+
+def test_load_training_images_multichannel_matches_jax(tmp_path):
+    """RGB training volumes: JAX's loader and the port's give equal arrays,
+    each channel normalized on its own, and ``n_channel`` 3, which
+    ``configure`` turns into ``n_channel_in``."""
+    (tmp_path / "images").mkdir()
+    (tmp_path / "masks").mkdir()
+    for i in range(3):
+        img, lab = scene(20 + i, (8, 32, 32))
+        rgb = np.stack([img * 200, img[::-1] * 90, img * 40 + 30], -1)
+        write_rgb_volume(tmp_path / "images" / f"vol{i}.tif",
+                         rgb.clip(0, 255).astype(np.uint8))
+        imwrite_volume(str(tmp_path / "masks" / f"vol{i}.tif"),
+                       lab.astype(np.uint16))
+    xs, ys = (str(tmp_path / d / "*.tif") for d in ("images", "masks"))
+    want = jload_training(xs, ys, plot=False)
+    got = load_training_images(xs, ys, plot=False)
+    assert got[-1] == want[-1] == 3
+    for a_list, b_list in zip(got[:-1], want[:-1]):
+        assert len(a_list) == len(b_list)
+        for a, b in zip(a_list, b_list):
+            assert a.dtype == b.dtype and a.shape == b.shape
+            np.testing.assert_array_equal(a, b)
+    assert got[0][0].shape == (8, 32, 32, 3)
+    assert configure(got[1], got[-1]).n_channel_in == \
+        jconfigure(want[1], want[-1]).n_channel_in == 3
+
+
 def test_load_training_images_raises_on_mismatch(tmp_path):
     xs, ys = write_training_folder(tmp_path, 2)
     (tmp_path / "masks" / "vol1.tif").rename(tmp_path / "masks" / "x.tif")

@@ -3,7 +3,8 @@ the CPU, over the small TIFF recording of ``test_torch_driver.py`` ((8, 64,
 48) volumes, 12 cells, the small StarDist with its pass-through path, the
 same weights in both packages): ``predict_and_save``, then
 ``track_timelapse`` in single and ensemble mode, and
-``segment_and_track(handoff="disk")``, which runs both at once.
+``segment_and_track(handoff="disk")``, which runs both at once; the
+tracking also with the EM's compensated M-step (``m_step_refine=8``).
 
 Bounds (those of ``test_torch_driver.py``): seg coordinates exact; prob
 maps within 1e-3 (both store the float16 map; one float16 step is 4.9e-4
@@ -46,7 +47,7 @@ from t3dct_torch.io.artifacts import ResultsTree
 from test_torch_driver import (figure_calls, files, hold_figures,
                                manual_vol1, write_recording)
 from test_torch_scene import (INTERP, REPO, SHAPE, VOXEL_SIZE, ffn_pair,
-                              recording, stardist_pair)
+                              recording, stardist_pair, torch_threads)
 
 N_VOLS = 7
 COORD_ATOL = 1e-2
@@ -389,6 +390,23 @@ def test_track_timelapse_ensemble_matches_jax(segmented, scene, models,
     skip = miss_frame or []
     assert calls == [len([v for v in range(1, t) if v not in skip])
                      for t in range(2, N_VOLS + 1) if t not in skip]
+
+
+@pytest.mark.parametrize("config_kw", [
+    dict(m_step_refine=8),
+    dict(ENSEMBLE, sampling_number=3, m_step_refine=8)],
+    ids=["single", "ensemble"])
+def test_track_timelapse_refine_matches_jax(segmented, scene, models,
+                                            tmp_path, config_kw):
+    """``TrackingConfig(m_step_refine=8)``, the EM's compensated M-step,
+    in single and ensemble mode (the members batched; 3 samples, which
+    JAX pads every volume's members to), held to JAX's run of the same
+    config with the bounds of the default runs; the port on one torch
+    thread (``torch_threads``)."""
+    with torch_threads(1):
+        jdir, pdir, want, got = _track_both(segmented, scene, models,
+                                            tmp_path, config_kw, None)
+    _hold(jdir, pdir, want, got, None)
 
 
 def test_track_timelapse_ensemble_differs_from_single(segmented, scene,

@@ -116,13 +116,16 @@ def stardist_cases(rank: int, world: int, root: Path, pattern: str,
     """``predict_and_save``, ``segment_and_track`` in both handoffs (single
     mode) and ensemble ``track_timelapse`` over the ``seg/`` tree ``seg``,
     and ``predict_and_save`` and the device handoff with the 8-bit upload
-    (``*_u8``), each over the mesh (trees ``mesh_*``) and on rank 0
-    without it (``plain_*``); the coordinates every rank returns."""
+    (``*_u8``), and the device handoff and the ensemble with the EM's
+    compensated M-step (``*_refine``, ``m_step_refine=8``), each over the
+    mesh (trees ``mesh_*``) and on rank 0 without it (``plain_*``); the
+    coordinates every rank returns."""
     model = stardist_model(sd_cfg, max_candidates, render_box)
     ffn = ffn_weights()
     mesh = make_mesh(world, device_type="cpu")
     t_range = (1, n_vols)
-    names = [f"{m}_{k}" for k in ("device", "disk", "ens", "device_u8")
+    names = [f"{m}_{k}" for k in ("device", "disk", "ens", "device_u8",
+                                  "device_refine", "ens_refine")
              for m in ("mesh", "plain")]
     if rank == 0:               # the trees' proofed vol-1 labels
         for name in names:
@@ -140,32 +143,38 @@ def stardist_cases(rank: int, world: int, root: Path, pattern: str,
                      transport="u8")
     _on_rank0(rank, mesh, lambda: predict_and_save(
         pattern, model, root / "plain_pas_u8", transport="u8"))
-    for handoff, transport in (("device", "u16"), ("disk", "u16"),
-                               ("device", "u8")):
-        key = handoff + ("_u8" if transport == "u8" else "")
+    for handoff, transport, refine in (("device", "u16", 0),
+                                       ("disk", "u16", 0),
+                                       ("device", "u8", 0),
+                                       ("device", "u16", 8)):
+        key = handoff + ("_u8" if transport == "u8" else "") + (
+            "_refine" if refine else "")
 
         def run(name, **kw):
             return segment_and_track(
                 pattern, model, root / name, glob(name), ffn, voxel_size,
-                interp, t_range, TrackingConfig(), verbose=False,
-                handoff=handoff, transport=transport, **kw)
+                interp, t_range, TrackingConfig(m_step_refine=refine),
+                verbose=False, handoff=handoff, transport=transport, **kw)
         out[f"mesh_{key}"] = run(f"mesh_{key}", mesh=mesh)
         out[f"plain_{key}"] = _on_rank0(
             rank, mesh, lambda: run(f"plain_{key}", device="cpu"))
     # the ensemble over the given seg/ tree
     if rank == 0:
-        for name in ("mesh_ens", "plain_ens"):
+        for name in ("mesh_ens", "plain_ens", "mesh_ens_refine",
+                     "plain_ens_refine"):
             shutil.copytree(seg, root / name / "seg")
     barrier(mesh_axis(mesh))
 
-    def ens(name, **kw):
-        return track_timelapse(
-            root / name, glob(name), ffn, voxel_size, interp, t_range,
-            grid=model.config.grid, config=TrackingConfig(**ensemble),
-            verbose=False, **kw)
-    out["mesh_ens"] = ens("mesh_ens", mesh=mesh)
-    out["plain_ens"] = _on_rank0(rank, mesh,
-                                 lambda: ens("plain_ens", device="cpu"))
+    for key, refine in (("ens", 0), ("ens_refine", 8)):
+        def ens(name, **kw):
+            return track_timelapse(
+                root / name, glob(name), ffn, voxel_size, interp, t_range,
+                grid=model.config.grid,
+                config=TrackingConfig(**ensemble, m_step_refine=refine),
+                verbose=False, **kw)
+        out[f"mesh_{key}"] = ens(f"mesh_{key}", mesh=mesh)
+        out[f"plain_{key}"] = _on_rank0(
+            rank, mesh, lambda: ens(f"plain_{key}", device="cpu"))
     return out
 
 
