@@ -73,8 +73,9 @@ from .io import artifacts, imageio, prefetch, tiff  # noqa: F401
 from .models import ffn, layers, stardist3d, synthesize  # noqa: F401
 from .models import train_ffn, train_stardist, train_unet  # noqa: F401
 from .models import unet3d  # noqa: F401
+# ops.lcn is the function, as in JAX; its module loads with ops
 from .ops import (connected, edt, filters, hopper_cc,  # noqa: F401
-                  hopper_conv, hopper_flood, knn, ladder, lcn, matching,
+                  hopper_conv, hopper_flood, knn, ladder, matching,
                   neighborhood, nms, numerics, peaks, pointset, prgls, rays,
                   segment_reduce, stardist_gt, subregions, tiling, trim,
                   watershed)

@@ -16,11 +16,14 @@ raise.
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Tuple, Union
 
+import numpy as np
 import torch
 
 from .utils.device import select_device
+
+Array = Union[np.ndarray, torch.Tensor]
 
 
 @dataclasses.dataclass(frozen=True)

@@ -140,7 +140,8 @@ def legacy_correction_and_render(atlas: SubregionAtlas,
                                  max_repetition: int = REP_NUM_CORRECTION,
                                  overlap_mode: str = "add",
                                  out_of_range: str = "clip",
-                                 render: bool = True):
+                                 render: bool = True,
+                                 labels_u8: bool = False):
     """The legacy accurate-correction fixed point (``tracker.py:1177-1191,
     1310-1348``) and the final label render (:1391-1400): at most
     ``max_repetition`` x (paste, weighted centre of mass, rint) while the
@@ -149,7 +150,8 @@ def legacy_correction_and_render(atlas: SubregionAtlas,
     The loop state freezes on the device once that condition fails; the
     host looks every ``CHECK_EVERY`` rounds, so it ends at JAX's
     iteration.  Returns (r_disp (n, 3) f32, i_disp (n, 3) int32, labels
-    (x, y, z) int32, or None without ``render``)."""
+    (x, y, z) int32, uint8 with ``labels_u8`` (valid for at most 255
+    cells), or None without ``render``)."""
     dev = weights.device
     f32 = torch.float32
     weights = weights.to(f32)
@@ -192,8 +194,8 @@ def legacy_correction_and_render(atlas: SubregionAtlas,
         done = not bool((it < max_repetition) & (metric >= 0.5))
     if not render:
         return r_disp, i_disp, None
-    return r_disp, i_disp, render_moved_labels(atlas, i_disp, include,
-                                               **paste)
+    labels = render_moved_labels(atlas, i_disp, include, **paste)
+    return r_disp, i_disp, labels.to(torch.uint8) if labels_u8 else labels
 
 
 def render_moved_labels(atlas: SubregionAtlas, i_disp: torch.Tensor,
@@ -446,7 +448,8 @@ class Tracker:
                 *import_ffn(path), self.device)
         else:
             self.ffn_params, self.ffn_state = load_pytree(
-                init_ffn(torch.Generator().manual_seed(0), self.device),
+                init_ffn(torch.Generator().manual_seed(0),
+                         device=self.device),
                 path)
         print("Loaded the FFN model")
 

@@ -1,8 +1,10 @@
 """The v1.0 workflow's drivers (counterpart of
 ``3deecelltracker_tpu/engine/pipeline.py``):
 ``seg_candidates_to_padded_real``, the per-volume track-and-correct step
-fed from the ``seg/`` artifacts (``fused_track_and_correct`` :40-125) or
-straight from the seg outputs (``fused_track_from_seg`` :165-204),
+fed from the ``seg/`` artifacts (``track_and_correct``, and under JAX's
+name and return values ``fused_track_and_correct`` :40-125) or straight
+from the seg outputs (``track_from_seg``, ``fused_track_from_seg``
+:165-204),
 ``segment_and_track`` with ``handoff="disk"`` (:207-356) or ``"device"``
 (``_segment_and_track_device`` :359-583), the artifact savers (:600-835)
 and ``track_timelapse`` (:847-1074), single and ensemble mode.
@@ -96,7 +98,8 @@ def track_and_correct(ffn_params, ffn_state, confirmed_raw: torch.Tensor,
                       max_repetition: int = 20, k_points: int = 20,
                       max_iteration: int = 2000,
                       prob_grid: Tuple[int, int, int] = (1, 1, 1),
-                      m_step_refine: int = 0) -> TrackOutput:
+                      m_step_refine: int = 0, *,
+                      ensemble: bool = False) -> TrackOutput:
     """One volume of the single-mode tracking recurrence
     (``fused_track_and_correct``): FFN matching + PR-GLS from the padded
     seg point sets of t1 and t2 (real units, ``TrackerLite._pad_np``),
@@ -104,7 +107,8 @@ def track_and_correct(ffn_params, ffn_state, confirmed_raw: torch.Tensor,
     ``prob_img``: t2's probability map in the (x, y, z) frame, any float
     dtype; with ``prob_grid`` != (1, 1, 1) it is the grid-resolution map
     of ``seg/prob*.npy``, upsampled and cropped on the device.
-    ``m_step_refine``: the EM's compensated M-step (``ops.prgls``)."""
+    ``m_step_refine``: the EM's compensated M-step (``ops.prgls``).
+    ``ensemble``: flag no boundary cell at x/y (the ensemble's rule)."""
     if tuple(prob_grid) != (1, 1, 1):
         prob_img = upsample_prob_pipeline(prob_img, prob_grid, image_shape)
     # prob maps travel as float16; the correction weighs in f32
@@ -117,8 +121,8 @@ def track_and_correct(ffn_params, ffn_state, confirmed_raw: torch.Tensor,
                      max_iteration=max_iteration, m_step_refine=m_step_refine)
     corrected_raw, labels, n_corr = correct_prediction(
         atlas, coord_vol1_raw, res.tracked / vs, res.tracked, prob_img,
-        image_shape, voxel_size, max_repetition=max_repetition,
-        boundary_xy=BOUNDARY_XY)
+        image_shape, voxel_size, ensemble=ensemble,
+        max_repetition=max_repetition, boundary_xy=BOUNDARY_XY)
     return TrackOutput(corrected_raw, labels, res.n_iterations, n_corr)
 
 
@@ -131,7 +135,8 @@ def track_from_seg(ffn_params, ffn_state, confirmed_raw: torch.Tensor,
                    max_repetition: int = 20, k_points: int = 20,
                    max_iteration: int = 2000,
                    prob_grid: Tuple[int, int, int] = (1, 1, 1),
-                   m_step_refine: int = 0, pad_n: int = 192) -> TrackOutput:
+                   m_step_refine: int = 0, pad_n: int = 192, *,
+                   ensemble: bool = False) -> TrackOutput:
     """:func:`track_and_correct` fed directly from the seg outputs of t1
     and t2 (``fused_track_from_seg``): the candidates compressed and
     padded, and the grid prob map transposed (z, y, x) -> (x, y, z), on
@@ -145,7 +150,70 @@ def track_from_seg(ffn_params, ffn_state, confirmed_raw: torch.Tensor,
         seg2_real, m2, prob_zyx_grid.permute(1, 2, 0), atlas, voxel_size,
         image_shape, beta, lambda_, max_repetition=max_repetition,
         k_points=k_points, max_iteration=max_iteration, prob_grid=prob_grid,
-        m_step_refine=m_step_refine)
+        m_step_refine=m_step_refine, ensemble=ensemble)
+
+
+def _labels_out(labels: torch.Tensor, labels_u8: bool) -> torch.Tensor:
+    """JAX's label dtypes: uint16, or uint8 when ``labels_u8`` (valid for
+    at most 255 cells)."""
+    return labels.to(torch.uint8 if labels_u8 else torch.uint16)
+
+
+def fused_track_and_correct(ffn_params, ffn_state,
+                            confirmed_raw: torch.Tensor,
+                            coord_vol1_raw: torch.Tensor,
+                            seg_t1_real: torch.Tensor,
+                            seg_t1_mask: torch.Tensor,
+                            seg_t2_real: torch.Tensor,
+                            seg_t2_mask: torch.Tensor,
+                            prob_img: torch.Tensor, atlas,
+                            voxel_size, image_shape,
+                            beta: float, lambda_: float,
+                            ensemble: bool = False,
+                            max_repetition: int = 20,
+                            k_points: int = 20,
+                            max_iteration: int = 2000,
+                            prob_grid: Tuple[int, int, int] = (1, 1, 1),
+                            labels_u8: bool = False,
+                            m_step_refine: int = 0):
+    """JAX's ``fused_track_and_correct`` (:93) on the port:
+    :func:`track_and_correct` returning JAX's ``(corrected_raw (n, 3)
+    f32, labels (x, y, z) uint16, or uint8 with labels_u8)``."""
+    out = track_and_correct(
+        ffn_params, ffn_state, confirmed_raw, coord_vol1_raw, seg_t1_real,
+        seg_t1_mask, seg_t2_real, seg_t2_mask, prob_img, atlas, voxel_size,
+        image_shape, beta, lambda_, max_repetition=max_repetition,
+        k_points=k_points, max_iteration=max_iteration, prob_grid=prob_grid,
+        m_step_refine=m_step_refine, ensemble=ensemble)
+    return out.corrected_raw, _labels_out(out.labels, labels_u8)
+
+
+def fused_track_from_seg(ffn_params, ffn_state,
+                         confirmed_raw: torch.Tensor,
+                         coord_vol1_raw: torch.Tensor,
+                         pts1_zyx: torch.Tensor, kept1: torch.Tensor,
+                         pts2_zyx: torch.Tensor, kept2: torch.Tensor,
+                         prob_zyx_grid: torch.Tensor, atlas,
+                         voxel_size, image_shape,
+                         beta: float, lambda_: float,
+                         ensemble: bool = False,
+                         max_repetition: int = 20,
+                         k_points: int = 20,
+                         max_iteration: int = 2000,
+                         prob_grid: Tuple[int, int, int] = (1, 1, 1),
+                         labels_u8: bool = False,
+                         m_step_refine: int = 0,
+                         pad_n: int = 192):
+    """JAX's ``fused_track_from_seg`` (:165) on the port:
+    :func:`track_from_seg` returning JAX's ``(corrected_raw, labels)``
+    as :func:`fused_track_and_correct` does."""
+    out = track_from_seg(
+        ffn_params, ffn_state, confirmed_raw, coord_vol1_raw, pts1_zyx,
+        kept1, pts2_zyx, kept2, prob_zyx_grid, atlas, voxel_size,
+        image_shape, beta, lambda_, max_repetition=max_repetition,
+        k_points=k_points, max_iteration=max_iteration, prob_grid=prob_grid,
+        m_step_refine=m_step_refine, pad_n=pad_n, ensemble=ensemble)
+    return out.corrected_raw, _labels_out(out.labels, labels_u8)
 
 
 @dataclasses.dataclass

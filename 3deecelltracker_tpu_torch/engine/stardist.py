@@ -86,7 +86,7 @@ class StarDist3D:
         if params is None:
             gen = rng if isinstance(rng, torch.Generator) else \
                 torch.Generator().manual_seed(0 if rng is None else int(rng))
-            params = self.net.init(gen, self.device)
+            params = self.net.init(gen, device=self.device)
         self.params = {name: {k: v.to(self.device, torch.float32)
                               .contiguous() for k, v in layer.items()}
                        for name, layer in params.items()}

@@ -36,13 +36,17 @@ from .correction import correct_prediction, get_cells_on_boundary
 BOUNDARY_XY = 6  # reference tracker.py:47
 
 
-def upsample_prob_pipeline(prob_grid_xyz: torch.Tensor,
-                           grid: Tuple[int, int, int],
-                           out_shape: Tuple[int, int, int]) -> torch.Tensor:
+def upsample_prob_pipeline(prob_grid_xyz, grid: Tuple[int, int, int],
+                           out_shape: Tuple[int, int, int], xp=None):
     """Grid-resolution (x, y, z) prob map -> full resolution: repeat axis
-    0 by grid[1], axis 1 by grid[2], axis 2 by grid[0], then crop."""
-    return upsample_prob_map(prob_grid_xyz, (grid[1], grid[2], grid[0]),
-                             out_shape)
+    0 by grid[1], axis 1 by grid[2], axis 2 by grid[0], then crop.
+    ``xp``: ``numpy`` or ``torch``, the kind of array computed on and
+    returned (default: the input's kind; JAX's ``xp=np`` on the host)."""
+    if xp is None:
+        xp = torch if isinstance(prob_grid_xyz, torch.Tensor) else np
+    out = upsample_prob_map(torch.as_tensor(prob_grid_xyz),
+                            (grid[1], grid[2], grid[0]), out_shape)
+    return out.cpu().numpy() if xp is np else out
 
 
 def _relabel_sequential_np(labels: np.ndarray) -> np.ndarray:
@@ -258,7 +262,7 @@ class CoordsToImageTransformer:
                                       self.use_8_bit)
         if images_path is not None:
             try:
-                save_merged_labels(self.tree.root, corrected_labels_image,
+                save_merged_labels(self.tree, corrected_labels_image,
                                    images_path, t2,
                                    self.interpolation_factor)
             except Exception as e:      # a figure, not a result

@@ -9,6 +9,7 @@ the same CSV exports, byte for byte.
     track_results/coords_real/coords%06d.npy
     track_results/labels/track_results_t%06i_z%04i.tif
     track_results/figure/
+    track_results/merged_labels/, merged_labels_xz/   (viz.save_merged_labels)
 """
 
 from __future__ import annotations
@@ -26,6 +27,8 @@ TRACK_RESULTS = "track_results"
 COORDS_REAL = "coords_real"
 LABELS = "labels"
 FIGURE = "figure"
+MERGED_LABELS = "merged_labels"
+MERGED_LABELS_XZ = "merged_labels_xz"
 
 
 class ResultsTree:

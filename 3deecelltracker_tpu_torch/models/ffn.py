@@ -26,6 +26,7 @@ HIDDEN = 512
 MAX_PAIR_ELEMENTS = 1 << 30
 
 Params = Dict[str, Any]
+State = Dict[str, Any]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -35,13 +36,14 @@ class FFN:
     n_features: int = N_FEATURES
     hidden: int = HIDDEN
 
-    def init(self, generator: torch.Generator, device=None
-             ) -> Tuple[Params, Params]:
+    def init(self, generator: torch.Generator, *, device=None
+             ) -> Tuple[Params, State]:
         """``(params, state)``: :func:`init_ffn` at these widths."""
-        return init_ffn(generator, device, self.n_features, self.hidden)
+        return init_ffn(generator, device=device,
+                        n_features=self.n_features, hidden=self.hidden)
 
-    def apply(self, params: Params, state: Params, x: torch.Tensor,
-              train: bool = False) -> Tuple[torch.Tensor, Params]:
+    def apply(self, params: Params, state: State, x: torch.Tensor,
+              train: bool = False) -> Tuple[torch.Tensor, State]:
         """Pairwise forward on (batch, 2 * n_features) rows -> ``((batch,
         1) scores, state)``, the state moved in train mode (JAX's
         ``FFN.apply``)."""
@@ -49,32 +51,20 @@ class FFN:
         return out if train else (out, state)
 
 
-def init_ffn(generator: torch.Generator, device=None,
+def init_ffn(generator: torch.Generator, *, device=None,
              n_features: int = N_FEATURES, hidden: int = HIDDEN
-             ) -> Tuple[Params, Params]:
-    """Seeded glorot init with identity batchnorms (not JAX's numbers);
-    ``device=None`` is the card."""
+             ) -> Tuple[Params, State]:
+    """Seeded glorot init with identity batchnorms (JAX's tree, not JAX's
+    numbers); ``device=None`` is the card."""
     device = select_device(device)
-    def dense(d_in, d_out, bias):
-        p = {"w": L.glorot_uniform((d_in, d_out), d_in, d_out, generator,
-                                   device)}
-        if bias:
-            p["b"] = torch.zeros((d_out,), dtype=torch.float32,
-                                 device=device)
-        return p
-
-    def bn(c):
-        return ({"scale": torch.ones(c, device=device),
-                 "bias": torch.zeros(c, device=device)},
-                {"mean": torch.zeros(c, device=device),
-                 "var": torch.ones(c, device=device)})
-
-    params = {"feat": dense(n_features, hidden, False),
-              "comb": dense(2 * hidden, hidden, False),
-              "pred": dense(hidden, 1, True)}
+    params = {"feat": L.init_dense(generator, n_features, hidden,
+                                   use_bias=False, device=device),
+              "comb": L.init_dense(generator, 2 * hidden, hidden,
+                                   use_bias=False, device=device),
+              "pred": L.init_dense(generator, hidden, 1, device=device)}
     state = {}
-    params["feat_bn"], state["feat_bn"] = bn(hidden)
-    params["comb_bn"], state["comb_bn"] = bn(hidden)
+    params["feat_bn"], state["feat_bn"] = L.init_bn(hidden, device=device)
+    params["comb_bn"], state["comb_bn"] = L.init_bn(hidden, device=device)
     return params, state
 
 
@@ -96,7 +86,7 @@ def feature_distance_ffn(generator: torch.Generator, device=None
     p = torch.cat([torch.cat([q, -q], dim=1),
                    torch.cat([-q, q], dim=1)], dim=0)        # (hidden, hidden)
     comb_w = torch.cat([p, -p], dim=0)                       # (2*hidden, hidden)
-    params, state = init_ffn(generator, device)
+    params, state = init_ffn(generator, device=device)
     params["feat"]["w"] = feat_w.to(device)
     params["comb"]["w"] = comb_w.to(device)
     params["pred"]["w"] = torch.full((HIDDEN, 1), -0.05, device=device)
@@ -104,8 +94,8 @@ def feature_distance_ffn(generator: torch.Generator, device=None
     return params, state
 
 
-def ffn_apply(params: Params, state: Params, x: torch.Tensor,
-              train: bool = False, n_features: int = N_FEATURES,
+def ffn_apply(params: Params, state: State, x: torch.Tensor,
+              train: bool = False, n_features: int = N_FEATURES, *,
               group=None):
     """Forward on (batch, 2*n_features) pair rows -> (batch, 1) scores.
     ``train=True`` normalizes with the batch's statistics (the trunk's
@@ -118,7 +108,7 @@ def ffn_apply(params: Params, state: Params, x: torch.Tensor,
 
     def bn(name, h):
         if not train:
-            return L.batchnorm(params[name], state[name], h)
+            return L.batchnorm(params[name], state[name], h, False)
         h, new_state[name] = L.batchnorm(params[name], state[name], h,
                                          train=True, group=group)
         return h
@@ -133,17 +123,20 @@ def ffn_apply(params: Params, state: Params, x: torch.Tensor,
     return (out, new_state) if train else out
 
 
-def ffn_pair_scores(params: Params, state: Params,
-                    ref_feats: torch.Tensor,
-                    tgt_feats: torch.Tensor) -> torch.Tensor:
+def ffn_pair_scores(params: Params, state: State,
+                    ref_feats: torch.Tensor, tgt_feats: torch.Tensor,
+                    row_chunk: int = 0) -> torch.Tensor:
     """(m_tgt, n_ref) scores of all pairs: the trunk runs once per set and
     the combine layer splits into ref/tgt halves (eval-mode BN is
     affine).  With a leading member axis ((E, n, 61) features), (E, m, n)
     scores, each member's as it is alone; a batch whose pair tensor would
-    pass ``MAX_PAIR_ELEMENTS`` runs member by member."""
+    pass ``MAX_PAIR_ELEMENTS`` runs member by member.  ``row_chunk`` > 0
+    scores that many target rows at a time, which bounds the pair tensor
+    held at once; the scores equal the whole batch's within float32
+    rounding."""
     def trunk(f):
         return L.leaky_relu(L.batchnorm(params["feat_bn"], state["feat_bn"],
-                                        L.dense(params["feat"], f)))
+                                        L.dense(params["feat"], f), False))
 
     fr = trunk(ref_feats)
     ft = trunk(tgt_feats)
@@ -157,11 +150,18 @@ def ffn_pair_scores(params: Params, state: Params,
     w_pred = params["pred"]["w"][:, 0]
     b_pred = params["pred"]["b"][0]
 
-    def scores(zt, zr):
+    def rows(zt, zr):
         z = zt[..., :, None, :] + zr[..., None, :, :]     # (m, n, hidden)
         h = L.leaky_relu(z * inv + shift)
         logits = torch.einsum("...mnc,c->...mn", h, w_pred) + b_pred
         return torch.sigmoid(logits)
+
+    def scores(zt, zr):
+        if row_chunk and row_chunk < zt.shape[-2]:
+            return torch.cat([rows(c, zr) for c in
+                              torch.split(zt, int(row_chunk), dim=-2)],
+                             dim=-2)
+        return rows(zt, zr)
 
     if zr.dim() == 3 and zr.shape[0] * zt.shape[-2] * zr[0].numel() > \
             MAX_PAIR_ELEMENTS:

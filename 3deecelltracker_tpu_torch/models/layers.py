@@ -24,7 +24,7 @@ launch of a kernel with all of it in its epilogue.
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional, Sequence
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -42,26 +42,51 @@ BN_MOMENTUM = 0.99
 BN_EPS = 1e-3
 
 
-def glorot_uniform(shape: Sequence[int], fan_in: int, fan_out: int,
-                   generator: torch.Generator,
+def glorot_uniform(generator: torch.Generator, shape: Sequence[int],
+                   fan_in: int, fan_out: int, dtype=torch.float32, *,
                    device=None) -> torch.Tensor:
-    """Seeded glorot-uniform init.  It does not reproduce JAX's numbers:
-    parity tests carry weights across with ``utils.convert`` instead.
-    ``device=None`` is the card (``utils.device.select_device``)."""
+    """Seeded glorot-uniform init, drawn in float32 and cast to ``dtype``.
+    It does not reproduce JAX's numbers: parity tests carry weights across
+    with ``utils.convert`` instead.  ``device=None`` is the card
+    (``utils.device.select_device``)."""
     device = select_device(device)
     limit = math.sqrt(6.0 / (fan_in + fan_out))
     u = torch.rand(tuple(shape), generator=generator, dtype=torch.float32)
-    return ((u * 2.0 - 1.0) * limit).to(device)
+    return ((u * 2.0 - 1.0) * limit).to(device=device, dtype=dtype)
 
 
-def init_conv3d(kernel: Sequence[int], c_in: int, c_out: int,
-                generator: torch.Generator, device=None) -> Params:
+def init_conv3d(generator: torch.Generator, kernel: Sequence[int],
+                c_in: int, c_out: int, use_bias: bool = True, *,
+                device=None) -> Params:
+    """``{"w": (*kernel, c_in, c_out) glorot[, "b": zeros]}``."""
     device = select_device(device)
     rf = int(math.prod(kernel))
-    w = glorot_uniform((*kernel, c_in, c_out), rf * c_in, rf * c_out,
-                       generator, device)
-    return {"w": w, "b": torch.zeros((c_out,), dtype=torch.float32,
-                                     device=device)}
+    p = {"w": glorot_uniform(generator, (*kernel, c_in, c_out), rf * c_in,
+                             rf * c_out, device=device)}
+    if use_bias:
+        p["b"] = torch.zeros((c_out,), dtype=torch.float32, device=device)
+    return p
+
+
+def init_bn(c: int, *, device=None) -> Tuple[Params, Params]:
+    """Identity batchnorm over ``c`` channels: ``({"scale", "bias"},
+    {"mean", "var"})``."""
+    device = select_device(device)
+    return ({"scale": torch.ones(c, device=device),
+             "bias": torch.zeros(c, device=device)},
+            {"mean": torch.zeros(c, device=device),
+             "var": torch.ones(c, device=device)})
+
+
+def init_dense(generator: torch.Generator, d_in: int, d_out: int,
+               use_bias: bool = True, *, device=None) -> Params:
+    """``{"w": (d_in, d_out) glorot[, "b": zeros]}``."""
+    device = select_device(device)
+    p = {"w": glorot_uniform(generator, (d_in, d_out), d_in, d_out,
+                             device=device)}
+    if use_bias:
+        p["b"] = torch.zeros((d_out,), dtype=torch.float32, device=device)
+    return p
 
 
 def conv3d(params: Params, x: torch.Tensor, compute_dtype=torch.float32, *,
@@ -98,8 +123,8 @@ def conv3d(params: Params, x: torch.Tensor, compute_dtype=torch.float32, *,
 
 
 def batchnorm(params: Params, state: Params, x: torch.Tensor,
-              train: bool = False, momentum: float = BN_MOMENTUM,
-              eps: float = BN_EPS, group: Optional[MeshAxis] = None):
+              train: bool, momentum: float = BN_MOMENTUM,
+              eps: float = BN_EPS, *, group: Optional[MeshAxis] = None):
     """BatchNorm over the last axis.  Eval mode returns ``y`` from the
     running statistics; ``train=True`` returns ``(y, new_state)``: ``y``
     from the batch's mean and population variance (``jnp.var``'s, the

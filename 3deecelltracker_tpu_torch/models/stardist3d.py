@@ -133,11 +133,12 @@ class StarDist3DNet:
                      (1, 1, 1)))
         return plan
 
-    def init(self, generator: torch.Generator, device=None) -> Params:
+    def init(self, generator: torch.Generator, *, device=None) -> Params:
         """Seeded glorot init (not JAX's numbers; see ``layers``);
         ``device=None`` is the card."""
         device = select_device(device)
-        return {name: L.init_conv3d(kernel, cin, cout, generator, device)
+        return {name: L.init_conv3d(generator, kernel, cin, cout,
+                                    device=device)
                 for name, cin, cout, kernel in self.conv_plan()}
 
     def apply(self, params: Params, x: torch.Tensor,

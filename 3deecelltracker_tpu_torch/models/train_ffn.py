@@ -75,7 +75,7 @@ class DataGeneratorFFN:
 
     def __init__(self, points_normalized: np.ndarray, seed: int = 0,
                  batch_size: int = BATCH_SIZE, num_sets: int = NUM_SETS,
-                 config=None, device=None):
+                 config=None, *, device=None):
         self.device = select_device(device)
         self.points = np.asarray(points_normalized, np.float32)
         self.rng = np.random.RandomState(seed)
@@ -179,7 +179,7 @@ class TrainFFN:
         self.model_name = model_name
         self.current_epoch = 1
         params, bn_state = init_ffn(torch.Generator().manual_seed(seed),
-                                    self.device)
+                                    device=self.device)
         self.params = fresh_tensors(params, self.device, True)
         self.bn_state = fresh_tensors(bn_state, self.device, False)
         broadcast_trees_(self._whole, self.params, self.bn_state)
@@ -230,7 +230,7 @@ class TrainFFN:
         loss the whole batch's."""
         out, new_bn = ffn_apply(self.params, self.bn_state, x, train=True,
                                 group=self._data)
-        loss = bce_from_probs(out, y, BCE_EPS, self._data)
+        loss = bce_from_probs(out, y, BCE_EPS, axis=self._data)
         grads = torch.autograd.grad(loss, self.optimizer.params)
         loss = loss.detach()
         if self._data is not None:

@@ -114,7 +114,8 @@ class TrainStarDist3D:
         self.config = config
         self.net = StarDist3DNet(config)
         self.params = fresh_tensors(
-            self.net.init(torch.Generator().manual_seed(seed), self.device),
+            self.net.init(torch.Generator().manual_seed(seed),
+                          device=self.device),
             self.device, True)
         broadcast_trees_(self._whole, self.params)
         self.optimizer = Adam([v for _, v in

@@ -69,7 +69,7 @@ class UNet3D:
             c = f
         return plan, c
 
-    def init(self, generator: torch.Generator, c_in: int = 1,
+    def init(self, generator: torch.Generator, c_in: int = 1, *,
              device=None) -> Tuple[Params, State]:
         """Seeded glorot convs and identity BatchNorms (not JAX's numbers;
         parity tests carry weights across with ``utils.convert``).
@@ -79,15 +79,12 @@ class UNet3D:
         state: State = {}
         plan, c_last = self.block_plan(c_in)
         for name, cin, cout in plan:
-            params[name] = {
-                "conv": L.init_conv3d((3, 3, 3), cin, cout, generator,
-                                      device),
-                "bn": {"scale": torch.ones(cout, device=device),
-                       "bias": torch.zeros(cout, device=device)}}
-            state[name] = {"mean": torch.zeros(cout, device=device),
-                           "var": torch.ones(cout, device=device)}
-        params["out"] = {"conv": L.init_conv3d((1, 1, 1), c_last, 1,
-                                               generator, device)}
+            bn, state[name] = L.init_bn(cout, device=device)
+            params[name] = {"conv": L.init_conv3d(generator, (3, 3, 3), cin,
+                                                  cout, device=device),
+                            "bn": bn}
+        params["out"] = {"conv": L.init_conv3d(generator, (1, 1, 1), c_last,
+                                               1, device=device)}
         return params, state
 
     def apply(self, params: Params, state: State, x: torch.Tensor,
@@ -128,7 +125,7 @@ class UNet3D:
             h = act(L.conv3d(params[name]["conv"], h, compute_dtype,
                              spatial=spatial))
             if not train:
-                return L.batchnorm(params[name]["bn"], state[name], h)
+                return L.batchnorm(params[name]["bn"], state[name], h, False)
             h, new_state[name] = L.batchnorm(params[name]["bn"],
                                              state[name], h, train=True,
                                              group=stats)

@@ -3,12 +3,12 @@ components, watershed, segment reductions, kNN, matching, PR-GLS,
 subregions, the trimmed mean, rays, NMS and StarDist's ground truth, with
 the Hopper kernels' wrappers (``hopper_conv``, ``hopper_flood``,
 ``hopper_cc``, ``ladder``).  Exported here as the JAX package's
-``ops/__init__.py`` exports them, but for ``lcn``: ``ops.lcn`` stays the
-module (its callers import it as such; the function is
-``ops.lcn.lcn``)."""
+``ops/__init__.py`` exports them: ``ops.lcn`` is the function, as there;
+its module is imported by its dotted path (``from ..ops.lcn import
+...``)."""
 
 from .filters import box_sum, box_mean, gaussian_filter, uniform_filter
-from .lcn import normalize_image, normalize_label
+from .lcn import lcn, normalize_image, normalize_label
 from .tiling import plan_tiles, extract_tiles, stitch_tiles, tiled_apply
 from .edt import distance_transform_edt
 from .peaks import peak_local_max_mask
@@ -35,7 +35,7 @@ from .stardist_gt import star_dist3d, edt_prob
 
 __all__ = [
     "box_sum", "box_mean", "gaussian_filter", "uniform_filter",
-    "normalize_image", "normalize_label",
+    "lcn", "normalize_image", "normalize_label",
     "plan_tiles", "extract_tiles", "stitch_tiles", "tiled_apply",
     "distance_transform_edt", "peak_local_max_mask",
     "label_components", "label_components_raw", "label_components_values",

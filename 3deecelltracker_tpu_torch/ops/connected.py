@@ -3,21 +3,25 @@
 
 Mask components (``label_components_raw``, :30-83): every foreground voxel
 gets the 1-based flat index of its component's smallest voxel.  With full
-connectivity that is the hand-written CUDA kernel ``ops.hopper_cc.cc_label``
-on a CUDA tensor and the JAX loop on a CPU tensor; a connectivity below the
-number of axes runs the plain loop on every device (no path uses it, and the
-kernel is full-box only).  Every mode runs to the fixed point: the JAX twin
-stops after ``max_iters`` = 256 hook rounds, so the two differ only on a
-component the JAX loop leaves unfinished, which no mask of the path is.
+connectivity on a CUDA tensor that is the hand-written CUDA kernel
+``ops.hopper_cc.cc_label``, which runs to the fixed point; every other case
+(a CPU tensor, or a connectivity below the number of axes, which the
+full-box kernel does not take) runs the JAX loop in PyTorch, four hook
+rounds a pointer jump, stopped after ``max_iters`` hook rounds as JAX's is.
+The two differ only on a component that ``max_iters`` leaves unfinished,
+which no mask of the path is (ROADMAP.md C.8).
 
 Value-equal components (``label_components_values``, :115-167): two voxels
 join only when both are nonzero and equal-valued (skimage ``label`` on a
 label image).  Every foreground voxel starts with its own 1-based flat
 index; each round takes the minimum over equal-valued neighbours (hook) and
 follows the stored index twice (pointer jumping), until nothing changes or
-256 rounds.  The converged labels are each component's smallest index, so
-``relabel_sequential`` gives skimage's numbering.  This runs once per
-recording and stays plain PyTorch.
+``max_iters`` rounds.  The converged labels are each component's smallest
+index, so ``relabel_sequential`` gives skimage's numbering.  This runs once
+per recording and stays plain PyTorch.
+
+``max_labels`` has no effect, as in JAX (kept there for API compatibility:
+the presence bitmap of ``relabel_sequential`` needs no label budget).
 """
 
 from __future__ import annotations
@@ -35,22 +39,28 @@ CHECK_EVERY = 4   # rounds between host convergence checks (fixed point)
 
 def label_components_raw(mask: torch.Tensor,
                          connectivity: Optional[int] = None,
+                         max_iters: int = 256, *,
                          per_slice: bool = False) -> torch.Tensor:
     """Root-index component labels (>= 1, 0 background) of a mask;
     ``connectivity`` follows skimage, 1..ndim, default full.
-    ``per_slice``: label every z-slice of an (x, y, z) volume alone, with
-    slice-local indices (``watershed_2d``'s ``vmap``)."""
+    ``max_iters``: the hook rounds of the plain loop (the kernel runs to
+    the fixed point; module docstring).  ``per_slice``: label every
+    z-slice of an (x, y, z) volume alone, with slice-local indices
+    (``watershed_2d``'s ``vmap``)."""
     spatial = mask.dim() - (1 if per_slice else 0)
     conn = spatial if connectivity is None else int(connectivity)
-    if conn == spatial:
+    if conn == spatial and mask.device.type != "cpu":
         return cc_label(mask != 0, per_slice)
-    return label_components_raw_plain(mask, conn, per_slice)
+    return label_components_raw_plain(mask, conn, per_slice, max_iters)
 
 
 def label_components(mask: torch.Tensor,
-                     connectivity: Optional[int] = None) -> torch.Tensor:
+                     connectivity: Optional[int] = None,
+                     max_labels: int = 4096,
+                     max_iters: int = 256) -> torch.Tensor:
     """skimage-style ``label()``: sequential labels 1..K, 0 background."""
-    return relabel_sequential(label_components_raw(mask, connectivity))
+    return relabel_sequential(label_components_raw(mask, connectivity,
+                                                   max_iters))
 
 
 def label_components_values_raw(values: torch.Tensor,
@@ -90,7 +100,8 @@ def label_components_values_raw(values: torch.Tensor,
     return torch.where(fg, labels, 0)
 
 
-def relabel_sequential(labels: torch.Tensor) -> torch.Tensor:
+def relabel_sequential(labels: torch.Tensor,
+                       max_labels: int = 0) -> torch.Tensor:
     """Compact nonnegative ids (<= labels.numel()) to 1..K in id order:
     a presence bitmap and its cumulative sum."""
     flat = labels.reshape(-1).long()
@@ -106,6 +117,7 @@ def relabel_sequential(labels: torch.Tensor) -> torch.Tensor:
 
 def label_components_values(values: torch.Tensor,
                             connectivity: Optional[int] = None,
+                            max_labels: int = 4096,
                             max_iters: int = 256) -> torch.Tensor:
     return relabel_sequential(label_components_values_raw(
         values, connectivity, max_iters))

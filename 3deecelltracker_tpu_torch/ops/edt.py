@@ -1,9 +1,10 @@
-"""Exact Euclidean distance transform, dense and windowed methods
-(counterpart of ``3deecelltracker_tpu/ops/edt.py:59-88`` and ``:221-267``).
+"""Exact Euclidean distance transform, dense, lower-envelope and windowed
+methods (counterpart of ``3deecelltracker_tpu/ops/edt.py``).
 
 The squared EDT is separable: the first pass runs straight off the binary
-mask with two cumulative index scans; every further pass is a dense
-min-plus reduction over the line.  All distances stay exact integer
+mask with two cumulative index scans; every further pass is a min-plus
+reduction over the line, dense or by Felzenszwalb and Huttenlocher's lower
+envelope of parabolas.  All distances stay exact integer
 squares (times the squared sampling) until the final square root, because
 the watershed flood compares costs with ``==``.
 """
@@ -19,6 +20,8 @@ from . import numerics
 
 _INF = 1e20
 _CHUNK_ELEMS = 1 << 24
+_ENV_BIG = 1e9   # the envelope pass's finite infinity, raised by the caller
+                 # past the largest achievable squared distance
 
 
 def _move_last(x: torch.Tensor, axis: int) -> torch.Tensor:
@@ -76,22 +79,86 @@ def _minplus_pass_windowed(fsq: torch.Tensor, axis: int, w: float,
     return best.movedim(-1, axis)
 
 
+def _take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Row b's entry ``idx[b]`` of a (B, L) tensor."""
+    return torch.gather(x, 1, idx[:, None].long())[:, 0]
+
+
+def _minplus_pass_envelope(fsq: torch.Tensor, axis: int, w: float,
+                           env_big: float = _ENV_BIG) -> torch.Tensor:
+    """The exact lower-envelope pass (JAX ``_minplus_pass_envelope``,
+    ``edt.py:125``): O(L) amortized work a line.  The hull is built by one
+    loop over the line's positions with every line advancing in lockstep,
+    each step popping, while any line still must, the parabolas the new
+    one overtakes; its breakpoints ``z`` then rise strictly along each
+    line, so the parabola that rules position i is found for all lines and
+    positions at once by a sorted search (JAX's query scan advances to the
+    same one).  The arithmetic is JAX's, in float32."""
+    x = _move_last(fsq, axis)
+    shape = x.shape
+    L = shape[-1]
+    dev = x.device
+    big = np.float32(env_big)
+    f = torch.clamp_max(x.reshape(-1, L), float(big))
+    B = f.shape[0]
+    w2 = torch.tensor(np.float32(w * w), device=dev)
+    iota = torch.arange(L, dtype=torch.float32, device=dev)
+    fq_plus = f + w2 * iota[None, :] ** 2
+    two_w2 = 2.0 * w2
+
+    def intersect(q, vk):
+        num = _take(fq_plus, q) - _take(fq_plus, vk)
+        return num / (two_w2 * (q - vk).to(torch.float32))
+
+    rows = torch.arange(B, device=dev)
+    k = torch.zeros((B,), dtype=torch.int64, device=dev)
+    v = torch.zeros((B, L), dtype=torch.int64, device=dev)
+    z = torch.full((B, L), -torch.inf, dtype=torch.float32, device=dev)
+    for q in range(1, L):
+        qv = torch.full((B,), q, dtype=torch.int64, device=dev)
+        while True:
+            pop = (k > 0) & (intersect(qv, _take(v, k)) <= _take(z, k))
+            if not bool(pop.any()):
+                break
+            k = torch.where(pop, k - 1, k)
+        s = intersect(qv, _take(v, k))
+        k = k + 1
+        v[rows, k] = q
+        z[rows, k] = s
+    # j(i) = the last hull entry 1..k whose breakpoint lies below i
+    pos = torch.arange(L, device=dev)[None, :]
+    zs = torch.where((pos >= 1) & (pos <= k[:, None]), z, torch.inf)
+    j = torch.searchsorted(zs[:, 1:].contiguous(),
+                           iota[None, :].expand(B, L).contiguous())
+    vj = torch.gather(v, 1, j)
+    fv = torch.gather(f, 1, vj)
+    out = w2 * (iota[None, :] - vj.to(torch.float32)) ** 2 + fv
+    out = torch.where(out > big / 2, _INF, out)
+    return out.reshape(shape).movedim(-1, axis)
+
+
 def distance_transform_edt(mask: torch.Tensor,
                            sampling: Optional[Sequence[float]] = None,
-                           batch_ndim: int = 0,
-                           window: Optional[int] = None) -> torch.Tensor:
+                           window: Optional[int] = None,
+                           method: str = "dense", *,
+                           batch_ndim: int = 0) -> torch.Tensor:
     """Exact EDT: distance from each nonzero voxel to the nearest zero
-    voxel, with physical ``sampling`` per axis.  The first ``batch_ndim``
-    axes are independent batch axes (the JAX package vmaps instead).
-    ``window``: the search radius in voxels of every pass after the first
-    (JAX's windowed method, O(L * window) a line), exact wherever the true
-    distance is below ``window * min(sampling)``."""
+    voxel, with physical ``sampling`` per axis (JAX ``ops/edt.py:221``).
+    ``method``: every pass after the first, ``"dense"`` (O(L^2) a line) or
+    ``"envelope"`` (the exact O(L) lower envelope, the same distances up to
+    float32 rounding).  ``window``: the search radius in voxels of those
+    passes (JAX's windowed method, O(L * window) a line, overriding
+    ``method``), exact wherever the true distance is below ``window *
+    min(sampling)``.  The first ``batch_ndim`` axes are independent batch
+    axes (the JAX package vmaps instead)."""
     nd = mask.dim() - batch_ndim
     if sampling is None:
         sampling = (1.0,) * nd
     sampling = tuple(float(s) for s in sampling)
     if len(sampling) != nd:
         raise ValueError("sampling must have one entry per spatial axis")
+    if method not in ("dense", "envelope"):
+        raise ValueError(f"method {method!r}")
     fsq = None
     for i, w in enumerate(sampling):
         axis = batch_ndim + i
@@ -99,6 +166,13 @@ def distance_transform_edt(mask: torch.Tensor,
             fsq = _binary_pass_scan(mask, axis, w)
         elif window is not None:
             fsq = _minplus_pass_windowed(fsq, axis, w, window)
+        elif method == "envelope":
+            # the sentinel must pass the largest achievable d^2, or large
+            # finite distances would saturate where the dense pass is exact
+            bound = sum(((n - 1) * s) ** 2
+                        for n, s in zip(mask.shape[batch_ndim:], sampling))
+            fsq = _minplus_pass_envelope(fsq, axis, w,
+                                         max(_ENV_BIG, 16.0 * bound))
         else:
             fsq = _minplus_pass(fsq, axis, w)
     return numerics.sqrt(fsq)

@@ -1,8 +1,10 @@
 """Box means and separable gaussian blur (counterpart of
 ``3deecelltracker_tpu/ops/filters.py``: ``box_sum``, ``box_mean``,
-``uniform_filter``, ``gaussian_filter``).  The box filters take scipy's
-``"reflect"`` edges besides zero padding, the mode the LCN, the subregion
-atlas and the legacy watersheds use; the gaussian blur pads with zeros."""
+``uniform_filter``, ``gaussian_kernel_1d``, ``gaussian_filter``).  The box
+filters take zero padding (the LCN's and the atlas's default) or scipy's
+``"reflect"`` edges; the gaussian blur takes JAX's three modes, scipy's
+``"reflect"`` by default, ``"zero"`` (what the subregion atlas and the
+legacy watersheds pass) and ``"mirror"``."""
 
 from __future__ import annotations
 
@@ -37,10 +39,8 @@ def box_sum(x: torch.Tensor, size: Sequence[int],
             continue
         lo, hi = (k - 1) // 2, k // 2
         n = out.shape[axis]
-        if mode == "reflect":       # numpy's "symmetric"; zeros below
-            idx = np.pad(np.arange(n), (lo, hi), mode="symmetric")
-            out = torch.index_select(out, axis,
-                                     torch.from_numpy(idx).to(out.device))
+        if mode == "reflect":       # zeros below
+            out = _pad_index(out, axis, lo, hi, mode)
             lo = hi = 0
         pad = [0, 0] * out.dim()
         pad[2 * (out.dim() - 1 - axis):2 * (out.dim() - axis)] = [lo + 1, hi]
@@ -65,33 +65,57 @@ def uniform_filter(x: torch.Tensor, size: Sequence[int],
     return box_mean(x, size, mode)
 
 
-def gaussian_kernel_1d(sigma: float) -> np.ndarray:
-    """The discrete gaussian kernel scipy.ndimage uses."""
-    radius = int(TRUNCATE * float(sigma) + 0.5)
+def _pad_index(x: torch.Tensor, axis: int, lo: int, hi: int,
+               mode: str) -> torch.Tensor:
+    """``x`` extended by ``lo`` and ``hi`` entries along ``axis`` past its
+    edges as JAX's ``_pad_1d`` does: scipy's ``"reflect"`` is numpy's
+    ``"symmetric"`` (the edge value repeated), ``"mirror"`` numpy's
+    ``"reflect"``; one gather of numpy's index padding, so pads longer than
+    the axis fold back as numpy folds them."""
+    np_mode = {"reflect": "symmetric", "mirror": "reflect"}[mode]
+    idx = np.pad(np.arange(x.shape[axis]), (lo, hi), mode=np_mode)
+    return torch.index_select(x, axis, torch.from_numpy(idx).to(x.device))
+
+
+def gaussian_kernel_1d(sigma: float, truncate: float = TRUNCATE
+                       ) -> np.ndarray:
+    """The discrete gaussian kernel scipy.ndimage uses, of radius
+    ``int(truncate * sigma + 0.5)``."""
+    radius = int(truncate * float(sigma) + 0.5)
     xs = np.arange(-radius, radius + 1, dtype=np.float64)
     k = np.exp(-0.5 * (xs / float(sigma)) ** 2)
     return (k / k.sum()).astype(np.float32)
 
 
-def _conv_1d_along_axis(x: torch.Tensor, kernel: np.ndarray,
-                        axis: int) -> torch.Tensor:
-    """Correlate with a symmetric kernel along ``axis``, zero padding."""
+def _conv_1d_along_axis(x: torch.Tensor, kernel: np.ndarray, axis: int,
+                        mode: str) -> torch.Tensor:
+    """Correlate with a symmetric kernel along ``axis``, padded by
+    ``mode``."""
     k = kernel.shape[0]
+    r = k // 2
+    if mode != "zero":
+        x = _pad_index(x, axis, r, r, mode)
     moved = x.movedim(axis, -1)
     shape = moved.shape
-    flat = F.pad(moved.reshape(-1, shape[-1]), (k // 2, k // 2))
+    flat = moved.reshape(-1, shape[-1])
+    if mode == "zero":
+        flat = F.pad(flat, (r, r))
     filt = torch.from_numpy(kernel).to(x.device).reshape(1, 1, k)
     out = F.conv1d(flat[:, None, :], filt)[:, 0]
-    return out.reshape(shape).movedim(-1, axis)
+    return out.reshape(shape[:-1] + (out.shape[-1],)).movedim(-1, axis)
 
 
 def gaussian_filter(x: torch.Tensor,
                     sigma: Union[float, Sequence[float]],
+                    mode: str = "reflect", truncate: float = TRUNCATE, *,
                     batch_ndim: int = 0) -> torch.Tensor:
     """Separable gaussian blur matching ``scipy.ndimage.gaussian_filter``
-    with ``mode='constant'`` (the JAX package's ``mode="zero"``, the only
-    mode the subregion atlas uses); the first ``batch_ndim`` axes are
-    independent (not blurred)."""
+    (JAX ``ops/filters.py:103-126``).  ``mode``: ``"reflect"`` (scipy's
+    default), ``"zero"`` (scipy's ``"constant"``) or ``"mirror"``;
+    ``truncate``: the kernel radius in sigmas.  The first ``batch_ndim``
+    axes are independent (not blurred; the JAX package vmaps instead)."""
+    if mode not in ("zero", "reflect", "mirror"):
+        raise ValueError(f"unknown padding mode {mode!r}")
     nd = x.dim() - batch_ndim
     if np.isscalar(sigma):
         sigmas = (float(sigma),) * nd
@@ -103,8 +127,8 @@ def gaussian_filter(x: torch.Tensor,
     for i, s in enumerate(sigmas):
         if s <= 0:
             continue
-        kern = gaussian_kernel_1d(s)
+        kern = gaussian_kernel_1d(s, truncate)
         if kern.shape[0] <= 1:
             continue
-        out = _conv_1d_along_axis(out, kern, batch_ndim + i)
+        out = _conv_1d_along_axis(out, kern, batch_ndim + i, mode)
     return out

@@ -56,10 +56,13 @@ def _box_min(labels: torch.Tensor, axes) -> torch.Tensor:
 
 def label_components_raw_plain(mask: torch.Tensor,
                                connectivity: Optional[int] = None,
-                               per_slice: bool = False) -> torch.Tensor:
+                               per_slice: bool = False,
+                               max_iters: Optional[int] = None
+                               ) -> torch.Tensor:
     """The JAX loop (``ops/connected.py:30-83``) in PyTorch: 1-based flat
     indices, min-propagated by four hook rounds per pointer jump until
-    nothing changes (no round cap, unlike the JAX loop's 256).
+    nothing changes, or, given ``max_iters``, until that many hook rounds
+    have run (JAX's cap, counted as JAX counts it: four a jump).
     ``per_slice``: the last axis is a batch axis and each slice is labeled
     alone (slice-local indices, connectivity counted over the slice's
     axes)."""
@@ -91,12 +94,16 @@ def label_components_raw_plain(mask: torch.Tensor,
         parent = torch.where(flat == _BIG, _BIG, torch.gather(flat, 1, idx))
         return parent.reshape(lab.shape)
 
-    while True:
+    jumps = None if max_iters is None else -(-int(max_iters) // 4)
+    while jumps is None or jumps > 0:
         changed = []
-        for _ in range(CHECK_EVERY):
+        for _ in range(CHECK_EVERY if jumps is None
+                       else min(CHECK_EVERY, jumps)):
             new = jump(hook(hook(hook(hook(labels)))))
             changed.append((new != labels).any())
             labels = new
+        if jumps is not None:
+            jumps -= len(changed)
         if not bool(torch.stack(changed).all()):
             break
     out = torch.where(fg, labels, 0).to(torch.int32)

@@ -21,10 +21,6 @@ from . import numerics
 from .rays import (nearest_ray, radius_gather, radius_toward,
                    sample_directions_fibonacci)
 
-# quasi-MC overlap: sample directions x cube-root-uniform radius fractions
-N_SAMPLES = 64
-N_FRACS = 4
-
 
 def _norm(v: torch.Tensor) -> torch.Tensor:
     return numerics.sqrt(torch.sum(v * v, dim=-1))
@@ -32,21 +28,23 @@ def _norm(v: torch.Tensor) -> torch.Tensor:
 
 def overlap_matrix(centers: torch.Tensor, dists: torch.Tensor,
                    rays: torch.Tensor, valid: torch.Tensor,
+                   n_samples: int = 64, n_fracs: int = 4,
                    neighbor_limit: int = 32,
                    prob: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """(k, k) overlap[i, j] ~ |P_i cap P_j| / |P_j| (see the JAX twin for
-    the sampling and the neighbour restriction)."""
+    """(k, k) overlap[i, j] ~ |P_i cap P_j| / |P_j| from ``n_samples``
+    quasi-MC directions x ``n_fracs`` cube-root-uniform radius fractions
+    (see the JAX twin for the sampling and the neighbour restriction)."""
     k = centers.shape[0]
     dev = centers.device
-    dirs = torch.from_numpy(sample_directions_fibonacci(N_SAMPLES)).to(dev)
-    fr = torch.from_numpy((((np.arange(N_FRACS) + 0.5) / N_FRACS)
+    dirs = torch.from_numpy(sample_directions_fibonacci(n_samples)).to(dev)
+    fr = torch.from_numpy((((np.arange(n_fracs) + 0.5) / n_fracs)
                            ** (1.0 / 3.0)).astype(np.float32)).to(dev)
     r = radius_toward(dists, rays, dirs)                        # (k, s)
     pts = centers[:, None, None, :] + \
         (r[:, :, None, None] * fr[None, None, :, None]) * \
         dirs[None, :, None, :]
     pts = pts.reshape(k, -1, 3)                                 # (k, s*f, 3)
-    w = torch.repeat_interleave(r ** 3, N_FRACS, dim=1)         # (k, s*f)
+    w = torch.repeat_interleave(r ** 3, n_fracs, dim=1)         # (k, s*f)
     w_norm = w / torch.clamp_min(torch.sum(w, dim=-1, keepdim=True), 1e-20)
 
     if neighbor_limit and neighbor_limit < k:

@@ -25,19 +25,25 @@ def _window_max(img: torch.Tensor, k: int, axes) -> torch.Tensor:
 
 def peak_local_max_mask(image: torch.Tensor, min_distance: int = 1,
                         exclude_border: Optional[int] = None,
+                        threshold_abs: Optional[float] = None, *,
                         batch_ndim: int = 0) -> torch.Tensor:
     """Bool mask of voxels equal to the max of their (2 min_distance + 1)
-    window and above the image minimum; plateaus are all marked.
-    ``exclude_border`` (default ``min_distance``) clears peaks that close
-    to the edge.  The first ``batch_ndim`` axes are independent
-    images (the JAX package vmaps instead), each with its own minimum."""
+    window and above ``threshold_abs`` (default: the image minimum);
+    plateaus are all marked.  ``exclude_border`` (default
+    ``min_distance``) clears peaks that close to the edge.  The first
+    ``batch_ndim`` axes are independent images (the JAX package vmaps
+    instead), each with its own minimum."""
     if exclude_border is None:
         exclude_border = min_distance
     k = 2 * int(min_distance) + 1
     img = image.to(torch.float32)
     spatial = range(batch_ndim, img.dim())
     maxf = _window_max(img, k, spatial)
-    thresh = torch.amin(img, dim=tuple(spatial), keepdim=True)
+    if threshold_abs is None:
+        thresh = torch.amin(img, dim=tuple(spatial), keepdim=True)
+    else:
+        thresh = torch.tensor(threshold_abs, dtype=torch.float32,
+                              device=img.device)
     mask = (img == maxf) & (img > thresh)
     if exclude_border:
         b = int(exclude_border)

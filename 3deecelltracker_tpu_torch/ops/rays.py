@@ -1,7 +1,7 @@
 """Star-convex polyhedron rays (counterpart of
 ``3deecelltracker_tpu/ops/rays.py``): golden-spiral unit directions in
 (z, y, x) order, the nearest-ray radius lookup NMS and the render use,
-polyhedron volumes, interior sampling, and the quantized-direction ray LUT
+polyhedron volumes and their per-ray weights, interior sampling, and the quantized-direction ray LUT
 (the JAX package keeps it as a measured-slower alternative to the argmax;
 so does the port)."""
 
@@ -34,6 +34,14 @@ def rays_golden_spiral(n: int = 96,
         v = v / np.asarray(anisotropy, np.float64)
     v = v / np.linalg.norm(v, axis=1, keepdims=True)
     return v.astype(np.float32)
+
+
+def rays_volume_weights(rays: np.ndarray) -> np.ndarray:
+    """Per-ray solid-angle weights for volume estimation: each ray owns
+    ~4 pi / n of the sphere, so vol ~ sum_k w_k r_k^3 with w = 4 pi / (3 n)
+    (float32, host numpy as JAX's)."""
+    n = rays.shape[0]
+    return np.full((n,), 4.0 * np.pi / (3.0 * n), np.float32)
 
 
 def sample_directions_fibonacci(s: int) -> np.ndarray:

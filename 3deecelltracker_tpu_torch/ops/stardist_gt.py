@@ -55,12 +55,16 @@ def _batch(labels: torch.Tensor) -> torch.Tensor:
 
 
 def star_dist3d(labels: torch.Tensor, rays, max_dist: int = 32,
+                ray_chunk: int = 16, *,
                 grid: Sequence[int] = (1, 1, 1)) -> torch.Tensor:
     """([b,] z, y, x) int labels -> ([b,] z', y', x', n_rays) float32 ray
     distances at the voxels ``[::gz, ::gy, ::gx]``.  Background voxels get
     0; a ray still inside its label after ``max_dist`` steps gets
     ``max_dist``; samples outside the volume read background.  ``rays``
-    are host values (numpy or a CPU tensor): they decide the offsets."""
+    are host values (numpy or a CPU tensor): they decide the offsets.
+    ``ray_chunk`` is kept so the signature matches JAX's and is ignored,
+    as JAX ignores it: every ray is marched in one pass."""
+    del ray_chunk
     lab = _batch(labels).to(torch.int32)
     if isinstance(rays, torch.Tensor):
         rays = rays.detach().cpu().numpy()

@@ -92,7 +92,8 @@ def build_subregion_atlas(label_image: torch.Tensor, n_cells: int,
     percentage = 1.0 - nnz / n_real_orig.to(torch.float32)
 
     sub_rep = torch.repeat_interleave(sub, f, dim=3)
-    smooth = gaussian_filter(sub_rep, smooth_sigma, batch_ndim=1)
+    smooth = gaussian_filter(sub_rep, smooth_sigma, mode="zero",
+                             batch_ndim=1)
     zf = torch.arange(box_shape[2] * f, device=dev)
     inside = ((grids[0][None, :, None, None] < ext[:, 0, None, None, None])
               & (grids[1][None, None, :, None] < ext[:, 1, None, None, None])
@@ -174,6 +175,29 @@ def _paste_scatter(canvas_shape, boxes: torch.Tensor,
     return labels.reshape(canvas_shape), overlap.reshape(canvas_shape)
 
 
+def _moved_cells(atlas: SubregionAtlas, movements: Optional[torch.Tensor],
+                 include: Optional[torch.Tensor], out_of_range: str
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The movements (zeros by default) and the cells to paste: the
+    valid ones of ``include`` (all by default), less with
+    ``out_of_range="drop"`` the cells the reference's paste skips (bounds
+    in the full interpolated frame; ``"clip"`` keeps them)."""
+    if out_of_range not in ("clip", "drop"):
+        raise ValueError(f"out_of_range {out_of_range!r}")
+    dev = atlas.boxes.device
+    n = atlas.n_cells
+    if movements is None:
+        movements = torch.zeros((n, 3), dtype=torch.int32, device=dev)
+    if include is None:
+        include = torch.ones((n,), dtype=torch.bool, device=dev)
+    include = include & atlas.valid
+    if out_of_range == "drop":
+        x, y, z = atlas.image_shape
+        include = include & _reference_in_bounds(
+            atlas, movements, (x, y, z * atlas.interpolation_factor))
+    return movements, include
+
+
 def move_cells_sampled(atlas: SubregionAtlas,
                        movements: Optional[torch.Tensor] = None,
                        include: Optional[torch.Tensor] = None,
@@ -187,15 +211,10 @@ def move_cells_sampled(atlas: SubregionAtlas,
     them where overlap > 1).  ``out_of_range="drop"`` skips the cells the
     reference's paste skips (bounds in the full interpolated frame);
     ``"clip"`` clamps them into the canvas."""
-    if out_of_range not in ("clip", "drop"):
-        raise ValueError(f"out_of_range {out_of_range!r}")
+    movements, include = _moved_cells(atlas, movements, include,
+                                      out_of_range)
     dev = atlas.boxes.device
     n = atlas.n_cells
-    if movements is None:
-        movements = torch.zeros((n, 3), dtype=torch.int32, device=dev)
-    if include is None:
-        include = torch.ones((n,), dtype=torch.bool, device=dev)
-    include = include & atlas.valid
     f = atlas.interpolation_factor
     off = f // 2
     x, y, z = atlas.image_shape
@@ -205,9 +224,6 @@ def move_cells_sampled(atlas: SubregionAtlas,
     canvas_shape = (x + 2 * pad[0], y + 2 * pad[1], z + 2 * pad[2])
 
     pos_interp = atlas.origins + movements.to(torch.int32)
-    if out_of_range == "drop":
-        include = include & _reference_in_bounds(atlas, movements,
-                                                 (x, y, z * f))
     boxes_r = atlas.boxes.reshape(n, bx, by, bz, f)
     z0 = pos_interp[:, 2]
     r = torch.remainder(off - z0, f)
@@ -227,21 +243,22 @@ def move_cells_sampled(atlas: SubregionAtlas,
 
 def move_cells_full(atlas: SubregionAtlas,
                     movements: Optional[torch.Tensor] = None,
-                    include: Optional[torch.Tensor] = None
+                    include: Optional[torch.Tensor] = None,
+                    overlap_mode: str = "add",
+                    out_of_range: str = "clip"
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The reference's ``move_cells`` on the whole interpolated canvas
     (x, y, z * f): every included cell pasted at origin + movement
     (``movements`` (n, 3) int, interp frame; ``include`` (n,) bool, False
-    for a missed cell), a cell pushed past the padded canvas clamped into
-    it.  Returns (labels, overlap count); overlapping voxels hold the sum
-    of ids."""
+    for a missed cell).  Returns (labels, overlap count); overlapping
+    voxels hold the sum of ids, or with ``overlap_mode="last"`` the
+    largest.  ``out_of_range``: a cell pushed past the padded canvas is
+    clamped into it (``"clip"``) or skipped as the reference skips it
+    (``"drop"``); ``"last"`` with ``"drop"`` is the reference's paste
+    byte for byte."""
+    movements, include = _moved_cells(atlas, movements, include,
+                                      out_of_range)
     dev = atlas.boxes.device
-    n = atlas.n_cells
-    if movements is None:
-        movements = torch.zeros((n, 3), dtype=torch.int32, device=dev)
-    if include is None:
-        include = torch.ones((n,), dtype=torch.bool, device=dev)
-    include = include & atlas.valid
     f = atlas.interpolation_factor
     x, y, z = atlas.image_shape
     full_shape = (x, y, z * f)
@@ -252,6 +269,7 @@ def move_cells_full(atlas: SubregionAtlas,
     hi = torch.tensor([c - b for c, b in zip(canvas_shape, atlas.box_shape)],
                       dtype=torch.int32, device=dev)
     pos = torch.minimum(torch.clamp_min(pos, 0), hi)
-    cl, cm = _paste_scatter(canvas_shape, atlas.boxes, pos, include)
+    cl, cm = _paste_scatter(canvas_shape, atlas.boxes, pos, include,
+                            overlap_mode)
     sl = tuple(slice(p, p + s) for p, s in zip(pad, full_shape))
     return cl[sl], cm[sl]

@@ -54,7 +54,7 @@ def recalculate_cell_boundaries(segmentation_xyz: torch.Tensor,
     return labels
 
 
-def find_boundaries_outer(labels: torch.Tensor, connectivity: int,
+def find_boundaries_outer(labels: torch.Tensor, connectivity: int, *,
                           batch_ndim: int = 0) -> torch.Tensor:
     """skimage ``find_boundaries(mode='outer')``: background voxels next to
     an object, and object voxels next to a different nonzero label.  The
@@ -106,7 +106,7 @@ def watershed_2d(image_pred: torch.Tensor, min_distance: int = 7,
     pred = image_pred.permute(2, 0, 1)                       # (z, x, y)
     bn = pred > 0.5
     dist = distance_transform_edt(bn, (1.0, 1.0), batch_ndim=1)
-    dist_smooth = gaussian_filter(dist, 2.0, batch_ndim=1)
+    dist_smooth = gaussian_filter(dist, 2.0, mode="zero", batch_ndim=1)
     peaks = peak_local_max_mask(dist_smooth, min_distance=min_distance,
                                 batch_ndim=1)
     markers = label_components_raw(peaks.permute(1, 2, 0).contiguous(),
@@ -136,7 +136,7 @@ def watershed_3d(image_watershed2d: torch.Tensor,
         raise ValueError("method must be 'min_size' or 'cell_num'")
     mask = image_watershed2d != 0
     dist = distance_transform_edt(mask, tuple(float(s) for s in samplingrate))
-    dist_smooth = gaussian_filter(dist, (2.0, 2.0, 0.3))
+    dist_smooth = gaussian_filter(dist, (2.0, 2.0, 0.3), mode="zero")
     peaks = peak_local_max_mask(dist_smooth, min_distance=min_distance,
                                 exclude_border=0)
     markers = relabel_sequential(label_components_raw(peaks))

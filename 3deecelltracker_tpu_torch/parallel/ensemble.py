@@ -107,11 +107,13 @@ def make_sharded_ensemble_members(mesh, data_axis: str = "data",
 
 
 def make_sharded_ensemble_step(mesh, data_axis: str = "data",
-                               trim_proportion: float = 0.1,
                                **static_kwargs):
     """As :func:`make_sharded_ensemble_members`, combined by the trimmed
-    mean over ALL E rows: (L, 3).  With padded members use
+    mean over ALL E rows: (L, 3), cutting ``trim_proportion`` of
+    ``static_kwargs`` (0.1 by default) from each end, as JAX's
+    ``ensemble_track_step`` takes it.  With padded members use
     :func:`make_sharded_ensemble_members` and trim the real rows."""
+    trim_proportion = static_kwargs.pop("trim_proportion", 0.1)
     members = make_sharded_ensemble_members(mesh, data_axis,
                                             **static_kwargs)
 

@@ -17,7 +17,7 @@ ranks, this rank's place on it and its device.
 from __future__ import annotations
 
 import weakref
-from typing import List, NamedTuple, Optional, Tuple
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -46,37 +46,48 @@ def require_group() -> None:
 
 
 def make_mesh(n_data: int, n_spatial: int = 1,
-              device_type: Optional[str] = None,
-              axis_names: Tuple[str, str] = ("data", "spatial")
-              ) -> DeviceMesh:
-    """A (``n_data``, ``n_spatial``) mesh of the world's first ``n_data *
-    n_spatial`` ranks, named ``axis_names``.  ``device_type``: ``"cuda"``
-    (the default: each rank's card) or ``"cpu"`` (a ``gloo`` group).
+              devices: Optional[Sequence[int]] = None,
+              axis_names: Tuple[str, str] = ("data", "spatial"), *,
+              device_type: Optional[str] = None) -> DeviceMesh:
+    """A (``n_data``, ``n_spatial``) mesh of the first ``n_data *
+    n_spatial`` of ``devices``, named ``axis_names``.  ``devices``: global
+    ranks, JAX's device list (default: the world's ranks in order).
+    ``device_type``: ``"cuda"`` (the default: each rank's card) or
+    ``"cpu"`` (a ``gloo`` group).
 
     Every rank of the world calls it (the mesh's groups are made
-    collectively).  A world with fewer ranks raises ``ValueError``, as
-    JAX's does with too few devices; in a larger world the ranks from
-    ``n_data * n_spatial`` on are outside the mesh (``get_coordinate()``
-    is None there) and the mesh entry points raise on them."""
+    collectively).  Fewer ranks than that raise ``ValueError``, as JAX's
+    does with too few devices; the ranks left out are outside the mesh
+    (``get_coordinate()`` is None there) and the mesh entry points raise
+    on them."""
     require_group()
     device_type = device_type or "cuda"
     if device_type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("make_mesh(device_type='cuda') needs a CUDA "
                            "card; pass device_type='cpu' for gloo ranks")
     world = dist.get_world_size()
+    ranks = list(range(world)) if devices is None else \
+        [int(r) for r in devices]
+    if any(not 0 <= r < world for r in ranks) or len(set(ranks)) < \
+            len(ranks):
+        raise ValueError(f"devices must be distinct ranks below {world}, "
+                         f"got {ranks}")
     need = int(n_data) * int(n_spatial)
-    if world < need:
-        raise ValueError(f"need {need} devices, have {world}")
-    grid = torch.arange(need).reshape(int(n_data), int(n_spatial))
+    if len(ranks) < need:
+        raise ValueError(f"need {need} devices, have {len(ranks)}")
+    grid = torch.tensor(ranks[:need]).reshape(int(n_data), int(n_spatial))
     return DeviceMesh(device_type, grid, mesh_dim_names=tuple(axis_names))
 
 
-def make_mesh_from_config(config, device_type: Optional[str] = None
+def make_mesh_from_config(config, devices: Optional[Sequence[int]] = None,
+                          *, device_type: Optional[str] = None
                           ) -> DeviceMesh:
-    """The mesh a :class:`t3dct_torch.MeshConfig` describes."""
+    """The mesh a :class:`t3dct_torch.MeshConfig` describes, over
+    ``devices`` (global ranks; default: the world's)."""
     return make_mesh(config.data_parallel, config.spatial_parallel,
-                     device_type=device_type,
-                     axis_names=(config.data_axis, config.spatial_axis))
+                     devices=devices,
+                     axis_names=(config.data_axis, config.spatial_axis),
+                     device_type=device_type)
 
 
 class MeshAxis(NamedTuple):

@@ -40,7 +40,7 @@ from .mesh import MeshAxis, mesh_all, mesh_axis
 
 
 def bce_from_probs(probs: torch.Tensor, labels: torch.Tensor,
-                   eps: float = 1e-7, axis: Optional[MeshAxis] = None
+                   eps: float = 1e-7, *, axis: Optional[MeshAxis] = None
                    ) -> torch.Tensor:
     """Binary cross entropy on sigmoid outputs (Keras
     ``binary_crossentropy``, the reference's loss at ``unet3d.py:415``): the

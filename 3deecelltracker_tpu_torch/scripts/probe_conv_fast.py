@@ -132,7 +132,7 @@ def device_ms(fn: Callable[[], object], kernel: str, reps: int = 10,
 def init_conv(c_in: int, c_out: int, seed: int,
               device: torch.device) -> Dict[str, torch.Tensor]:
     g = torch.Generator().manual_seed(seed)
-    p = layers.init_conv3d((3, 3, 3), c_in, c_out, g, device)
+    p = layers.init_conv3d(g, (3, 3, 3), c_in, c_out, device=device)
     p["b"] = (torch.randn((c_out,), generator=g) * 0.1).to(device)
     return p
 

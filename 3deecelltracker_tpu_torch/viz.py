@@ -29,6 +29,8 @@ from typing import Optional
 
 import numpy as np
 
+from .io.artifacts import (MERGED_LABELS, MERGED_LABELS_XZ, TRACK_RESULTS,
+                           ResultsTree)
 from .io.imageio import load_2d_slices_at_time
 
 
@@ -128,20 +130,23 @@ def _blend(a: np.ndarray, b: np.ndarray) -> np.ndarray:
     return ((a.astype(np.uint16) + b) >> 1).astype(np.uint8)
 
 
-def save_merged_labels(root, labels_xyz: np.ndarray, images_path,
+def save_merged_labels(tree, corrected_labels_image, images_path,
                        t: int, interpolation_factor: int) -> None:
     """The labels of volume ``t`` over its raw volume, as x-y and x-z max
-    projections (z stretched by ``interpolation_factor``), into
+    projections (z stretched by ``interpolation_factor``), into the
+    results tree ``tree`` (an ``io.artifacts.ResultsTree`` or its root
+    directory):
     ``track_results/merged_labels{,_xz}/merged_labels{,_xz}_t%06d.png``."""
-    lab = np.asarray(labels_xyz).astype(np.int64)
+    root = tree.root if isinstance(tree, ResultsTree) else Path(tree)
+    lab = np.asarray(corrected_labels_image).astype(np.int64)
     raw = load_2d_slices_at_time(images_path, t=t)
     merged = _blend(_label_rgb(lab.max(axis=2)), _gray_rgb(raw.max(axis=0)))
     lab_xz = np.repeat(_label_rgb(lab.max(axis=0)).transpose(1, 0, 2),
                        interpolation_factor, axis=0)
     raw_xz = np.repeat(raw.max(axis=1), interpolation_factor, axis=0)
     merged_xz = _blend(lab_xz, _gray_rgb(raw_xz))
-    d1 = Path(root) / "track_results" / "merged_labels"
-    d2 = Path(root) / "track_results" / "merged_labels_xz"
+    d1 = root / TRACK_RESULTS / MERGED_LABELS
+    d2 = root / TRACK_RESULTS / MERGED_LABELS_XZ
     d1.mkdir(parents=True, exist_ok=True)
     d2.mkdir(parents=True, exist_ok=True)
     write_png(d1 / ("merged_labels_t%06d.png" % t), merged)

@@ -269,7 +269,27 @@ Phases (any failure raises and the script exits non-zero):
    iterations per volume beside the record's, the kernels of a loop
    iteration of the EM with either M-step (``torch.profiler``), and seg,
    track and wall ms a volume with and without refinement in turns
-   (refine, plain, refine, plain) over volumes 1-11.
+   (refine, plain, refine, plain) over volumes 1-11;
+30. the operator library at JAX's signatures (path ``ops_surface``): on
+   the bench scene's geometry, each option the port took from JAX's
+   signatures on the card against the same call on CPU tensors:
+   ``gaussian_filter`` in its three modes at two truncations (1e-6),
+   ``lcn`` / ``normalize_image`` with reflect padding and ``config``
+   (1e-5 relative), the envelope EDT (1e-6 relative, and against the
+   card's dense pass) and ``window`` by position (exact),
+   ``peak_local_max_mask(threshold_abs)``, ``label_components*`` with
+   ``max_iters`` on an unfinished serpentine, ``move_cells_full`` in its
+   four mode pairs, the neighbourhood reductions (exact),
+   ``overlap_matrix`` at (32, 2) and (128, 8) samples (1e-6),
+   ``star_dist3d(ray_chunk)`` (ignored, as in JAX: equal to the
+   one-pass call on the card and exact against the CPU) and
+   ``ffn_pair_scores(row_chunk)`` (1e-6 against the unchunked call on the
+   card and against the CPU), ``legacy_correction_and_render(labels_u8)``,
+   ``upsample_prob_pipeline(xp)`` and ``make_mesh(devices=[0])`` over an
+   NCCL world of one; then ``watershed_2d`` and ``watershed_3d`` on a
+   probability volume of the bench scene's cells, their zero-mode blur,
+   ``cc_label`` and (2-D) ``flood_slices`` launches counted, equal to the
+   CPU's; prints one ``[ops_surface]`` line of results.
 
 Every kernel's entry in the kernels line carries its bound: the least time
 the card could take, the larger of its bytes (inputs read once, the output
@@ -649,7 +669,8 @@ def phase_conv(dev):
         lead = (TILE_BATCH,) if batched else ()
         xin = torch.relu(torch.randn(lead + tuple(shape) + (ci,),
                                      generator=gen)).to(dev)
-        w = glorot_uniform((3, 3, 3, ci, co), 27 * ci, 27 * co, gen, dev)
+        w = glorot_uniform(gen, (3, 3, 3, ci, co), 27 * ci, 27 * co,
+                           device=dev)
         b = (torch.randn((co,), generator=gen) * 0.1).to(dev)
         r = conv_row(xin, w, b, relu=not batched)
         (t_b, by), (t_tc, by_tc) = r["bound"], r["tc_bound"]
@@ -791,10 +812,12 @@ def phase_cc(dev):
     cells = torch.from_numpy(lab1.transpose(1, 2, 0) > 0).to(dev)
     # watershed_3d's and watershed_2d's peak masks of the scene's cells
     d3 = gaussian_filter(distance_transform_edt(
-        cells, (1.0, 1.0, LEG_SEG["z_xy_ratio"])), (2.0, 2.0, 0.3))
+        cells, (1.0, 1.0, LEG_SEG["z_xy_ratio"])), (2.0, 2.0, 0.3),
+        mode="zero")
     peaks3 = peak_local_max_mask(d3, 3, exclude_border=0)
     d2 = gaussian_filter(distance_transform_edt(
-        cells.permute(2, 0, 1), (1.0, 1.0), batch_ndim=1), 2.0, batch_ndim=1)
+        cells.permute(2, 0, 1), (1.0, 1.0), batch_ndim=1), 2.0, mode="zero",
+        batch_ndim=1)
     peaks2 = peak_local_max_mask(d2, 7, batch_ndim=1).permute(
         1, 2, 0).contiguous()
     snake = torch.from_numpy(serpentine(tuple(cells.shape))).to(dev)
@@ -860,7 +883,7 @@ def bench_model(dev, n_rays=96, base=32, feat=128, max_candidates=256,
                          unet_n_filter_base=base, net_conv_after_unet=feat,
                          prob_thresh=0.3, nms_thresh=0.3)
     params = with_intensity_path(
-        StarDist3DNet(cfg).init(torch.Generator().manual_seed(0), dev), cfg)
+        StarDist3DNet(cfg).init(torch.Generator().manual_seed(0), device=dev), cfg)
     return StarDist3D(cfg, params=params, max_candidates=max_candidates,
                       render_box=render_box, device=dev)
 
@@ -1619,7 +1642,8 @@ def phase_train_grads(dev, layers, relu=True, tag="train grad"):
     for (*shape, ci, co), n in layers.items():
         xin = torch.relu(torch.randn(tuple(shape) + (ci,), generator=gen)
                          ).to(dev)
-        w = glorot_uniform((3, 3, 3, ci, co), 27 * ci, 27 * co, gen, dev)
+        w = glorot_uniform(gen, (3, 3, 3, ci, co), 27 * ci, 27 * co,
+                           device=dev)
         b = (torch.randn((co,), generator=gen) * 0.1).to(dev)
         go = torch.randn(tuple(shape) + (co,), generator=gen).to(dev)
         stem = ci == 1
@@ -2993,7 +3017,8 @@ def phase_variants(dev, smi, root, folder, errs):
         for (*shape, ci, co), n in unet_conv_layers(spec).items():
             xin = torch.relu(torch.randn((n_tiles,) + tuple(shape) + (ci,),
                                          generator=gen)).to(dev)
-            w = glorot_uniform((3, 3, 3, ci, co), 27 * ci, 27 * co, gen, dev)
+            w = glorot_uniform(gen, (3, 3, 3, ci, co), 27 * ci, 27 * co,
+                               device=dev)
             b = (torch.randn((co,), generator=gen) * 0.1).to(dev)
             kernel, err, tol = conv_err(xin, w, b, False)
             del xin
@@ -3425,7 +3450,8 @@ def bf16_layer_rows(dev, smi):
         xin = torch.randn(shape, generator=dgen, device=dev)
         if ci > 1:
             xin = torch.relu_(xin).to(torch.bfloat16)
-        w = glorot_uniform((3, 3, 3, ci, co), 27 * ci, 27 * co, gen, dev)
+        w = glorot_uniform(gen, (3, 3, 3, ci, co), 27 * ci, 27 * co,
+                           device=dev)
         b = (torch.randn((co,), generator=gen) * 0.1).to(dev)
         r = bf16_row(xin, w, b, bf16_bn(co, gen, dev),
                      acts.get(model, "relu"))
@@ -4579,6 +4605,217 @@ def phase_bench_refine(dev, smi, root, pattern, centers, bench):
     return launches
 
 
+OPS_BLUR_ATOL = 1e-6
+OPS_LCN_RTOL = 1e-5
+OPS_EDT_RTOL = 1e-6
+OPS_OVERLAP_ATOL = 1e-6
+OPS_SCORE_ATOL = 1e-6
+
+
+def phase_ops_surface(dev, smi, root):
+    """Phase 30 (see the module docstring): every option on the card
+    against the same call on CPU tensors, then the watersheds with their
+    kernels counted.  Returns the watersheds' launches."""
+    import torch
+    from t3dct_torch.engine.legacy import legacy_correction_and_render
+    from t3dct_torch.engine.transformer import upsample_prob_pipeline
+    from t3dct_torch.models.ffn import feature_distance_ffn, ffn_pair_scores
+    from t3dct_torch.ops import (connected, edt, filters, neighborhood, nms,
+                                 peaks, rays, stardist_gt, subregions)
+    from t3dct_torch.ops.lcn import lcn, normalize_image
+    from t3dct_torch.ops.watershed import watershed_2d, watershed_3d
+    from t3dct_torch.utils.synthetic import make_recording, serpentine
+    from t3dct_torch.config import LcnConfig, MeshConfig
+    t_phase = time.perf_counter()
+    cpu = torch.device("cpu")
+    vols, _, lab1 = make_recording(1, N_CELLS, (Z, Y, X))
+    lab_xyz = np.ascontiguousarray(lab1.transpose(1, 2, 0))
+    rng = np.random.RandomState(30)
+    # a probability volume of the scene's cells (x, y, z): the cells
+    # blurred, with noise
+    cells = torch.from_numpy((lab_xyz > 0).astype(np.float32))
+    prob = torch.clamp(filters.gaussian_filter(cells, (1.5, 1.5, 0.4),
+                                               "zero")
+                       + torch.from_numpy(rng.rand(*lab_xyz.shape).astype(
+                           np.float32) * 0.1 - 0.05), 0.0, 1.0)
+    raw = torch.from_numpy(vols[0].transpose(1, 2, 0).astype(np.float32))
+    res, bad = {}, []
+
+    def both(fn, *args):
+        """``fn`` on the card and on the CPU, args moved to each."""
+        def on(d):
+            return fn(*[a.to(d) if isinstance(a, torch.Tensor) else a
+                        for a in args])
+        return on(dev), on(cpu)
+
+    def hold(name, got, want, atol=0.0, rtol=0.0):
+        got, want = got.cpu().to(torch.float64), want.to(torch.float64)
+        err = float((got - want).abs().max()) if got.numel() else 0.0
+        lim = atol + rtol * float(want.abs().max())
+        res[name] = err
+        if got.shape != want.shape or not err <= lim:
+            bad.append(f"{name}: off by {err:.3e} (limit {lim:.1e})")
+
+    for mode in ("reflect", "zero", "mirror"):
+        for trunc in (4.0, 2.2):
+            hold(f"gaussian_{mode}_{trunc}", *both(
+                lambda x: filters.gaussian_filter(x, (2.0, 2.0, 0.3), mode,
+                                                  trunc), prob),
+                atol=OPS_BLUR_ATOL)
+    cfg = LcnConfig(noise_level=200.0, filter_size=(27, 27, 1),
+                    padding="reflect")
+    hold("lcn_reflect", *both(lambda x: lcn(x, 200.0, (27, 27, 1),
+                                            "reflect"), raw),
+         rtol=OPS_LCN_RTOL)
+    hold("lcn_config", *both(lambda x: lcn(x, config=cfg), raw),
+         rtol=OPS_LCN_RTOL)
+    hold("normalize_image_reflect", *both(
+        lambda x: normalize_image(x, 200.0, (27, 27, 1), "reflect", 61),
+        raw), rtol=OPS_LCN_RTOL)
+    mask = prob > 0.5
+    samp = (1.0, 1.0, LEG_SEG["z_xy_ratio"])
+    env_card, env_cpu = both(lambda m: edt.distance_transform_edt(
+        m, samp, None, "envelope"), mask)
+    hold("edt_envelope", env_card, env_cpu, rtol=OPS_EDT_RTOL)
+    hold("edt_envelope_vs_dense", env_card.cpu(),
+         edt.distance_transform_edt(mask.to(dev), samp).cpu(),
+         rtol=OPS_EDT_RTOL)
+    hold("edt_window", *both(lambda m: edt.distance_transform_edt(
+        m, samp, 5), mask))
+    smooth = filters.gaussian_filter(env_cpu, (2.0, 2.0, 0.3), "zero")
+    hold("peaks_threshold_abs", *both(lambda d: peaks.peak_local_max_mask(
+        d, 3, 0, 1.5).to(torch.uint8), smooth))
+    snake = torch.from_numpy(serpentine((Y, X, 2)))
+    for it in (4, 256):
+        hold(f"label_components_conn1_{it}", *both(
+            lambda m: connected.label_components(m, 1, 4096, it), snake))
+        hold(f"label_components_values_{it}", *both(
+            lambda v: connected.label_components_values(v, 3, 4096, it),
+            torch.from_numpy(lab_xyz)))
+    atlas = subregions.build_subregion_atlas(torch.from_numpy(lab_xyz),
+                                             N_CELLS, (24, 24, 4), 10)
+    n = atlas.n_cells
+    mv = torch.from_numpy(rng.randint(-30, 31, (n, 3)).astype(np.int32))
+    inc = torch.from_numpy(rng.rand(n) < 0.9)
+    atlas_card = subregions.SubregionAtlas(
+        atlas.boxes.to(dev), atlas.origins.to(dev), atlas.valid.to(dev),
+        atlas.interpolation_factor, atlas.image_shape)
+    for om in ("add", "last"):
+        for oor in ("clip", "drop"):
+            got = subregions.move_cells_full(atlas_card, mv.to(dev),
+                                             inc.to(dev), om, oor)
+            want = subregions.move_cells_full(atlas, mv, inc, om, oor)
+            for g, w, part in zip(got, want, ("labels", "overlap")):
+                hold(f"move_cells_full_{om}_{oor}_{part}", g, w)
+    for fn in ("neighbor_max", "neighbor_min"):
+        hold(fn, *both(lambda x: getattr(neighborhood, fn)(x, 3, None,
+                                                           include_self=True),
+                       prob))
+    k = 256
+    centers = torch.from_numpy(np.stack(
+        [rng.randint(1, Z - 1, k), rng.randint(2, Y - 2, k),
+         rng.randint(2, X - 2, k)], 1).astype(np.float32))
+    dists = torch.from_numpy((rng.rand(k, 96) * 4 + 2).astype(np.float32))
+    cprob = torch.from_numpy(rng.rand(k).astype(np.float32))
+    valid = torch.from_numpy(rng.rand(k) < 0.9)
+    ray_dirs = torch.from_numpy(rays.rays_golden_spiral(96,
+                                                        (9.2, 1.0, 1.0)))
+    for ns, nf in ((32, 2), (128, 8)):
+        hold(f"overlap_matrix_{ns}x{nf}", *both(
+            lambda c, d, r, v, p: nms.overlap_matrix(c, d, r, v, ns, nf,
+                                                     32, p),
+            centers, dists, ray_dirs, valid, cprob), atol=OPS_OVERLAP_ATOL)
+    patch = torch.from_numpy(np.ascontiguousarray(lab1[:, :64, :64]))
+    r32 = rays.rays_golden_spiral(32, (9.2, 1.0, 1.0))
+    sd_card = stardist_gt.star_dist3d(patch.to(dev), r32, 32, 16)
+    sd_whole = stardist_gt.star_dist3d(patch.to(dev), r32, 32, 0)
+    if not torch.equal(sd_card, sd_whole):
+        bad.append("star_dist3d: ray_chunk 16 differs from ray_chunk 0 "
+                   "on the card")
+    hold("star_dist3d_ray_chunk", sd_card,
+         stardist_gt.star_dist3d(patch, r32, 32, 16))
+    fp, fs = feature_distance_ffn(torch.Generator().manual_seed(1), cpu)
+    f1 = torch.from_numpy(rng.randn(200, 61).astype(np.float32))
+    f2 = torch.from_numpy(rng.randn(190, 61).astype(np.float32))
+    fp_card = {a: {b: t.to(dev) for b, t in v.items()} for a, v in fp.items()}
+    fs_card = {a: {b: t.to(dev) for b, t in v.items()} for a, v in fs.items()}
+    sc_card = ffn_pair_scores(fp_card, fs_card, f1.to(dev), f2.to(dev), 64)
+    sc_off = float((sc_card - ffn_pair_scores(
+        fp_card, fs_card, f1.to(dev), f2.to(dev))).abs().max())
+    if not sc_off <= OPS_SCORE_ATOL:
+        bad.append(f"ffn_pair_scores: row_chunk 64 is {sc_off:.3e} off the "
+                   f"unchunked scores on the card (tolerance "
+                   f"{OPS_SCORE_ATOL})")
+    hold("ffn_pair_scores_row_chunk", sc_card,
+         ffn_pair_scores(fp, fs, f1, f2, 64), atol=OPS_SCORE_ATOL)
+    weights = torch.from_numpy(rng.rand(*lab_xyz.shape).astype(np.float16))
+    tracked = torch.from_numpy(rng.rand(n, 3).astype(np.float32) * 20)
+    i0 = torch.zeros((n, 3), dtype=torch.int32)
+    args = (atlas_card, weights.to(dev), i0.to(dev), inc.to(dev),
+            tracked.to(dev), LEG_SEG["z_xy_ratio"], LEG_SEG["z_scaling"])
+    u8 = legacy_correction_and_render(*args, max_repetition=3,
+                                      labels_u8=True)[2]
+    i32 = legacy_correction_and_render(*args, max_repetition=3)[2]
+    if u8.dtype != torch.uint8 or not torch.equal(u8, i32.to(torch.uint8)):
+        bad.append(f"legacy_correction_and_render(labels_u8): {u8.dtype}, "
+                   "not the int32 labels as uint8")
+    # the (x, y, z) frame's grid: x by GRID[1], y by GRID[2], z by GRID[0]
+    grid_prob = rng.rand(Y // 2 + 1, X // 2, Z).astype(np.float32)
+    up = upsample_prob_pipeline(torch.from_numpy(grid_prob).to(dev), GRID,
+                                (Y, X, Z), xp=torch)
+    hold("upsample_prob_pipeline_xp",
+         up, torch.from_numpy(upsample_prob_pipeline(grid_prob, GRID,
+                                                     (Y, X, Z), xp=np)))
+    from t3dct_torch.parallel import make_mesh, make_mesh_from_config
+    from t3dct_torch.parallel import multihost
+    multihost.initialize(num_processes=1, process_id=0,
+                         store=str(root / "ops_surface_store"))
+    try:
+        for m in (make_mesh(1, 1, [0]),
+                  make_mesh_from_config(MeshConfig(), devices=[0])):
+            if m.mesh.tolist() != [[0]] or m.device_type != "cuda":
+                bad.append(f"make_mesh(devices=[0]): {m}")
+    finally:
+        torch.distributed.destroy_process_group()
+
+    # the watersheds on the card: the zero-mode blur, cc_label, the flood
+    def watersheds(p):
+        cells2d, boundary = watershed_2d(p)
+        # the scene's cells hold ~70 voxels each
+        return (cells2d, boundary) + tuple(watershed_3d(
+            cells2d, samp, min_size=LEG_RETRAIN_MIN_SIZE)[:2])
+
+    t0 = time.perf_counter()
+    ws_card, ws_launches = counted(lambda: watersheds(prob.to(dev)))
+    ws_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    ws_cpu = watersheds(prob)
+    ws_cpu_ms = (time.perf_counter() - t0) * 1e3
+    for name, g, w in zip(("ws2d_cells", "ws2d_boundary", "ws3d_labels",
+                           "ws3d_labels_with_boundaries"), ws_card, ws_cpu):
+        res[f"{name}_voxels_differing"] = int((g.cpu() != w).sum())
+        if not torch.equal(g.cpu(), w):
+            bad.append(f"{name}: {res[f'{name}_voxels_differing']} voxels "
+                       "differ from the CPU's")
+    if int(ws_card[2].max()) < N_CELLS // 2:
+        bad.append(f"watershed_3d found {int(ws_card[2].max())} cells of "
+                   f"{N_CELLS}")
+    if ws_launches["cc_label"] != 2 or ws_launches["flood_slices"] != 1:
+        bad.append(f"watersheds: cc_label {ws_launches['cc_label']} and "
+                   f"flood_slices {ws_launches['flood_slices']} launches, "
+                   "want 2 and 1")
+    res.update(ws_card_ms=ws_ms, ws_cpu_ms=ws_cpu_ms,
+               ws3d_cells=int(ws_card[2].max()),
+               cc_label_launches=ws_launches["cc_label"],
+               flood_slices_launches=ws_launches["flood_slices"],
+               flood_rounds=ws_launches["flood_rounds"],
+               seconds=time.perf_counter() - t_phase)
+    print(f"[ops_surface] {smi}: " + json.dumps(res))
+    if bad:
+        raise AssertionError("ops_surface: " + "; ".join(bad))
+    return ws_launches
+
+
 def main() -> int:
     if not (ROOT / "3deecelltracker_tpu_torch").is_dir():
         print("chip_smoke.py must run from a checkout of the repository",
@@ -4647,6 +4884,7 @@ def main() -> int:
         t0 = time.perf_counter()
         refine = phase_bench_refine(dev, smi, Path(tmp), *scene, bench)
         print(f"[bench_refine] phase {time.perf_counter() - t0:.1f} s")
+        ops_surface = phase_ops_surface(dev, smi, Path(tmp))
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
 
@@ -4665,6 +4903,7 @@ def main() -> int:
                    **{path: n[name] for path, n in mesh.items()},
                    "demo": demo[name], "bench_u8": u8[name],
                    "bench_refine": refine[name],
+                   "ops_surface": ops_surface[name],
                    **{path: n[name] for path, n in mesh_train.items()}}
         return dict(launches=sum(by_path.values()),
                     launches_by_path=by_path)

@@ -203,7 +203,8 @@ def test_block_equals_unfused(case):
     conv, bn, state = port_params(w, p)
     xt = port_input(x)
     fn = L.leaky_relu if act == "leaky_relu" else torch.relu
-    want = L.batchnorm(bn, state, fn(L.conv3d(conv, xt, BF16))).to(BF16)
+    want = L.batchnorm(bn, state, fn(L.conv3d(conv, xt, BF16)),
+                       False).to(BF16)
     assert torch.equal(L.conv_block_bf16(conv, bn, state, xt, act), want)
 
 
@@ -236,7 +237,7 @@ def composed(spec, params, state, x, compute_dtype, train=False):
     def block(name, h):
         h = act(L.conv3d(params[name]["conv"], h, compute_dtype))
         if not train:
-            return L.batchnorm(params[name]["bn"], state[name], h)
+            return L.batchnorm(params[name]["bn"], state[name], h, False)
         h, new_state[name] = L.batchnorm(params[name]["bn"], state[name], h,
                                          train=True)
         return h

@@ -227,7 +227,7 @@ def test_routing_of_the_models_layers():
                          anisotropy=(9.2, 1.0, 1.0), unet_n_filter_base=32,
                          net_conv_after_unet=128)
     gen = torch.Generator().manual_seed(0)
-    backbone = list(_conv_weights(StarDist3DNet(cfg).init(gen, "cpu")))
+    backbone = list(_conv_weights(StarDist3DNet(cfg).init(gen, device="cpu")))
     unet = list(_conv_weights(unet3_a().init(gen, device="cpu")[0]))
     assert sorted(set(backbone)) == sorted(
         {(ci, co) for _, _, _, ci, co, _ in chip_smoke.CONV_LAYERS})

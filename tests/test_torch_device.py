@@ -85,11 +85,13 @@ ENTRY_POINTS = {
 }
 
 HELPERS = {
-    "glorot_uniform": lambda g: layers.glorot_uniform((2, 3), 2, 3, g),
-    "init_conv3d": lambda g: layers.init_conv3d((3, 3, 3), 2, 3, g),
+    "glorot_uniform": lambda g: layers.glorot_uniform(g, (2, 3), 2, 3),
+    "init_conv3d": lambda g: layers.init_conv3d(g, (3, 3, 3), 2, 3),
     "UNet3D.init": lambda g: UNet3D().init(g),
     "StarDist3DNet.init": lambda g: StarDist3DNet(StarDistConfig()).init(g),
     "init_ffn": lambda g: ffn.init_ffn(g),
+    "init_dense": lambda g: layers.init_dense(g, 2, 3),
+    "init_bn": lambda g: layers.init_bn(3),
     "feature_distance_ffn": lambda g: ffn.feature_distance_ffn(g),
     "stardist_params_from_numpy": lambda g: convert.stardist_params_from_numpy(
         {"stem": {"w": np.zeros(3)}}),
@@ -137,7 +139,7 @@ def test_coordinates_keep_a_tensors_device(no_card):
 
 def test_explicit_cpu_runs_without_a_card(no_card):
     g = torch.Generator().manual_seed(0)
-    p = layers.init_conv3d((3, 3, 3), 2, 3, g, "cpu")
+    p = layers.init_conv3d(g, (3, 3, 3), 2, 3, device="cpu")
     assert p["w"].device.type == "cpu" and p["b"].device.type == "cpu"
     t = CoordsToImageTransformer(None, (1.0, 1.0, 1.0), device="cpu")
     assert t.device == torch.device("cpu")

@@ -468,7 +468,7 @@ def em_parting(ts=(5, 7, 9, 11, 13, 15, 17, 19)) -> dict:
     from t3dct_torch.ops.prgls import pr_gls_quick
     from t3dct_torch.utils.checkpoint import load_pytree
     jffn = jload(jinit_ffn(jax.random.PRNGKey(0)), BENCH / "ffn.npz")
-    ffn = load_pytree(init_ffn(torch.Generator().manual_seed(0), "cpu"),
+    ffn = load_pytree(init_ffn(torch.Generator().manual_seed(0), device="cpu"),
                       BENCH / "ffn.npz")
     rec = np.load(RECORD)
     beta_up = float(np.nextafter(np.float32(300.0), np.float32(400.0)))

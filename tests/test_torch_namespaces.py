@@ -2,8 +2,8 @@
 JAX ``__all__`` (the top level's config classes for the package itself;
 for ``viz``, which has no ``__all__``, the names its source defines) is
 bound in the port's namespace of the same name, to a class where JAX's
-is a class and to a function where JAX's is a function, but for the names
-listed with their reasons.  Then the twins that came with them:
+is a class and to a function where JAX's is a function (``ops.lcn`` the
+function, as in JAX).  Then the twins that came with them:
 ``utils.profiling`` and ``models.FFN`` against JAX's."""
 
 import ast
@@ -31,10 +31,6 @@ from test_torch_scene import to_jax
 TOP_LEVEL = ["ops", "Coordinates", "LcnConfig", "MeshConfig",
              "SegmentationConfig", "StarDistConfig", "TrackingConfig",
              "TrainFfnConfig", "TrainUnetConfig"]
-LEFT_OUT = {
-    "ops": {"lcn": "ops.lcn stays the module, which the port's callers "
-                   "import as such; the function is ops.lcn.lcn"},
-}
 
 
 def kind(obj) -> str:
@@ -67,17 +63,13 @@ def test_namespace_binds_jax_names(namespace):
                                                     if namespace else ""))
     names = TOP_LEVEL if not namespace else getattr(
         jmod, "__all__", None) or defined_names(jmod)
-    left_out = LEFT_OUT.get(namespace, {})
-    assert set(left_out) <= set(names)
-    missing = [n for n in names if n not in left_out
-               and not hasattr(tmod, n)]
+    missing = [n for n in names if not hasattr(tmod, n)]
     assert not missing, missing
-    wrong = [n for n in names if n not in left_out
-             and kind(getattr(tmod, n)) != kind(getattr(jmod, n))]
+    wrong = [n for n in names
+             if kind(getattr(tmod, n)) != kind(getattr(jmod, n))]
     assert not wrong, wrong
     if hasattr(jmod, "__all__"):
-        assert sorted(tmod.__all__) == sorted(
-            n for n in names if n not in left_out)
+        assert sorted(tmod.__all__) == sorted(names)
     # the examples' own import lines
     if namespace == "engine":
         from t3dct_torch.engine import (  # noqa: F401
@@ -163,7 +155,7 @@ def test_ffn_dataclass_matches_jax():
     assert (FFN().n_features, FFN().hidden) == (JFFN().n_features,
                                                 JFFN().hidden)
     spec = FFN(n_features=5, hidden=16)
-    params, state = spec.init(torch.Generator().manual_seed(0), "cpu")
+    params, state = spec.init(torch.Generator().manual_seed(0), device="cpu")
     jparams, jstate = JFFN(5, 16).init(jax.random.PRNGKey(0))
     shapes = jax.tree_util.tree_map(lambda a: tuple(a.shape), jparams)
     assert jax.tree_util.tree_map(lambda t: tuple(t.shape), params) == shapes

@@ -94,7 +94,7 @@ def to_jax(tree):
 def stardist_params(seed=0, intensity_path=True):
     cfg = StarDistConfig(**SD_CFG)
     params = StarDist3DNet(cfg).init(torch.Generator().manual_seed(seed),
-                                     "cpu")
+                                     device="cpu")
     return with_intensity_path(params, cfg) if intensity_path else params
 
 

@@ -293,5 +293,5 @@ def test_batchnorm_train_matches_jax():
     for k in ("mean", "var"):
         np.testing.assert_allclose(gs[k].numpy(), np.asarray(ws[k]),
                                    rtol=1e-6, atol=1e-6)
-    eval_y = L.batchnorm(tp, ts, torch.from_numpy(x))
+    eval_y = L.batchnorm(tp, ts, torch.from_numpy(x), False)
     assert isinstance(eval_y, torch.Tensor)

@@ -55,7 +55,7 @@ def normalized(raw):
 def models():
     cfg = StarDistConfig(**CFG)
     params = with_intensity_path(StarDist3DNet(cfg).init(
-        torch.Generator().manual_seed(0), "cpu"), cfg)
+        torch.Generator().manual_seed(0), device="cpu"), cfg)
     jm = JStarDist3D(JStarDistConfig(**CFG), params=to_jax(params), **MODEL)
     tm = StarDist3D(cfg, params=params, device="cpu", **MODEL)
     return jm, tm

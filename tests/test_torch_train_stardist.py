@@ -180,7 +180,7 @@ def test_optimize_thresholds_matches_jax(monkeypatch):
     0.3: the pass-through's fixed 3-voxel rays reach 0.5 on no cell."""
     cfg = StarDistConfig(**CFG)
     params = with_intensity_path(StarDist3DNet(cfg).init(
-        torch.Generator().manual_seed(0), "cpu"), cfg)
+        torch.Generator().manual_seed(0), device="cpu"), cfg)
     jmodel = JStarDist3D(JStarDistConfig(**CFG), params={
         k: {s: v.numpy() for s, v in d.items()} for k, d in params.items()})
     tmodel = StarDist3D(cfg, params=params, device="cpu")

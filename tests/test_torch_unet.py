@@ -21,7 +21,8 @@ from t3dct_torch.engine.segmentation import UNetSegmenter
 from t3dct_torch.models import layers
 from t3dct_torch.models.unet3d import (UNet3D, get_unet, unet3_a,
                                        with_intensity_path)
-from t3dct_torch.ops import lcn, tiling
+from t3dct_torch.ops import tiling
+from t3dct_torch.ops.lcn import lcn, median_midpoint, normalize_image
 from t3dct_torch.ops.filters import box_mean
 from t3dct_torch.utils.convert import unet_from_numpy
 
@@ -99,7 +100,7 @@ def test_box_mean_matches(size):
 def test_lcn_matches(noise):
     x = raw_volume(seed=2)
     want = np.asarray(jlcn.lcn(jnp.asarray(x), noise))
-    got = lcn.lcn(torch.from_numpy(x), noise).numpy()
+    got = lcn(torch.from_numpy(x), noise).numpy()
     np.testing.assert_allclose(got, want, rtol=LCN_RTOL,
                                atol=LCN_RTOL * np.abs(want).max())
 
@@ -112,8 +113,8 @@ def test_normalize_image_matches(stride):
     assert x.reshape(-1)[::61].size % 2 == 0
     want = np.asarray(jlcn.normalize_image(jnp.asarray(x), 20.0,
                                            median_stride=stride))
-    got = lcn.normalize_image(torch.from_numpy(x), 20.0,
-                              median_stride=stride).numpy()
+    got = normalize_image(torch.from_numpy(x), 20.0,
+                          median_stride=stride).numpy()
     np.testing.assert_allclose(got, want, rtol=LCN_RTOL,
                                atol=LCN_RTOL * np.abs(want).max())
 
@@ -122,7 +123,7 @@ def test_normalize_image_matches(stride):
 def test_median_midpoint_even_and_odd(n):
     x = np.random.RandomState(n).rand(n).astype(np.float32) * 1000
     want = np.float32(np.asarray(jnp.median(jnp.asarray(x))))
-    got = lcn.median_midpoint(torch.from_numpy(x)).numpy()
+    got = median_midpoint(torch.from_numpy(x)).numpy()
     assert got == want
     if n % 2 == 0:
         # torch.median takes the lower middle value: not the JAX median
@@ -198,7 +199,7 @@ def test_batched_conv_equals_per_volume():
     path the kernel's batch launch is held to on the card)."""
     g = torch.Generator().manual_seed(6)
     x = torch.randn((3, 10, 9, 8, 5), generator=g)
-    p = layers.init_conv3d((3, 3, 3), 5, 7, g, "cpu")
+    p = layers.init_conv3d(g, (3, 3, 3), 5, 7, device="cpu")
     got = layers.conv3d(p, x)
     # the CPU convolution blocks a batch differently: f32 summation order
     for i in range(3):

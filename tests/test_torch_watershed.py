@@ -119,5 +119,6 @@ def test_gaussian_filter_close(sigma):
     x = rng.rand(3, 9, 8, 30).astype(np.float32)
     want = np.asarray(jax.vmap(lambda v: jgauss(v, sigma, mode="zero"))(
         jnp.asarray(x)))
-    got = gaussian_filter(torch.from_numpy(x), sigma, batch_ndim=1)
+    got = gaussian_filter(torch.from_numpy(x), sigma, mode="zero",
+                          batch_ndim=1)
     np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-6)

@@ -99,7 +99,7 @@ def stardist_model(sd_cfg: dict, max_candidates: int, render_box,
     """``tests/test_torch_scene.py::stardist_pair``'s port model."""
     cfg = StarDistConfig(**sd_cfg)
     params = with_intensity_path(StarDist3DNet(cfg).init(
-        torch.Generator().manual_seed(seed), "cpu"), cfg)
+        torch.Generator().manual_seed(seed), device="cpu"), cfg)
     return StarDist3D(cfg, params=params, max_candidates=max_candidates,
                       render_box=tuple(render_box), device="cpu")
 
