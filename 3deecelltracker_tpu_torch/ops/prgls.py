@@ -37,8 +37,10 @@ STALL_LIMIT = 30.0          # stop after this many non-improving iterations
 def gaussian_gram(a: torch.Tensor, b: torch.Tensor,
                   beta_sq) -> torch.Tensor:
     """exp(-|a_i - b_j|^2 / (2 beta_sq)); ``beta_sq`` a number or a tensor
-    that broadcasts against the (..., n, m) distances."""
-    return torch.exp(-pairwise_sq_dists(a, b) / (2.0 * beta_sq))
+    that broadcasts against the (..., n, m) distances.  The exponential is
+    ``numerics.exp``: correctly rounded on the card, whose float32 ``exp``
+    is not."""
+    return numerics.exp(-pairwise_sq_dists(a, b) / (2.0 * beta_sq))
 
 
 def solve_m_step(coeff: torch.Tensor, dep: torch.Tensor) -> torch.Tensor:

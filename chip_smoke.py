@@ -260,16 +260,23 @@ Phases (any failure raises and the script exits non-zero):
    residuals, ``ops/df32.py``), held to ``assets/bench/
    jax_record_refine.npz``: kept cells as phase 11 holds them, the
    coordinates and labels at twice the port's CPU run's departure from
-   the record (``REFINE_*``: the refined EM is chaotic), strict recall and
-   the strict accuracy over every volume equal, the identity switches
-   printed beside the record's; its launches of the two f32 convs and the
-   flood equal to phase 11's (the refined EM launches no hand kernel);
-   ``ops/df32.py``'s ``two_sum`` and ``two_prod`` exact against float64
-   on the card and its compensated residual within 1e-6; prints the EM
-   iterations per volume beside the record's, the kernels of a loop
-   iteration of the EM with either M-step (``torch.profiler``), and seg,
-   track and wall ms a volume with and without refinement in turns
-   (refine, plain, refine, plain) over volumes 1-11;
+   the record (``REFINE_*``: the refined EM is chaotic), strict recall,
+   the strict accuracy over every volume and the identity switches equal;
+   its launches of the two f32 convs and the flood equal to phase 11's
+   (the refined EM launches no hand kernel); the card's coordinates of the
+   run and its last step's arguments and outputs (and each step where it
+   switches an identity, held to the CPU's replay of it) written to
+   ``chiprun_out/bench_refine/``; ROADMAP C.11's step (``assets/bench/
+   card_refine_t21.npz``, where the card once switched a row) run
+   again on the card with no switch and held to the CPU's replay of the
+   same inputs (``hold_step_replay``); ``ops/df32.py``'s ``two_sum`` and
+   ``two_prod`` exact against float64 on the card and its compensated
+   residual within 1e-6 on JAX's test system and on the EM's own final
+   M-step of volume 2; prints the EM iterations per volume beside the
+   record's, the kernels of a loop iteration of the EM with either M-step
+   (``torch.profiler``), and seg, track and wall ms a volume with and
+   without refinement in turns (refine, plain, refine, plain) over
+   volumes 1-5;
 30. the operator library at JAX's signatures (path ``ops_surface``): on
    the bench scene's geometry, each option the port took from JAX's
    signatures on the card against the same call on CPU tensors:
@@ -286,7 +293,12 @@ Phases (any failure raises and the script exits non-zero):
    ``ffn_pair_scores(row_chunk)`` (1e-6 against the unchunked call on the
    card and against the CPU), ``legacy_correction_and_render(labels_u8)``,
    ``upsample_prob_pipeline(xp)`` and ``make_mesh(devices=[0])`` over an
-   NCCL world of one; then ``watershed_2d`` and ``watershed_3d`` on a
+   NCCL world of one; ``fused_track_from_seg`` and
+   ``fused_track_and_correct`` (ensemble, uint8 labels) under JAX's names
+   on the scene's vol-1 atlas and seg-like candidates of t = 1 and 2, the
+   floored EM (``fused_twins``: coordinates within phase 11's
+   ``COORD_MEDIAN`` of the CPU's, labels exact); then ``watershed_2d``
+   and ``watershed_3d`` on a
    probability volume of the bench scene's cells, their zero-mode blur,
    ``cc_label`` and (2-D) ``flood_slices`` launches counted, equal to the
    CPU's; prints one ``[ops_surface]`` line of results.
@@ -4412,22 +4424,206 @@ REFINE = 8
 # departure, 6.97, is over half of it); labels 0.997608 equal at least, so
 # REFINE_LABELS_EQUAL; kept cells exact as phase 11 holds them; strict
 # recall and the strict accuracy over every volume (every cell within the
-# gate of its own identity at every t) equal to the record's, 1.0.  The
-# identity switches (a row whose nearest true centre changes) are printed
-# beside the record's and not held: on the card (NVIDIA H100 80GB HBM3,
-# 700 W) one row ends 5.21 real units from its own centre at t = 21 and
-# 4.28 from a neighbour's, whose centre is 9.37 away, inside the gate,
-# which counts one switch; the port's CPU runs with the EM on 1-4 torch
-# threads (four trajectories) and JAX's record count 0
+# gate of its own identity at every t) and the identity switches (a row
+# whose nearest true centre changes) equal to the record's, 1.0 and 0.
+# The switches were once printed, not held: the card switched one row at
+# t = 21 (ROADMAP C.11), which JAX's record and every CPU run of the port
+# did not.  Replayed on the CPU from the card's own inputs of that step
+# (assets/bench/card_refine_t21.npz), JAX and the port on 1 and 4 threads
+# switch nothing (tests/test_torch_refine_replay.py): the card departed
+# in that one step.  Its first op past float32 rounding was the card's
+# exp (CUDA's expf, up to 1.7 ulp off and biased), which the port now
+# takes correctly rounded on the card (ops/numerics.py::exp); every other
+# op of the EM is as near float64 on the card as on the CPU.  The phase
+# runs that step again on the card and holds it as the CPU replays it
+# (card_replay_check).
 REFINE_COORD_MEDIAN = 1.157
 REFINE_LABELS_EQUAL = 0.9952
 # the turns run the first REFINE_TURN_VOLS volumes: a refined run takes
-# ~1.5-2.4 s a volume (NVIDIA H100 80GB HBM3, 700 W), and the script's
+# ~1.5-2.6 s a volume (NVIDIA H100 80GB HBM3, 700 W), and the script's
 # time limit is shared by every phase
-REFINE_TURN_VOLS = 11
+REFINE_TURN_VOLS = 5
+# the card's step and the CPU's replay of it from equal inputs: the same
+# identity switches; the median cell within REFINE_COORD_MEDIAN and
+# labels REFINE_LABELS_EQUAL, the whole run's bounds, since the refined
+# EM stops by its stall rule after a walk on float32 noise whose length
+# one op's rounding decides (C.3: on C.11's step the repaired card runs
+# 152 EM iterations against the CPU's 58 and parts by a median of 0.3052
+# real units; routing single ops of the card's EM to the CPU gives 40-210
+# iterations and medians 0-0.3052); every cell within twice a voxel
+# step's diagonal in x/y (the correction's integer rounding moves a few
+# cells by whole voxel steps: 1.78 real units at most there)
+REPLAY_COORD_MAX = 2 * np.sqrt(2.0)
+CARD_STEP = ASSETS / "card_refine_t21.npz"
 # df32 on the card: the compensated residual within this share of the
 # largest float64 residual (JAX's tests/test_df32.py bound)
 DF32_RES_RTOL = 1e-6
+
+
+# phase 29 keeps the card's own tracking steps: every step that
+# identity_switches flags, and the last, as the card passed it to
+# pipeline.track_from_seg, with the card's outputs (step_state), written
+# with the card's coordinates of the whole run into REFINE_OUT
+REFINE_OUT = ROOT / "chiprun_out" / "bench_refine"
+STEP_TENSORS = ("confirmed_raw", "coord_vol1_raw", "pts1_zyx", "kept1",
+                "pts2_zyx", "kept2", "prob_zyx_grid")
+STEP_ARGS = ("voxel_size", "image_shape", "beta", "lambda_",
+             "max_repetition", "k_points", "max_iteration", "prob_grid",
+             "m_step_refine", "pad_n", "ensemble")
+
+
+def step_state(track, args, kwargs, out):
+    """One call of ``track`` (``pipeline.track_from_seg``) as numpy
+    arrays, each in the dtype it had: its tensor arguments, the atlas's
+    tensors (``atlas_*``), its other arguments but the FFN weights (the
+    committed ``ffn.npz``), and its outputs (``card_*``)."""
+    import inspect
+    call = inspect.signature(track).bind(*args, **kwargs)
+    call.apply_defaults()
+    a = call.arguments
+    atlas = a["atlas"]
+    state = {k: a[k].cpu().numpy() for k in STEP_TENSORS}
+    state.update({k: np.asarray(a[k]) for k in STEP_ARGS})
+    state.update(
+        atlas_boxes=atlas.boxes.cpu().numpy(),
+        atlas_origins=atlas.origins.cpu().numpy(),
+        atlas_valid=atlas.valid.cpu().numpy(),
+        atlas_interpolation_factor=np.asarray(atlas.interpolation_factor),
+        atlas_image_shape=np.asarray(atlas.image_shape),
+        card_corrected_raw=out.corrected_raw.cpu().numpy(),
+        card_labels=out.labels.cpu().numpy(),
+        card_prgls_iterations=out.prgls_iterations.cpu().numpy(),
+        card_correction_iterations=out.correction_iterations.cpu().numpy())
+    return state
+
+
+def step_arguments(state, device):
+    """(args, kwargs) of ``pipeline.track_from_seg`` rebuilt from a
+    ``step_state`` on ``device``, with the committed FFN weights."""
+    import torch
+    from t3dct_torch.ops.subregions import SubregionAtlas
+    from t3dct_torch.utils.convert import ffn_from_numpy, load_npz
+    ffn = load_npz(ASSETS / "ffn.npz")
+    atlas = SubregionAtlas(
+        *(torch.from_numpy(state[f"atlas_{k}"]).to(device)
+          for k in ("boxes", "origins", "valid")),
+        int(state["atlas_interpolation_factor"]),
+        tuple(int(v) for v in state["atlas_image_shape"]))
+    args = (*ffn_from_numpy(ffn["0"], ffn["1"], device),
+            *(torch.from_numpy(state[k]).to(device) for k in STEP_TENSORS),
+            atlas)
+    kwargs = {k: state[k].item() if state[k].ndim == 0 else
+              tuple(state[k].tolist()) for k in STEP_ARGS}
+    return args, kwargs
+
+
+def replay_step(state, threads):
+    """The card's step ``state`` run again by the port's
+    ``pipeline.track_from_seg`` on CPU tensors, torch on ``threads``
+    threads.  Returns (its output, seconds)."""
+    import torch
+    from t3dct_torch.engine import pipeline
+    args, kwargs = step_arguments(state, "cpu")
+    was = torch.get_num_threads()
+    torch.set_num_threads(threads)
+    try:
+        t0 = time.perf_counter()
+        out = pipeline.track_from_seg(*args, **kwargs)
+        return out, time.perf_counter() - t0
+    finally:
+        torch.set_num_threads(was)
+
+
+def switches_at(coords, centers, t):
+    """``identity_switches`` at step ``t``: (row, nearest true centre at
+    t - 1 and at t)."""
+    return [s[1:4] for s in identity_switches(coords, centers) if s[0] == t]
+
+
+def hold_step_replay(tag, state, card_raw, card_labels, coords, centers, t):
+    """The card's tracking step ``t`` from ``state`` (``step_state``),
+    its outputs ``card_raw`` and ``card_labels``, against the CPU's replay
+    of it from the same inputs (``replay_step``, one torch thread): the
+    same identity switches at t (``coords`` before t from the card's
+    run), the median cell within ``REFINE_COORD_MEDIAN``, every cell
+    within ``REPLAY_COORD_MAX``, labels ``REFINE_LABELS_EQUAL``.  Prints
+    the reading; returns what failed."""
+    vs = np.asarray(VOXEL_SIZE, np.float32)
+    out, secs = replay_step(state, 1)
+    card, cpu = dict(coords), dict(coords)
+    card[t], cpu[t] = card_raw * vs, out.corrected_raw.numpy() * vs
+    switched = switches_at(card, centers, t), switches_at(cpu, centers, t)
+    d = np.linalg.norm(card[t] - cpu[t], axis=1)
+    same = float((card_labels == out.labels.numpy()).mean())
+    print(f"[bench_refine] {tag}, t={t}: the card's step against the CPU's "
+          f"replay of it from the same inputs: switches (row, nearest true "
+          f"centre at t - 1 and at t) card {switched[0]}, CPU "
+          f"{switched[1]}; coordinates apart by median {np.median(d):.4e}, "
+          f"max {d.max():.4f} real units (row {int(d.argmax())}); labels "
+          f"{same:.6f} equal; EM iterations card "
+          f"{int(state['card_prgls_iterations'])}, CPU "
+          f"{int(out.prgls_iterations)}; the replay {secs:.2f} s")
+    if switched[0] != switched[1] or \
+            not np.median(d) <= REFINE_COORD_MEDIAN or \
+            not d.max() <= REPLAY_COORD_MAX or \
+            not same >= REFINE_LABELS_EQUAL:
+        return [f"{tag} t={t}: the card's step off the CPU's replay"]
+    return []
+
+
+def card_steps(smi, track, calls, coords, centers):
+    """Phase 29's record of the card's own steps: writes the card's
+    coordinates of the whole run (``coords.npz``) and each step that
+    ``identity_switches`` flags, and the last (``step_t<t>.npz``,
+    ``step_state``), into ``REFINE_OUT``, and holds each flagged step to
+    the CPU's replay of it (``hold_step_replay``).  Returns what
+    failed."""
+    switches = identity_switches(coords, centers)
+    steps = sorted({s[0] for s in switches} | {BENCH_VOLS})
+    REFINE_OUT.mkdir(parents=True, exist_ok=True)
+    meta = json.dumps(dict(card=smi, m_step_refine=REFINE,
+                           written_by="chip_smoke.py phase 29"))
+    np.savez_compressed(REFINE_OUT / "coords.npz", meta=meta,
+                        **{f"coords_{t}": c for t, c in coords.items()})
+    bad = []
+    for t in steps:
+        # the tracking calls ran for t = 2..BENCH_VOLS in turn (no miss
+        # frame)
+        state = step_state(track, *calls[t - 2])
+        np.savez_compressed(REFINE_OUT / f"step_t{t}.npz", meta=meta,
+                            **state)
+        if t in {s[0] for s in switches}:
+            bad += hold_step_replay(
+                "a switch", state, state["card_corrected_raw"],
+                state["card_labels"], coords, centers, t)
+    print(f"[bench_refine] the card's identity switches {switches}; its "
+          f"steps {steps} and coordinates written to {REFINE_OUT}")
+    return bad
+
+
+def card_replay_check(dev, centers):
+    """C.11's step on the card: the card's own inputs of t = 21 in the
+    run where it switched row 11 (``CARD_STEP``, an earlier port) run
+    again by this port on the card, held to no identity switch and to the
+    CPU's replay of the same inputs (``hold_step_replay``).  Returns what
+    failed."""
+    from t3dct_torch.engine import pipeline
+    t = BENCH_VOLS
+    with np.load(CARD_STEP) as data:
+        state = {k: data[k] for k in data.files}
+    args, kwargs = step_arguments(state, dev)
+    out = pipeline.track_from_seg(*args, **kwargs)
+    card_raw, card_labels = (out.corrected_raw.cpu().numpy(),
+                             out.labels.cpu().numpy())
+    state["card_prgls_iterations"] = out.prgls_iterations.cpu().numpy()
+    coords = {s: state[f"coords_{s}"] for s in range(1, t)}
+    bad = hold_step_replay("C.11's committed step", state, card_raw,
+                           card_labels, coords, centers, t)
+    coords[t] = card_raw * np.asarray(VOXEL_SIZE, np.float32)
+    if switches_at(coords, centers, t):
+        bad.append(f"C.11's committed step switches "
+                   f"{switches_at(coords, centers, t)} on the card")
+    return bad
 
 
 def df32_on_card(dev):
@@ -4477,6 +4673,49 @@ def df32_on_card(dev):
         bad.append(f"compensated residual {err / denom} of the residual, "
                    f"naive {err_naive / denom}")
     return bad
+
+
+def df32_on_em(args, kwargs):
+    """``compensated_residual`` on the EM's own system: the EM of
+    ``args``/``kwargs`` (volume 2's) run again on the card with the
+    compensated M-step, and its final M-step's true system ``a_true``,
+    right side ``dep`` and refined solution ``x`` kept; the compensated
+    residual ``dep - a_true x`` held within ``DF32_RES_RTOL`` of the
+    largest float64 residual of the same float32 values.  Prints the
+    reading beside the naive float32 residual's and the system's
+    condition number.  Returns what failed."""
+    import torch
+    from t3dct_torch.ops import prgls
+    from t3dct_torch.ops.df32 import compensated_residual
+    solve, last = prgls.solve_m_step_refined, []
+
+    def kept(coeff, a_true, dep, steps):
+        x = solve(coeff, a_true, dep, steps)
+        last[:] = [a_true, dep, x]
+        return x
+
+    prgls.solve_m_step_refined = kept
+    try:
+        prgls.prgls_with_two_ref(*args, **dict(kwargs, m_step_refine=REFINE))
+    finally:
+        prgls.solve_m_step_refined = solve
+    # the solve's own orientation: a_true^T x^T = dep^T
+    a, b, x = (v.mT for v in last)
+    f64 = torch.float64
+    want = b.to(f64) - a.to(f64) @ x.to(f64)
+    denom = float(want.abs().max())
+    err = float((compensated_residual(b, a, x).to(f64) - want).abs().max())
+    naive = float(((b - a @ x).to(f64) - want).abs().max())
+    cond = float(torch.linalg.cond(a.to(f64)))
+    print(f"[bench_refine] df32.compensated_residual on the EM's own "
+          f"system (volume 2's final M-step, {a.shape[-1]} rows, condition "
+          f"number {cond:.3e}) on the card: {err / denom:.3e} of the "
+          f"largest float64 residual (bound {DF32_RES_RTOL}), the naive "
+          f"float32 residual {naive / denom:.3e}")
+    if not err <= DF32_RES_RTOL * denom:
+        return [f"compensated residual on the EM's system {err / denom} of "
+                f"the residual"]
+    return []
 
 
 def em_launches(args, kwargs):
@@ -4533,12 +4772,18 @@ def phase_bench_refine(dev, smi, root, pattern, centers, bench):
     cands = []
     model = trained_model(dev, cands)
     timer = CudaStageTimer()
-    iterations, em_args = [], []
+    iterations, em_args, calls = [], [], []
     track_from_seg, em = pipeline.track_from_seg, tracker.prgls_with_two_ref
 
     def counted_track(*args, **kwargs):
         out = track_from_seg(*args, **kwargs)
         iterations.append(out.prgls_iterations)
+        # the card's step as it ran, cloned on the card (no host read
+        # inside the timed stage)
+        calls.append((
+            tuple(a.clone() if torch.is_tensor(a) else a for a in args),
+            {k: v.clone() if torch.is_tensor(v) else v
+             for k, v in kwargs.items()}, out))
         return out
 
     def kept_em(*args, **kwargs):
@@ -4567,13 +4812,18 @@ def phase_bench_refine(dev, smi, root, pattern, centers, bench):
     check_flood_launches("bench_refine", launches, BENCH_VOLS)
     more, got_m, want_m = hold_to_record(
         "bench_refine", record, results, coords, centers, cands, model,
-        labels_equal=REFINE_LABELS_EQUAL, coord_median=REFINE_COORD_MEDIAN,
-        identity=("strict_recall", "strict_accuracy_all_t"))
+        labels_equal=REFINE_LABELS_EQUAL, coord_median=REFINE_COORD_MEDIAN)
     bad += more
-    print(f"[bench_refine] identity switches {got_m['id_switches']} "
-          f"(JAX's record {want_m['id_switches']}; printed, not held): "
-          f"(t, row, nearest true centre at t - 1 and at t, distances) "
-          f"{identity_switches(coords, centers)}")
+    if got_m["strict_accuracy_all_t"] != want_m["strict_accuracy_all_t"]:
+        bad.append(f"strict accuracy over every t "
+                   f"{got_m['strict_accuracy_all_t']}")
+    print(f"[bench_refine] identity switches {got_m['id_switches']} (JAX's "
+          f"record {want_m['id_switches']}, held)")
+    bad += card_steps(smi, track_from_seg, calls, coords, centers)
+    t0 = time.perf_counter()
+    bad += card_replay_check(dev, centers)
+    print(f"[bench_refine] C.11's step on the card and on the CPU: "
+          f"{time.perf_counter() - t0:.1f} s")
     iters = [int(n) for n in iterations]
     want_iters = record["em_iterations"].tolist()
     print(f"[bench_refine] EM iterations per volume (t = 2..{BENCH_VOLS}): "
@@ -4591,6 +4841,7 @@ def phase_bench_refine(dev, smi, root, pattern, centers, bench):
           f"{track11:.2f}; wall {timer.times['call'][0] / BENCH_VOLS:.2f} ms "
           f"per volume against {WALLS['bench']:.2f}")
     args, kwargs = em_args[0]
+    bad += df32_on_em(args, kwargs)
     for mode, row in em_launches(args, kwargs).items():
         print(f"[bench_refine] {smi}: {mode} M-step: "
               + ("kernels not measured (the trace holds none)" if row is None
@@ -4610,6 +4861,99 @@ OPS_LCN_RTOL = 1e-5
 OPS_EDT_RTOL = 1e-6
 OPS_OVERLAP_ATOL = 1e-6
 OPS_SCORE_ATOL = 1e-6
+# the fused track twins, card against CPU: the floored EM's float32 noise
+# (~1e-3 real units) moves a few cells by a voxel step in the correction
+# (ROADMAP C.3: 1-7 cells a volume on the bench scene), and a label
+# differs only within a voxel of such a cell
+TWIN_MOVED_MAX = 7
+
+
+def fused_twins(dev, root, lab_xyz, centers, prob, rng):
+    """Phase 30's fused track steps under JAX's names on the card against
+    the same call on CPU tensors, floored EM, on the phase's scene: vol
+    1's labels through ``CoordsToImageTransformer.interpolate`` (the
+    atlas and the tracked positions), seg-like candidates at the true
+    centres of t = 1 and 2 on the (1, 2, 2) grid with non-kept ones among
+    them, and the phase's probability volume on that grid.
+    ``fused_track_from_seg`` takes the candidates; ``fused_track_and_
+    correct`` their padded point sets, in ensemble mode with uint8 labels.
+    Returns {name: (coordinates' median and largest distance, real units,
+    the cells placed a voxel apart, the voxels whose label differs, those
+    of them beyond a voxel of such a cell on either side, labels'
+    dtype)}."""
+    import torch
+    from t3dct_torch.engine import pipeline
+    from t3dct_torch.engine.transformer import CoordsToImageTransformer
+    from t3dct_torch.ops.subregions import SubregionAtlas
+    from t3dct_torch.utils.convert import ffn_from_numpy, load_npz
+    cpu = torch.device("cpu")
+    tr = CoordsToImageTransformer(root / "ops_surface_track", VOXEL_SIZE,
+                                  device=cpu)
+    tr.load_segmentation_array(lab_xyz)
+    tr.interpolate(10)
+    shape = tr.proofed_segmentation.shape
+    k = 256
+    cands = []
+    for t in (1, 2):
+        pts = np.round(centers[t] / GRID).astype(np.int32) * GRID
+        extra = np.stack([rng.randint(0, Z, k - N_CELLS),
+                          rng.randint(0, Y // 2, k - N_CELLS) * 2,
+                          rng.randint(0, X // 2, k - N_CELLS) * 2], 1)
+        order = rng.permutation(k)
+        cands += [torch.from_numpy(np.concatenate([pts, extra])[order]
+                                   .astype(np.int32)),
+                  torch.from_numpy(np.repeat([True, False], [
+                      N_CELLS, k - N_CELLS])[order])]
+    grid_prob = prob.permute(2, 0, 1)[:, ::2, ::2].to(torch.float16)
+    ffn = load_npz(ASSETS / "ffn.npz")
+    args = (VOXEL_SIZE, shape, 3.0, 3.0)
+
+    def run(d):
+        params, state = ffn_from_numpy(ffn["0"], ffn["1"], d)
+        atlas = SubregionAtlas(tr.atlas.boxes.to(d), tr.atlas.origins.to(d),
+                               tr.atlas.valid.to(d),
+                               tr.atlas.interpolation_factor,
+                               tr.atlas.image_shape)
+        raw = tr.coord_vol1.raw_f32.to(d)
+        p1, k1, p2, k2 = (c.to(d) for c in cands)
+        prob_g = grid_prob.to(d)
+        sets = [a for p, m in ((p1, k1), (p2, k2))
+                for a in pipeline.seg_candidates_to_padded_real(
+                    p, m, k, VOXEL_SIZE)]
+        return {"fused_track_from_seg": pipeline.fused_track_from_seg(
+                    params, state, raw, raw, p1, k1, p2, k2, prob_g, atlas,
+                    *args, prob_grid=GRID, pad_n=k),
+                "fused_track_and_correct": pipeline.fused_track_and_correct(
+                    params, state, raw, raw, *sets, prob_g.permute(1, 2, 0),
+                    atlas, *args, True, prob_grid=GRID, labels_u8=True)}
+
+    card, host = run(dev), run(cpu)
+    vs = np.asarray(VOXEL_SIZE, np.float32)
+    vol1 = tr.coord_vol1.raw_f32.numpy()
+
+    def placed(raw):
+        # where the correction places each cell's atlas box
+        return np.round((raw - vol1) * (1.0, 1.0, tr.interpolation_factor))
+
+    out = {}
+    for name, (coords, labels) in card.items():
+        want_c, want_l = host[name]
+        coords = coords.cpu().numpy()
+        d = np.linalg.norm((coords - want_c.numpy()) * vs, axis=1)
+        got_l = labels.cpu()
+        moved = torch.from_numpy(np.flatnonzero(
+            (placed(coords) != placed(want_c.numpy())).any(axis=1)) + 1)
+        # the moved cells' voxels on either side and their neighbours
+        near = torch.nn.functional.max_pool3d(
+            (torch.isin(got_l.long(), moved) | torch.isin(want_l.long(),
+                                                          moved))
+            [None].float(), 3, 1, 1)[0] > 0
+        diff = got_l != want_l
+        out[name] = (float(np.median(d)), float(d.max()), moved.numel(),
+                     int(diff.sum()), int((diff & ~near).sum())
+                     if got_l.dtype == want_l.dtype else -1,
+                     str(labels.dtype))
+    return out
 
 
 def phase_ops_surface(dev, smi, root):
@@ -4628,7 +4972,7 @@ def phase_ops_surface(dev, smi, root):
     from t3dct_torch.config import LcnConfig, MeshConfig
     t_phase = time.perf_counter()
     cpu = torch.device("cpu")
-    vols, _, lab1 = make_recording(1, N_CELLS, (Z, Y, X))
+    vols, scene_centers, lab1 = make_recording(2, N_CELLS, (Z, Y, X))
     lab_xyz = np.ascontiguousarray(lab1.transpose(1, 2, 0))
     rng = np.random.RandomState(30)
     # a probability volume of the scene's cells (x, y, z): the cells
@@ -4800,6 +5144,17 @@ def phase_ops_surface(dev, smi, root):
     if int(ws_card[2].max()) < N_CELLS // 2:
         bad.append(f"watershed_3d found {int(ws_card[2].max())} cells of "
                    f"{N_CELLS}")
+    for name, (med, top, moved, off, other, dtype) in fused_twins(
+            dev, root, lab_xyz, scene_centers, prob, rng).items():
+        res.update({f"{name}_coord_median": med, f"{name}_coord_max": top,
+                    f"{name}_cells_moved": moved,
+                    f"{name}_labels_differing": off})
+        if not med <= COORD_MEDIAN or moved > TWIN_MOVED_MAX or other != 0:
+            bad.append(f"{name}: coordinates off the CPU's by median "
+                       f"{med:.3e} (limit {COORD_MEDIAN}), {moved} cells "
+                       f"moved (limit {TWIN_MOVED_MAX}), {off} labels "
+                       f"differ, {other} of them outside the moved cells "
+                       f"({dtype})")
     if ws_launches["cc_label"] != 2 or ws_launches["flood_slices"] != 1:
         bad.append(f"watersheds: cc_label {ws_launches['cc_label']} and "
                    f"flood_slices {ws_launches['flood_slices']} launches, "
